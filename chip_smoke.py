@@ -1,0 +1,399 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each printing a line; any failure raises and exits non-zero:
+
+  (a) device check: fails without CUDA; prints ``nvidia-smi``'s name and
+      power limit of the card;
+  (b) builds the CUDA kernels of ``whisper_timestamped_tpu_torch/csrc``
+      with nvcc (into ``build/``) and prints the build seconds;
+  (c) runs each kernel against its plain PyTorch version on the card at the
+      shapes of the large-v3 main path, with the stated tolerances, and
+      times both with CUDA events;
+  (d) answers three requests (7 s, 12 s and 35 s of seeded noise-plus-tone
+      audio) through ``transcribe_timestamped`` with a large-v3-geometry
+      model of seeded random bf16 weights, checks the results' schema, and
+      checks that the main path launched every kernel (launch counters reset
+      just before, read just after);
+  (e) checks one decode step of that model against the same step with the
+      plain versions in place of the kernels.
+
+``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens
+and prints the device's busy share and the kernels that fill it.
+
+The line before the last is the kernels' JSON record, the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.modules["jax"] = None  # the port must never reach for JAX
+
+# large-v3 geometry (whisper's published ModelDimensions)
+LARGE_V3 = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20,
+                n_audio_layer=32, n_vocab=51866, n_text_ctx=448, n_text_state=1280,
+                n_text_head=20, n_text_layer=32)
+SOURCES = {
+    "xattn_decode": ("whisper_timestamped_tpu_torch/csrc/xattn_decode.cu",
+                     "whisper_timestamped_tpu/ops/pallas_kernels.py:854"),
+    "self_attn_decode": ("whisper_timestamped_tpu_torch/csrc/self_attn_decode.cu",
+                         "whisper_timestamped_tpu/ops/pallas_kernels.py:2088"),
+    "align_cost": ("whisper_timestamped_tpu_torch/csrc/align_cost.cu",
+                   "whisper_timestamped_tpu/ops/pallas_kernels.py:395"),
+    "dtw_codes": ("whisper_timestamped_tpu_torch/csrc/dtw_codes.cu",
+                  "whisper_timestamped_tpu/ops/pallas_kernels.py:477"),
+}
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_time_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for it in range(iters):
+        fn(it)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def phase_kernels(torch, K, device):
+    """(c): every kernel against its plain version at main-path shapes."""
+    from whisper_timestamped_tpu_torch.device_align import M_PAD, _backtrace_batch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    rec = {}
+    L, T, D, H = 32, 1500, 1280, 20
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+    # --- xattn_decode: B in {1, 4}, with/without scores, beam_group 2 ---
+    err_out = err_sc = 0.0
+    for B, beam_group, emit in ((1, 1, True), (1, 1, False), (4, 1, True), (4, 2, True)):
+        q = randn(B, 1, D)
+        xk, xv = randn(L, B // beam_group, T, D), randn(L, B // beam_group, T, D)
+        for layer in (0, 31):
+            o_k, s_k = K.xattn_decode(q, xk, xv, layer, H, emit_scores=emit, beam_group=beam_group)
+            torch.cuda.synchronize()
+            o_p, s_p = K.xattn_decode_plain(q, xk, xv, layer, H, emit_scores=emit, beam_group=beam_group)
+            err_out = max(err_out, (o_k.float() - o_p.float()).abs().max().item())
+            if emit:
+                err_sc = max(err_sc, (s_k - s_p).abs().max().item())
+            elif s_k is not None:
+                fail("xattn_decode wrote scores it was not asked for")
+        if B == 1 and emit:
+            t_main = (q, xk, xv)
+    if not (err_out <= 2e-2 and err_sc <= 1e-3):
+        fail(f"xattn_decode disagrees: out {err_out:.3g} (atol 2e-2), scores {err_sc:.3g} (atol 1e-3)")
+    q, xk, xv = t_main
+    ms = cuda_time_ms(lambda it=0: K.xattn_decode(q, xk, xv, it % L, H, emit_scores=True))
+    plain_ms = cuda_time_ms(lambda it=0: K.xattn_decode_plain(q, xk, xv, it % L, H, emit_scores=True))
+    rec["xattn_decode"] = dict(max_abs_err=max(err_out, err_sc), ms=ms, plain_ms=plain_ms)
+    print(f"[c] xattn_decode: out err {err_out:.3g} (atol 2e-2), scores err {err_sc:.3g} "
+          f"(atol 1e-3); B=1 L=32 T=1500 D=1280 H=20: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    del xk, xv, t_main
+
+    # --- self_attn_decode: ctx 456, varied pad_len, pos 232 and 455 ---
+    ctx, B = 456, 4
+    q = randn(B, 1, D)
+    k_all, v_all = randn(L, B, ctx, D), randn(L, B, ctx, D)
+    pad = torch.tensor([0, 5, 224, 300], dtype=torch.int32, device=device)
+    err = 0.0
+    for pos in (232, 455):
+        for layer in (0, 17, 31):
+            o_k = K.self_attn_decode(q, k_all, v_all, layer, pos, pad, H)
+            torch.cuda.synchronize()
+            o_p = K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
+            err = max(err, (o_k.float() - o_p.float()).abs().max().item())
+    if not err <= 2e-2:
+        fail(f"self_attn_decode disagrees: {err:.3g} (atol 2e-2)")
+    q1, k1, v1 = q[:1].contiguous(), k_all[:, :1].contiguous(), v_all[:, :1].contiguous()
+    pad1 = torch.tensor([0], dtype=torch.int32, device=device)
+    ms = cuda_time_ms(lambda it=0: K.self_attn_decode(q1, k1, v1, it % L, 232, pad1, H))
+    plain_ms = cuda_time_ms(lambda it=0: K.self_attn_decode_plain(q1, k1, v1, it % L, 232, pad1, H))
+    rec["self_attn_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    print(f"[c] self_attn_decode: err {err:.3g} (atol 2e-2); B=1 ctx=456 pos=232 D=1280 H=20: "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    del k_all, v_all, k1, v1
+
+    # --- align_cost and dtw_codes: S=8, N in {64, 256}, K=10, M=1536 ---
+    S, Kh, M = 8, 10, M_PAD
+    err_c = 0.0
+    for N in (64, 256):
+        gen = torch.Generator().manual_seed(N)
+        n_tok = torch.randint(2, N + 1, (S,), generator=gen)
+        n_tok[0] = N
+        span = torch.maximum(n_tok + torch.randint(0, 1400, (S,), generator=gen), n_tok)
+        span = span.clamp(max=1500)
+        span[1] = max(int(n_tok[1]), 3)  # a short span: reflection edges meet
+        maxdur = torch.where(torch.arange(S) % 2 == 0, M, torch.clamp(span // 2, min=1))
+        dims = torch.stack([n_tok, span, maxdur, torch.zeros(S, dtype=torch.long)], 1)
+        dims = dims.to(torch.int32).to(device)
+        scores = randn(S, Kh, N, M, dtype=torch.float32, scale=3.0)
+        c_k = K.align_cost(scores, dims)
+        torch.cuda.synchronize()
+        c_p = K.align_cost_plain(scores, dims)
+        if not torch.allclose(c_k, c_p, rtol=1e-5, atol=1e-6):
+            fail(f"align_cost disagrees at N={N}: max abs {(c_k - c_p).abs().max().item():.3g}")
+        err_c = max(err_c, (c_k - c_p).abs().max().item())
+        # DTW on the same cost: codes equal where written, jumps equal
+        d_k = K.dtw_codes(c_p, dims)
+        torch.cuda.synchronize()
+        d_p = K.dtw_codes_plain(c_p, dims)
+        dh = dims.cpu()
+        for s in range(S):
+            nd = int(dh[s, 0] + dh[s, 1] - 1)
+            if not torch.equal(d_k[s, :nd], d_p[s, :nd]):
+                fail(f"dtw_codes differs at N={N} segment {s}")
+        steps = int((dh[:, 0] + dh[:, 1] - 1).max())
+        st_k = _backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps)
+        st_p = _backtrace_batch(d_p, dims[:, 0], dims[:, 1], steps)
+        if not torch.equal(st_k, st_p):
+            fail(f"jumps differ at N={N}")
+        if N == 256:
+            timed = (scores, dims, c_p)
+        t0 = time.perf_counter()
+        _backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps)
+        torch.cuda.synchronize()
+        bt_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[c] align_cost N={N}: max abs err {err_c:.3g} (rtol 1e-5, atol 1e-6); "
+              f"dtw_codes N={N}: codes and jumps equal; backtrace {steps} steps: {bt_ms:.1f} ms")
+    scores, dims, cost = timed
+    ms = cuda_time_ms(lambda it=0: K.align_cost(scores, dims), iters=10)
+    plain_ms = cuda_time_ms(lambda it=0: K.align_cost_plain(scores, dims), iters=3)
+    rec["align_cost"] = dict(max_abs_err=err_c, ms=ms, plain_ms=plain_ms)
+    ms_d = cuda_time_ms(lambda it=0: K.dtw_codes(cost, dims), iters=10)
+    plain_d = cuda_time_ms(lambda it=0: K.dtw_codes_plain(cost, dims), iters=2)
+    rec["dtw_codes"] = dict(max_abs_err=0.0, ms=ms_d, plain_ms=plain_d)
+    print(f"[c] S=8 K=10 N=256 M=1536: align_cost {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
+          f"dtw_codes {ms_d:.4f} ms vs plain {plain_d:.4f} ms")
+    return rec
+
+
+def make_audio(seed: int, seconds: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(16000 * seconds) / 16000.0
+    tone = 0.2 * np.sin(2 * np.pi * (220.0 + 40 * seed) * t)
+    return (tone + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def large_v3_model(torch, device):
+    """large-v3-geometry model (seeded random bf16 weights) and the
+    synthetic full-vocabulary tokenizer, built as bench.py builds them."""
+    from whisper_timestamped_tpu_torch.models import ALIGNMENT_HEADS, WhisperDims, WhisperModel, init_params
+    from whisper_timestamped_tpu_torch.tokenizer import BytePairEncoder, Tokenizer, synthetic_ranks
+
+    dims = WhisperDims(**LARGE_V3)
+    module = init_params(dims, seed=0, dtype=torch.bfloat16, device=device)
+    ranks = synthetic_ranks()
+    pad_base = dims.n_vocab - 1509 - 100 - len(ranks)
+    for i in range(pad_base):
+        ranks[b"\x00" + str(i).encode()] = len(ranks)
+    tok = Tokenizer(bpe=BytePairEncoder(ranks), multilingual=True, num_languages=100,
+                    language="en", task="transcribe")
+    assert tok.n_vocab == dims.n_vocab, (tok.n_vocab, dims.n_vocab)
+    return WhisperModel(module=module, alignment_heads=ALIGNMENT_HEADS["large-v3"]), tok
+
+
+def check_result(res: dict) -> int:
+    """Schema of one transcription; returns its word count."""
+    if not isinstance(res.get("text"), str) or not isinstance(res.get("segments"), list):
+        fail("result lacks text/segments")
+    n = 0
+    for seg in res["segments"]:
+        for w in seg.get("words", []):
+            ok = (isinstance(w["text"], str) and w["start"] <= w["end"]
+                  and 0.0 <= w["confidence"] <= 1.0)
+            if not ok:
+                fail(f"bad word {w}")
+            n += 1
+    return n
+
+
+def phase_end_to_end(torch, K, model, tok):
+    """(d): three requests through transcribe_timestamped."""
+    from whisper_timestamped_tpu_torch import transcribe_timestamped
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    # random weights never stop on their own terms the way a trained model
+    # does: EOT is suppressed (as in the stuck_lm golden), so every window
+    # decodes its full token budget, and the quality thresholds that would
+    # skip such windows are off
+    kw = dict(language="en", tokenizer=tok, suppress_tokens=f"-1,{tok.eot}",
+              no_speech_threshold=None, logprob_threshold=None,
+              compression_ratio_threshold=None)
+    transcribe_timestamped(model, make_audio(0, 3), sample_len=4, **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_stage_timings()
+    K.reset_launches()
+    words, secs = [], []
+    for seed, seconds in ((1, 7), (2, 12), (3, 35)):
+        t0 = time.perf_counter()
+        res = transcribe_timestamped(model, make_audio(seed, seconds), **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        words.append(check_result(res))
+        print(f"[d] request {seconds:2d} s audio: {secs[-1]:.2f} s, "
+              f"{len(res['segments'])} segments, {words[-1]} words")
+    launches = dict(K.LAUNCHES)
+    timings, counts = get_stage_timings(), get_counts()
+    if not any(words):
+        fail("no request produced words")
+    if not all(launches.values()):
+        fail(f"a kernel was not launched on the main path: {launches}")
+    steps = counts.get("decode_steps", 0)
+    ms_step = 1e3 * timings["decode_loop"]["total_s"] / max(steps, 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[d] launches on the main path: {launches}")
+    print(f"[d] seconds per request: {[round(s, 3) for s in secs]}; decode loop "
+          f"{ms_step:.2f} ms/step over {steps} steps; stages "
+          + ", ".join(f"{k} {v['total_s']:.2f}s" for k, v in sorted(timings.items()))
+          + f"; peak memory {peak_gb:.2f} GB")
+    return launches
+
+
+def phase_reference_step(torch, K, model):
+    """(e): one decode step through the kernels against the plain versions."""
+    import whisper_timestamped_tpu_torch.models.whisper_torch as wt
+
+    module = model.module
+    dev = module.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    mel = torch.randn((1, 128, 3000), generator=g, device=dev)
+    with torch.no_grad():
+        xa = wt.encode(module, mel)
+        cache = wt.init_cache(module, xa, ctx_len=240)
+        cache.k[:, :, :16].copy_(torch.randn(cache.k[:, :, :16].shape, generator=g, device=dev))
+        cache.v[:, :, :16].copy_(torch.randn(cache.v[:, :, :16].shape, generator=g, device=dev))
+        tokens = torch.tensor([[1234]], device=dev)
+        pad = torch.tensor([3], dtype=torch.int32, device=dev)
+        heads = [(l, h) for l, h in model.alignment_heads]
+        out = {}
+        for name, fns in (("kernel", (K.self_attn_decode, K.xattn_decode)),
+                          ("plain", (K.self_attn_decode_plain, K.xattn_decode_plain))):
+            saved = (wt.self_attn_decode, wt.xattn_decode)
+            wt.self_attn_decode, wt.xattn_decode = fns
+            try:
+                c = wt.KVCache(*(t.clone() for t in cache))
+                out[name] = wt.decode_step(module, tokens, c, 16, pos_offset=pad,
+                                           kv_valid_from=pad, align_heads=heads)
+            finally:
+                wt.self_attn_decode, wt.xattn_decode = saved
+    (lk, rk), (lp, rp) = out["kernel"], out["plain"]
+    if not (torch.isfinite(lk).all() and torch.isfinite(rk).all()):
+        fail("non-finite logits or scores")
+    rel_l = ((lk.float() - lp.float()).abs().max() / lp.float().abs().max()).item()
+    rel_r = ((rk - rp).abs().max() / rp.abs().max()).item()
+    if not (rel_l <= 2e-2 and rel_r <= 2e-2):
+        fail(f"decode step disagrees with its plain version: logits {rel_l:.3g}, rows {rel_r:.3g}")
+    print(f"[e] large-v3 decode step, kernels vs plain versions: logits max rel err "
+          f"{rel_l:.3g}, alignment rows {rel_r:.3g} (limit 2e-2)")
+
+
+def phase_profile(torch, model, tok):
+    """(--profile): device time against wall time for one decoded window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+
+    engine = DecodeEngine(model, tok)
+    opts = DecodingOptions(language="en", sample_len=64, suppress_tokens=f"-1,{tok.eot}")
+    mel = log_mel_spectrogram(make_audio(4, 30), n_mels=128, device=model.device)
+    engine.decode_window(mel, opts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.decode_window(mel, opts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an aten op's device time repeats its kernels'
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    print(f"[p] one window, 64 tokens: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%)")
+    for key, ms, n in rows[:12]:
+        print(f"[p]   {ms:9.3f} ms {n:6d}x  {key[:90]}")
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "whisper_timestamped_tpu_torch")):
+        fail("whisper_timestamped_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
+    import torch
+
+    # (a) the card
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    print(f"[a] {kind} x{count}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    sys.path.insert(0, here)
+    from whisper_timestamped_tpu_torch.ops import _build
+    from whisper_timestamped_tpu_torch.ops import kernels as K
+
+    # (b) build
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    log = (_build.build_dir() / "build.log").read_text()
+    usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    print(f"[b] kernels {'built' if _build.BUILD_INFO['built'] else 'loaded'} in "
+          f"{build_s:.1f} s: {_build.BUILD_INFO['path']}")
+    for ln in usage:
+        print(f"[b]   {ln}")
+
+    device = torch.device("cuda", 0)
+    rec = phase_kernels(torch, K, device)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, tok = large_v3_model(torch, device)
+    print(f"[d] large-v3 geometry, seeded bf16 weights on {device}: {time.perf_counter() - t0:.1f} s")
+    launches = phase_end_to_end(torch, K, model, tok)
+    phase_reference_step(torch, K, model)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(torch, model, tok)
+
+    kernels = [
+        dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
+             launches=launches[name], **rec[name])
+        for name in SOURCES
+    ]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips (through the ``cuda`` fixture) where
+PyTorch sees no CUDA device. On a machine with an H100:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+The first test builds the kernels with nvcc into build/. Shapes are the
+large-v3 main path's (D=1280, H=20, T=1500, ctx=456, M=1536).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from whisper_timestamped_tpu_torch.device_align import M_PAD, _backtrace_batch  # noqa: E402
+from whisper_timestamped_tpu_torch.ops import kernels as K  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _randn(gen, *shape, dtype=torch.bfloat16, device="cuda", scale=1.0):
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("B,beam_group,emit", [(1, 1, True), (1, 1, False), (4, 2, True)])
+def test_xattn_kernel_matches_plain(cuda, B, beam_group, emit):
+    g = torch.Generator(device=cuda).manual_seed(B + beam_group)
+    L, T, D, H = 4, 1500, 1280, 20
+    q = _randn(g, B, 1, D)
+    xk, xv = _randn(g, L, B // beam_group, T, D), _randn(g, L, B // beam_group, T, D)
+    before = K.LAUNCHES["xattn_decode"]
+    o_k, s_k = K.xattn_decode(q, xk, xv, 3, H, emit_scores=emit, beam_group=beam_group)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["xattn_decode"] == before + 1
+    o_p, s_p = K.xattn_decode_plain(q, xk, xv, 3, H, emit_scores=emit, beam_group=beam_group)
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+    if emit:
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+    else:
+        assert s_k is None
+
+
+@pytest.mark.parametrize("pos", [232, 455])
+def test_self_attn_kernel_matches_plain(cuda, pos):
+    g = torch.Generator(device=cuda).manual_seed(pos)
+    L, B, ctx, D, H = 2, 4, 456, 1280, 20
+    q = _randn(g, B, 1, D)
+    k_all, v_all = _randn(g, L, B, ctx, D), _randn(g, L, B, ctx, D)
+    pad = torch.tensor([0, 5, 224, 300], dtype=torch.int32, device=cuda)
+    o_k = K.self_attn_decode(q, k_all, v_all, 1, pos, pad, H)
+    torch.cuda.synchronize()
+    o_p = K.self_attn_decode_plain(q, k_all, v_all, 1, pos, pad, H)
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("N", [64, 256])
+def test_align_cost_and_dtw_kernels_match_plain(cuda, N):
+    gen = torch.Generator().manual_seed(N)
+    S, Kh, M = 8, 10, M_PAD
+    n_tok = torch.randint(2, N + 1, (S,), generator=gen)
+    span = torch.clamp(n_tok + torch.randint(0, 1400, (S,), generator=gen), max=1500)
+    maxdur = torch.where(torch.arange(S) % 2 == 0, M, span // 2)
+    dims = torch.stack([n_tok, span, maxdur, torch.zeros(S, dtype=torch.long)], 1)
+    dims = dims.to(torch.int32).to(cuda)
+    scores = _randn(torch.Generator(device=cuda).manual_seed(N), S, Kh, N, M,
+                    dtype=torch.float32, scale=3.0)
+    c_k = K.align_cost(scores, dims)
+    torch.cuda.synchronize()
+    c_p = K.align_cost_plain(scores, dims)
+    torch.testing.assert_close(c_k, c_p, rtol=1e-5, atol=1e-6)
+    d_k = K.dtw_codes(c_p, dims)
+    torch.cuda.synchronize()
+    d_p = K.dtw_codes_plain(c_p, dims)
+    for s in range(S):
+        nd = int(dims[s, 0] + dims[s, 1] - 1)
+        assert torch.equal(d_k[s, :nd], d_p[s, :nd])
+    steps = int((dims[:, 0] + dims[:, 1] - 1).max())
+    assert torch.equal(_backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps),
+                       _backtrace_batch(d_p, dims[:, 0], dims[:, 1], steps))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 1, 96), dtype=torch.bfloat16, device=cuda)  # dh = 48
+    kv = torch.zeros((1, 1, 8, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        K.xattn_decode(q, kv, kv, 0, 2)
+    with pytest.raises(ValueError, match="bf16"):
+        K.xattn_decode(q.float()[..., :64], kv.float()[..., :64].contiguous(),
+                       kv.float()[..., :64].contiguous(), 0, 1)

@@ -1,0 +1,223 @@
+"""Plain PyTorch versions of the port's four kernels vs the JAX Pallas
+kernels they replace, run in interpret mode on the CPU (as test_pallas.py
+runs them), on the same numpy-seeded inputs.
+
+Inputs are bf16-representable f32 values, so q·k products are exact in f32
+on both sides. Tolerances:
+  * attention outputs atol 2e-2: the Pallas kernels round the softmax
+    weights to bf16 before the V product; the port keeps them f32;
+  * scores atol 1e-3: f32 sums of exact products, in another order;
+  * alignment cost atol 1e-6 (f32 arithmetic, other reduction orders);
+  * DTW codes and jumps exactly equal.
+The card itself is exercised by test_torch_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from model_utils import make_tokenizer  # noqa: E402
+from whisper_timestamped_tpu.device_align import compute_jumps_batch as jax_jumps  # noqa: E402
+from whisper_timestamped_tpu.device_align import make_task as jax_make_task  # noqa: E402
+from whisper_timestamped_tpu.ops import pallas_kernels as P  # noqa: E402
+from whisper_timestamped_tpu.models.whisper_jax import _attention as jax_attention  # noqa: E402
+from whisper_timestamped_tpu_torch.device_align import compute_jumps_batch, make_task  # noqa: E402
+from whisper_timestamped_tpu_torch.ops import kernels as K  # noqa: E402
+from whisper_timestamped_tpu_torch.tokenizer import get_tokenizer, synthetic_ranks  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several worker processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bf16_values(rng, *shape, scale=1.0):
+    x = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+    return x.bfloat16().float().numpy()
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# ---------------------------------------------------------------------------
+# xattn_decode vs cross_attention_stacked_pallas_v2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("beam_group", [1, 2])
+@pytest.mark.parametrize("score_flag", [1, 0])
+def test_xattn_plain_matches_pallas_v2(beam_group, score_flag):
+    rng = np.random.default_rng(10 + beam_group + 3 * score_flag)
+    L, B, T, D, H = 2, 4, 300, 128, 2  # dh = 64, the kernels' head width
+    q = _bf16_values(rng, B, 1, D)
+    xk = _bf16_values(rng, L, B // beam_group, T, D)
+    xv = _bf16_values(rng, L, B // beam_group, T, D)
+    for layer in range(L):
+        o_j, s_j = P.cross_attention_stacked_pallas_v2(
+            layer, jnp.asarray(q), jnp.asarray(xk), jnp.asarray(xv), H,
+            block_t=128, score_flag=jnp.int32(score_flag), beam_group=beam_group,
+            interpret=True,
+        )
+        o_t, s_t = K.xattn_decode(_t(q), _t(xk), _t(xv), layer, H,
+                                  emit_scores=bool(score_flag), beam_group=beam_group)
+        assert o_t.shape == (B, 1, D) and o_t.dtype == torch.float32
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=2e-2)
+        if score_flag:
+            assert s_t.shape == (B, H, 1, T)
+            np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=1e-3)
+        else:
+            assert s_t is None  # no scores buffer for a non-alignment layer
+
+
+def test_xattn_plain_matches_f32_attention():
+    """The plain version is exactly the f32 single-query attention."""
+    rng = np.random.default_rng(3)
+    L, B, T, D, H = 2, 2, 200, 128, 2
+    q = rng.standard_normal((B, 1, D)).astype(np.float32)
+    xk = rng.standard_normal((L, B, T, D)).astype(np.float32)
+    xv = rng.standard_normal((L, B, T, D)).astype(np.float32)
+    o_t, s_t = K.xattn_decode(_t(q), _t(xk), _t(xv), 1, H, emit_scores=True)
+    o_j, s_j = jax_attention(jnp.asarray(q), jnp.asarray(xk[1]), jnp.asarray(xv[1]), H,
+                             return_scores=True)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# self_attn_decode vs self_attention_stacked_pallas
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pos", [17, 39])
+def test_self_attn_plain_matches_pallas(pos):
+    rng = np.random.default_rng(pos)
+    L, B, CTX, D, H = 2, 3, 40, 128, 2
+    q = _bf16_values(rng, B, 1, D)
+    k = _bf16_values(rng, L, B, CTX, D)
+    v = _bf16_values(rng, L, B, CTX, D)
+    pad_len = np.array([0, 5, 20], np.int32)  # row 2 at pos 17: pos < pad_len
+    for layer in range(L):
+        o_j = P.self_attention_stacked_pallas(
+            layer, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos,
+            jnp.asarray(pad_len), H, interpret=True,
+        )
+        o_t = K.self_attn_decode(_t(q), _t(k), _t(v), layer, pos, _t(pad_len), H)
+        assert np.isfinite(o_t.numpy()).all()
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=2e-2)
+
+
+def test_self_attn_padding_query_keeps_own_slot():
+    """pos < pad_len: only the query's own slot is live (never a NaN row)."""
+    rng = np.random.default_rng(1)
+    L, B, CTX, D, H = 1, 1, 16, 128, 2
+    q = _t(_bf16_values(rng, B, 1, D))
+    v = _t(_bf16_values(rng, L, B, CTX, D))
+    k = _t(_bf16_values(rng, L, B, CTX, D))
+    out = K.self_attn_decode(q, k, v, 0, 4, torch.tensor([9], dtype=torch.int32), H)
+    torch.testing.assert_close(out[0, 0], v[0, 0, 4], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# align_cost vs attention_to_cost_batched, dtw_codes vs dtw_codes_batched
+# ---------------------------------------------------------------------------
+
+
+def _cost_case(rng, S, K_, N, M):
+    n_tok = rng.integers(2, N + 1, S)
+    span = np.minimum(np.maximum(n_tok + rng.integers(0, M, S), n_tok), M - 8)
+    span[0] = max(n_tok[0], 3)  # short span: the two reflection edges meet
+    maxdur = np.where(np.arange(S) % 2 == 0, M, np.maximum(span // 2, 1))
+    dims = np.stack([n_tok, span, maxdur, np.zeros(S, np.int64)], 1).astype(np.int32)
+    scores = (rng.standard_normal((S, K_, N, M)) * 3).astype(np.float32)
+    return scores, dims
+
+
+@pytest.mark.parametrize("N,M", [(64, 256), (128, 1536)])
+def test_align_cost_plain_matches_pallas(N, M):
+    rng = np.random.default_rng(N + M)
+    scores, dims = _cost_case(rng, 4, 3, N, M)
+    c_j = np.asarray(P.attention_to_cost_batched(jnp.asarray(scores), jnp.asarray(dims),
+                                                 interpret=True))
+    c_t = K.align_cost(_t(scores), _t(dims)).numpy()
+    np.testing.assert_allclose(c_t, c_j, rtol=0, atol=1e-6)
+    # invalid cells are exactly 0, cost[0, 0] is the segment minimum
+    for s, (n, span, _, _) in enumerate(dims):
+        assert not c_t[s, n:].any() and not c_t[s, :, span:].any()
+        assert c_t[s, 0, 0] == c_t[s].min()
+
+
+@pytest.mark.parametrize("N,M", [(64, 256), (128, 1536)])
+def test_dtw_codes_plain_matches_pallas(N, M):
+    rng = np.random.default_rng(7 * N + M)
+    scores, dims = _cost_case(rng, 4, 2, N, M)
+    cost = K.align_cost(_t(scores), _t(dims))
+    codes_j = np.asarray(P.dtw_codes_batched(jnp.asarray(cost.numpy()), jnp.asarray(dims),
+                                             interpret=True))
+    codes_t = K.dtw_codes(cost, _t(dims)).numpy()
+    assert codes_t.shape == codes_j.shape == (4, N + M - 1, N)
+    for s, (n, m, _, _) in enumerate(dims):
+        # rows d < n+m-1 are the ones each kernel writes
+        np.testing.assert_array_equal(codes_t[s, : n + m - 1], codes_j[s, : n + m - 1])
+
+
+def test_dtw_codes_tie_order_matches_scalar_dp():
+    """Small-integer costs tie often; the codes follow the scalar DP with
+    strict <, DIAG before LEFT before UP, cell by cell."""
+    rng = np.random.default_rng(0)
+    N, M, n, m = 32, 24, 9, 13
+    cost = np.zeros((1, N, M), np.float32)
+    cost[0, :n, :m] = -rng.integers(0, 3, (n, m))
+    codes = K.dtw_codes(_t(cost), torch.tensor([[n, m, M, 0]], dtype=torch.int32))[0]
+    inf = np.inf
+    g = np.full((n, m), inf)
+    for i in range(n):
+        for j in range(m):
+            if i == j == 0:
+                g[0, 0] = cost[0, 0, 0]
+                continue
+            cands = [g[i - 1, j - 1] if i and j else inf, g[i, j - 1] if j else inf,
+                     g[i - 1, j] if i else inf]
+            best, code = cands[0], K.DIAG
+            if cands[1] < best:
+                best, code = cands[1], K.LEFT
+            if cands[2] < best:
+                best, code = cands[2], K.UP
+            g[i, j] = cost[0, i, j] + best
+            assert int(codes[i + j, i]) == code, (i, j)
+
+
+# ---------------------------------------------------------------------------
+# the whole device aligner: cost + DTW + backtrace -> jumps
+# ---------------------------------------------------------------------------
+
+
+def test_compute_jumps_batch_matches_jax():
+    tok_j = make_tokenizer(language="en", task="transcribe")
+    tok_t = get_tokenizer(ranks=synthetic_ranks(), multilingual=True, num_languages=99,
+                          language="en", task="transcribe")
+    ts = tok_t.timestamp_begin
+    rng = np.random.default_rng(5)
+    K_, T = 3, 1500
+    R = 64
+    attn_flat = rng.standard_normal((3 * R, K_, T)).astype(np.float32)
+    specs = [((0, 150, 20), 0, None), ((300, 700, 40), R, None), ((5, 60, 8), 2 * R, 40),
+             ((0, 4, 30), 0, None)]  # the last one overflows its span: truncated
+    tasks_j, tasks_t = [], []
+    for (a, b, n_text), off, maxdur in specs:
+        tokens = [ts + a] + rng.integers(ord("a"), ord("z"), n_text).tolist() + [ts + b]
+        rows = np.arange(len(tokens))
+        tasks_j.append(jax_make_task(tokens, off, rows, tok_j, max_duration=maxdur))
+        tasks_t.append(make_task(tokens, off, rows, tok_t, max_duration=maxdur))
+    j_jax = jax_jumps(jnp.asarray(attn_flat), tasks_j, interpret=True)
+    j_port = compute_jumps_batch(torch.from_numpy(attn_flat), tasks_t)
+    assert len(j_port) == len(specs)
+    for a, b in zip(j_port, j_jax):
+        np.testing.assert_array_equal(a, b)

@@ -1,0 +1,356 @@
+"""Window decoding with whisper's logit filters, in PyTorch.
+
+Port of ``whisper_timestamped_tpu/decoding.py``. ``decode_window`` is the
+counterpart of ``decode_window_jit``: it encodes a batch of 30-s windows,
+prefills the right-aligned prompt region, then runs the greedy token loop
+(a Python loop over tokens where JAX has ``lax.while_loop``) into
+preallocated buffers of fixed shape: the chosen tokens, their filtered
+log-probabilities, the timestamp-slice log-probabilities, and the
+alignment heads' cross-attention rows. Row convention as in the reference:
+``attn[:, k]`` is the attention of the forward that predicted token k.
+
+The loop checks ``finished.all()`` on the host once per step (one device
+sync per step, where the JAX loop tests its condition on the device).
+"""
+
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .models.whisper_torch import (
+    WhisperTorch,
+    _attention,
+    _linear,
+    _ln,
+    _logits,
+    _mlp,
+    decode_full,
+    decode_step,
+    encode,
+    init_cache,
+)
+from .ops.kernels import xattn_decode
+from .tokenizer import Tokenizer
+from .utils.profiling import add_count, stage_timer
+
+# Fixed prompt-region size: sot_prev + up to (n_ctx//2 - 1) prompt tokens +
+# sot sequence (<=4) + prefix. 232 = next multiple of 8 above 228.
+PROMPT_REGION = 232
+# Compact region for promptless windows (sot sequence + small prefix only).
+PROMPT_REGION_SMALL = 8
+MAX_NEW_TOKENS = 224  # whisper's sample_len default: n_text_ctx // 2
+
+
+@dataclass(frozen=True)
+class DecodingOptions:
+    """Mirror of whisper's DecodingOptions."""
+
+    task: str = "transcribe"
+    language: Optional[str] = None
+    temperature: float = 0.0
+    sample_len: Optional[int] = None
+    best_of: Optional[int] = None
+    beam_size: Optional[int] = None
+    patience: Optional[float] = None
+    length_penalty: Optional[float] = None
+    prompt: Optional[Sequence[int]] = None
+    prefix: Optional[Sequence[int]] = None
+    suppress_tokens: Optional[str] = "-1"
+    suppress_blank: bool = True
+    without_timestamps: bool = False
+    max_initial_timestamp: Optional[float] = 1.0
+
+
+def compression_ratio(text: str) -> float:
+    b = text.encode("utf-8")
+    return len(b) / len(zlib.compress(b)) if b else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Static filter masks (built per tokenizer+options on host)
+# ---------------------------------------------------------------------------
+
+
+def build_suppress_mask(tokenizer: Tokenizer, options: DecodingOptions, n_vocab: int) -> np.ndarray:
+    """Additive mask (-inf at suppressed ids) — whisper's SuppressTokens."""
+    suppress: List[int] = []
+    st = options.suppress_tokens
+    if isinstance(st, str) and st:
+        ids = [int(t) for t in st.split(",") if t.strip()]
+        suppress.extend(t for t in ids if t != -1)
+        if -1 in ids:
+            suppress.extend(tokenizer.non_speech_tokens)
+    elif isinstance(st, (list, tuple)):
+        suppress.extend(int(t) for t in st if int(t) != -1)
+        if -1 in list(st):
+            suppress.extend(tokenizer.non_speech_tokens)
+    suppress.extend(
+        [tokenizer.transcribe, tokenizer.translate, tokenizer.sot, tokenizer.sot_prev,
+         tokenizer.sot_lm]
+    )
+    if tokenizer.no_speech is not None:
+        suppress.append(tokenizer.no_speech)
+    mask = np.zeros((n_vocab,), np.float32)
+    ids = [t for t in sorted(set(suppress)) if 0 <= t < n_vocab]
+    mask[ids] = -np.inf
+    return mask
+
+
+def build_blank_mask(tokenizer: Tokenizer, n_vocab: int) -> np.ndarray:
+    """SuppressBlank: ' ' and EOT at the first sampled position."""
+    mask = np.zeros((n_vocab,), np.float32)
+    ids = list(tokenizer.encode(" ")) + [tokenizer.eot]
+    mask[[t for t in ids if 0 <= t < n_vocab]] = -np.inf
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Timestamp rules (vectorized whisper ApplyTimestampRules)
+# ---------------------------------------------------------------------------
+
+
+def apply_timestamp_rules(
+    logits: torch.Tensor,  # (B, V) f32
+    last_token: torch.Tensor,  # (B,) y_{i-1}
+    penult_token: torch.Tensor,  # (B,)
+    max_timestamp: torch.Tensor,  # (B,) highest timestamp sampled so far (or ts_begin-1)
+    n_sampled: int,
+    *,
+    ts_begin: int,
+    eot: int,
+    no_timestamps: int,
+    max_initial_timestamp_index: Optional[int],
+) -> torch.Tensor:
+    B, V = logits.shape
+    neg_inf = float("-inf")
+    vocab_ids = torch.arange(V, device=logits.device)[None]
+    is_ts = vocab_ids >= ts_begin
+    is_text = vocab_ids < eot
+
+    logits = logits.masked_fill(vocab_ids == no_timestamps, neg_inf)
+
+    last_was = (last_token >= ts_begin) & (n_sampled >= 1)
+    penult_was = (penult_token >= ts_begin) | (n_sampled < 2)
+
+    # after a lone timestamp: force text/EOT; after a pair: forbid timestamps
+    forbid_ts = last_was & penult_was
+    forbid_text = last_was & ~penult_was
+    logits = logits.masked_fill(forbid_ts[:, None] & is_ts, neg_inf)
+    logits = logits.masked_fill(forbid_text[:, None] & is_text, neg_inf)
+
+    # timestamps must be non-decreasing
+    has_ts = max_timestamp >= ts_begin
+    ts_last = torch.where(last_was & ~penult_was, max_timestamp, max_timestamp + 1)
+    logits = logits.masked_fill(has_ts[:, None] & is_ts & (vocab_ids < ts_last[:, None]), neg_inf)
+
+    # the first sampled position: a timestamp, bounded by max_initial_timestamp
+    if n_sampled == 0:
+        logits = logits.masked_fill(vocab_ids < ts_begin, neg_inf)
+        if max_initial_timestamp_index is not None:
+            logits = logits.masked_fill(vocab_ids > ts_begin + max_initial_timestamp_index, neg_inf)
+
+    # sample a timestamp when its total probability beats the best
+    # non-timestamp token (EOT included)
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    ts_logprob = torch.logsumexp(logprobs.masked_fill(~is_ts, neg_inf), dim=-1)
+    max_text = logprobs.masked_fill(is_ts, neg_inf).amax(dim=-1)
+    force_ts = ts_logprob > max_text
+    return logits.masked_fill(force_ts[:, None] & ~is_ts, neg_inf)
+
+
+# ---------------------------------------------------------------------------
+# The window decode
+# ---------------------------------------------------------------------------
+
+
+def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
+    """Run the P-slot prompt region through the decoder at once, filling
+    cache slots [0, P). Returns (x (B, P, D), rows (B, K, T) f32): rows are
+    the alignment heads' pre-softmax scores of the LAST prompt position,
+    which predicts the first sampled token."""
+    dims = model.dims
+    dec = model.decoder
+    H = dims.n_text_head
+    B, P = prompt.shape
+    slot = torch.arange(P, device=prompt.device)
+    pos_ids = torch.clamp(slot[None] - pad_len[:, None], min=0)
+    x = (dec["tok_emb"][prompt] + dec["pos_emb"][pos_ids]).to(cache.k.dtype)
+    # query slot q attends keys k with pad_len <= k <= q; a padding-slot
+    # query keeps its own slot (a fully masked row would turn into NaN)
+    q_ids, k_ids = slot[:, None], slot[None, :]
+    valid = ((k_ids[None] >= pad_len[:, None, None]) & (k_ids <= q_ids)[None]) | (k_ids == q_ids)[None]
+    mask = torch.zeros(valid.shape, dtype=x.dtype, device=x.device).masked_fill(~valid, float("-inf"))
+    mask = mask[:, None]  # (B, 1, P, P)
+    K = len(align_heads)
+    rows = torch.zeros((B, K, cache.xk.shape[2]), dtype=torch.float32, device=x.device)
+    for l in range(dims.n_text_layer):
+        xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
+        k_new = _linear(xn, dec["attn_k_w"][l])
+        v_new = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])
+        cache.k[l, :, :P] = k_new
+        cache.v[l, :, :P] = v_new
+        a, _ = _attention(_linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l]),
+                          k_new, v_new, H, mask=mask)
+        x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
+        xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
+        qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
+        c, _ = _attention(qc, cache.xk[l], cache.xv[l], H)
+        hits = [k for k, (hl, _) in enumerate(align_heads) if hl == l]
+        if hits:
+            # only alignment-head layers: the last row's scores through the
+            # decode cross-attention kernel (the same single-query function)
+            _, w = xattn_decode(qc[:, -1:].contiguous(), cache.xk, cache.xv, l, H,
+                                emit_scores=True)
+            for k in hits:
+                rows[:, k] = w[:, align_heads[k][1], 0]
+        x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
+        x = _mlp(x, dec, l)
+    return x, rows
+
+
+@torch.no_grad()
+def decode_window(
+    model: WhisperTorch,
+    mel: torch.Tensor,  # (B, n_mels, 3000)
+    prompt: torch.Tensor,  # (B, P) right-aligned, invalid slots arbitrary
+    prompt_len: torch.Tensor,  # (B,) valid prompt tokens (incl. sot sequence)
+    suppress_mask: torch.Tensor,  # (V,)
+    blank_mask: torch.Tensor,  # (V,)
+    *,
+    align_heads: Sequence[Tuple[int, int]],
+    eot: int,
+    ts_begin: int,
+    no_timestamps: int,
+    sot_index_from_end: int,
+    max_initial_timestamp_index: Optional[int],
+    max_new: int = MAX_NEW_TOKENS,
+    suppress_blank: bool = True,
+    without_timestamps: bool = False,
+):
+    """Greedy decode of one 30-s window for a batch. Returns a dict of
+    buffers: tokens (B, max_new) int32 (EOT-filled), n_steps, sum_logprobs
+    (B,), token_logprobs (B, max_new), ts_logprobs (B, max_new, V-ts_begin),
+    attn (B, max_new, K, T_audio), no_speech_prob (B,), n_sampled (B,)."""
+    dims = model.dims
+    dev = model.device
+    B = mel.shape[0]
+    P = prompt.shape[1]
+    V = dims.n_vocab
+    no_speech = no_timestamps - 1  # layout fact: <|nospeech|> precedes <|notimestamps|>
+    mel, prompt, prompt_len = mel.to(dev), prompt.to(dev).long(), prompt_len.to(dev)
+
+    with stage_timer("encode"):
+        xa = encode(model, mel)
+    # cache sized to the decode extent (8-aligned)
+    ctx_len = min(((P + max_new + 7) // 8) * 8, ((dims.n_text_ctx + 7) // 8) * 8 + 8)
+    cache = init_cache(model, xa, ctx_len=ctx_len)
+    pad_len = (P - prompt_len).to(torch.int32)
+
+    with stage_timer("prefill"):
+        x, prefill_rows = _prefill(model, cache, prompt, pad_len, list(align_heads))
+        sot_slot = P - sot_index_from_end
+        x_sel = x[:, [sot_slot, P - 1]]
+        sel_logits = _logits(_ln(x_sel, model.decoder["ln_g"], model.decoder["ln_b"]), model.decoder)
+        no_speech_prob = torch.softmax(sel_logits[:, 0].float(), dim=-1)[:, no_speech]
+        last_logits = sel_logits[:, 1]
+
+    K = len(align_heads)
+    T_audio = xa.shape[1]
+    tokens = torch.full((B, max_new), eot, dtype=torch.int32, device=dev)
+    token_logprobs = torch.zeros((B, max_new), dtype=torch.float32, device=dev)
+    ts_logprobs = torch.zeros((B, max_new, V - ts_begin), dtype=torch.float32, device=dev)
+    attn = torch.zeros((B, max_new, K, T_audio), dtype=torch.float32, device=dev)
+    attn[:, 0] = prefill_rows
+    sum_logprobs = torch.zeros((B,), dtype=torch.float32, device=dev)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    last_token = prompt[:, -1]
+    penult_token = prompt[:, -2]
+    max_timestamp = torch.full((B,), ts_begin - 1, dtype=torch.long, device=dev)
+
+    i = 0
+    with stage_timer("decode_loop"):
+        while i < max_new and not bool(finished.all()):
+            logits = last_logits.float()
+            # filters in whisper's order: blank, suppress, timestamp rules
+            if suppress_blank and i == 0:
+                logits = logits + blank_mask[None]
+            logits = logits + suppress_mask[None]
+            if not without_timestamps:
+                logits = apply_timestamp_rules(
+                    logits, last_token, penult_token, max_timestamp, i,
+                    ts_begin=ts_begin, eot=eot, no_timestamps=no_timestamps,
+                    max_initial_timestamp_index=max_initial_timestamp_index,
+                )
+            logprobs = torch.log_softmax(logits, dim=-1)
+            tok = torch.argmax(logits, dim=-1)
+            # sequence-length cap: force EOT when the true position would exceed n_ctx
+            overflow = (P + i - pad_len) >= (dims.n_text_ctx - 1)
+            tok = torch.where(finished | overflow, eot, tok)
+
+            tok_logprob = torch.gather(logprobs, 1, tok[:, None])[:, 0]
+            newly = ~finished
+            sum_logprobs += torch.where(newly, tok_logprob, 0.0)
+            tokens[:, i] = tok.to(torch.int32)
+            token_logprobs[:, i] = torch.where(newly, tok_logprob, 0.0)
+            ts_logprobs[:, i] = logprobs[:, ts_begin:]
+            max_timestamp = torch.where((tok >= ts_begin) & newly,
+                                        torch.maximum(max_timestamp, tok), max_timestamp)
+            finished = finished | (tok == eot)
+
+            # feed the chosen token; its forward predicts token i+1
+            logits_new, rows = decode_step(
+                model, tok[:, None], cache, P + i,
+                pos_offset=pad_len, kv_valid_from=pad_len, align_heads=list(align_heads),
+            )
+            if i + 1 < max_new and rows is not None:
+                attn[:, i + 1] = rows[:, :, 0]
+            last_logits = logits_new[:, -1]
+            penult_token, last_token = last_token, tok
+            i += 1
+    add_count("decode_steps", i)
+
+    n_sampled = (tokens != eot).sum(dim=-1) + (tokens == eot).any(dim=-1).to(torch.long)
+    return dict(
+        tokens=tokens,
+        n_steps=i,
+        sum_logprobs=sum_logprobs,
+        token_logprobs=token_logprobs,
+        ts_logprobs=ts_logprobs,
+        attn=attn,
+        no_speech_prob=no_speech_prob,
+        n_sampled=n_sampled,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Language identification
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def detect_language(model: WhisperTorch, mel: torch.Tensor, tokenizer: Tokenizer):
+    """Language-id over a (B, n_mels, 3000) mel window. Returns (codes,
+    probs_dicts)."""
+    if mel.ndim == 2:
+        mel = mel[None]
+    dims = model.dims
+    xa = encode(model, mel.to(model.device))
+    tokens = torch.full((mel.shape[0], 1), tokenizer.sot, dtype=torch.long, device=xa.device)
+    logits, _ = decode_full(model, tokens, xa)
+    logits = logits[:, 0].float()
+    mask = torch.full((dims.n_vocab,), float("-inf"), device=xa.device)
+    lang_tokens = list(tokenizer.all_language_tokens)
+    mask[lang_tokens] = 0.0
+    probs = torch.softmax(logits + mask[None], dim=-1).cpu().numpy()
+    codes, prob_dicts = [], []
+    lang_codes = list(tokenizer.all_language_codes)
+    for b in range(probs.shape[0]):
+        d = {code: float(probs[b, t]) for code, t in zip(lang_codes, lang_tokens)}
+        codes.append(max(d, key=d.get))
+        prob_dicts.append(d)
+    return codes, prob_dicts

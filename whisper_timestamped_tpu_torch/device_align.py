@@ -1,0 +1,151 @@
+"""Batched word alignment on the device.
+
+Port of ``whisper_timestamped_tpu/device_align.py``:
+
+    attention buffer (device, from decode_window)
+      -> gather each segment's token rows and its frame window  (torch)
+      -> fused cost: median9, softmax, head mean, L2, negate     (align_cost kernel)
+      -> wavefront DTW step codes                                (dtw_codes kernel)
+      -> backtrace to per-token start frames                     (torch, all segments
+                                                                  in lock-step)
+
+and only the (S, N) int32 start frames cross to the host: the ``jumps``
+``perform_word_alignment`` takes as ``precomputed_jumps``. The backtrace is a
+Python loop of small tensor ops, one iteration per path step; it runs
+max(n + m - 1) iterations over the batch's segments (the JAX loop runs the
+padded N + M - 1, the extra steps only rewrite the origin).
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .alignment import AlignmentPlan, plan_alignment
+from .audio import N_FRAMES
+from .ops.kernels import DIAG, LEFT, align_cost, dtw_codes
+
+M_PAD = ((N_FRAMES // 2 + 127) // 128) * 128  # 1536: frame capacity per segment
+TOKEN_BUCKET = 64  # token rows pad to multiples of 64 (up to 256)
+SEG_BUCKET_MIN = 8  # segment counts pad geometrically: 8, 16, 32, ...
+MAX_K = 32  # most alignment heads the device aligner takes
+
+
+def _seg_bucket(S: int) -> int:
+    b = SEG_BUCKET_MIN
+    while b < S:
+        b *= 2
+    return b
+
+
+class SegmentAlignTask(NamedTuple):
+    """One segment's device-alignment request."""
+
+    plan: AlignmentPlan
+    flat_rows: np.ndarray  # row of the flattened attention buffer per planned token
+    max_duration: Optional[int]  # absolute column cap (segment_frames // 2)
+
+
+def _backtrace_batch(codes: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                     steps: int) -> torch.Tensor:
+    """Walk the step codes backward from (n-1, m-1), all segments at once.
+
+    codes (S, D, N) diagonal-major; returns starts (S, N) int32 with
+    starts[s, i] = first frame of token row i on the optimal path (the host
+    path's jumps[i]); rows >= n stay 0. ``steps`` >= max(n + m - 1)."""
+    S, D, N = codes.shape
+    rng = torch.arange(S, device=codes.device)
+    i, j = (n - 1).long(), (m - 1).long()
+    starts = torch.zeros((S, N), dtype=torch.int32, device=codes.device)
+    for _ in range(steps):
+        starts[rng, i] = j.to(torch.int32)  # backward walk: last write = min j
+        c = codes[rng, (i + j).clamp(max=D - 1), i]
+        at_origin = (i == 0) & (j == 0)
+        # host backtrace rules: at i==0 step left, at j==0 step up, else follow the code
+        left = c == LEFT
+        diag = c == DIAG
+        ni = torch.where(i == 0, 0, torch.where(j == 0, i - 1, torch.where(left, i, i - 1)))
+        nj = torch.where(i == 0, j - 1, torch.where(j == 0, j, torch.where(left | diag, j - 1, j)))
+        i = torch.where(at_origin, 0, ni)
+        j = torch.clamp(torch.where(at_origin, 0, nj), min=0)
+    return starts
+
+
+def _align_jumps(attn_flat: torch.Tensor, rows: np.ndarray, dims: np.ndarray):
+    """Cost, DTW and backtrace for a padded batch of segments. rows (S, N)
+    row indices into attn_flat (R, K, T); dims (S, 4) (n_tokens, span,
+    maxdur_col, start). Returns starts (S, N) int32."""
+    S, N = rows.shape
+    dev = attn_flat.device
+    K, T = attn_flat.shape[1], attn_flat.shape[2]
+    rows_t = torch.as_tensor(rows, dtype=torch.long, device=dev)
+    # each segment's token rows, frames [start, start + M_PAD), zero past T
+    sliced = torch.zeros((S, K, N, M_PAD), dtype=torch.float32, device=dev)
+    for s in range(S):
+        st = int(dims[s, 3])
+        w = min(M_PAD, T - st)
+        sliced[s, :, :, :w] = attn_flat[rows_t[s], :, st : st + w].transpose(0, 1)
+    dims_t = torch.as_tensor(dims, dtype=torch.int32, device=dev)
+    cost = align_cost(sliced, dims_t)
+    codes = dtw_codes(cost, dims_t)
+    steps = int((dims[:, 0] + dims[:, 1] - 1).max())
+    return _backtrace_batch(codes, dims_t[:, 0], dims_t[:, 1], steps)
+
+
+def make_task(
+    tokens: Sequence[int],
+    row_offset: int,
+    local_rows: Sequence[int],
+    tokenizer,
+    *,
+    refine_whisper_precision_nframes: int = 0,
+    unfinished_decoding: bool = False,
+    max_duration: Optional[int] = None,
+) -> Optional[SegmentAlignTask]:
+    """Plan one segment. ``local_rows[k]`` is the attention row (within the
+    window's buffer) feeding token k; ``row_offset`` places the window's rows
+    in the flattened buffer. None when the plan is empty."""
+    plan = plan_alignment(
+        tokens, tokenizer, refine_whisper_precision_nframes, unfinished_decoding
+    )
+    if plan.empty:
+        return None
+    local = np.asarray(local_rows, np.int64)
+    flat = row_offset + local[plan.row_indices]
+    return SegmentAlignTask(plan=plan, flat_rows=flat, max_duration=max_duration)
+
+
+def compute_jumps_batch(attn_flat, tasks: List[SegmentAlignTask]) -> List[np.ndarray]:
+    """Run the device aligner for a batch of segments. Returns, per task,
+    the (n_tokens + 1,) int64 jumps array for ``precomputed_jumps``."""
+    if not tasks:
+        return []
+    attn_flat = torch.as_tensor(attn_flat)
+    S = len(tasks)
+    n_max = max(len(t.plan.tokens) for t in tasks)
+    n_pad = int(np.ceil(max(n_max, TOKEN_BUCKET) / TOKEN_BUCKET) * TOKEN_BUCKET)
+    S_pad = _seg_bucket(S)
+
+    rows = np.zeros((S_pad, n_pad), np.int64)
+    dims = np.zeros((S_pad, 4), np.int32)
+    dims[:, 0] = 2  # dummy segments: 2 tokens, 2 frames
+    dims[:, 1] = 2
+    dims[:, 2] = M_PAD
+    for s, t in enumerate(tasks):
+        n = len(t.plan.tokens)
+        span = t.plan.end_token - t.plan.start_token
+        rows[s, :n] = t.flat_rows
+        maxdur = M_PAD  # sentinel: no masking
+        if t.max_duration and t.plan.start_token < t.max_duration:
+            maxdur = min(t.max_duration, M_PAD)
+        dims[s] = (n, span, maxdur, t.plan.start_token)
+
+    starts = _align_jumps(attn_flat, rows, dims).cpu().numpy()
+    out = []
+    for s, t in enumerate(tasks):
+        n = len(t.plan.tokens)
+        span = t.plan.end_token - t.plan.start_token
+        out.append(np.concatenate([starts[s, :n], [span - 1]]).astype(np.int64))
+    return out

@@ -1,0 +1,457 @@
+"""Long-form transcription engine: the 30-second sliding-window loop.
+
+Port of ``whisper_timestamped_tpu/engine.py`` for the greedy single-pass
+path: ``DecodeEngine`` (bf16 or f32, whatever the model holds),
+``decode_window``, ``decode_with_fallback`` at one temperature,
+``transcribe_windows`` and ``extract_window_segments``. The mel and the
+window slicing and padding run in torch on the model's device. Sampling,
+beam search, best_of and the quantisation levers raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .audio import HOP_LENGTH, N_FRAMES, N_SAMPLES, SAMPLE_RATE, as_pcm16, log_mel_spectrogram
+from .decoding import (
+    MAX_NEW_TOKENS,
+    PROMPT_REGION,
+    PROMPT_REGION_SMALL,
+    DecodingOptions,
+    build_blank_mask,
+    build_suppress_mask,
+    compression_ratio,
+    decode_window,
+    detect_language,
+)
+from .models.load import WhisperModel
+from .tokenizer import Tokenizer
+from .utils import not_ported, stage_timer
+
+INPUT_STRIDE = 2  # mel frames per output token position (conv2 stride)
+TIME_PER_POSITION = INPUT_STRIDE * HOP_LENGTH / SAMPLE_RATE  # 0.02 s
+
+# engine options of the JAX package that this port does not have yet; each
+# is refused when set, as argument or through its environment variable
+_LEVERS = {
+    "kv_int8": "WTT_KV_INT8", "kv_int4": "WTT_KV_INT4",
+    "self_kv_int8": "WTT_SELF_KV_INT8", "w_int8": "WTT_W_INT8",
+    "enc_int8": "WTT_ENC_INT8",
+}
+
+
+@dataclass
+class WindowDecodeResult:
+    """Everything one window decode produced (per batch element). The
+    alignment buffers stay on the device: ``attn_dev`` is the whole batch's
+    (B, max_new, K, T_audio) buffer, ``ts_logprobs_dev`` (B, max_new, 1501)."""
+
+    tokens: List[int]  # sampled tokens, EOT excluded
+    text: str
+    avg_logprob: float
+    no_speech_prob: float
+    temperature: float
+    compression_ratio: float
+    token_logprobs: np.ndarray  # (n_tokens,) logprob of each sampled token
+    hit_limit: bool = False  # decode reached max_new without EOT ("stuck LM")
+    attn_dev: Optional[Any] = None
+    ts_logprobs_dev: Optional[Any] = None
+    batch_index: int = 0
+    n_text: int = 0  # sampled text tokens (row n_text predicts the final EOT)
+
+    def ts_logprob_row(self, i: int) -> Optional[np.ndarray]:
+        """Row i of the timestamp-logprob buffer, fetched on demand (only
+        the rare end<=start repair reads it)."""
+        if self.ts_logprobs_dev is not None and i < self.ts_logprobs_dev.shape[1]:
+            return self.ts_logprobs_dev[self.batch_index, i].cpu().numpy()
+        return None
+
+
+@dataclass
+class Segment:
+    """One transcription segment plus the alignment payload for its tokens."""
+
+    id: int
+    seek: int
+    start: float
+    end: float
+    text: str
+    tokens: List[int]
+    temperature: float
+    avg_logprob: float
+    compression_ratio: float
+    no_speech_prob: float
+    token_span: Tuple[int, int] = (0, 0)  # [a, b) into the window's sampled tokens
+    window: Optional[WindowDecodeResult] = None
+    segment_frames: int = N_FRAMES  # actual content frames in this window
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dict(
+            id=self.id, seek=self.seek, start=self.start, end=self.end,
+            text=self.text, tokens=list(self.tokens), temperature=self.temperature,
+            avg_logprob=self.avg_logprob, compression_ratio=self.compression_ratio,
+            no_speech_prob=self.no_speech_prob,
+        )
+
+
+class DecodeEngine:
+    """Bound (model, tokenizer) with cached filter masks on the model's
+    device.
+    ``mesh`` and the quantisation levers are options of the JAX engine not
+    yet ported: setting one raises."""
+
+    def __init__(self, model: WhisperModel, tokenizer: Tokenizer,
+                 mesh=None, **levers):
+        for name, value in levers.items():
+            if name not in _LEVERS:
+                raise TypeError(f"unexpected engine option {name!r}")
+            if value:
+                raise not_ported(name)
+        for name, env in _LEVERS.items():
+            if os.environ.get(env) == "1":
+                raise not_ported(f"{name} ({env}=1)")
+        if mesh is not None:
+            raise not_ported("mesh")
+        self.model = model
+        self.tokenizer = tokenizer
+        self.dims = model.dims
+        heads = model.alignment_heads
+        if not heads:
+            # all heads of the top half of decoder layers (reference default)
+            L, H = self.dims.n_text_layer, self.dims.n_text_head
+            heads = [(l, h) for l in range(L // 2, L) for h in range(H)]
+        self.align_heads: Tuple[Tuple[int, int], ...] = tuple(tuple(h) for h in heads)
+        self._mask_cache: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def _masks(self, options: DecodingOptions):
+        key = (options.suppress_tokens if not isinstance(options.suppress_tokens, list)
+               else tuple(options.suppress_tokens), options.suppress_blank)
+        if key not in self._mask_cache:
+            V = self.dims.n_vocab
+            sm = torch.as_tensor(build_suppress_mask(self.tokenizer, options, V), device=self.device)
+            bm = torch.as_tensor(build_blank_mask(self.tokenizer, V), device=self.device)
+            self._mask_cache[key] = (sm, bm)
+        return self._mask_cache[key]
+
+    def build_prompt(
+        self, prompt_tokens: Sequence[int], options: DecodingOptions,
+    ) -> Tuple[np.ndarray, int, int]:
+        """Right-aligned prompt buffer: (buffer (P,), prompt_len,
+        sot_index_from_end). P is the smallest static region that fits."""
+        tok = self.tokenizer
+        sot_seq = [tok.sot]
+        if tok.is_multilingual:
+            sot_seq.append(tok.to_language_token(options.language or tok.language or "en"))
+            sot_seq.append(tok.translate if options.task == "translate" else tok.transcribe)
+        if options.without_timestamps:
+            sot_seq.append(tok.no_timestamps)
+        prefix = list(options.prefix or [])
+        if options.sample_len:
+            # whisper trims the prefix to n_ctx//2 - sample_len
+            max_prefix = max(0, self.dims.n_text_ctx // 2 - options.sample_len)
+            prefix = prefix[-max_prefix:] if max_prefix else []
+        max_prefix = PROMPT_REGION - len(sot_seq) - 1
+        prefix = prefix[-max_prefix:] if max_prefix > 0 else []
+        budget = min(
+            self.dims.n_text_ctx // 2 - 1,
+            PROMPT_REGION - len(sot_seq) - len(prefix) - 1,
+        )
+        initial: List[int] = []
+        if prompt_tokens:
+            initial.append(tok.sot_prev)
+            if budget > 0:
+                initial.extend(list(prompt_tokens)[-budget:])
+        initial.extend(sot_seq)
+        initial.extend(prefix)
+        region = PROMPT_REGION_SMALL if len(initial) <= PROMPT_REGION_SMALL else PROMPT_REGION
+        assert len(initial) <= region
+        buf = np.full((region,), tok.eot, np.int32)
+        buf[region - len(initial):] = initial
+        sot_index_from_end = len(initial) - initial.index(tok.sot)
+        return buf, len(initial), sot_index_from_end
+
+    def decode_window(
+        self,
+        mel: torch.Tensor,  # (n_mels, 3000) or (B, n_mels, 3000)
+        options: DecodingOptions,
+        prompt_tokens: Sequence[int] = (),
+        temperature: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> List[WindowDecodeResult]:
+        """Greedy decode of a window batch. ``generator`` is the random
+        source that sampling (temperature > 0, not yet ported) will draw
+        from; the greedy path draws nothing."""
+        if temperature > 0:
+            raise not_ported("temperature > 0 (sampling)")
+        tok = self.tokenizer
+        mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
+        if mel.ndim == 2:
+            mel = mel[None]
+        B = mel.shape[0]
+        buf, plen, sot_from_end = self.build_prompt(prompt_tokens, options)
+        prompt = torch.as_tensor(np.tile(buf[None], (B, 1)), device=self.device)
+        prompt_len = torch.full((B,), plen, dtype=torch.int32, device=self.device)
+        sm, bm = self._masks(options)
+        max_init_ts = (
+            round(options.max_initial_timestamp / TIME_PER_POSITION)
+            if options.max_initial_timestamp is not None
+            else None
+        )
+        out = decode_window(
+            self.model.module, mel, prompt, prompt_len, sm, bm,
+            align_heads=self.align_heads,
+            eot=tok.eot,
+            ts_begin=tok.timestamp_begin,
+            no_timestamps=tok.no_timestamps,
+            sot_index_from_end=sot_from_end,
+            max_initial_timestamp_index=max_init_ts,
+            max_new=options.sample_len or MAX_NEW_TOKENS,
+            suppress_blank=options.suppress_blank,
+            without_timestamps=options.without_timestamps,
+        )
+        return self.build_window_results(out, temperature)
+
+    def build_window_results(self, out, temperature) -> List[WindowDecodeResult]:
+        """Device buffers -> per-row results. Only the token ids, log-probs
+        and scalars cross to the host; the alignment buffers stay put."""
+        tok = self.tokenizer
+        tokens_all = out["tokens"].cpu().numpy()
+        logprobs_all = out["token_logprobs"].cpu().numpy()
+        sum_lp = out["sum_logprobs"].cpu().numpy()
+        nsp = out["no_speech_prob"].float().cpu().numpy()
+        results = []
+        for b in range(tokens_all.shape[0]):
+            toks = tokens_all[b]
+            eot_pos = np.nonzero(toks == tok.eot)[0]
+            hit_limit = len(eot_pos) == 0
+            n_text = int(eot_pos[0]) if len(eot_pos) else len(toks)
+            text_tokens = toks[:n_text].tolist()
+            text = tok.decode(text_tokens)
+            results.append(
+                WindowDecodeResult(
+                    tokens=text_tokens,
+                    text=text,
+                    # whisper avg_logprob: sum over sampled (incl. final EOT) / (len+1)
+                    avg_logprob=float(sum_lp[b]) / (n_text + 1),
+                    no_speech_prob=float(nsp[b]),
+                    temperature=float(temperature),
+                    compression_ratio=compression_ratio(text),
+                    token_logprobs=logprobs_all[b, :n_text],
+                    hit_limit=hit_limit,
+                    attn_dev=out["attn"],
+                    ts_logprobs_dev=out["ts_logprobs"],
+                    batch_index=b,
+                    n_text=n_text,
+                )
+            )
+        return results
+
+    def decode_with_fallback(
+        self,
+        mel: torch.Tensor,
+        options: DecodingOptions,
+        prompt_tokens: Sequence[int],
+        temperatures: Sequence[float],
+        compression_ratio_threshold: Optional[float],
+        logprob_threshold: Optional[float],
+        no_speech_threshold: Optional[float],
+        generator: Optional[torch.Generator] = None,
+    ) -> WindowDecodeResult:
+        """whisper's decode_with_fallback at a single temperature of 0: the
+        escalation schedule samples, which is not yet ported."""
+        temperatures = list(temperatures)
+        if len(temperatures) != 1 or temperatures[0] != 0:
+            raise not_ported(f"temperature schedule {temperatures} (sampling fallback)")
+        if options.beam_size:
+            raise not_ported("beam_size")
+        return self.decode_window(mel, options, prompt_tokens, temperature=0.0,
+                                  generator=generator)[0]
+
+
+# ---------------------------------------------------------------------------
+# The sliding-window loop
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TranscribeResult:
+    text: str
+    segments: List[Segment]
+    language: Optional[str]
+    language_probs: Optional[dict] = None
+
+
+def transcribe_windows(
+    engine: DecodeEngine,
+    audio: np.ndarray,  # 16 kHz float32
+    *,
+    language: Optional[str] = None,
+    task: str = "transcribe",
+    temperature: Sequence[float] = (0.0,),
+    compression_ratio_threshold: Optional[float] = 2.4,
+    logprob_threshold: Optional[float] = -1.0,
+    no_speech_threshold: Optional[float] = 0.6,
+    condition_on_previous_text: bool = True,
+    initial_prompt: Optional[str] = None,
+    decode_options: Optional[DecodingOptions] = None,
+    return_language_probs: bool = False,
+    verbose_callback=None,
+    generator: Optional[torch.Generator] = None,
+) -> TranscribeResult:
+    """whisper-semantics long-form loop, emitting alignment-ready segments."""
+    tok = engine.tokenizer
+    dims = engine.dims
+    if isinstance(temperature, (int, float)):
+        temperature = [float(temperature)]
+
+    with stage_timer("mel"):
+        # on the model's device; PCM-grid audio ships as int16 (lossless)
+        audio_np = np.asarray(audio, np.float32)
+        pcm16 = as_pcm16(audio_np)
+        mel_full = log_mel_spectrogram(
+            pcm16 if pcm16 is not None else audio_np,
+            n_mels=dims.n_mels, padding=N_SAMPLES, device=engine.device,
+        )
+    content_frames = mel_full.shape[-1] - N_FRAMES
+
+    def window(seek: int) -> torch.Tensor:
+        w = mel_full[:, seek : seek + N_FRAMES]
+        if w.shape[-1] < N_FRAMES:
+            w = torch.nn.functional.pad(w, (0, N_FRAMES - w.shape[-1]))
+        return w
+
+    language_probs = None
+    if language is None:
+        if tok.is_multilingual:
+            if verbose_callback is not None:
+                print(
+                    "Detecting language using up to the first 30 seconds. "
+                    "Use `--language` to specify the language"
+                )
+            codes, probs = detect_language(engine.model.module, window(0)[None], tok)
+            language, language_probs = codes[0], probs[0]
+        else:
+            language = "en"
+    elif return_language_probs and tok.is_multilingual:
+        _, probs = detect_language(engine.model.module, window(0)[None], tok)
+        language_probs = probs[0]
+
+    base_opts = decode_options or DecodingOptions()
+    base_opts = DecodingOptions(**{**base_opts.__dict__, "task": task, "language": language})
+
+    all_tokens: List[int] = []
+    if initial_prompt is not None:
+        all_tokens.extend(tok.encode(" " + initial_prompt.strip()))
+    prompt_reset_since = 0
+
+    segments: List[Segment] = []
+    seek = 0
+    while seek < content_frames:
+        segment_size = min(N_FRAMES, content_frames - seek)
+        with stage_timer("decode"):
+            result = engine.decode_with_fallback(
+                window(seek), base_opts, all_tokens[prompt_reset_since:], temperature,
+                compression_ratio_threshold, logprob_threshold, no_speech_threshold,
+                generator=generator,
+            )
+        window_segments, seek = extract_window_segments(
+            result, seek, segment_size, tok, no_speech_threshold, logprob_threshold
+        )
+        for seg in window_segments:
+            seg.id = len(segments)
+            segments.append(seg)
+            if verbose_callback is not None:
+                verbose_callback(seg)
+            all_tokens.extend(seg.tokens)
+        if not condition_on_previous_text or result.temperature > 0.5:
+            prompt_reset_since = len(all_tokens)
+
+    text = "".join(s.text for s in segments)
+    return TranscribeResult(text=text, segments=segments, language=language,
+                            language_probs=language_probs)
+
+
+def extract_window_segments(
+    result: WindowDecodeResult,
+    seek: int,
+    segment_size: int,
+    tok: Tokenizer,
+    no_speech_threshold: Optional[float],
+    logprob_threshold: Optional[float],
+) -> Tuple[List[Segment], int]:
+    """Timestamp-token segmentation + seek advance for one decoded window
+    (whisper's transcribe-loop semantics). Returns (segments, new_seek)."""
+    time_offset = seek * HOP_LENGTH / SAMPLE_RATE
+    segment_duration = segment_size * HOP_LENGTH / SAMPLE_RATE
+
+    if no_speech_threshold is not None:
+        should_skip = result.no_speech_prob > no_speech_threshold
+        if logprob_threshold is not None and result.avg_logprob > logprob_threshold:
+            should_skip = False
+        if should_skip:
+            return [], seek + segment_size
+
+    tokens = np.array(result.tokens)
+    ts_begin = tok.timestamp_begin
+    timestamp_mask = tokens >= ts_begin
+    single_timestamp_ending = (
+        len(tokens) >= 2 and not timestamp_mask[-2] and timestamp_mask[-1]
+    )
+    consecutive = (
+        np.where(timestamp_mask[:-1] & timestamp_mask[1:])[0] + 1
+        if len(tokens) >= 2
+        else np.array([], int)
+    )
+
+    def new_segment(start, end, seg_tokens, span):
+        text_tokens = [t for t in seg_tokens if t < tok.eot]
+        return Segment(
+            id=-1, seek=int(seek), start=float(start), end=float(end),
+            text=tok.decode(text_tokens), tokens=seg_tokens,
+            temperature=result.temperature, avg_logprob=result.avg_logprob,
+            compression_ratio=result.compression_ratio,
+            no_speech_prob=result.no_speech_prob, token_span=tuple(span),
+            window=result, segment_frames=segment_size,
+        )
+
+    window_segments: List[Segment] = []
+    if len(consecutive) > 0:
+        slices = consecutive.tolist()
+        if single_timestamp_ending:
+            slices.append(len(tokens))
+        last_slice = 0
+        for current_slice in slices:
+            sliced = tokens[last_slice:current_slice]
+            start_pos = int(sliced[0]) - ts_begin
+            end_pos = int(sliced[-1]) - ts_begin
+            window_segments.append(new_segment(
+                time_offset + start_pos * TIME_PER_POSITION,
+                time_offset + end_pos * TIME_PER_POSITION,
+                sliced.tolist(), (last_slice, current_slice),
+            ))
+            last_slice = current_slice
+        if single_timestamp_ending:
+            seek += segment_size
+        else:
+            last_timestamp_pos = int(tokens[last_slice - 1]) - ts_begin
+            seek += last_timestamp_pos * INPUT_STRIDE
+    else:
+        duration = segment_duration
+        timestamps = tokens[timestamp_mask]
+        if len(timestamps) > 0 and int(timestamps[-1]) != ts_begin:
+            duration = (int(timestamps[-1]) - ts_begin) * TIME_PER_POSITION
+        window_segments.append(new_segment(
+            time_offset, time_offset + duration, tokens.tolist(), (0, len(tokens)),
+        ))
+        seek += segment_size
+    return window_segments, seek

@@ -1,0 +1,18 @@
+from .whisper_torch import (  # noqa: F401
+    KVCache,
+    WhisperDims,
+    WhisperTorch,
+    decode_full,
+    decode_step,
+    encode,
+    init_cache,
+    init_params,
+)
+from .load import (  # noqa: F401
+    WhisperModel,
+    from_hf_state_dict,
+    from_openai_state_dict,
+    load_model,
+    params_from_jax_tree,
+)
+from .alignment_heads import ALIGNMENT_HEADS, get_alignment_heads  # noqa: F401

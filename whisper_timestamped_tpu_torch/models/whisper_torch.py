@@ -1,0 +1,393 @@
+"""Whisper encoder/decoder in PyTorch.
+
+Port of ``whisper_timestamped_tpu/models/whisper_jax.py``. The parameters
+stay layer-stacked, as in the JAX tree, but in PyTorch's layouts: a linear
+weight is ``(out, in)`` (applied with ``F.linear``) and a conv weight is
+``(out, in, k)``. A layer's weight is a view (``w[l]``), so the Python loop
+over layers reads each one in place.
+
+The single-token decode step sends its two attentions through the
+hand-written kernels of ``ops.kernels`` (the plain PyTorch versions run for
+CPU tensors). Everything else is plain PyTorch: the encoder and the prompt
+prefill use ``_attention``, the same math as the JAX package's non-TPU
+branch. Pre-softmax attention scores follow whisper's convention,
+``q·k·dh^-0.5`` in float32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels import self_attn_decode, xattn_decode
+
+
+@dataclass(frozen=True)
+class WhisperDims:
+    """Model geometry (mirrors the ``ModelDimensions`` stored in OpenAI .pt files)."""
+
+    n_mels: int = 80
+    n_audio_ctx: int = 1500
+    n_audio_state: int = 384
+    n_audio_head: int = 6
+    n_audio_layer: int = 4
+    n_vocab: int = 51865
+    n_text_ctx: int = 448
+    n_text_state: int = 384
+    n_text_head: int = 6
+    n_text_layer: int = 4
+
+    @property
+    def is_multilingual(self) -> bool:
+        return self.n_vocab >= 51865
+
+    @property
+    def num_languages(self) -> int:
+        return self.n_vocab - 51765 - int(self.is_multilingual)
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
+    """Sinusoidal position embeddings (whisper's encoder positions)."""
+    assert channels % 2 == 0
+    log_inc = np.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_inc * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def _block_shapes(L: int, d: int, n_mlp: int, cross: bool) -> dict:
+    """Layer-stacked block parameter shapes; linears are (L, out, in)."""
+    shapes = {}
+    for p in ("attn", "cross") if cross else ("attn",):
+        shapes.update({
+            f"{p}_ln_g": (L, d), f"{p}_ln_b": (L, d),
+            f"{p}_q_w": (L, d, d), f"{p}_q_b": (L, d),
+            f"{p}_k_w": (L, d, d),
+            f"{p}_v_w": (L, d, d), f"{p}_v_b": (L, d),
+            f"{p}_o_w": (L, d, d), f"{p}_o_b": (L, d),
+        })
+    shapes.update({
+        "mlp_ln_g": (L, d), "mlp_ln_b": (L, d),
+        "fc1_w": (L, n_mlp, d), "fc1_b": (L, n_mlp),
+        "fc2_w": (L, d, n_mlp), "fc2_b": (L, d),
+    })
+    return shapes
+
+
+def param_shapes(dims: WhisperDims, untied_proj: bool = False,
+                 n_mlp: Optional[Tuple[int, int]] = None) -> Tuple[dict, dict]:
+    """(encoder, decoder) parameter name -> shape. ``n_mlp`` is the (encoder,
+    decoder) MLP width, 4x the model width unless given."""
+    da, dt = dims.n_audio_state, dims.n_text_state
+    mlp_a, mlp_t = n_mlp or (4 * da, 4 * dt)
+    enc = {
+        "conv1_w": (da, dims.n_mels, 3), "conv1_b": (da,),
+        "conv2_w": (da, da, 3), "conv2_b": (da,),
+        "pos_emb": (dims.n_audio_ctx, da),
+        **_block_shapes(dims.n_audio_layer, da, mlp_a, cross=False),
+        "ln_post_g": (da,), "ln_post_b": (da,),
+    }
+    dec = {
+        "tok_emb": (dims.n_vocab, dt), "pos_emb": (dims.n_text_ctx, dt),
+        **_block_shapes(dims.n_text_layer, dt, mlp_t, cross=True),
+        "ln_g": (dt,), "ln_b": (dt,),
+    }
+    if untied_proj:
+        dec["proj_w"] = (dims.n_vocab, dt)
+    return enc, dec
+
+
+class WhisperTorch(nn.Module):
+    """Parameter container: ``encoder`` and ``decoder`` are ParameterDicts of
+    layer-stacked tensors (names from ``param_shapes``). The forward math is
+    the module-level functions below (``encode``, ``decode_step``, ...)."""
+
+    def __init__(self, dims: WhisperDims, dtype=torch.float32, device=None,
+                 untied_proj: bool = False, n_mlp: Optional[Tuple[int, int]] = None):
+        super().__init__()
+        self.dims = dims
+        enc, dec = param_shapes(dims, untied_proj, n_mlp)
+
+        def make(shapes):
+            return nn.ParameterDict({
+                k: nn.Parameter(torch.zeros(s, dtype=dtype, device=device), requires_grad=False)
+                for k, s in shapes.items()
+            })
+
+        self.encoder = make(enc)
+        self.decoder = make(dec)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder["tok_emb"].device
+
+
+
+def init_params(dims: WhisperDims, seed: int = 0, dtype=torch.float32, device=None,
+                untied_proj: bool = False) -> WhisperTorch:
+    """Random-weight model with the JAX ``init_params`` scales, drawn from an
+    explicit ``torch.Generator`` on ``device`` (weights differ from the JAX
+    package's, which draws from ``jax.random``). Encoder positions are the
+    fixed sinusoids."""
+    device = torch.device(device or "cpu")
+    model = WhisperTorch(dims, dtype=dtype, device=device, untied_proj=untied_proj)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ones = ("_ln_g", "ln_post_g")
+
+    def fill(pd: nn.ParameterDict):
+        for name, p in pd.items():
+            if name.endswith(ones) or name == "ln_g":
+                p.fill_(1.0)
+            elif name.endswith("_b") or name == "ln_b":
+                p.zero_()
+            else:
+                if name.endswith("_w") and name.startswith("conv"):
+                    scale = (p.shape[1] * p.shape[2]) ** -0.5
+                elif name == "tok_emb" or name == "proj_w":
+                    scale = p.shape[-1] ** -0.5
+                elif name == "pos_emb":
+                    scale = 0.01
+                else:  # (L, out, in) linear: d_in ** -0.5
+                    scale = p.shape[-1] ** -0.5
+                r = torch.randn(p.shape, generator=gen, device=device, dtype=torch.float32)
+                p.copy_(r.mul_(scale))
+
+    with torch.no_grad():
+        fill(model.encoder)
+        fill(model.decoder)
+        model.encoder["pos_emb"].copy_(
+            torch.from_numpy(sinusoids(dims.n_audio_ctx, dims.n_audio_state))
+        )
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Primitive ops
+# ---------------------------------------------------------------------------
+
+
+def _ln(x, g, b, eps: float = 1e-5):
+    return F.layer_norm(x, (x.shape[-1],), g, b, eps)
+
+
+def _linear(x, w, b=None):
+    return F.linear(x, w, b)
+
+
+def _split_heads(x, n_head):  # (B, S, D) -> (B, H, S, dh)
+    B, S, D = x.shape
+    return x.reshape(B, S, n_head, D // n_head).transpose(1, 2)
+
+
+def _merge_heads(x):  # (B, H, S, dh) -> (B, S, D)
+    B, H, S, dh = x.shape
+    return x.transpose(1, 2).reshape(B, S, H * dh)
+
+
+def _attention(q, k, v, n_head, mask=None, return_scores=False):
+    """Multi-head attention over (B, S, D) projections, the JAX ``_attention``
+    math: q and k each scaled by dh**-0.25 in the input dtype, softmax in
+    f32. With ``return_scores`` the pre-softmax scores come back in f32."""
+    dh = q.shape[-1] // n_head
+    qh = _split_heads(q, n_head) * dh**-0.25
+    kh = _split_heads(k, n_head) * dh**-0.25
+    vh = _split_heads(v, n_head)
+    scores = qh @ kh.transpose(-1, -2)
+    if mask is not None:
+        scores = scores + mask
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = _merge_heads(w @ vh)
+    return (out, scores.float()) if return_scores else (out, None)
+
+
+def _conv1d(x, w, b, stride):
+    """(B, C_in, T) conv, kernel 3, padding 1."""
+    return F.conv1d(x, w, b, stride=stride, padding=1)
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def encode(model: WhisperTorch, mel: torch.Tensor) -> torch.Tensor:
+    """Audio encoder: mel (B, n_mels, T) -> features (B, T//2, D)."""
+    enc = model.encoder
+    dims = model.dims
+    x = mel.to(enc["conv1_w"].dtype)
+    x = F.gelu(_conv1d(x, enc["conv1_w"], enc["conv1_b"], 1))
+    x = F.gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], 2))
+    x = x.transpose(1, 2)  # (B, T//2, D)
+    x = x + enc["pos_emb"][: x.shape[1]].to(x.dtype)
+    H = dims.n_audio_head
+    for l in range(dims.n_audio_layer):
+        xn = _ln(x, enc["attn_ln_g"][l], enc["attn_ln_b"][l])
+        a, _ = _attention(
+            _linear(xn, enc["attn_q_w"][l], enc["attn_q_b"][l]),
+            _linear(xn, enc["attn_k_w"][l]),
+            _linear(xn, enc["attn_v_w"][l], enc["attn_v_b"][l]),
+            H,
+        )
+        x = x + _linear(a, enc["attn_o_w"][l], enc["attn_o_b"][l])
+        h = F.gelu(_linear(_ln(x, enc["mlp_ln_g"][l], enc["mlp_ln_b"][l]),
+                           enc["fc1_w"][l], enc["fc1_b"][l]))
+        x = x + _linear(h, enc["fc2_w"][l], enc["fc2_b"][l])
+    return _ln(x, enc["ln_post_g"], enc["ln_post_b"])
+
+
+# ---------------------------------------------------------------------------
+# Decoder — teacher-forced full forward (language detection)
+# ---------------------------------------------------------------------------
+
+
+def _logits(x, dec):
+    w = dec["proj_w"] if "proj_w" in dec else dec["tok_emb"]
+    return F.linear(x, w)
+
+
+def _mlp(x, dec, l):
+    h = F.gelu(_linear(_ln(x, dec["mlp_ln_g"][l], dec["mlp_ln_b"][l]),
+                       dec["fc1_w"][l], dec["fc1_b"][l]))
+    return x + _linear(h, dec["fc2_w"][l], dec["fc2_b"][l])
+
+
+def decode_full(
+    model: WhisperTorch,
+    tokens: torch.Tensor,
+    xa: torch.Tensor,
+    pos_offset: int = 0,
+    return_cross_attn: bool = False,
+):
+    """Teacher-forced decoder forward. tokens (B, S) int; xa (B, T, D).
+    Returns (logits (B, S, V), cross_attn (L, B, H, S, T) f32 or None)."""
+    dec = model.decoder
+    dims = model.dims
+    H = dims.n_text_head
+    B, S = tokens.shape
+    x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_offset : pos_offset + S]
+    causal = torch.triu(torch.full((S, S), float("-inf"), device=x.device, dtype=x.dtype), 1)
+    ws = []
+    for l in range(dims.n_text_layer):
+        xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
+        a, _ = _attention(
+            _linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l]),
+            _linear(xn, dec["attn_k_w"][l]),
+            _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l]),
+            H, mask=causal,
+        )
+        x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
+        xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
+        c, w = _attention(
+            _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l]),
+            _linear(xa, dec["cross_k_w"][l]),
+            _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]),
+            H, return_scores=return_cross_attn,
+        )
+        x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
+        x = _mlp(x, dec, l)
+        if return_cross_attn:
+            ws.append(w)
+    logits = _logits(_ln(x, dec["ln_g"], dec["ln_b"]), dec)
+    return logits, (torch.stack(ws) if return_cross_attn else None)
+
+
+# ---------------------------------------------------------------------------
+# Decoder — incremental step with KV cache (the hot decode loop)
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """Self-attention cache k/v (L, B, ctx_len, D) and the encoder's
+    cross-attention K/V xk/xv (L, B, T_audio, D). The decode step writes its
+    new self-attention row into k/v in place (the JAX package returns an
+    updated copy; in place saves a cache-sized copy per step)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    xk: torch.Tensor
+    xv: torch.Tensor
+
+
+def init_cache(model: WhisperTorch, xa: torch.Tensor, ctx_len: Optional[int] = None,
+               dtype=None) -> KVCache:
+    """Project the encoder output into every layer's cross-attention K/V and
+    allocate a zeroed self-attention cache of ``ctx_len`` slots."""
+    dec = model.decoder
+    dims = model.dims
+    dtype = dtype or xa.dtype
+    B, T, _ = xa.shape
+    L, D = dims.n_text_layer, dims.n_text_state
+    ctx_len = ctx_len or dims.n_text_ctx
+    xk = torch.empty((L, B, T, D), dtype=dtype, device=xa.device)
+    xv = torch.empty_like(xk)
+    for l in range(L):
+        xk[l] = _linear(xa, dec["cross_k_w"][l])
+        xv[l] = _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l])
+    k = torch.zeros((L, B, ctx_len, D), dtype=dtype, device=xa.device)
+    return KVCache(k=k, v=torch.zeros_like(k), xk=xk, xv=xv)
+
+
+def decode_step(
+    model: WhisperTorch,
+    tokens: torch.Tensor,
+    cache: KVCache,
+    pos: int,
+    pos_offset: Optional[torch.Tensor] = None,
+    kv_valid_from: Optional[torch.Tensor] = None,
+    align_heads: Optional[Sequence[Tuple[int, int]]] = None,
+    beam_group: int = 1,
+):
+    """One decode step for a single new token per row.
+
+    tokens (B, 1); pos: the cache slot written (Python int); pos_offset (B,)
+    is subtracted from ``pos`` for the positional index; kv_valid_from (B,)
+    masks cache slots below it (the query's own slot stays live). Returns
+    (logits (B, 1, V), rows): with ``align_heads`` a list of (layer, head),
+    rows is (B, K, 1, T) f32, the pre-softmax cross-attention scores of
+    those heads, else None. Scores are requested from the cross-attention
+    kernel only for layers that hold an alignment head.
+    """
+    dec = model.decoder
+    dims = model.dims
+    B, S = tokens.shape
+    if S != 1:
+        raise ValueError(f"decode_step takes one token per row, got {S}")
+    H = dims.n_text_head
+    if pos_offset is None:
+        x = dec["tok_emb"][tokens] + dec["pos_emb"][pos]
+    else:
+        pos_ids = torch.clamp(pos - pos_offset, 0, dims.n_text_ctx - 1)
+        x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_ids][:, None]
+    x = x.to(cache.k.dtype)
+    pad = (
+        kv_valid_from.to(torch.int32)
+        if kv_valid_from is not None
+        else torch.zeros((B,), dtype=torch.int32, device=x.device)
+    )
+    rows = None
+    if align_heads:
+        rows = torch.zeros((B, len(align_heads), 1, cache.xk.shape[2]),
+                           dtype=torch.float32, device=x.device)
+    for l in range(dims.n_text_layer):
+        xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
+        cache.k[l, :, pos] = _linear(xn, dec["attn_k_w"][l])[:, 0]
+        cache.v[l, :, pos] = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])[:, 0]
+        q = _linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l])
+        a = self_attn_decode(q, cache.k, cache.v, l, pos, pad, H)
+        x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
+        xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
+        qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
+        hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
+        c, w = xattn_decode(qc, cache.xk, cache.xv, l, H,
+                            emit_scores=bool(hits), beam_group=beam_group)
+        x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
+        x = _mlp(x, dec, l)
+        for k in hits:
+            rows[:, k] = w[:, align_heads[k][1]]
+    logits = _logits(_ln(x, dec["ln_g"], dec["ln_b"]), dec)
+    return logits, rows

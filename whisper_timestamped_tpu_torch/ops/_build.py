@@ -1,0 +1,111 @@
+"""Build and load the CUDA kernels of ``csrc/`` (nvcc, ctypes).
+
+All ``csrc/*.cu`` files compile into one shared library with a plain C
+interface, for Hopper only (``sm_90a``), at first use:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o libwtt_kernels.so csrc/*.cu
+
+into ``build/wtt_torch_kernels/<hash of the sources and flags>/`` beside the
+package (``WTT_TORCH_BUILD_DIR`` overrides the root), so a changed source
+rebuilds and an unchanged one is loaded as it is. Nothing here runs when the
+package is imported; the CPU tests never build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: each returns cudaGetLastError() after its launches
+SIGNATURES = {
+    # q, xk, xv, out, scores, layer, B, B_kv, T, D, H, beam_group, scale, stream
+    "wtt_xattn_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, pad_len, layer, pos, B, ctx, D, H, scale, stream
+    "wtt_self_attn_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # scores, dims, cost, S, K, N, M, stream
+    "wtt_align_cost": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # cost, dims, codes, S, N, M, stream
+    "wtt_dtw_codes": [_P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+BUILD_INFO: dict = {}  # path, seconds, whether it was built in this process
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (CUDA_HOME)")
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    root = os.environ.get("WTT_TORCH_BUILD_DIR") or (_CSRC.parent.parent / "build" / "wtt_torch_kernels")
+    return Path(root) / h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has none."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = build_dir()
+        so = out_dir / "libwtt_kernels.so"
+        t0 = time.perf_counter()
+        built = False
+        if not so.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f"libwtt_kernels.{os.getpid()}.so"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
+                str(s) for s in _sources() if s.suffix == ".cu"
+            ]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            (out_dir / "build.log").write_text(
+                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}), see {out_dir / 'build.log'}:\n"
+                    + proc.stderr[-4000:]
+                )
+            os.replace(tmp, so)
+            built = True
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0, built=built)
+        _lib = lib
+        return lib

@@ -1,0 +1,304 @@
+"""The four hand-written Hopper kernels of the decode/alignment path, each
+beside its plain PyTorch version.
+
+======================  ==========================================================
+wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.py``)
+======================  ==========================================================
+``xattn_decode``        ``cross_attention_stacked_pallas_v2`` (:854)
+``self_attn_decode``    ``self_attention_stacked_pallas`` (:2088)
+``align_cost``          ``attention_to_cost_batched`` (:395)
+``dtw_codes``           ``dtw_codes_batched`` (:477)
+======================  ==========================================================
+
+Dispatch is by device: for CPU tensors a wrapper runs the plain version (the
+counterpart of Pallas interpret mode, what the CPU tests exercise); for CUDA
+tensors it checks device, dtype, shape and contiguity, allocates its outputs
+with ``torch.empty``, launches the CUDA kernel from ``csrc/`` on the current
+stream (built on first use by ``ops._build``), raises if the launch failed,
+and adds one to ``LAUNCHES[name]``. There is no fallback from the kernel to
+the plain version. The plain versions take either device, which is how a
+run on the card compares the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+# launches of each kernel since the last reset_launches(); the wrappers add
+# one per kernel call (align_cost's one call is three launches on one stream)
+LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0}
+
+DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
+DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
+HEAD_DIM = 64  # the only head width the attention kernels take
+MAX_T = 8192  # attention rows that fit the kernels' shared-memory softmax
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def xattn_decode_plain(q, xk_all, xv_all, layer: int, n_head: int,
+                       emit_scores: bool = False, beam_group: int = 1):
+    """Single-query cross-attention over layer ``layer`` of the stacked K/V.
+
+    q (B, 1, D); xk_all/xv_all (L, B_kv, T, D) with B == B_kv * beam_group
+    (row b reads K/V row b // beam_group). Returns (out (B, 1, D) in q's
+    dtype, scores (B, H, 1, T) f32 pre-softmax q·k·dh^-0.5, or None). All
+    arithmetic in f32."""
+    B, _, D = q.shape
+    dh = D // n_head
+    k, v = xk_all[layer], xv_all[layer]
+    if beam_group > 1:
+        rows = torch.arange(B, device=q.device) // beam_group
+        k, v = k.index_select(0, rows), v.index_select(0, rows)
+    T = k.shape[1]
+    qh = q.float().reshape(B, n_head, dh)
+    kh = k.float().reshape(B, T, n_head, dh).transpose(1, 2)
+    vh = v.float().reshape(B, T, n_head, dh).transpose(1, 2)
+    s = torch.einsum("bhd,bhtd->bht", qh, kh) * dh**-0.5
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bht,bhtd->bhd", p, vh).reshape(B, 1, D).to(q.dtype)
+    return out, (s[:, :, None] if emit_scores else None)
+
+
+def self_attn_decode_plain(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int):
+    """Single-query self-attention over layer ``layer`` of the stacked cache.
+
+    q (B, 1, D); k_all/v_all (L, B, ctx, D); slot s of row b is live when
+    pad_len[b] <= s <= pos, or s == pos (a padding-slot query keeps its own
+    slot, so no row is fully masked). Returns (B, 1, D) in q's dtype."""
+    B, _, D = q.shape
+    dh = D // n_head
+    k = k_all[layer, :, : pos + 1].float()
+    v = v_all[layer, :, : pos + 1].float()
+    lo = torch.clamp(pad_len.to(q.device).long(), max=pos)
+    live = torch.arange(pos + 1, device=q.device)[None, :] >= lo[:, None]  # (B, pos+1)
+    qh = q.float().reshape(B, n_head, dh)
+    kh = k.reshape(B, pos + 1, n_head, dh).transpose(1, 2)
+    vh = v.reshape(B, pos + 1, n_head, dh).transpose(1, 2)
+    s = torch.einsum("bhd,bhtd->bht", qh, kh) * dh**-0.5
+    s = s.masked_fill(~live[:, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bht,bhtd->bhd", p, vh).reshape(B, 1, D).to(q.dtype)
+
+
+def align_cost_plain(scores, dims):
+    """Batched DTW cost. scores (S, K, N, M) f32, the alignment heads' scores
+    of each segment's token rows from its start frame on; dims (S, 4) int32
+    rows (n_tokens, span, maxdur_col, start). Returns (S, N, M) f32:
+
+    width-9 median over frames (symmetric reflection at column 0 and at the
+    true span edge) -> softmax over frames < span -> mean over heads (summed
+    in head order) -> L2 norm of each frame column over the token rows ->
+    negate; then 0 at (row < n_tokens - 1, col >= maxdur_col), and
+    cost[0, 0] = min(cost). Cells outside (n_tokens, span) are 0."""
+    S, K, N, M = scores.shape
+    dev = scores.device
+    dims = dims.to(dev).long()
+    n_tok, span, maxdur = dims[:, 0], dims[:, 1].clamp(max=M), dims[:, 2]
+    # source column of each padded position (S, M + 8)
+    p = torch.arange(M + 8, device=dev)
+    src = torch.where(p < 4, 3 - p, p - 4)[None].expand(S, -1)
+    k_edge = p[None] - 4 - span[:, None]
+    src = torch.where((k_edge >= 0) & (k_edge < 4),
+                      torch.clamp(span[:, None] - 1 - k_edge, min=0), src)
+    src = src.clamp(0, M - 1)
+    xp = torch.gather(scores.float(), 3, src[:, None, None, :].expand(S, K, N, M + 8))
+    med = xp.unfold(3, 9, 1).median(dim=-1).values  # (S, K, N, M)
+    col = torch.arange(M, device=dev)
+    row = torch.arange(N, device=dev)
+    valid = (col[None, None] < span[:, None, None]) & (row[None, :, None] < n_tok[:, None, None])
+    med = med.masked_fill(~valid[:, None], float("-inf"))
+    mx = med.amax(dim=-1, keepdim=True)
+    e = torch.where(valid[:, None], torch.exp(med - mx), 0.0)
+    contrib = torch.where(valid[:, None], e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30), 0.0)
+    acc = torch.zeros((S, N, M), dtype=torch.float32, device=dev)
+    for k in range(K):
+        acc = acc + contrib[:, k]
+    mean = acc * (1.0 / K)
+    norm = torch.sqrt((mean * mean).sum(dim=1, keepdim=True))
+    cost = torch.where(valid, -(mean / norm.clamp_min(1e-30)), 0.0)
+    masked = (row[None, :, None] < n_tok[:, None, None] - 1) & (col[None, None] >= maxdur[:, None, None])
+    cost = torch.where(masked & valid, 0.0, cost)
+    cost[:, 0, 0] = cost.amin(dim=(1, 2))
+    return cost
+
+
+def dtw_codes_plain(cost, dims):
+    """Batched anti-diagonal DTW. cost (S, N, M) f32, dims (S, 4) int32 with
+    the true extent (n, m) in columns 0-1. Returns (S, N+M-1, N) int32 step
+    codes, diagonal-major: codes[s, i+j, i] is the step into cell (i, j).
+    Ties: strict <, DIAG before LEFT before UP; unreachable cost 3e38. Rows
+    d >= n+m-1 of a segment are 0."""
+    S, N, M = cost.shape
+    dev = cost.device
+    dims = dims.to(dev).long()
+    n, m = dims[:, 0].clamp(max=N), dims[:, 1].clamp(max=M)
+    n_diag = n + m - 1
+    steps = int(n_diag.max()) if S else 0
+    codes = torch.zeros((S, N + M - 1, N), dtype=torch.int32, device=dev)
+    i = torch.arange(N, device=dev)
+    inf = torch.tensor(DTW_INF, dtype=torch.float32, device=dev)
+    inf_col = torch.full((S, 1), DTW_INF, dtype=torch.float32, device=dev)
+    g1 = torch.full((S, N), DTW_INF, dtype=torch.float32, device=dev)
+    g2 = g1.clone()
+    cost = cost.float()
+    for d in range(steps):
+        j = d - i
+        valid = (j >= 0)[None] & (j[None] < m[:, None]) & (i[None] < n[:, None])
+        x_d = torch.where(valid, cost[:, i, j.clamp(0, M - 1)], inf)
+        g1_up = torch.cat([inf_col, g1[:, :-1]], dim=1)
+        g2_diag = torch.cat([inf_col, g2[:, :-1]], dim=1)
+        cand_diag = torch.where(((i >= 1) & (j >= 1))[None], g2_diag, inf)
+        cand_left = torch.where((j >= 1)[None], g1, inf)
+        cand_up = torch.where((i >= 1)[None], g1_up, inf)
+        best = cand_diag
+        code = torch.full((S, N), DIAG, dtype=torch.int32, device=dev)
+        code = torch.where(cand_left < best, LEFT, code)
+        best = torch.minimum(best, cand_left)
+        code = torch.where(cand_up < best, UP, code)
+        best = torch.minimum(best, cand_up)
+        origin = ((i == 0) & (j == 0))[None]
+        g_new = torch.where(valid, torch.where(origin, x_d, x_d + best), inf)
+        codes[:, d] = torch.where((d < n_diag)[:, None], code, 0)
+        g2, g1 = g1, g_new
+    return codes
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CPU -> plain version, CUDA -> kernel
+# ---------------------------------------------------------------------------
+
+
+def _on_cuda(name: str, *tensors) -> bool:
+    """True for CUDA tensors on one device, False for CPU tensors; raises on
+    anything else (mixed devices, other backends)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return True
+
+
+def _expect(name: str, cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def _launch(name: str, fn_name: str, *args) -> None:
+    from ._build import library
+
+    rc = getattr(library(), fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def xattn_decode(q, xk_all, xv_all, layer: int, n_head: int,
+                 emit_scores: bool = False, beam_group: int = 1
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Cross-attention of one decode step over layer ``layer`` of the stacked
+    encoder K/V (see ``xattn_decode_plain``). On CUDA: bf16 q/K/V, head
+    width 64, contiguous; scores are written only when ``emit_scores``."""
+    name = "xattn_decode"
+    if not _on_cuda(name, q, xk_all, xv_all):
+        return xattn_decode_plain(q, xk_all, xv_all, layer, n_head, emit_scores, beam_group)
+    B, S, D = q.shape
+    L, B_kv, T, Dk = xk_all.shape
+    _expect(name, S == 1 and Dk == D and xv_all.shape == xk_all.shape, "shape mismatch")
+    _expect(name, D == n_head * HEAD_DIM, f"head width must be {HEAD_DIM}, got D={D} H={n_head}")
+    _expect(name, all(t.dtype == torch.bfloat16 for t in (q, xk_all, xv_all)), "q/K/V must be bf16")
+    _expect(name, all(t.is_contiguous() for t in (q, xk_all, xv_all)), "inputs must be contiguous")
+    _expect(name, _aligned(q, xk_all, xv_all), "inputs must be 16-byte aligned")
+    _expect(name, B == B_kv * beam_group, f"B={B} != B_kv={B_kv} * beam_group={beam_group}")
+    _expect(name, 0 <= layer < L and 0 < T <= MAX_T, f"layer {layer} / T {T} out of range")
+    out = torch.empty_like(q)
+    scores = (
+        torch.empty((B, n_head, 1, T), dtype=torch.float32, device=q.device)
+        if emit_scores else None
+    )
+    _launch(name, "wtt_xattn_decode", q.data_ptr(), xk_all.data_ptr(), xv_all.data_ptr(),
+            out.data_ptr(), scores.data_ptr() if scores is not None else None,
+            layer, B, B_kv, T, D, n_head, beam_group, HEAD_DIM**-0.5, _stream(q))
+    return out, scores
+
+
+def self_attn_decode(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int):
+    """Self-attention of one decode step over layer ``layer`` of the stacked
+    cache, live slots [min(pad_len[b], pos), pos] (see
+    ``self_attn_decode_plain``). On CUDA: bf16, head width 64, contiguous,
+    int32 ``pad_len`` on the same device."""
+    name = "self_attn_decode"
+    if not _on_cuda(name, q, k_all, v_all, pad_len):
+        return self_attn_decode_plain(q, k_all, v_all, layer, pos, pad_len, n_head)
+    B, S, D = q.shape
+    L, Bk, ctx, Dk = k_all.shape
+    _expect(name, S == 1 and Bk == B and Dk == D and v_all.shape == k_all.shape, "shape mismatch")
+    _expect(name, D == n_head * HEAD_DIM, f"head width must be {HEAD_DIM}, got D={D} H={n_head}")
+    _expect(name, all(t.dtype == torch.bfloat16 for t in (q, k_all, v_all)), "q/K/V must be bf16")
+    _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
+    _expect(name, all(t.is_contiguous() for t in (q, k_all, v_all, pad_len)), "inputs must be contiguous")
+    _expect(name, _aligned(q, k_all, v_all), "inputs must be 16-byte aligned")
+    _expect(name, 0 <= layer < L and 0 <= pos < min(ctx, MAX_T), f"layer {layer} / pos {pos} out of range")
+    out = torch.empty_like(q)
+    _launch(name, "wtt_self_attn_decode", q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+            out.data_ptr(), pad_len.data_ptr(), layer, pos, B, ctx, D, n_head,
+            HEAD_DIM**-0.5, _stream(q))
+    return out
+
+
+def align_cost(scores, dims):
+    """Batched DTW cost matrices (see ``align_cost_plain``). On CUDA: f32
+    scores (S, K, N, M) with M <= 4000, int32 dims (S, 4), contiguous."""
+    name = "align_cost"
+    if not _on_cuda(name, scores, dims):
+        return align_cost_plain(scores, dims)
+    S, K, N, M = scores.shape
+    _expect(name, scores.dtype == torch.float32 and dims.dtype == torch.int32, "scores f32, dims int32")
+    _expect(name, dims.shape == (S, 4), "dims must be (S, 4)")
+    _expect(name, scores.is_contiguous() and dims.is_contiguous(), "inputs must be contiguous")
+    _expect(name, 8 <= M <= 4000 and 0 < N <= 65535 and K > 0, f"unsupported N={N} M={M} K={K}")
+    cost = torch.empty((S, N, M), dtype=torch.float32, device=scores.device)
+    _launch(name, "wtt_align_cost", scores.data_ptr(), dims.data_ptr(), cost.data_ptr(),
+            S, K, N, M, _stream(scores))
+    return cost
+
+
+def dtw_codes(cost, dims):
+    """Batched DTW step codes (see ``dtw_codes_plain``). On CUDA: f32 cost
+    (S, N, M) with N a multiple of 32 up to 1024, int32 dims (S, 4). Rows
+    d >= n+m-1 of a segment are left unwritten."""
+    name = "dtw_codes"
+    if not _on_cuda(name, cost, dims):
+        return dtw_codes_plain(cost, dims)
+    S, N, M = cost.shape
+    _expect(name, cost.dtype == torch.float32 and dims.dtype == torch.int32, "cost f32, dims int32")
+    _expect(name, dims.shape == (S, 4), "dims must be (S, 4)")
+    _expect(name, cost.is_contiguous() and dims.is_contiguous(), "inputs must be contiguous")
+    _expect(name, 0 < N <= 1024 and N % 32 == 0 and M > 0, f"unsupported N={N} M={M}")
+    codes = torch.empty((S, N + M - 1, N), dtype=torch.int32, device=cost.device)
+    _launch(name, "wtt_dtw_codes", cost.data_ptr(), dims.data_ptr(), codes.data_ptr(),
+            S, N, M, _stream(cost))
+    return codes
