@@ -11,22 +11,39 @@ Phases, each printing a line; any failure raises and exits non-zero:
       with nvcc (into ``build/``) and prints the build seconds;
   (c) runs each kernel against its plain PyTorch version on the card at the
       shapes of the large-v3 main path, with the stated tolerances, and
-      times both with CUDA events;
+      times both, and the one PyTorch call that computes the same function
+      where there is one, with CUDA events; computes each kernel's bound
+      (the least time the H100's published rates allow for its inputs);
   (d) answers three requests (7 s, 12 s and 35 s of seeded noise-plus-tone
       audio) through ``transcribe_timestamped`` with a large-v3-geometry
       model of seeded random bf16 weights, checks the results' schema, and
-      checks that the main path launched every kernel (launch counters reset
-      just before, read just after);
-  (e) checks one decode step of that model against the same step with the
-      plain versions in place of the kernels.
+      checks that the serial path launched every kernel (launch counters
+      reset just before, read just after);
+  (e) checks one decode step and one encode of that model against the same
+      with the plain versions in place of the kernels (the encode layer by
+      layer, and as a whole norm-wise), and times the encoder at B=1 and B=8
+      through the kernel and through the plain attention math (with the
+      peak memory of each);
+  (f) batched serving: ``transcribe_batch_stream`` over two batches of 8
+      streams (5-35 s of seeded audio, one 35 s stream in each) at B=8,
+      checks each result's schema, checks that the stream's results equal
+      ``transcribe_batch`` on each batch alone (segment tokens), and checks
+      that the batched path launched every kernel, ``flash_attention`` at
+      least 32 times per window iteration (counters reset just before the
+      stream, read just after).
 
-``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens
-and prints the device's busy share and the kernels that fill it.
+``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
+at B=1 and at B=8, and prints the device's busy share and the kernels that
+fill it.
+``--compare`` adds (d) with the plain attention math of the encoder and the
+prefill (the path before the flash kernel) in turns with the kernel path:
+plain, kernel, kernel, plain.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -48,7 +65,20 @@ SOURCES = {
                    "whisper_timestamped_tpu/ops/pallas_kernels.py:395"),
     "dtw_codes": ("whisper_timestamped_tpu_torch/csrc/dtw_codes.cu",
                   "whisper_timestamped_tpu/ops/pallas_kernels.py:477"),
+    "flash_attention": ("whisper_timestamped_tpu_torch/csrc/flash_attn.cu",
+                        "whisper_timestamped_tpu/models/whisper_jax.py:246"),
 }
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+
+def bound(bytes_moved: float, flops: float, peak_flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak_flops
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 def fail(msg: str):
@@ -71,10 +101,17 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def heads_view(x, H):
+    """(B, S, H*64) -> (B, H, S, 64) view, the layout of
+    ``scaled_dot_product_attention``."""
+    return x.view(x.shape[0], x.shape[1], H, 64).transpose(1, 2)
+
+
 def phase_kernels(torch, K, device):
     """(c): every kernel against its plain version at main-path shapes."""
     from whisper_timestamped_tpu_torch.device_align import M_PAD, _backtrace_batch
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=device).manual_seed(0)
     rec = {}
     L, T, D, H = 32, 1500, 1280, 20
@@ -102,10 +139,18 @@ def phase_kernels(torch, K, device):
         fail(f"xattn_decode disagrees: out {err_out:.3g} (atol 2e-2), scores {err_sc:.3g} (atol 1e-3)")
     q, xk, xv = t_main
     ms = cuda_time_ms(lambda it=0: K.xattn_decode(q, xk, xv, it % L, H, emit_scores=True))
+    ms_ns = cuda_time_ms(lambda it=0: K.xattn_decode(q, xk, xv, it % L, H))
     plain_ms = cuda_time_ms(lambda it=0: K.xattn_decode_plain(q, xk, xv, it % L, H, emit_scores=True))
-    rec["xattn_decode"] = dict(max_abs_err=max(err_out, err_sc), ms=ms, plain_ms=plain_ms)
+    # the library call computes the output only (no scores): beside ms_ns
+    lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q, H), heads_view(xk[it % L], H),
+                                            heads_view(xv[it % L], H)))
+    b_ms, b_by = bound(2 * T * D * 2 + 2 * D * 2 + H * T * 4, 4 * T * D, F32_FLOPS)
+    rec["xattn_decode"] = dict(max_abs_err=max(err_out, err_sc), ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     print(f"[c] xattn_decode: out err {err_out:.3g} (atol 2e-2), scores err {err_sc:.3g} "
-          f"(atol 1e-3); B=1 L=32 T=1500 D=1280 H=20: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+          f"(atol 1e-3); B=1 L=32 T=1500 D=1280 H=20: {ms:.4f} ms with scores, {ms_ns:.4f} ms "
+          f"without, vs plain {plain_ms:.4f} ms, sdpa (output only) {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
     del xk, xv, t_main
 
     # --- self_attn_decode: ctx 456, varied pad_len, pos 232 and 455 ---
@@ -126,9 +171,14 @@ def phase_kernels(torch, K, device):
     pad1 = torch.tensor([0], dtype=torch.int32, device=device)
     ms = cuda_time_ms(lambda it=0: K.self_attn_decode(q1, k1, v1, it % L, 232, pad1, H))
     plain_ms = cuda_time_ms(lambda it=0: K.self_attn_decode_plain(q1, k1, v1, it % L, 232, pad1, H))
-    rec["self_attn_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q1, H), heads_view(k1[it % L, :, :233], H),
+                                            heads_view(v1[it % L, :, :233], H)))
+    b_ms, b_by = bound(2 * 233 * D * 2 + 2 * D * 2, 4 * 233 * D, F32_FLOPS)
+    rec["self_attn_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     print(f"[c] self_attn_decode: err {err:.3g} (atol 2e-2); B=1 ctx=456 pos=232 D=1280 H=20: "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
     del k_all, v_all, k1, v1
 
     # --- align_cost and dtw_codes: S=8, N in {64, 256}, K=10, M=1536 ---
@@ -166,22 +216,78 @@ def phase_kernels(torch, K, device):
         if not torch.equal(st_k, st_p):
             fail(f"jumps differ at N={N}")
         if N == 256:
-            timed = (scores, dims, c_p)
+            timed = (scores, dims, c_p, dh)
         t0 = time.perf_counter()
         _backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps)
         torch.cuda.synchronize()
         bt_ms = (time.perf_counter() - t0) * 1e3
         print(f"[c] align_cost N={N}: max abs err {err_c:.3g} (rtol 1e-5, atol 1e-6); "
               f"dtw_codes N={N}: codes and jumps equal; backtrace {steps} steps: {bt_ms:.1f} ms")
-    scores, dims, cost = timed
+    scores, dims, cost, dh = timed
+    # the work this data needs: the valid (token, frame) cells of each segment
+    cells = int((dh[:, 0].long() * dh[:, 1].long()).sum())
     ms = cuda_time_ms(lambda it=0: K.align_cost(scores, dims), iters=10)
     plain_ms = cuda_time_ms(lambda it=0: K.align_cost_plain(scores, dims), iters=3)
-    rec["align_cost"] = dict(max_abs_err=err_c, ms=ms, plain_ms=plain_ms)
+    # reads each valid score once, writes the whole (S, N, M) cost; about 48
+    # f32 operations per score (a 19-exchange median-of-9 network, softmax,
+    # head mean, norm)
+    b_ms, b_by = bound(Kh * cells * 4 + S * 256 * M * 4, 48 * Kh * cells, F32_FLOPS)
+    rec["align_cost"] = dict(max_abs_err=err_c, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
     ms_d = cuda_time_ms(lambda it=0: K.dtw_codes(cost, dims), iters=10)
     plain_d = cuda_time_ms(lambda it=0: K.dtw_codes_plain(cost, dims), iters=2)
-    rec["dtw_codes"] = dict(max_abs_err=0.0, ms=ms_d, plain_ms=plain_d)
-    print(f"[c] S=8 K=10 N=256 M=1536: align_cost {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
-          f"dtw_codes {ms_d:.4f} ms vs plain {plain_d:.4f} ms")
+    # reads each valid cost cell once, writes its step code once; ~6 ops a cell
+    bd_ms, bd_by = bound(cells * 4 + cells * 4, 6 * cells, F32_FLOPS)
+    rec["dtw_codes"] = dict(max_abs_err=0.0, ms=ms_d, plain_ms=plain_d,
+                            bound_ms=bd_ms, bound_by=bd_by, library_ms=None)
+    print(f"[c] S=8 K=10 N=256 M=1536 ({cells} valid cells): align_cost {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); dtw_codes {ms_d:.4f} ms vs plain "
+          f"{plain_d:.4f} ms, bound {bd_ms:.4f} ms ({bd_by}); no single PyTorch call computes either")
+    del scores, cost
+
+    # --- flash_attention: the encoder at B=1 and B=8, the 232-slot prefill ---
+    P = 232
+    pads = torch.tensor([0, 5, 63, 64, 100, 224, 231, 232], dtype=torch.int32, device=device)
+    err_f = 0.0
+    for label, Bf, Sq, Sk, causal in (("encoder B=1", 1, T, T, False),
+                                      ("encoder B=8", 8, T, T, False),
+                                      ("prefill self B=8", 8, P, P, True),
+                                      ("prefill cross B=8", 8, P, T, False)):
+        qf, kf, vf = randn(Bf, Sq, D), randn(Bf, Sk, D), randn(Bf, Sk, D)
+        pad = pads if causal else None
+        o_k = K.flash_attention(qf, kf, vf, H, causal=causal, pad_len=pad)
+        torch.cuda.synchronize()
+        o_p = K.flash_attention_plain(qf, kf, vf, H, causal=causal, pad_len=pad)
+        if not torch.isfinite(o_k.float()).all():
+            fail(f"flash_attention {label}: non-finite output")
+        e = (o_k.float() - o_p.float()).abs().max().item()
+        if not e <= 2e-2:
+            fail(f"flash_attention {label} disagrees: {e:.3g} (atol 2e-2)")
+        err_f = max(err_f, e)
+        del o_k, o_p
+        mask = None
+        live_pairs = Bf * Sq * Sk
+        if causal:  # the same mask as a boolean for the library call
+            qi, ki = torch.arange(Sq, device=device)[:, None], torch.arange(Sk, device=device)[None]
+            live = ((ki[None] >= pad[:, None, None]) & (ki <= qi)[None]) | (ki == qi)[None]
+            live_pairs = int(live.sum())
+            mask = live[:, None]
+        ms_f = cuda_time_ms(lambda it=0: K.flash_attention(qf, kf, vf, H, causal=causal, pad_len=pad),
+                            iters=10)
+        plain_f = cuda_time_ms(lambda it=0: K.flash_attention_plain(qf, kf, vf, H, causal=causal,
+                                                                    pad_len=pad), iters=3)
+        lib_f = cuda_time_ms(lambda it=0: sdpa(heads_view(qf, H), heads_view(kf, H),
+                                               heads_view(vf, H), attn_mask=mask), iters=10)
+        fb_ms, fb_by = bound(Bf * (2 * Sq + 2 * Sk) * D * 2, 4 * H * live_pairs * 64, BF16_FLOPS)
+        print(f"[c] flash_attention {label} (Sq={Sq} Sk={Sk} D=1280 H=20): err {e:.3g} (atol 2e-2); "
+              f"{ms_f:.4f} ms vs plain {plain_f:.4f} ms, sdpa {lib_f:.4f} ms, "
+              f"bound {fb_ms:.4f} ms ({fb_by})")
+        if label == "encoder B=8":  # the shape the batched main path gives it
+            rec["flash_attention"] = dict(ms=ms_f, plain_ms=plain_f, bound_ms=fb_ms,
+                                          bound_by=fb_by, library_ms=lib_f)
+        del qf, kf, vf, mask
+        torch.cuda.empty_cache()
+    rec["flash_attention"]["max_abs_err"] = err_f
     return rec
 
 
@@ -227,18 +333,37 @@ def check_result(res: dict) -> int:
     return n
 
 
-def phase_end_to_end(torch, K, model, tok):
-    """(d): three requests through transcribe_timestamped."""
+# Random weights never stop on their own terms the way a trained model does:
+# the requests suppress EOT (as in the stuck_lm golden), so every window
+# decodes its full token budget, and turn off the quality thresholds that
+# would skip such windows.
+SMOKE_OPTIONS = dict(language="en", no_speech_threshold=None, logprob_threshold=None,
+                     compression_ratio_threshold=None)
+
+
+@contextlib.contextmanager
+def plain_encoder_and_prefill():
+    """The encoder and prefill attention as before the flash kernel: the
+    plain ``_attention`` math (bf16 scores, f32 softmax) in both places."""
+    import whisper_timestamped_tpu_torch.decoding as dec
+    import whisper_timestamped_tpu_torch.models.whisper_torch as wt
+
+    saved = wt._encoder_attention, dec.PREFILL_FLASH_MIN_SLOTS
+    wt._encoder_attention = lambda q, k, v, n: wt._attention(q, k, v, n)[0]
+    dec.PREFILL_FLASH_MIN_SLOTS = 1 << 30
+    try:
+        yield
+    finally:
+        wt._encoder_attention, dec.PREFILL_FLASH_MIN_SLOTS = saved
+
+
+def phase_end_to_end(torch, K, model, tok, label: str = "", expect_launches: bool = True):
+    """(d): three requests through transcribe_timestamped. Returns the
+    launch counts and the seconds per request."""
     from whisper_timestamped_tpu_torch import transcribe_timestamped
     from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
 
-    # random weights never stop on their own terms the way a trained model
-    # does: EOT is suppressed (as in the stuck_lm golden), so every window
-    # decodes its full token budget, and the quality thresholds that would
-    # skip such windows are off
-    kw = dict(language="en", tokenizer=tok, suppress_tokens=f"-1,{tok.eot}",
-              no_speech_threshold=None, logprob_threshold=None,
-              compression_ratio_threshold=None)
+    kw = dict(tokenizer=tok, suppress_tokens=f"-1,{tok.eot}", **SMOKE_OPTIONS)
     transcribe_timestamped(model, make_audio(0, 3), sample_len=4, **kw)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -251,23 +376,23 @@ def phase_end_to_end(torch, K, model, tok):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         words.append(check_result(res))
-        print(f"[d] request {seconds:2d} s audio: {secs[-1]:.2f} s, "
+        print(f"[d]{label} request {seconds:2d} s audio: {secs[-1]:.2f} s, "
               f"{len(res['segments'])} segments, {words[-1]} words")
     launches = dict(K.LAUNCHES)
     timings, counts = get_stage_timings(), get_counts()
     if not any(words):
         fail("no request produced words")
-    if not all(launches.values()):
-        fail(f"a kernel was not launched on the main path: {launches}")
+    if expect_launches and not all(launches.values()):
+        fail(f"a kernel was not launched on the serial path: {launches}")
     steps = counts.get("decode_steps", 0)
     ms_step = 1e3 * timings["decode_loop"]["total_s"] / max(steps, 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[d] launches on the main path: {launches}")
-    print(f"[d] seconds per request: {[round(s, 3) for s in secs]}; decode loop "
+    print(f"[d]{label} launches on the serial path: {launches}")
+    print(f"[d]{label} seconds per request: {[round(s, 3) for s in secs]}; decode loop "
           f"{ms_step:.2f} ms/step over {steps} steps; stages "
           + ", ".join(f"{k} {v['total_s']:.2f}s" for k, v in sorted(timings.items()))
           + f"; peak memory {peak_gb:.2f} GB")
-    return launches
+    return launches, secs
 
 
 def phase_reference_step(torch, K, model):
@@ -308,8 +433,155 @@ def phase_reference_step(torch, K, model):
           f"{rel_l:.3g}, alignment rows {rel_r:.3g} (limit 2e-2)")
 
 
-def phase_profile(torch, model, tok):
-    """(--profile): device time against wall time for one decoded window."""
+def phase_reference_encode(torch, K, model):
+    """(e): one large-v3 encode through the flash kernel against the plain
+    version; the encoder at B=1 and B=8, through the kernel and through the
+    plain attention math of before, with the peak memory of each.
+
+    The check holds each layer's attention output, kernel against plain
+    version on the same inputs, to a max relative error (largest difference
+    over the largest value) of 2e-2, and the whole encode to a norm-wise
+    relative error of 2e-2. The whole encode's max relative error is printed
+    beside that of PyTorch's scaled_dot_product_attention and beside the
+    change that 1e-3 added to one mel cell makes, not held: 32 bf16 layers
+    of random weights carry any perturbation to a few percent of the
+    largest output."""
+    import whisper_timestamped_tpu_torch.models.whisper_torch as wt
+
+    module = model.module
+    dev = module.device
+    g = torch.Generator(device=dev).manual_seed(6)
+    mel = torch.randn((8, 128, 3000), generator=g, device=dev)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / b.abs().max()).item(), ((a - b).norm() / b.norm()).item()
+
+    def encode_with(attention, x=mel[:1]):
+        saved = wt.flash_attention
+        wt.flash_attention = attention
+        try:
+            return wt.encode(module, x)
+        finally:
+            wt.flash_attention = saved
+
+    per_layer = []
+
+    def kernel_beside_plain(q, k, v, n_head, **kw):
+        out = K.flash_attention(q, k, v, n_head, **kw)
+        per_layer.append(rel(out, K.flash_attention_plain(q, k, v, n_head, **kw))[0])
+        return out
+
+    def library(q, k, v, n_head, **kw):
+        o = torch.nn.functional.scaled_dot_product_attention(
+            heads_view(q, n_head), heads_view(k, n_head), heads_view(v, n_head))
+        return o.transpose(1, 2).reshape(q.shape)
+
+    with torch.no_grad():
+        xa_k = encode_with(kernel_beside_plain)
+        xa_p = encode_with(K.flash_attention_plain)
+        xa_s = encode_with(library)
+        if not torch.isfinite(xa_k.float()).all():
+            fail("non-finite encoder output")
+        layer_rel = max(per_layer)
+        max_rel, norm_rel = rel(xa_k, xa_p)
+        lib_max_rel, lib_norm_rel = rel(xa_s, xa_p)
+        if not (layer_rel <= 2e-2 and norm_rel <= 2e-2):
+            fail(f"encode through flash_attention disagrees with its plain version: per layer "
+                 f"{layer_rel:.3g}, whole encode norm-wise {norm_rel:.3g} (limits 2e-2)")
+        print(f"[e] large-v3 encode, flash_attention vs its plain version: attention per layer "
+              f"max rel err {layer_rel:.3g} (limit 2e-2); whole encode norm-wise rel err "
+              f"{norm_rel:.3g} (limit 2e-2), max rel err {max_rel:.3g} (sdpa vs the plain "
+              f"version: {lib_max_rel:.3g} max, {lib_norm_rel:.3g} norm-wise)")
+        # the network's own sensitivity: the same path twice, and with 1e-3
+        # added to one mel cell
+        nudged = mel[:1].clone()
+        nudged.view(-1)[12345] += 1e-3
+        again = rel(encode_with(K.flash_attention), xa_k)[0]
+        moved = rel(encode_with(K.flash_attention, nudged), xa_k)
+        print(f"[e] large-v3 encode through the kernel, run twice: max rel difference {again:.3g}; "
+              f"with 1e-3 added to one mel cell: {moved[0]:.3g} max, {moved[1]:.3g} norm-wise")
+        del xa_k, xa_p, xa_s
+        base = torch.cuda.memory_allocated()
+        for B in (1, 8):
+            line = []
+            for name in ("kernel", "plain math", "kernel", "plain math"):
+                ctx = plain_encoder_and_prefill() if name == "plain math" else contextlib.nullcontext()
+                with ctx:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = cuda_time_ms(lambda it=0: wt.encode(module, mel[:B]), iters=3)
+                    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+                line.append(f"{name} {ms:.2f} ms (peak +{peak:.2f} GB)")
+            print(f"[e] encoder stage, large-v3, B={B}, 32 layers: " + "; ".join(line))
+
+
+def phase_batch(torch, K, model, tok):
+    """(f): the batched serving path at B=8, two batches of 8 streams."""
+    from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_batch_stream
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    kw = dict(batch_size=8, temperature=[0.0], **SMOKE_OPTIONS,
+              decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}"))
+    lengths = ([35, 5, 12, 20, 8, 27, 15, 30], [10, 35, 6, 18, 25, 9, 33, 14])
+    batches = [{f"b{i}s{j}": make_audio(10 * i + j, sec) for j, sec in enumerate(secs)}
+               for i, secs in enumerate(lengths)]
+    audio_s = sum(sum(secs) for secs in lengths)
+    engine = DecodeEngine(model, tok)
+    warm = {f"w{j}": make_audio(90 + j, 3) for j in range(8)}
+    transcribe_batch(model, warm, tok, engine=engine,
+                     **{**kw, "decode_options": DecodingOptions(suppress_tokens=f"-1,{tok.eot}",
+                                                                sample_len=4)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_stage_timings()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got, at = [], []
+    for res in transcribe_batch_stream(model, iter(batches), tok, engine=engine, **kw):
+        got.append(res)
+        at.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    timings, counts = get_stage_timings(), get_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    iterations = counts.get("decode_dispatch", 0)
+    steps = counts.get("decode_steps", 0)
+    words = [check_result(r) for res in got for r in res.values()]
+    if len(got) != len(batches) or [list(r) for r in got] != [list(b) for b in batches]:
+        fail("the stream's results are not the batches' streams, in order")
+    if not any(words):
+        fail("no stream produced words")
+    if not all(launches.values()):
+        fail(f"a kernel was not launched on the batched path: {launches}")
+    if launches["flash_attention"] < 32 * iterations:
+        fail(f"flash_attention launched {launches['flash_attention']} times for "
+             f"{iterations} window iterations (expected >= 32 per iteration)")
+    print(f"[f] launches on the batched path: {launches}; {iterations} window iterations, "
+          f"{steps} decode steps")
+    print(f"[f] transcribe_batch_stream, 2 batches x 8 streams ({audio_s} s of audio), B=8: "
+          f"{wall:.2f} s wall, batches yielded at {[round(a, 2) for a in at]} s, "
+          f"{wall / len(batches):.2f} s per batch, {audio_s / wall:.2f} audio-s per s, "
+          f"decode loop {1e3 * timings['decode_loop']['total_s'] / max(steps, 1):.2f} ms/step, "
+          f"peak memory {peak_gb:.2f} GB, {sum(words)} words")
+    print("[f] stages: " + ", ".join(f"{k} {v['total_s']:.2f}s/{v['count']}"
+                                     for k, v in sorted(timings.items())))
+    for i, b in enumerate(batches):
+        want = transcribe_batch(model, b, tok, engine=engine, **kw)
+        for name in b:
+            if [s["tokens"] for s in got[i][name]["segments"]] != \
+                    [s["tokens"] for s in want[name]["segments"]]:
+                fail(f"stream result for {name} differs from transcribe_batch on its batch")
+    print("[f] the stream's results equal transcribe_batch on each batch alone (segment tokens)")
+    return launches
+
+
+def phase_profile(torch, model, tok, B: int):
+    """(--profile): device time against wall time for one decoded window of
+    B rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,6 +592,7 @@ def phase_profile(torch, model, tok):
     engine = DecodeEngine(model, tok)
     opts = DecodingOptions(language="en", sample_len=64, suppress_tokens=f"-1,{tok.eot}")
     mel = log_mel_spectrogram(make_audio(4, 30), n_mels=128, device=model.device)
+    mel = mel[None].expand(B, -1, -1).contiguous()
     engine.decode_window(mel, opts)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -332,7 +605,7 @@ def phase_profile(torch, model, tok):
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
-    print(f"[p] one window, 64 tokens: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+    print(f"[p] one window, B={B}, 64 tokens: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
           f"({100 * dev_ms / wall_ms:.1f}%)")
     for key, ms, n in rows[:12]:
         print(f"[p]   {ms:9.3f} ms {n:6d}x  {key[:90]}")
@@ -353,7 +626,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    print(f"[a] {kind} x{count}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    print(f"[a] {kind} x{count}; torch {torch.__version__} CUDA {torch.version.cuda}; {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -379,10 +652,20 @@ def main() -> int:
     t0 = time.perf_counter()
     model, tok = large_v3_model(torch, device)
     print(f"[d] large-v3 geometry, seeded bf16 weights on {device}: {time.perf_counter() - t0:.1f} s")
-    launches = phase_end_to_end(torch, K, model, tok)
+    phase_end_to_end(torch, K, model, tok)
+    if "--compare" in sys.argv[1:]:
+        for label in (" plain", " kernel", " plain"):
+            ctx = plain_encoder_and_prefill() if label == " plain" else contextlib.nullcontext()
+            with ctx:
+                phase_end_to_end(torch, K, model, tok, label=label,
+                                 expect_launches=label == " kernel")
     phase_reference_step(torch, K, model)
+    phase_reference_encode(torch, K, model)
+    torch.cuda.empty_cache()
+    launches = phase_batch(torch, K, model, tok)
     if "--profile" in sys.argv[1:]:
-        phase_profile(torch, model, tok)
+        for B in (1, 8):
+            phase_profile(torch, model, tok, B)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],

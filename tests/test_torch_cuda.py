@@ -95,3 +95,57 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="bf16"):
         K.xattn_decode(q.float()[..., :64], kv.float()[..., :64].contiguous(),
                        kv.float()[..., :64].contiguous(), 0, 1)
+
+
+# flash_attention at the large-v3 shapes of the encoder (T=1500) and the
+# 232-slot prompt prefill; bf16 output against the f32 plain version
+FLASH_CASES = {
+    "encoder_b1": dict(B=1, Sq=1500, Sk=1500, causal=False),
+    "encoder_b8": dict(B=8, Sq=1500, Sk=1500, causal=False),
+    "prefill_self": dict(B=8, Sq=232, Sk=232, causal=True),
+    "prefill_cross": dict(B=8, Sq=232, Sk=1500, causal=False),
+}
+PAD_LENS = [0, 5, 63, 64, 100, 224, 231, 232]
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    c = FLASH_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    D, H = 1280, 20
+    q = _randn(g, c["B"], c["Sq"], D)
+    k, v = _randn(g, c["B"], c["Sk"], D), _randn(g, c["B"], c["Sk"], D)
+    pad = (torch.tensor(PAD_LENS, dtype=torch.int32, device=cuda) if c["causal"] else None)
+    before = K.LAUNCHES["flash_attention"]
+    o_k = K.flash_attention(q, k, v, H, causal=c["causal"], pad_len=pad)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == before + 1
+    o_p = K.flash_attention_plain(q, k, v, H, causal=c["causal"], pad_len=pad)
+    assert torch.isfinite(o_k.float()).all()
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+
+
+def test_flash_attention_padded_rows_keep_their_own_slot(cuda):
+    """A row wholly inside the left padding attends only its own slot: its
+    output is that slot's V row, finite, on every row."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, P, D, H = 2, 232, 128, 2
+    q, k, v = (_randn(g, B, P, D) for _ in range(3))
+    pad = torch.tensor([232, 150], dtype=torch.int32, device=cuda)
+    out = K.flash_attention(q, k, v, H, causal=True, pad_len=pad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out[0].float(), v[0].float(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(out[1, :150].float(), v[1, :150].float(), rtol=0, atol=1e-6)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 130, 96), dtype=torch.bfloat16, device=cuda)  # dh = 48
+    with pytest.raises(ValueError, match="head width"):
+        K.flash_attention(x, x, x, 2)
+    y = torch.zeros((1, 130, 128), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        K.flash_attention(y, y, y, 2)
+    z = torch.zeros((1, 128, 130), dtype=torch.bfloat16, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention(z, z, z, 2)

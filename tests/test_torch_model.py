@@ -153,7 +153,7 @@ def test_state_dict_converters_match_jax():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     with tempfile.TemporaryDirectory() as d:
         path = save_openai_pt(hf, f"{d}/tiny.pt")
-        model = L.load_model(path)
+        model = L.load_model(path, device="cpu")
     module = model.module
     assert model.dims == dt
     # (L, in, out) -> (L, out, in); conv (k, in, out) -> (out, in, k)
@@ -161,6 +161,21 @@ def test_state_dict_converters_match_jax():
                                   np.swapaxes(tt["decoder"]["blocks"]["cross"]["q"]["w"], 1, 2))
     np.testing.assert_array_equal(module.encoder["conv1_w"].numpy(),
                                   tt["encoder"]["conv1"]["w"].transpose(2, 1, 0))
+
+
+def test_load_model_defaults_to_the_card(monkeypatch):
+    """Without a device, load_model places the model on CUDA; with no card
+    visible it raises instead of falling back to the CPU."""
+    import tempfile
+
+    from model_utils import save_openai_pt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with tempfile.TemporaryDirectory() as d:
+        path = save_openai_pt(make_hf_model(seed=0), f"{d}/tiny.pt")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            L.load_model(path)
+        assert L.load_model(path, device="cpu").device.type == "cpu"
 
 
 def test_init_params_geometry():

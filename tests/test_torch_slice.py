@@ -145,6 +145,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import whisper_timestamped_tpu_torch.api, whisper_timestamped_tpu_torch.ops.kernels\n"
+        "import whisper_timestamped_tpu_torch.parallel.batch, whisper_timestamped_tpu_torch.parallel.deviceflow\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'whisper_timestamped_tpu' or m.startswith(('whisper_timestamped_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

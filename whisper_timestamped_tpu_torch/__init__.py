@@ -2,13 +2,17 @@
 
 Multilingual transcription with word-level timestamps and confidences on an
 NVIDIA Hopper GPU: plain PyTorch for the model math, hand-written CUDA
-kernels (``csrc/``, built with nvcc at first use) for the decode step's
-attentions and the device word aligner. On the CPU the same code runs with
-the kernels' plain PyTorch versions. The package imports neither JAX nor the
+kernels (``csrc/``, built with nvcc at first use) for the encoder and
+prefill attention, the decode step's attentions and the device word
+aligner. ``transcribe_timestamped`` answers one request;
+``transcribe_batch`` and the serving loop ``transcribe_batch_stream``
+decode many streams at once. On the CPU the same code runs with the
+kernels' plain PyTorch versions. The package imports neither JAX nor the
 JAX package ``whisper_timestamped_tpu``, which stays the reference.
 """
 
 from .api import transcribe_timestamped  # noqa: F401
+from .parallel.batch import transcribe_batch, transcribe_batch_stream  # noqa: F401
 from .audio import load_audio, log_mel_spectrogram, pad_or_trim  # noqa: F401
 from .decoding import DecodingOptions  # noqa: F401
 from .models import WhisperDims, WhisperModel, WhisperTorch, init_params, load_model  # noqa: F401

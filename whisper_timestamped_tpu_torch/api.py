@@ -3,8 +3,10 @@
 Port of ``whisper_timestamped_tpu/api.py`` for the default call: the greedy
 single-pass engine with alignment on the device (``_transcribe_efficient``'s
 ``full_device`` branch: on the card through the CUDA kernels, on the CPU
-through their plain versions). Options outside that path raise
-``NotImplementedError`` naming the option.
+through their plain versions), and the per-segment alignment helpers the
+batch pipeline shares (``prefetch_ts_repair_rows``,
+``prepare_segment_tokens``, ``device_align_segments``). Options outside
+that path raise ``NotImplementedError`` naming the option.
 """
 
 from __future__ import annotations
@@ -368,11 +370,17 @@ def device_align_segments(
     tok: Tokenizer,
     refine_whisper_precision_nframes: int,
     max_windows_per_chunk: int = 16,
-) -> List[Optional[np.ndarray]]:
+    fetch: bool = True,
+):
     """Batched on-device alignment. Returns per-entry jumps (None where the
     entry was not alignable). Chunked so the flattened attention buffer
-    stays bounded for long audio."""
+    stays bounded for long audio.
+
+    ``fetch=False`` (``api.py:716``) queues the aligner and its copies to the
+    host and returns a zero-argument resolver for the same list, which the
+    batch pipeline calls at assembly time."""
     jumps_out: List[Optional[np.ndarray]] = [None] * len(entries)
+    deferred = []
 
     def flush(chunk):
         if not chunk:
@@ -402,8 +410,7 @@ def device_align_segments(
                 continue
             tasks.append(task)
             idxs.append(ei)
-        for ei, j in zip(idxs, compute_jumps_batch(flat, tasks)):
-            jumps_out[ei] = j
+        deferred.append((idxs, compute_jumps_batch(flat, tasks, fetch=False)))
 
     chunk, windows_seen = [], set()
     for ei, (seg, prep) in enumerate(entries):
@@ -415,7 +422,14 @@ def device_align_segments(
             flush(chunk)
             chunk, windows_seen = [], set()
     flush(chunk)
-    return jumps_out
+
+    def resolve():
+        for idxs, sub in deferred:
+            for ei, j in zip(idxs, sub()):
+                jumps_out[ei] = j
+        return jumps_out
+
+    return resolve() if fetch else resolve
 
 
 def _needs_end_repair(tokens: List[int], tok: Tokenizer) -> bool:
@@ -429,12 +443,38 @@ def _needs_end_repair(tokens: List[int], tok: Tokenizer) -> bool:
     )
 
 
-def prepare_segment_tokens(seg: Segment, tok: Tokenizer):
+def prefetch_ts_repair_rows(segments, tok: Tokenizer) -> dict:
+    """One batched read of every timestamp-logprob row the end<=start repair
+    of ``segments`` will need, keyed by ``id(seg)`` (``api.py:822``): the
+    batch pipeline calls it between windows, so the repair costs one read
+    per window buffer instead of one per segment."""
+    need = [s for s in segments
+            if s.window is not None
+            and s.window.ts_logprobs_dev is not None
+            and _needs_end_repair(s.tokens, tok)
+            # the bound ts_logprob_row checks: out of range falls through to it
+            and s.token_span[1] - 1 < s.window.ts_logprobs_dev.shape[1]]
+    by_buf: dict = {}
+    for s in need:
+        by_buf.setdefault(id(s.window.ts_logprobs_dev), []).append(s)
+    out = {}
+    for group in by_buf.values():
+        buf = group[0].window.ts_logprobs_dev
+        bi = torch.as_tensor([s.window.batch_index for s in group], device=buf.device)
+        ri = torch.as_tensor([s.token_span[1] - 1 for s in group], device=buf.device)
+        for s, row in zip(group, buf[bi, ri].cpu().numpy()):
+            out[id(s)] = row
+    return out
+
+
+def prepare_segment_tokens(seg: Segment, tok: Tokenizer, ts_row=None):
     """Pre-alignment token decisions for one segment: early-EOT append,
     stuck-LM flagging, end-token re-estimation (reference
     ``transcribe.py:490-538``). Returns (tokens, local_rows, unfinished,
     max_duration), or None when the segment has no tokens; ``local_rows[k]``
-    is the attention row (in the window's buffer) feeding token k."""
+    is the attention row (in the window's buffer) feeding token k.
+    ``ts_row`` injects the end-repair row (``prefetch_ts_repair_rows``);
+    without it the row is read when the repair needs it."""
     window = seg.window
     a, b = seg.token_span
     tokens = list(seg.tokens)
@@ -457,7 +497,7 @@ def prepare_segment_tokens(seg: Segment, tok: Tokenizer):
 
     if _needs_end_repair(tokens, tok):
         start_off = tokens[0] - tok.timestamp_begin
-        row = window.ts_logprob_row(b - 1)
+        row = ts_row if ts_row is not None else window.ts_logprob_row(b - 1)
         if row is not None and start_off + 1 < len(row):
             new_end = int(np.argmax(row[start_off + 1 :])) + start_off + 1
             tokens[-1] = tok.timestamp_begin + new_end

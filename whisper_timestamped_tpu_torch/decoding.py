@@ -29,6 +29,7 @@ from .models.whisper_torch import (
     _ln,
     _logits,
     _mlp,
+    _prefill_flash_attention,
     decode_full,
     decode_step,
     encode,
@@ -44,6 +45,7 @@ PROMPT_REGION = 232
 # Compact region for promptless windows (sot sequence + small prefix only).
 PROMPT_REGION_SMALL = 8
 MAX_NEW_TOKENS = 224  # whisper's sample_len default: n_text_ctx // 2
+PREFILL_FLASH_MIN_SLOTS = 16  # larger prompt regions prefill through flash_attention
 
 
 @dataclass(frozen=True)
@@ -172,7 +174,11 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
     """Run the P-slot prompt region through the decoder at once, filling
     cache slots [0, P). Returns (x (B, P, D), rows (B, K, T) f32): rows are
     the alignment heads' pre-softmax scores of the LAST prompt position,
-    which predicts the first sampled token."""
+    which predicts the first sampled token.
+
+    Regions of more than 16 slots send the self- and cross-attention
+    through the ``flash_attention`` kernel (``decoding.py:309-314`` of the
+    JAX package); smaller ones keep the plain masked ``_attention``."""
     dims = model.dims
     dec = model.decoder
     H = dims.n_text_head
@@ -180,12 +186,14 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
     slot = torch.arange(P, device=prompt.device)
     pos_ids = torch.clamp(slot[None] - pad_len[:, None], min=0)
     x = (dec["tok_emb"][prompt] + dec["pos_emb"][pos_ids]).to(cache.k.dtype)
-    # query slot q attends keys k with pad_len <= k <= q; a padding-slot
-    # query keeps its own slot (a fully masked row would turn into NaN)
-    q_ids, k_ids = slot[:, None], slot[None, :]
-    valid = ((k_ids[None] >= pad_len[:, None, None]) & (k_ids <= q_ids)[None]) | (k_ids == q_ids)[None]
-    mask = torch.zeros(valid.shape, dtype=x.dtype, device=x.device).masked_fill(~valid, float("-inf"))
-    mask = mask[:, None]  # (B, 1, P, P)
+    use_flash = P > PREFILL_FLASH_MIN_SLOTS
+    if not use_flash:
+        # query slot q attends keys k with pad_len <= k <= q; a padding-slot
+        # query keeps its own slot (a fully masked row would turn into NaN)
+        q_ids, k_ids = slot[:, None], slot[None, :]
+        valid = ((k_ids[None] >= pad_len[:, None, None]) & (k_ids <= q_ids)[None]) | (k_ids == q_ids)[None]
+        mask = torch.zeros(valid.shape, dtype=x.dtype, device=x.device).masked_fill(~valid, float("-inf"))
+        mask = mask[:, None]  # (B, 1, P, P)
     K = len(align_heads)
     rows = torch.zeros((B, K, cache.xk.shape[2]), dtype=torch.float32, device=x.device)
     for l in range(dims.n_text_layer):
@@ -194,12 +202,18 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
         v_new = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])
         cache.k[l, :, :P] = k_new
         cache.v[l, :, :P] = v_new
-        a, _ = _attention(_linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l]),
-                          k_new, v_new, H, mask=mask)
+        q_self = _linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l])
+        if use_flash:
+            a = _prefill_flash_attention(q_self, k_new, v_new, H, pad_len=pad_len, causal=True)
+        else:
+            a, _ = _attention(q_self, k_new, v_new, H, mask=mask)
         x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
-        c, _ = _attention(qc, cache.xk[l], cache.xv[l], H)
+        if use_flash:
+            c = _prefill_flash_attention(qc, cache.xk[l], cache.xv[l], H)
+        else:
+            c, _ = _attention(qc, cache.xk[l], cache.xv[l], H)
         hits = [k for k, (hl, _) in enumerate(align_heads) if hl == l]
         if hits:
             # only alignment-head layers: the last row's scores through the

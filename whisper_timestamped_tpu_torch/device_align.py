@@ -26,6 +26,7 @@ import torch
 from .alignment import AlignmentPlan, plan_alignment
 from .audio import N_FRAMES
 from .ops.kernels import DIAG, LEFT, align_cost, dtw_codes
+from .utils import host_copy
 
 M_PAD = ((N_FRAMES // 2 + 127) // 128) * 128  # 1536: frame capacity per segment
 TOKEN_BUCKET = 64  # token rows pad to multiples of 64 (up to 256)
@@ -117,11 +118,16 @@ def make_task(
     return SegmentAlignTask(plan=plan, flat_rows=flat, max_duration=max_duration)
 
 
-def compute_jumps_batch(attn_flat, tasks: List[SegmentAlignTask]) -> List[np.ndarray]:
+def compute_jumps_batch(attn_flat, tasks: List[SegmentAlignTask], fetch: bool = True):
     """Run the device aligner for a batch of segments. Returns, per task,
-    the (n_tokens + 1,) int64 jumps array for ``precomputed_jumps``."""
+    the (n_tokens + 1,) int64 jumps array for ``precomputed_jumps``.
+
+    ``fetch=False`` (``device_align.py:178-241``) queues the aligner and a
+    non-blocking copy of its start frames into pinned host memory, and
+    returns a zero-argument resolver for the same list: the batch pipeline
+    resolves at assembly time, so no read blocks its window loop."""
     if not tasks:
-        return []
+        return [] if fetch else (lambda: [])
     attn_flat = torch.as_tensor(attn_flat)
     S = len(tasks)
     n_max = max(len(t.plan.tokens) for t in tasks)
@@ -142,10 +148,15 @@ def compute_jumps_batch(attn_flat, tasks: List[SegmentAlignTask]) -> List[np.nda
             maxdur = min(t.max_duration, M_PAD)
         dims[s] = (n, span, maxdur, t.plan.start_token)
 
-    starts = _align_jumps(attn_flat, rows, dims).cpu().numpy()
-    out = []
-    for s, t in enumerate(tasks):
-        n = len(t.plan.tokens)
-        span = t.plan.end_token - t.plan.start_token
-        out.append(np.concatenate([starts[s, :n], [span - 1]]).astype(np.int64))
-    return out
+    starts_host = host_copy(_align_jumps(attn_flat, rows, dims))
+
+    def resolve() -> List[np.ndarray]:
+        starts = starts_host()
+        out = []
+        for s, t in enumerate(tasks):
+            n = len(t.plan.tokens)
+            span = t.plan.end_token - t.plan.start_token
+            out.append(np.concatenate([starts[s, :n], [span - 1]]).astype(np.int64))
+        return out
+
+    return resolve() if fetch else resolve

@@ -1,11 +1,12 @@
 """Long-form transcription engine: the 30-second sliding-window loop.
 
 Port of ``whisper_timestamped_tpu/engine.py`` for the greedy single-pass
-path: ``DecodeEngine`` (bf16 or f32, whatever the model holds),
-``decode_window``, ``decode_with_fallback`` at one temperature,
-``transcribe_windows`` and ``extract_window_segments``. The mel and the
-window slicing and padding run in torch on the model's device. Sampling,
-beam search, best_of and the quantisation levers raise
+path: ``DecodeEngine`` (bf16 or f32, whatever the model holds) with
+``build_prompt``, ``decode_window`` and the result unpacking the batch
+pipeline shares, ``decode_with_fallback`` at one temperature,
+``needs_fallback``, ``transcribe_windows`` and ``extract_window_segments``.
+The mel and the window slicing and padding run in torch on the model's
+device. Sampling, beam search, best_of and the quantisation levers raise
 ``NotImplementedError``.
 """
 
@@ -145,9 +146,11 @@ class DecodeEngine:
 
     def build_prompt(
         self, prompt_tokens: Sequence[int], options: DecodingOptions,
+        region: Optional[int] = None,
     ) -> Tuple[np.ndarray, int, int]:
         """Right-aligned prompt buffer: (buffer (P,), prompt_len,
-        sot_index_from_end). P is the smallest static region that fits."""
+        sot_index_from_end). P is the smallest static region that fits;
+        ``region`` forces a size (a batch keeps all its rows uniform)."""
         tok = self.tokenizer
         sot_seq = [tok.sot]
         if tok.is_multilingual:
@@ -173,7 +176,8 @@ class DecodeEngine:
                 initial.extend(list(prompt_tokens)[-budget:])
         initial.extend(sot_seq)
         initial.extend(prefix)
-        region = PROMPT_REGION_SMALL if len(initial) <= PROMPT_REGION_SMALL else PROMPT_REGION
+        if region is None:
+            region = PROMPT_REGION_SMALL if len(initial) <= PROMPT_REGION_SMALL else PROMPT_REGION
         assert len(initial) <= region
         buf = np.full((region,), tok.eot, np.int32)
         buf[region - len(initial):] = initial
@@ -219,16 +223,30 @@ class DecodeEngine:
             suppress_blank=options.suppress_blank,
             without_timestamps=options.without_timestamps,
         )
-        return self.build_window_results(out, temperature)
+        return self.unpack_window_outputs(out, temperature)
 
-    def build_window_results(self, out, temperature) -> List[WindowDecodeResult]:
-        """Device buffers -> per-row results. Only the token ids, log-probs
-        and scalars cross to the host; the alignment buffers stay put."""
+    def unpack_window_outputs(self, out, temperature) -> List[WindowDecodeResult]:
+        """Device buffers -> per-row results (``engine.py:407``). Only the
+        token ids, log-probs and scalars cross to the host; the alignment
+        buffers stay on the device (fetching them, host alignment, is not
+        yet ported)."""
+        small = [out[k].cpu().numpy()
+                 for k in ("tokens", "token_logprobs", "sum_logprobs", "no_speech_prob")]
+        return self.build_window_results(*small, out, temperature)
+
+    def build_window_results(
+        self,
+        tokens_all: np.ndarray,  # (B, M) int32, on the host
+        logprobs_all: np.ndarray,  # (B, M) f32
+        sum_lp: np.ndarray,  # (B,)
+        nsp: np.ndarray,  # (B,)
+        out,  # the device output dict (alignment buffers)
+        temperature,
+    ) -> List[WindowDecodeResult]:
+        """Host-array half of ``unpack_window_outputs`` (``engine.py:429``):
+        the batch pipeline's device flow lands the small outputs in one
+        packed read and builds the results here."""
         tok = self.tokenizer
-        tokens_all = out["tokens"].cpu().numpy()
-        logprobs_all = out["token_logprobs"].cpu().numpy()
-        sum_lp = out["sum_logprobs"].cpu().numpy()
-        nsp = out["no_speech_prob"].float().cpu().numpy()
         results = []
         for b in range(tokens_all.shape[0]):
             toks = tokens_all[b]
@@ -276,6 +294,27 @@ class DecodeEngine:
             raise not_ported("beam_size")
         return self.decode_window(mel, options, prompt_tokens, temperature=0.0,
                                   generator=generator)[0]
+
+
+def needs_fallback(
+    result: WindowDecodeResult,
+    compression_ratio_threshold: Optional[float],
+    logprob_threshold: Optional[float],
+    no_speech_threshold: Optional[float],
+) -> bool:
+    """whisper's retry predicate (``engine.py:724``): too repetitive or too
+    unsure retries at the next temperature, unless the window is silence.
+    The port has no retry yet; the batch pipeline uses this to refuse a
+    schedule that would need one."""
+    nf = False
+    if (compression_ratio_threshold is not None
+            and result.compression_ratio > compression_ratio_threshold):
+        nf = True
+    if logprob_threshold is not None and result.avg_logprob < logprob_threshold:
+        nf = True
+    if no_speech_threshold is not None and result.no_speech_prob > no_speech_threshold:
+        nf = False
+    return nf
 
 
 # ---------------------------------------------------------------------------

@@ -384,12 +384,30 @@ def _num_parameters_for_name_inference(params: Dict[str, Any]) -> int:
     return total
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the CUDA card. Raises
+    when no card is visible and none was named: the port never falls back
+    to the CPU on its own (pass ``device="cpu"`` for that)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def load_model(name_or_path: str, device=None, dtype=None,
                download_root: Optional[str] = None) -> WhisperModel:
     """Load a local OpenAI ``.pt`` file, a local HF model directory or
     safetensors file, or an official model name found under
-    ``download_root`` / ``~/.cache/whisper``, onto ``device`` in ``dtype``
-    (default: CPU, float32). Nothing is downloaded."""
+    ``download_root`` / ``~/.cache/whisper``, onto ``device`` in ``dtype``.
+    ``device`` defaults to the CUDA card (see ``default_device``; without a
+    card it raises). ``dtype`` defaults to bfloat16 on CUDA, which the
+    kernels take, and float32 elsewhere. Nothing is downloaded."""
+    device = default_device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model_name = None
     ranks, multi_hint = None, None
     if os.path.isdir(name_or_path):
@@ -437,7 +455,7 @@ def load_model(name_or_path: str, device=None, dtype=None,
         if name:
             inferred = get_alignment_heads(name, dims.n_text_layer, dims.n_text_head)
             model_name = model_name or name
-    module = params_from_jax_tree(params, dims, device=device, dtype=dtype or torch.float32)
+    module = params_from_jax_tree(params, dims, device=device, dtype=dtype)
     return WhisperModel(
         module=module, alignment_heads=inferred, model_name=model_name,
         tokenizer_ranks=ranks, tokenizer_multilingual=multi_hint,

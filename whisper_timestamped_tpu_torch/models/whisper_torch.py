@@ -8,10 +8,11 @@ over layers reads each one in place.
 
 The single-token decode step sends its two attentions through the
 hand-written kernels of ``ops.kernels`` (the plain PyTorch versions run for
-CPU tensors). Everything else is plain PyTorch: the encoder and the prompt
-prefill use ``_attention``, the same math as the JAX package's non-TPU
-branch. Pre-softmax attention scores follow whisper's convention,
-``q·k·dh^-0.5`` in float32.
+CPU tensors), and so do the encoder's self-attention and the prompt
+prefill's attentions (``flash_attention``), gated as the JAX package gates
+its flash kernel. Everything else is plain PyTorch; ``_attention`` is the
+JAX package's non-kernel math. Pre-softmax attention scores follow
+whisper's convention, ``q·k·dh^-0.5`` in float32.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import self_attn_decode, xattn_decode
+from ..ops.kernels import flash_attention, self_attn_decode, xattn_decode
+
+ENCODER_FLASH_MIN_LEN = 128  # shorter encoder inputs keep the plain math (whisper_jax.py:261)
 
 
 @dataclass(frozen=True)
@@ -205,6 +208,23 @@ def _attention(q, k, v, n_head, mask=None, return_scores=False):
     return (out, scores.float()) if return_scores else (out, None)
 
 
+def _encoder_attention(q, k, v, n_head):
+    """Encoder self-attention, no mask (``whisper_jax.py:246``): through the
+    ``flash_attention`` kernel for inputs of at least 128 frames, else the
+    plain ``_attention`` math."""
+    if q.shape[1] >= ENCODER_FLASH_MIN_LEN:
+        return flash_attention(q, k, v, n_head)
+    return _attention(q, k, v, n_head)[0]
+
+
+def _prefill_flash_attention(q, k, v, n_head, pad_len=None, causal=False):
+    """Prompt-prefill attention through the ``flash_attention`` kernel
+    (``whisper_jax.py:299``): q (B, P, D) over k/v (B, S, D). The self-
+    attention passes ``pad_len`` and ``causal``; the cross-attention neither
+    (every key live). Rows of left-padding slots attend their own slot."""
+    return flash_attention(q, k, v, n_head, causal=causal, pad_len=pad_len)
+
+
 def _conv1d(x, w, b, stride):
     """(B, C_in, T) conv, kernel 3, padding 1."""
     return F.conv1d(x, w, b, stride=stride, padding=1)
@@ -227,7 +247,7 @@ def encode(model: WhisperTorch, mel: torch.Tensor) -> torch.Tensor:
     H = dims.n_audio_head
     for l in range(dims.n_audio_layer):
         xn = _ln(x, enc["attn_ln_g"][l], enc["attn_ln_b"][l])
-        a, _ = _attention(
+        a = _encoder_attention(
             _linear(xn, enc["attn_q_w"][l], enc["attn_q_b"][l]),
             _linear(xn, enc["attn_k_w"][l]),
             _linear(xn, enc["attn_v_w"][l], enc["attn_v_b"][l]),

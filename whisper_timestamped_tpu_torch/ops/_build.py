@@ -41,6 +41,8 @@ SIGNATURES = {
     "wtt_align_cost": [_P, _P, _P, _I, _I, _I, _I, _P],
     # cost, dims, codes, S, N, M, stream
     "wtt_dtw_codes": [_P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, out, pad_len, B, Sq, Sk, D, H, causal, scale, stream
+    "wtt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

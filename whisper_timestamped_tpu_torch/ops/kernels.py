@@ -1,13 +1,17 @@
-"""The four hand-written Hopper kernels of the decode/alignment path, each
-beside its plain PyTorch version.
+"""The hand-written Hopper kernels of the transcription path, each beside
+its plain PyTorch version.
 
 ======================  ==========================================================
-wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.py``)
+wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.py``
+                        unless noted)
 ======================  ==========================================================
 ``xattn_decode``        ``cross_attention_stacked_pallas_v2`` (:854)
 ``self_attn_decode``    ``self_attention_stacked_pallas`` (:2088)
 ``align_cost``          ``attention_to_cost_batched`` (:395)
 ``dtw_codes``           ``dtw_codes_batched`` (:477)
+``flash_attention``     the library Pallas ``flash_attention`` at
+                        ``models/whisper_jax.py:246`` (encoder) and ``:299``
+                        (prompt prefill)
 ======================  ==========================================================
 
 Dispatch is by device: for CPU tensors a wrapper runs the plain version (the
@@ -29,7 +33,8 @@ import torch
 
 # launches of each kernel since the last reset_launches(); the wrappers add
 # one per kernel call (align_cost's one call is three launches on one stream)
-LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0}
+LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0,
+            "flash_attention": 0}
 
 DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
 DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
@@ -175,6 +180,41 @@ def dtw_codes_plain(cost, dims):
     return codes
 
 
+def flash_attention_plain(q, k, v, n_head: int, *, causal: bool = False, pad_len=None):
+    """Multi-head attention over (B, S, D) projections, head h in columns
+    h*dh .. h*dh+dh-1: softmax(q·kᵀ·dh^-0.5 + mask)·v, all in f32.
+
+    q (B, Sq, D); k/v (B, Sk, D). With ``causal`` (Sq == Sk), key k is live
+    for query q when pad_len[b] <= k <= q, or k == q (a left-padding query
+    keeps its own slot, so no row is empty); ``pad_len`` (B,) defaults to
+    0 and needs ``causal``. Without it every key is live. Returns
+    (B, Sq, D) in q's dtype."""
+    _check_flash_masks(q, k, causal, pad_len)
+    B, Sq, D = q.shape
+    Sk = k.shape[1]
+    dh = D // n_head
+    qh = q.float().reshape(B, Sq, n_head, dh).transpose(1, 2)
+    kh = k.float().reshape(B, Sk, n_head, dh).transpose(1, 2)
+    vh = v.float().reshape(B, Sk, n_head, dh).transpose(1, 2)
+    s = (qh @ kh.transpose(-1, -2)) * dh**-0.5
+    if causal:
+        q_ids = torch.arange(Sq, device=q.device)[:, None]
+        k_ids = torch.arange(Sk, device=q.device)[None, :]
+        lo = (pad_len.to(q.device).long() if pad_len is not None
+              else torch.zeros((B,), dtype=torch.long, device=q.device))
+        live = ((k_ids[None] >= lo[:, None, None]) & (k_ids <= q_ids)[None]) | (k_ids == q_ids)[None]
+        s = s.masked_fill(~live[:, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return (p @ vh).transpose(1, 2).reshape(B, Sq, D).to(q.dtype)
+
+
+def _check_flash_masks(q, k, causal: bool, pad_len) -> None:
+    if pad_len is not None and not causal:
+        raise ValueError("flash_attention: pad_len needs causal=True")
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"flash_attention: causal needs Sq == Sk, got {q.shape[1]} and {k.shape[1]}")
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: CPU -> plain version, CUDA -> kernel
 # ---------------------------------------------------------------------------
@@ -302,3 +342,30 @@ def dtw_codes(cost, dims):
     _launch(name, "wtt_dtw_codes", cost.data_ptr(), dims.data_ptr(), codes.data_ptr(),
             S, N, M, _stream(cost))
     return codes
+
+
+def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None):
+    """Multi-head attention that never materialises the scores (see
+    ``flash_attention_plain`` for the function and its masks). On CUDA:
+    bf16 q/k/v, head width 64, contiguous, 16-byte aligned; ``pad_len``
+    int32 (B,) on the same device. Returns (B, Sq, D) bf16."""
+    name = "flash_attention"
+    tensors = (q, k, v) if pad_len is None else (q, k, v, pad_len)
+    if not _on_cuda(name, *tensors):
+        return flash_attention_plain(q, k, v, n_head, causal=causal, pad_len=pad_len)
+    _check_flash_masks(q, k, causal, pad_len)
+    B, Sq, D = q.shape
+    Bk, Sk, Dk = k.shape
+    _expect(name, Bk == B and Dk == D and v.shape == k.shape, "shape mismatch")
+    _expect(name, D == n_head * HEAD_DIM, f"head width must be {HEAD_DIM}, got D={D} H={n_head}")
+    _expect(name, all(t.dtype == torch.bfloat16 for t in (q, k, v)), "q/K/V must be bf16")
+    _expect(name, all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    _expect(name, _aligned(q, k, v), "inputs must be 16-byte aligned")
+    _expect(name, Sq > 0 and Sk > 0 and B <= 65535 and n_head <= 65535, f"unsupported B={B} Sq={Sq} Sk={Sk}")
+    if pad_len is not None:
+        _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
+    out = torch.empty_like(q)
+    _launch(name, "wtt_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            pad_len.data_ptr() if pad_len is not None else None,
+            B, Sq, Sk, D, n_head, int(causal), HEAD_DIM**-0.5, _stream(q))
+    return out

@@ -1,3 +1,5 @@
+import torch
+
 from .profiling import (  # noqa: F401
     add_count,
     get_counts,
@@ -11,3 +13,26 @@ def not_ported(option: str) -> NotImplementedError:
     """The error for an option of the JAX package that this port does not
     have yet: raised, never silently ignored."""
     return NotImplementedError(f"{option} is not yet ported to whisper_timestamped_tpu_torch")
+
+
+def host_copy(tensor: torch.Tensor):
+    """Start copying ``tensor`` to the host; returns a zero-argument function
+    that waits for the copy and returns it as a numpy array.
+
+    A CUDA tensor is copied into pinned memory without blocking, behind the
+    work already queued on the current stream, and a recorded event marks
+    its arrival (the counterpart of JAX's ``copy_to_host_async``); only the
+    returned function waits. A CPU tensor is returned as it is."""
+    if tensor.device.type != "cuda":
+        arr = tensor.numpy()
+        return lambda: arr
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor, non_blocking=True)
+    landed = torch.cuda.Event()
+    landed.record(torch.cuda.current_stream(tensor.device))
+
+    def wait():
+        landed.synchronize()
+        return host.numpy()
+
+    return wait

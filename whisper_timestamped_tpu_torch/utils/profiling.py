@@ -3,7 +3,21 @@
 Framework-free counterpart of ``whisper_timestamped_tpu/utils/profiling.py``
 (``stage_timer`` and its accessors). Stages that end in a device
 synchronisation (the decode loop syncs once per step) measure device time;
-others measure host enqueue time only.
+others measure host enqueue time only. The timers take a lock: the batch
+serving loop times stages from its assembly thread too.
+
+Stage names in use:
+
+- serial path: ``mel``, ``decode``, ``encode``, ``prefill``,
+  ``decode_loop`` (with the count ``decode_steps``), ``align``;
+- batch pipeline (``parallel/batch.py``): ``prepare_audio`` (upload and mel
+  dispatch), ``batch_mel`` (the same on the critical path, or the wait for a
+  prefetched batch), ``decode_prompt_build``, ``decode_dispatch`` (one
+  window decode of the batch), ``decode_fetch_unpack``,
+  ``devflow_dispatch`` (device flow: decode plus state advance),
+  ``devflow_done_fetch`` (its one blocking read per window),
+  ``batch_prepare`` and ``batch_align`` (alignment queued per window),
+  ``batch_assemble`` (host word assembly).
 """
 
 from __future__ import annotations
@@ -11,6 +25,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
+import threading
 import time
 from typing import Dict
 
@@ -18,6 +33,7 @@ logger = logging.getLogger("whisper_timestamped_tpu_torch")
 
 _timings: Dict[str, float] = collections.defaultdict(float)
 _counts: Dict[str, int] = collections.defaultdict(int)
+_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -28,27 +44,33 @@ def stage_timer(name: str):
         yield
     finally:
         dt = time.perf_counter() - t0
-        _timings[name] += dt
-        _counts[name] += 1
+        with _lock:
+            _timings[name] += dt
+            _counts[name] += 1
         logger.debug("stage %s: %.1f ms", name, dt * 1000)
 
 
 def add_count(name: str, n: int) -> None:
     """Accumulate a plain event count (e.g. decode steps) beside the timers."""
-    _counts[name] += int(n)
+    with _lock:
+        _counts[name] += int(n)
 
 
 def get_stage_timings() -> Dict[str, dict]:
-    return {
-        k: {"total_s": _timings[k], "count": _counts[k], "mean_ms": 1000 * _timings[k] / max(_counts[k], 1)}
-        for k in _timings
-    }
+    with _lock:
+        return {
+            k: {"total_s": _timings[k], "count": _counts[k],
+                "mean_ms": 1000 * _timings[k] / max(_counts[k], 1)}
+            for k in _timings
+        }
 
 
 def get_counts() -> Dict[str, int]:
-    return dict(_counts)
+    with _lock:
+        return dict(_counts)
 
 
 def reset_stage_timings() -> None:
-    _timings.clear()
-    _counts.clear()
+    with _lock:
+        _timings.clear()
+        _counts.clear()
