@@ -30,14 +30,31 @@ Phases, each printing a line; any failure raises and exits non-zero:
       ``transcribe_batch`` on each batch alone (segment tokens), and checks
       that the batched path launched every kernel, ``flash_attention`` at
       least 32 times per window iteration (counters reset just before the
-      stream, read just after).
+      stream, read just after);
+  (g) the production configuration: ``transcribe_batch_stream`` over two
+      batches of 40 streams (5-35 s, five 35 s streams each) at B=40 with a
+      ``kv_int8`` engine, then with a bf16 engine on the same streams: wall
+      time, audio-s per s, ms/step, peak memory and words of each; fails
+      unless every stream of the int8 run has words, ``xattn_decode_int8``
+      launched at least 32 times per decode step and ``xattn_decode`` never;
+  (h) one batch of 8 streams with a ``kv_int4`` + ``self_kv_int8`` engine,
+      and one serial 35 s request with ``WTT_KV_INT8=1``: the schema, the
+      levers' kernels launched, the bf16 kernels they replace never.
+
+(c) covers the three quantized-cache kernels too, and (e) the decode step
+with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
+record takes each kernel's launches from the phase that runs it: the bf16
+path's from (f), ``xattn_decode_int8`` from (g), the other two from (h).
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
-at B=1 and at B=8, and prints the device's busy share and the kernels that
-fill it.
+at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
+busy share and the kernels that fill it.
 ``--compare`` adds (d) with the plain attention math of the encoder and the
 prefill (the path before the flash kernel) in turns with the kernel path:
 plain, kernel, kernel, plain.
+``--turns`` runs (g)'s engines in turns (kv_int8, bf16, bf16, kv_int8);
+``--kernels-only`` stops after (c) (a first check of changed kernels; it
+prints no result line).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -67,7 +84,16 @@ SOURCES = {
                   "whisper_timestamped_tpu/ops/pallas_kernels.py:477"),
     "flash_attention": ("whisper_timestamped_tpu_torch/csrc/flash_attn.cu",
                         "whisper_timestamped_tpu/models/whisper_jax.py:246"),
+    "xattn_decode_int8": ("whisper_timestamped_tpu_torch/csrc/xattn_decode_int8.cu",
+                          "whisper_timestamped_tpu/ops/pallas_kernels.py:1051"),
+    "xattn_decode_int4": ("whisper_timestamped_tpu_torch/csrc/xattn_decode_int4.cu",
+                          "whisper_timestamped_tpu/ops/pallas_kernels.py:1876"),
+    "self_attn_decode_int8": ("whisper_timestamped_tpu_torch/csrc/self_attn_decode_int8.cu",
+                              "whisper_timestamped_tpu/ops/pallas_kernels.py:2205"),
 }
+# the kernels of the bf16 path ([d], [f]); the other three read quantized caches
+BF16_PATH = ("xattn_decode", "self_attn_decode", "align_cost", "dtw_codes", "flash_attention")
+QUANT_PATH = ("xattn_decode_int8", "xattn_decode_int4", "self_attn_decode_int8")
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -291,6 +317,142 @@ def phase_kernels(torch, K, device):
     return rec
 
 
+# The quantized kernels' output limits. The cross kernels against their
+# plain version (which rounds the V-weighted softmax weights to bf16, the
+# kernels do not): 4e-3, four bf16 steps at the outputs' largest magnitude
+# (~0.2 with N(0, 1) q and K/V; the measured error is one step, 9.8e-4).
+# The self kernel sums in f32 and rounds its output once, so against the
+# plain version in f32 (the cache dequantized to f32) it is held to that
+# rounding: half a bf16 step, 2^-8 of the reference, plus 1e-4 for f32
+# sums in another order.
+XATTN_Q_ATOL = 4e-3
+SELF_Q_RTOL, SELF_Q_ATOL = 2.0**-8, 1e-4
+
+
+def phase_quant_kernels(torch, K, device):
+    """(c): the three quantized-cache kernels against their plain versions
+    (limits above; scores atol 1e-3; the written cache rows bit for bit),
+    at small batches and at the batch of the phase that runs them, where
+    they are also timed: B=40 for int8 ([g]), B=8 for int4 and the int8
+    self cache ([h]). No single PyTorch call takes int8/int4 K/V with
+    per-row scales: library none."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
+
+    g = torch.Generator(device=device).manual_seed(1)
+    rec = {}
+    L, T, D, H = 32, 1500, 1280, 20
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def stacked(B_kv, fn):
+        """(L, B_kv, ...) codes and scales, quantized one layer at a time."""
+        codes, scales = zip(*(fn(randn(B_kv, T, D)) for _ in range(L)))
+        return torch.stack(codes), torch.stack(scales)
+
+    for name, fn, Bt in (("xattn_decode_int8", quantize_rows, 40),
+                         ("xattn_decode_int4", quantize_rows_int4, 8)):
+        kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+        err_out = err_sc = 0.0
+
+        def compare(q, kv, beam_group, emit):
+            nonlocal err_out, err_sc
+            for layer in (0, 31):
+                o_k, s_k = kernel(q, *kv, layer, H, emit_scores=emit, beam_group=beam_group)
+                torch.cuda.synchronize()
+                o_p, s_p = plain(q, *kv, layer, H, emit_scores=emit, beam_group=beam_group)
+                err_out = max(err_out, (o_k.float() - o_p.float()).abs().max().item())
+                if emit:
+                    err_sc = max(err_sc, (s_k - s_p).abs().max().item())
+                elif s_k is not None:
+                    fail(f"{name} wrote scores it was not asked for")
+
+        for B, beam_group, emit in ((1, 1, True), (1, 1, False), (4, 1, True), (4, 2, True)):
+            compare(randn(B, 1, D).bfloat16(),
+                    (*stacked(B // beam_group, fn), *stacked(B // beam_group, fn)), beam_group, emit)
+        # the main path's batch, scores on
+        q = randn(Bt, 1, D).bfloat16()
+        kv = (*stacked(Bt, fn), *stacked(Bt, fn))
+        compare(q, kv, 1, True)
+        if not (err_out <= XATTN_Q_ATOL and err_sc <= 1e-3):
+            fail(f"{name} disagrees: out {err_out:.3g} (atol {XATTN_Q_ATOL}), scores {err_sc:.3g} "
+                 f"(atol 1e-3)")
+        ms = cuda_time_ms(lambda it=0: kernel(q, *kv, it % L, H, emit_scores=True))
+        ms_ns = cuda_time_ms(lambda it=0: kernel(q, *kv, it % L, H))
+        plain_ms = cuda_time_ms(lambda it=0: plain(q, *kv, it % L, H, emit_scores=True), iters=5)
+        # each input read once: q, one layer's codes of K and V, their scales;
+        # the output and the scores written once; 4 f32 flops per code pair
+        moved = 2 * Bt * D * 2 + 2 * kv[0][0].numel() + 2 * Bt * T * 4 + Bt * H * T * 4
+        b_ms, b_by = bound(moved, 4 * Bt * T * D, F32_FLOPS)
+        rec[name] = dict(max_abs_err=max(err_out, err_sc), ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(f"[c] {name} (B=1, 4 and {Bt}): out err {err_out:.3g} (atol {XATTN_Q_ATOL}), "
+              f"scores err {err_sc:.3g} (atol 1e-3); B={Bt} L=32 T=1500 D=1280 H=20: {ms:.4f} ms "
+              f"with scores, {ms_ns:.4f} ms without, vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}, {moved / 1e6:.1f} MB); no single PyTorch call computes it")
+        del kv
+        torch.cuda.empty_cache()
+
+    # --- self_attn_decode_int8: the fused row write, then the attention ---
+    ctx = 456
+    err = 0.0
+
+    def compare_self(B, pad, pos, layers):
+        """Kernel against the plain quantizer's rows and the plain version in
+        f32 on one cache; returns the cache."""
+        nonlocal err
+        q, k_new, v_new = (randn(B, 1, D).bfloat16() for _ in range(3))
+        cache = (*quantize_rows(randn(L, B, ctx, D)), *quantize_rows(randn(L, B, ctx, D)))
+        for layer in layers:
+            ck = [t.clone() for t in cache]
+            o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, layer, pos, pad, H)
+            torch.cuda.synchronize()
+            cp = [t.clone() for t in cache]
+            K.write_quantized_row(k_new, v_new, *cp, layer, pos)
+            ref = K.self_attn_decode_int8_plain(q.float(), *cp, layer, pos, pad, H)
+            if not all(torch.equal(a, b) for a, b in zip(ck, cp)):
+                fail(f"self_attn_decode_int8 wrote other cache rows than the plain quantizer "
+                     f"(B={B}, layer {layer}, pos {pos})")
+            diff = (o_k.float() - ref).abs()
+            if not bool((diff <= SELF_Q_ATOL + SELF_Q_RTOL * ref.abs()).all()):
+                fail(f"self_attn_decode_int8 disagrees at B={B} layer {layer} pos {pos}: max abs "
+                     f"{diff.max().item():.3g} (limit 2^-8 of the f32 plain version + {SELF_Q_ATOL})")
+            err = max(err, diff.max().item())
+            del ck, cp
+        return q, k_new, v_new, cache
+
+    pad4 = torch.tensor([0, 5, 224, 300], dtype=torch.int32, device=device)
+    for pos in (232, 455):
+        compare_self(4, pad4, pos, (0, 17, 31))
+    # the main path's batch: varied padding, one row past pos
+    Bt, pos = 8, 232
+    pad8 = torch.tensor([0, 3, 17, 100, 224, 231, 232, 300], dtype=torch.int32, device=device)
+    q, k_new, v_new, cache = compare_self(Bt, pad8, pos, (0, 31))
+    pad0 = torch.zeros((Bt,), dtype=torch.int32, device=device)
+
+    def plain_self(it=0):
+        K.write_quantized_row(k_new, v_new, *cache, it % L, pos)
+        return K.self_attn_decode_int8_plain(q, *cache, it % L, pos, pad0, H)
+
+    ms = cuda_time_ms(lambda it=0: K.self_attn_decode_int8(q, k_new, v_new, *cache, it % L, pos, pad0, H))
+    plain_ms = cuda_time_ms(plain_self)
+    # q, k_new, v_new and the output; the live slots' codes and scales of K
+    # and V; the written row's codes and scales; 4 f32 flops per code pair
+    live = pos + 1
+    moved = Bt * (4 * D * 2 + 2 * live * (D + 4) + 2 * (D + 4))
+    b_ms, b_by = bound(moved, 4 * Bt * live * D, F32_FLOPS)
+    rec["self_attn_decode_int8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"[c] self_attn_decode_int8 (B=4 and {Bt}): max abs err {err:.3g} against the plain "
+          f"version in f32 (limit 2^-8 of it + {SELF_Q_ATOL}), written rows equal the plain "
+          f"quantizer's; B={Bt} ctx=456 pos=232 D=1280 H=20: {ms:.4f} ms vs plain (write + "
+          f"attention) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call "
+          f"computes it")
+    del cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 def make_audio(seed: int, seconds: int):
     import numpy as np
 
@@ -382,8 +544,10 @@ def phase_end_to_end(torch, K, model, tok, label: str = "", expect_launches: boo
     timings, counts = get_stage_timings(), get_counts()
     if not any(words):
         fail("no request produced words")
-    if expect_launches and not all(launches.values()):
+    if expect_launches and not all(launches[k] for k in BF16_PATH):
         fail(f"a kernel was not launched on the serial path: {launches}")
+    if any(launches[k] for k in QUANT_PATH):
+        fail(f"a quantized-cache kernel ran on the bf16 path: {launches}")
     steps = counts.get("decode_steps", 0)
     ms_step = 1e3 * timings["decode_loop"]["total_s"] / max(steps, 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -395,42 +559,62 @@ def phase_end_to_end(torch, K, model, tok, label: str = "", expect_launches: boo
     return launches, secs
 
 
-def phase_reference_step(torch, K, model):
-    """(e): one decode step through the kernels against the plain versions."""
+def phase_reference_step(torch, K, model, label: str = "bf16", **quantize):
+    """(e): one decode step through the kernels against the plain versions,
+    with the cache ``init_cache(**quantize)`` makes (bf16, or the int8 /
+    int4 cross K/V, or the int8 self cache)."""
     import whisper_timestamped_tpu_torch.models.whisper_torch as wt
 
+    def plain_self_int8(q, k_new, v_new, *cache_and_args):
+        k_all, k_scale, v_all, v_scale, layer, pos, pad, H = cache_and_args
+        K.write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, pos)
+        return K.self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos, pad, H)
+
+    plain = dict(self_attn_decode=K.self_attn_decode_plain, xattn_decode=K.xattn_decode_plain,
+                 xattn_decode_int8=K.xattn_decode_int8_plain,
+                 xattn_decode_int4=K.xattn_decode_int4_plain,
+                 self_attn_decode_int8=plain_self_int8)
     module = model.module
     dev = module.device
     g = torch.Generator(device=dev).manual_seed(5)
     mel = torch.randn((1, 128, 3000), generator=g, device=dev)
     with torch.no_grad():
         xa = wt.encode(module, mel)
-        cache = wt.init_cache(module, xa, ctx_len=240)
-        cache.k[:, :, :16].copy_(torch.randn(cache.k[:, :, :16].shape, generator=g, device=dev))
-        cache.v[:, :, :16].copy_(torch.randn(cache.v[:, :, :16].shape, generator=g, device=dev))
+        cache = wt.init_cache(module, xa, ctx_len=240, **quantize)
+        filled = (cache.k.shape[0], 1, 16, cache.k.shape[3])
+        for t in (cache.k, cache.v):  # 16 slots already written, as by a prefill
+            if t.dtype == torch.int8:
+                t[:, :, :16].copy_(torch.randint(-127, 128, filled, generator=g, device=dev))
+            else:
+                t[:, :, :16].copy_(torch.randn(filled, generator=g, device=dev))
+        for s in (cache.k_scale, cache.v_scale):
+            if s is not None:
+                s[:, :, :16].copy_(0.01 + 0.02 * torch.rand(filled[:3], generator=g, device=dev))
         tokens = torch.tensor([[1234]], device=dev)
         pad = torch.tensor([3], dtype=torch.int32, device=dev)
         heads = [(l, h) for l, h in model.alignment_heads]
         out = {}
-        for name, fns in (("kernel", (K.self_attn_decode, K.xattn_decode)),
-                          ("plain", (K.self_attn_decode_plain, K.xattn_decode_plain))):
-            saved = (wt.self_attn_decode, wt.xattn_decode)
-            wt.self_attn_decode, wt.xattn_decode = fns
+        for name, swap in (("kernel", {}), ("plain", plain)):
+            saved = {n: getattr(wt, n) for n in swap}
+            for n, fn in swap.items():
+                setattr(wt, n, fn)
             try:
-                c = wt.KVCache(*(t.clone() for t in cache))
+                c = wt.KVCache(*(None if t is None else t.clone() for t in cache))
                 out[name] = wt.decode_step(module, tokens, c, 16, pos_offset=pad,
                                            kv_valid_from=pad, align_heads=heads)
             finally:
-                wt.self_attn_decode, wt.xattn_decode = saved
+                for n, fn in saved.items():
+                    setattr(wt, n, fn)
     (lk, rk), (lp, rp) = out["kernel"], out["plain"]
     if not (torch.isfinite(lk).all() and torch.isfinite(rk).all()):
-        fail("non-finite logits or scores")
+        fail(f"non-finite logits or scores ({label} cache)")
     rel_l = ((lk.float() - lp.float()).abs().max() / lp.float().abs().max()).item()
     rel_r = ((rk - rp).abs().max() / rp.abs().max()).item()
     if not (rel_l <= 2e-2 and rel_r <= 2e-2):
-        fail(f"decode step disagrees with its plain version: logits {rel_l:.3g}, rows {rel_r:.3g}")
-    print(f"[e] large-v3 decode step, kernels vs plain versions: logits max rel err "
-          f"{rel_l:.3g}, alignment rows {rel_r:.3g} (limit 2e-2)")
+        fail(f"decode step ({label} cache) disagrees with its plain version: logits {rel_l:.3g}, "
+             f"rows {rel_r:.3g}")
+    print(f"[e] large-v3 decode step, {label} cache, kernels vs plain versions: logits max rel "
+          f"err {rel_l:.3g}, alignment rows {rel_r:.3g} (limit 2e-2)")
 
 
 def phase_reference_encode(torch, K, model):
@@ -555,8 +739,10 @@ def phase_batch(torch, K, model, tok):
         fail("the stream's results are not the batches' streams, in order")
     if not any(words):
         fail("no stream produced words")
-    if not all(launches.values()):
+    if not all(launches[k] for k in BF16_PATH):
         fail(f"a kernel was not launched on the batched path: {launches}")
+    if any(launches[k] for k in QUANT_PATH):
+        fail(f"a quantized-cache kernel ran on the bf16 path: {launches}")
     if launches["flash_attention"] < 32 * iterations:
         fail(f"flash_attention launched {launches['flash_attention']} times for "
              f"{iterations} window iterations (expected >= 32 per iteration)")
@@ -579,9 +765,136 @@ def phase_batch(torch, K, model, tok):
     return launches
 
 
-def phase_profile(torch, model, tok, B: int):
+def phase_production(torch, K, model, tok, turns: bool = False):
+    """(g): the JAX package's production serving configuration
+    (``README.md:91-93``): ``transcribe_batch_stream`` over two batches of
+    40 streams at B=40 with a ``kv_int8`` engine, then the same streams with
+    a bf16 engine (``turns``: kv_int8, bf16, bf16, kv_int8). Returns the
+    first int8 run's launch counts."""
+    import numpy as np
+
+    from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_batch_stream
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    B, n_layer = 40, model.dims.n_text_layer
+    kw = dict(batch_size=B, temperature=[0.0], **SMOKE_OPTIONS,
+              decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}"))
+    rng = np.random.default_rng(40)
+    lengths = [rng.integers(5, 36, B) for _ in range(2)]
+    for secs in lengths:
+        secs[::8] = 35  # five 35 s streams a batch: a 232-slot prompt in the device flow
+    batches = [{f"g{i}s{j}": make_audio(1000 + B * i + j, int(sec)) for j, sec in enumerate(secs)}
+               for i, secs in enumerate(lengths)]
+    audio_s = int(sum(s.sum() for s in lengths))
+    runs = (("kv_int8", True), ("bf16", False))
+    if turns:
+        runs = runs + runs[::-1]
+    int8_launches = None
+    for label, kv_int8 in runs:
+        engine = DecodeEngine(model, tok, kv_int8=kv_int8)
+        warm = {f"w{j}": make_audio(90 + j, 3) for j in range(B)}
+        transcribe_batch(model, warm, tok, engine=engine,
+                         **{**kw, "decode_options": DecodingOptions(suppress_tokens=f"-1,{tok.eot}",
+                                                                    sample_len=4)})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_timings()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = list(transcribe_batch_stream(model, iter(batches), tok, engine=engine, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        timings, counts = get_stage_timings(), get_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = counts.get("decode_steps", 0)
+        if [list(r) for r in got] != [list(b) for b in batches]:
+            fail(f"[g] {label}: the stream's results are not the batches' streams, in order")
+        words = {name: check_result(r) for res in got for name, r in res.items()}
+        silent = [name for name, n in words.items() if n == 0]
+        if label == "kv_int8":
+            if silent:
+                fail(f"[g] kv_int8: {len(silent)} of {len(words)} streams have no words: {silent}")
+            if launches["xattn_decode_int8"] < n_layer * steps or launches["xattn_decode"]:
+                fail(f"[g] kv_int8: xattn_decode_int8 launched {launches['xattn_decode_int8']} times "
+                     f"for {steps} steps (expected >= {n_layer} per step), xattn_decode "
+                     f"{launches['xattn_decode']} (expected 0)")
+            int8_launches = int8_launches or launches
+        elif launches["xattn_decode"] < n_layer * steps or launches["xattn_decode_int8"]:
+            fail(f"[g] bf16: xattn_decode launched {launches['xattn_decode']} times for {steps} "
+                 f"steps, xattn_decode_int8 {launches['xattn_decode_int8']} (expected 0)")
+        print(f"[g] {label} engine, transcribe_batch_stream, 2 batches x {B} streams "
+              f"({audio_s} s of audio), B={B}: {wall:.2f} s wall, {wall / len(batches):.2f} s per "
+              f"batch, {audio_s / wall:.2f} audio-s per s, decode loop "
+              f"{1e3 * timings['decode_loop']['total_s'] / max(steps, 1):.2f} ms/step over {steps} "
+              f"steps, {counts.get('decode_dispatch', 0)} window iterations, peak memory "
+              f"{peak_gb:.2f} GB, {sum(words.values())} words "
+              f"({len(words) - len(silent)} of {len(words)} streams with words)")
+        print(f"[g] {label} launches: {launches}; stages: "
+              + ", ".join(f"{k} {v['total_s']:.2f}s/{v['count']}" for k, v in sorted(timings.items())))
+        del got, engine
+        torch.cuda.empty_cache()
+    return int8_launches
+
+
+def phase_levers(torch, K, model, tok):
+    """(h): one batch of 8 streams with a ``kv_int4`` + ``self_kv_int8``
+    engine, and one serial 35 s request with ``WTT_KV_INT8=1`` set around
+    ``transcribe_timestamped``: each checked for its schema, for launches of
+    its levers' kernels and for none of the bf16 kernels they replace.
+    Returns the batch's launch counts."""
+    from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_timestamped
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.utils import get_counts, reset_stage_timings
+
+    engine = DecodeEngine(model, tok, kv_int4=True, self_kv_int8=True)
+    n_layer = model.dims.n_text_layer
+    batch = {f"h{j}": make_audio(2000 + j, sec) for j, sec in enumerate([35, 7, 12, 20, 28, 9, 16, 31])}
+    reset_stage_timings()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = transcribe_batch(model, batch, tok, engine=engine, batch_size=8, temperature=[0.0],
+                           decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}"),
+                           **SMOKE_OPTIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    steps = get_counts().get("decode_steps", 0)
+    words = sum(check_result(r) for r in res.values())
+    if not words:
+        fail("[h] kv_int4 + self_kv_int8: no stream produced words")
+    if (launches["xattn_decode_int4"] < n_layer * steps
+            or launches["self_attn_decode_int8"] < n_layer * steps
+            or launches["xattn_decode"] or launches["self_attn_decode"] or launches["xattn_decode_int8"]):
+        fail(f"[h] kv_int4 + self_kv_int8 launches for {steps} steps: {launches}")
+    print(f"[h] kv_int4 + self_kv_int8 engine, transcribe_batch, 8 streams (158 s of audio): "
+          f"{wall:.2f} s, {steps} steps, {words} words; launches {launches}")
+
+    os.environ["WTT_KV_INT8"] = "1"
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = transcribe_timestamped(model, make_audio(3, 35), tokenizer=tok,
+                                     suppress_tokens=f"-1,{tok.eot}", **SMOKE_OPTIONS)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["WTT_KV_INT8"]
+    serial = dict(K.LAUNCHES)
+    n = check_result(out)
+    if not n or not serial["xattn_decode_int8"] or serial["xattn_decode"]:
+        fail(f"[h] WTT_KV_INT8=1 transcribe_timestamped: {n} words, launches {serial}")
+    print(f"[h] WTT_KV_INT8=1 transcribe_timestamped, 35 s: {time.perf_counter() - t0:.2f} s, "
+          f"{len(out['segments'])} segments, {n} words; launches {serial}")
+    return launches
+
+
+def phase_profile(torch, model, tok, B: int, **levers):
     """(--profile): device time against wall time for one decoded window of
-    B rows."""
+    B rows, with the engine's ``levers``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,7 +902,7 @@ def phase_profile(torch, model, tok, B: int):
     from whisper_timestamped_tpu_torch.decoding import DecodingOptions
     from whisper_timestamped_tpu_torch.engine import DecodeEngine
 
-    engine = DecodeEngine(model, tok)
+    engine = DecodeEngine(model, tok, **levers)
     opts = DecodingOptions(language="en", sample_len=64, suppress_tokens=f"-1,{tok.eot}")
     mel = log_mel_spectrogram(make_audio(4, 30), n_mels=128, device=model.device)
     mel = mel[None].expand(B, -1, -1).contiguous()
@@ -605,7 +918,8 @@ def phase_profile(torch, model, tok, B: int):
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
-    print(f"[p] one window, B={B}, 64 tokens: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+    label = "+".join(k for k, v in levers.items() if v) or "bf16"
+    print(f"[p] one window, B={B}, {label} cache, 64 tokens: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
           f"({100 * dev_ms / wall_ms:.1f}%)")
     for key, ms, n in rows[:12]:
         print(f"[p]   {ms:9.3f} ms {n:6d}x  {key[:90]}")
@@ -648,6 +962,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
     rec = phase_kernels(torch, K, device)
     torch.cuda.empty_cache()
+    rec.update(phase_quant_kernels(torch, K, device))
+    if "--kernels-only" in sys.argv[1:]:
+        print("[c] --kernels-only: stopping after the kernel checks")
+        return 0
 
     t0 = time.perf_counter()
     model, tok = large_v3_model(torch, device)
@@ -660,12 +978,22 @@ def main() -> int:
                 phase_end_to_end(torch, K, model, tok, label=label,
                                  expect_launches=label == " kernel")
     phase_reference_step(torch, K, model)
+    for label, quantize in (("kv_int8", dict(quantize_cross="int8")),
+                            ("kv_int4", dict(quantize_cross="int4")),
+                            ("self_kv_int8", dict(quantize_self=True))):
+        phase_reference_step(torch, K, model, label, **quantize)
     phase_reference_encode(torch, K, model)
     torch.cuda.empty_cache()
     launches = phase_batch(torch, K, model, tok)
+    torch.cuda.empty_cache()
+    launches["xattn_decode_int8"] = phase_production(
+        torch, K, model, tok, turns="--turns" in sys.argv[1:])["xattn_decode_int8"]
+    lever_launches = phase_levers(torch, K, model, tok)
+    for name in ("xattn_decode_int4", "self_attn_decode_int8"):
+        launches[name] = lever_launches[name]
     if "--profile" in sys.argv[1:]:
-        for B in (1, 8):
-            phase_profile(torch, model, tok, B)
+        for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):
+            phase_profile(torch, model, tok, B, **levers)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],

@@ -97,6 +97,93 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                        kv.float()[..., :64].contiguous(), 0, 1)
 
 
+def _quantized_kv(gen, L, B_kv, T, D, int4):
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
+
+    fn = quantize_rows_int4 if int4 else quantize_rows
+    return fn(_randn(gen, L, B_kv, T, D, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("B,beam_group,emit", [(1, 1, True), (1, 1, False), (4, 2, True),
+                                               (4, 1, False)])
+def test_quantized_xattn_kernels_match_plain(cuda, int4, B, beam_group, emit):
+    """xattn_decode_int8 / _int4 at large-v3 width, layers 0 and 31; bf16
+    output atol 4e-3 (four bf16 steps at the outputs' largest magnitude,
+    ~0.2: the plain version rounds the V-weighted weights to bf16, the
+    kernel does not), scores atol 1e-3 (f32 sums in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(10 * B + beam_group + int4)
+    L, T, D, H = 32, 1500, 1280, 20
+    q = _randn(g, B, 1, D)
+    xk, xks = _quantized_kv(g, L, B // beam_group, T, D, int4)
+    xv, xvs = _quantized_kv(g, L, B // beam_group, T, D, int4)
+    name = "xattn_decode_int4" if int4 else "xattn_decode_int8"
+    kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+    for layer in (0, 31):
+        before = K.LAUNCHES[name]
+        o_k, s_k = kernel(q, xk, xks, xv, xvs, layer, H, emit_scores=emit, beam_group=beam_group)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before + 1
+        o_p, s_p = plain(q, xk, xks, xv, xvs, layer, H, emit_scores=emit, beam_group=beam_group)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=4e-3)
+        if emit:
+            assert s_k.shape == (B, H, 1, T)
+            torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+        else:
+            assert s_k is None
+
+
+@pytest.mark.parametrize("pos", [232, 455])
+def test_self_attn_int8_kernel_matches_plain(cuda, pos):
+    """The fused write and attention against the plain quantizer and the
+    plain version in f32 (the cache dequantized to f32): the caches equal
+    bit for bit afterwards; the kernel sums in f32 and rounds its output to
+    bf16 once, so the output is held to half a bf16 step (2^-8 of the
+    reference) plus 1e-4 for f32 sums in another order. Row 3's padding
+    (300) reaches past pos 232."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device=cuda).manual_seed(pos + 1)
+    L, B, ctx, D, H = 32, 4, 456, 1280, 20
+    q, k_new, v_new = _randn(g, B, 1, D), _randn(g, B, 1, D), _randn(g, B, 1, D)
+    k8, ks = quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32))
+    v8, vs = quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32))
+    pad = torch.tensor([0, 5, 224, 300], dtype=torch.int32, device=cuda)
+    for layer in (0, 31):
+        ck = [t.clone() for t in (k8, ks, v8, vs)]
+        o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, layer, pos, pad, H)
+        torch.cuda.synchronize()
+        cp = [t.clone() for t in (k8, ks, v8, vs)]
+        K.write_quantized_row(k_new, v_new, *cp, layer, pos)
+        o_p = K.self_attn_decode_int8_plain(q.float(), *cp, layer, pos, pad, H)
+        for a, b in zip(ck, cp):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(o_k.float(), o_p, rtol=2.0**-8, atol=1e-4)
+
+
+def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 1, 128), dtype=torch.bfloat16, device=cuda)
+    k8 = torch.zeros((1, 1, 8, 128), dtype=torch.int8, device=cuda)
+    s = torch.ones((1, 1, 8), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="K/V must be int8"):
+        K.xattn_decode_int8(q, k8.bfloat16(), s, k8.bfloat16(), s, 0, 2)
+    with pytest.raises(ValueError, match="q must be bf16"):
+        K.xattn_decode_int8(q.float(), k8, s, k8, s, 0, 2)
+    with pytest.raises(ValueError, match="scales must be f32"):
+        K.xattn_decode_int8(q, k8, s.bfloat16(), k8, s.bfloat16(), 0, 2)
+    odd = torch.ones((1, 1, 17), dtype=torch.float32, device=cuda)  # 17 frames, 8 packed rows
+    with pytest.raises(ValueError, match="even frame count"):
+        K.xattn_decode_int4(q, k8, odd, k8, odd, 0, 2)
+    strided = torch.zeros((1, 1, 128, 8), dtype=torch.int8, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.xattn_decode_int8(q, strided, s, strided, s, 0, 2)
+    pad = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="K/V cache must be int8"):
+        K.self_attn_decode_int8(q, q, q, k8.bfloat16(), s, k8.bfloat16(), s, 0, 3, pad, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.self_attn_decode_int8(q, q, q, strided, s, strided, s, 0, 3, pad, 2)
+
+
 # flash_attention at the large-v3 shapes of the encoder (T=1500) and the
 # 232-slot prompt prefill; bf16 output against the f32 plain version
 FLASH_CASES = {

@@ -132,13 +132,19 @@ def log_mel_spectrogram(
     """Whisper-compatible log-mel spectrogram.
 
     audio: (n_samples,) or (batch, n_samples) float in [-1, 1], or int16 PCM
-    (dequantized as ``x / 32768``); numpy or torch. ``device`` places a host
-    array before the transform. Returns (..., n_mels, n_frames) float32:
+    (dequantized as ``x / 32768``); numpy or torch. ``device`` places the
+    input before the transform; None keeps a torch tensor where it is and
+    puts anything else on the CUDA card (``models.load.default_device``,
+    which raises without one). Returns (..., n_mels, n_frames) float32:
     power mel -> log10 -> clamp to max-8 -> (x+4)/4.
 
     f32 matmuls run in full precision on the card unless the caller enabled
     TF32 (``torch.backends.cuda.matmul.allow_tf32``, False by default).
     """
+    if device is None and not isinstance(audio, torch.Tensor):
+        from .models.load import default_device
+
+        device = default_device()
     audio = torch.as_tensor(audio, device=device)
     if audio.dtype == torch.int16:
         audio = audio.to(torch.float32) / 32768.0

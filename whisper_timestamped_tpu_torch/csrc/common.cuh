@@ -60,15 +60,79 @@ __device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float* f) {
   }
 }
 
-// Single-query attention of one head over the rows [lo, hi] of a bf16 K/V
-// slab (row r at base + r * row_stride elements, head width 64), in f32.
-// Scores are q·k·scale; when ``scores`` is given, row r's score lands at
-// scores[r]. The softmax weights live in ``p`` (shared, hi - lo + 1 floats).
-// Writes the bf16 context vector (64 values) to ``out``. 256 threads.
+// 8 int8 codes (one 8-byte load) to f32, exactly.
+__device__ __forceinline__ void s8x8_to_f32(const uint2& u, float* f) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = (float)c[j];
+}
+
+// Row sources for attend_one_head. ``load(r, chunk, f)`` widens the 8
+// values of row r at the head's columns chunk*8 .. chunk*8+7 to f32;
+// ``scale(r)`` is row r's dequantization scale, folded into the score of a
+// K row and into the softmax weight of a V row.
+
+// bf16 rows: ``base`` points at the head's first column of row 0.
+struct Bf16Rows {
+  const __nv_bfloat16* base;
+  long stride;  // elements between rows
+  __device__ __forceinline__ void load(int r, int chunk, float* f) const {
+    bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(base + r * stride + chunk * 8)), f);
+  }
+  __device__ __forceinline__ float scale(int) const { return 1.f; }
+};
+
+// int8 rows with one f32 scale per row. Row ``own`` takes ``own_scale``
+// instead of scales[own] (a row this launch wrote itself, whose scale
+// another block may not have stored yet); own = -1 for none. kLdg reads
+// through the read-only cache, which is wrong for rows the kernel writes.
+template <bool kLdg>
+struct Int8Rows {
+  const int8_t* base;
+  long stride;  // bytes between rows
+  const float* scales;
+  int own;
+  float own_scale;
+  __device__ __forceinline__ void load(int r, int chunk, float* f) const {
+    const uint2* src = reinterpret_cast<const uint2*>(base + r * stride + chunk * 8);
+    s8x8_to_f32(kLdg ? __ldg(src) : *src, f);
+  }
+  __device__ __forceinline__ float scale(int r) const {
+    return r == own ? own_scale : (kLdg ? __ldg(scales + r) : scales[r]);
+  }
+};
+
+// int4 frames nibble-packed along T: frame t sits in packed row t/2, in
+// the low nibble for even t and the high nibble for odd t (each
+// sign-extended); scales are parity-major, the even frames' (T/2 of them)
+// before the odd frames'.
+struct Int4Rows {
+  const int8_t* base;
+  long stride;  // bytes between packed rows
+  const float* scales;
+  int half;     // T / 2
+  __device__ __forceinline__ void load(int t, int chunk, float* f) const {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(base + (t >> 1) * stride + chunk * 8));
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+    const int shift = (t & 1) ? 24 : 28;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = (float)((int)((unsigned)c[j] << shift) >> 28);
+  }
+  __device__ __forceinline__ float scale(int t) const {
+    return __ldg(scales + (t & 1) * half + (t >> 1));
+  }
+};
+
+// Single-query attention of one head over the rows [lo, hi] of a K/V slab,
+// head width 64, in f32. Scores are (q·k)·kscale·scale; when ``scores`` is
+// given, row r's score lands at scores[r]. The softmax weights live in
+// ``p`` (shared, hi - lo + 1 floats); each is multiplied by its V row's
+// scale before the V product. Writes the bf16 context vector (64 values) to
+// ``out``. 256 threads.
+template <class KRows, class VRows>
 __device__ __forceinline__ void attend_one_head(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k_base,
-                                const __nv_bfloat16* __restrict__ v_base,
-                                long row_stride, int lo, int hi, float scale,
+                                const KRows& krows, const VRows& vrows,
+                                int lo, int hi, float scale,
                                 float* __restrict__ scores,
                                 __nv_bfloat16* __restrict__ out, float* p) {
   __shared__ float red[32];
@@ -87,7 +151,7 @@ __device__ __forceinline__ void attend_one_head(const __nv_bfloat16* __restrict_
     float s = 0.f;
     if (t <= hi) {
       float kf[8];
-      bf16x8_to_f32(*reinterpret_cast<const uint4*>(k_base + t * row_stride + chunk * 8), kf);
+      krows.load(t, chunk, kf);
 #pragma unroll
       for (int j = 0; j < 8; ++j) s += qf[j] * kf[j];
     }
@@ -95,7 +159,7 @@ __device__ __forceinline__ void attend_one_head(const __nv_bfloat16* __restrict_
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     s += __shfl_xor_sync(0xffffffffu, s, 4);
     if (chunk == 0 && t <= hi) {
-      s *= scale;
+      s = (s * krows.scale(t)) * scale;
       p[t - lo] = s;
       if (scores != nullptr) scores[t] = s;
     }
@@ -122,8 +186,8 @@ __device__ __forceinline__ void attend_one_head(const __nv_bfloat16* __restrict_
   for (int j = 0; j < 8; ++j) acc[j] = 0.f;
   for (int t = lo + grp; t <= hi; t += kThreads / 8) {
     float vf[8];
-    bf16x8_to_f32(*reinterpret_cast<const uint4*>(v_base + t * row_stride + chunk * 8), vf);
-    const float w = p[t - lo];
+    vrows.load(t, chunk, vf);
+    const float w = p[t - lo] * vrows.scale(t);
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j] += w * vf[j];
   }

@@ -33,8 +33,8 @@ self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
   const int lo = max(0, min(pad_len[b], pos));
   const long slab = ((long)layer * B + b) * (long)ctx * D;
   wtt::attend_one_head(q + (long)b * D + h * wtt::kHeadDim,
-                       k + slab + h * wtt::kHeadDim,
-                       v + slab + h * wtt::kHeadDim, D, lo, pos, scale,
+                       wtt::Bf16Rows{k + slab + h * wtt::kHeadDim, D},
+                       wtt::Bf16Rows{v + slab + h * wtt::kHeadDim, D}, lo, pos, scale,
                        nullptr, out + (long)b * D + h * wtt::kHeadDim, p);
 }
 

@@ -36,8 +36,8 @@ xattn_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, D)
   const int h = blockIdx.x, b = blockIdx.y;
   const long slab = ((long)layer * b_kv_rows + b / beam_group) * (long)T * D;
   wtt::attend_one_head(q + (long)b * D + h * wtt::kHeadDim,
-                       xk + slab + h * wtt::kHeadDim,
-                       xv + slab + h * wtt::kHeadDim, D, 0, T - 1, scale,
+                       wtt::Bf16Rows{xk + slab + h * wtt::kHeadDim, D},
+                       wtt::Bf16Rows{xv + slab + h * wtt::kHeadDim, D}, 0, T - 1, scale,
                        scores ? scores + ((long)b * H + h) * T : nullptr,
                        out + (long)b * D + h * wtt::kHeadDim, p);
 }

@@ -25,17 +25,19 @@ import torch
 from .models.whisper_torch import (
     WhisperTorch,
     _attention,
+    _int8_attention,
     _linear,
     _ln,
     _logits,
     _mlp,
     _prefill_flash_attention,
+    cross_attention_rows,
     decode_full,
     decode_step,
     encode,
     init_cache,
 )
-from .ops.kernels import xattn_decode
+from .ops.quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
 from .tokenizer import Tokenizer
 from .utils.profiling import add_count, stage_timer
 
@@ -178,14 +180,27 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
 
     Regions of more than 16 slots send the self- and cross-attention
     through the ``flash_attention`` kernel (``decoding.py:309-314`` of the
-    JAX package); smaller ones keep the plain masked ``_attention``."""
+    JAX package); smaller ones keep the plain masked ``_attention``.
+
+    A quantized cache (``decoding.py:316-436``): an int8 self cache takes
+    the rows quantized, while the prefill's own attention uses the exact
+    rows; an int8 or int4 cross K/V is dequantized, one layer at a time, for
+    the flash path, and read by ``_int8_attention`` (int4 unpacked) on the
+    small path.
+
+    The last row's scores: on the small path, the last row of that pass's
+    scores (``decoding.py:372-380``); on the flash path, through the cache's
+    decode kernel (``cross_attention_rows``)."""
     dims = model.dims
     dec = model.decoder
     H = dims.n_text_head
     B, P = prompt.shape
+    self_int8 = cache.k.dtype == torch.int8
+    cross_q = cache.xk.dtype == torch.int8
     slot = torch.arange(P, device=prompt.device)
     pos_ids = torch.clamp(slot[None] - pad_len[:, None], min=0)
-    x = (dec["tok_emb"][prompt] + dec["pos_emb"][pos_ids]).to(cache.k.dtype)
+    x = (dec["tok_emb"][prompt] + dec["pos_emb"][pos_ids]).to(
+        dec["tok_emb"].dtype if self_int8 else cache.k.dtype)
     use_flash = P > PREFILL_FLASH_MIN_SLOTS
     if not use_flash:
         # query slot q attends keys k with pad_len <= k <= q; a padding-slot
@@ -195,13 +210,17 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
         mask = torch.zeros(valid.shape, dtype=x.dtype, device=x.device).masked_fill(~valid, float("-inf"))
         mask = mask[:, None]  # (B, 1, P, P)
     K = len(align_heads)
-    rows = torch.zeros((B, K, cache.xk.shape[2]), dtype=torch.float32, device=x.device)
+    rows = torch.zeros((B, K, cache.n_frames), dtype=torch.float32, device=x.device)
     for l in range(dims.n_text_layer):
         xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
         k_new = _linear(xn, dec["attn_k_w"][l])
         v_new = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])
-        cache.k[l, :, :P] = k_new
-        cache.v[l, :, :P] = v_new
+        if self_int8:
+            cache.k[l, :, :P], cache.k_scale[l, :, :P] = quantize_rows(k_new)
+            cache.v[l, :, :P], cache.v_scale[l, :, :P] = quantize_rows(v_new)
+        else:
+            cache.k[l, :, :P] = k_new
+            cache.v[l, :, :P] = v_new
         q_self = _linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l])
         if use_flash:
             a = _prefill_flash_attention(q_self, k_new, v_new, H, pad_len=pad_len, causal=True)
@@ -210,21 +229,39 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
         x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
-        if use_flash:
-            c = _prefill_flash_attention(qc, cache.xk[l], cache.xv[l], H)
-        else:
-            c, _ = _attention(qc, cache.xk[l], cache.xv[l], H)
         hits = [k for k, (hl, _) in enumerate(align_heads) if hl == l]
+        w = None
+        if use_flash:
+            if cross_q:  # this layer dequantized to the model's type
+                xk8, xks, xv8, xvs = _cross_layer_int8(cache, l)
+                c = _prefill_flash_attention(qc, xk8.to(x.dtype) * xks[..., None].to(x.dtype),
+                                             xv8.to(x.dtype) * xvs[..., None].to(x.dtype), H)
+            else:
+                c = _prefill_flash_attention(qc, cache.xk[l], cache.xv[l], H)
+        elif cross_q:
+            c, w = _int8_attention(qc, *_cross_layer_int8(cache, l), H)
+        else:
+            c, w = _attention(qc, cache.xk[l], cache.xv[l], H, return_scores=bool(hits))
         if hits:
-            # only alignment-head layers: the last row's scores through the
-            # decode cross-attention kernel (the same single-query function)
-            _, w = xattn_decode(qc[:, -1:].contiguous(), cache.xk, cache.xv, l, H,
-                                emit_scores=True)
+            # only alignment-head layers: the last row's scores, from the
+            # small region's own pass, else through the decode
+            # cross-attention kernel (the same single-query function)
+            if w is None:
+                _, w = cross_attention_rows(qc[:, -1:].contiguous(), cache, l, H, True)
             for k in hits:
-                rows[:, k] = w[:, align_heads[k][1], 0]
+                rows[:, k] = w[:, align_heads[k][1], -1]
         x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
         x = _mlp(x, dec, l)
     return x, rows
+
+
+def _cross_layer_int8(cache, l: int):
+    """Layer ``l`` of a quantized cross K/V as int8 codes and frame-ordered
+    scales (B, T, D), (B, T): int4 is unpacked."""
+    if cache.cross_int4:
+        return (unpack_int4_rows(cache.xk[l]), int4_scales_frame_order(cache.xk_scale[l]),
+                unpack_int4_rows(cache.xv[l]), int4_scales_frame_order(cache.xv_scale[l]))
+    return cache.xk[l], cache.xk_scale[l], cache.xv[l], cache.xv_scale[l]
 
 
 @torch.no_grad()
@@ -245,11 +282,18 @@ def decode_window(
     max_new: int = MAX_NEW_TOKENS,
     suppress_blank: bool = True,
     without_timestamps: bool = False,
+    kv_int8: bool = False,
+    kv_int4: bool = False,
+    self_kv_int8: bool = False,
 ):
     """Greedy decode of one 30-s window for a batch. Returns a dict of
     buffers: tokens (B, max_new) int32 (EOT-filled), n_steps, sum_logprobs
     (B,), token_logprobs (B, max_new), ts_logprobs (B, max_new, V-ts_begin),
-    attn (B, max_new, K, T_audio), no_speech_prob (B,), n_sampled (B,)."""
+    attn (B, max_new, K, T_audio), no_speech_prob (B,), n_sampled (B,).
+
+    ``kv_int8`` / ``kv_int4`` store the encoder's cross K/V as int8 / int4
+    (int4 wins when both are set), ``self_kv_int8`` the self-attention cache
+    as int8 (``init_cache``)."""
     dims = model.dims
     dev = model.device
     B = mel.shape[0]
@@ -262,7 +306,9 @@ def decode_window(
         xa = encode(model, mel)
     # cache sized to the decode extent (8-aligned)
     ctx_len = min(((P + max_new + 7) // 8) * 8, ((dims.n_text_ctx + 7) // 8) * 8 + 8)
-    cache = init_cache(model, xa, ctx_len=ctx_len)
+    cache = init_cache(model, xa, ctx_len=ctx_len,
+                       quantize_cross="int4" if kv_int4 else kv_int8,
+                       quantize_self=self_kv_int8)
     pad_len = (P - prompt_len).to(torch.int32)
 
     with stage_timer("prefill"):

@@ -6,8 +6,9 @@ path: ``DecodeEngine`` (bf16 or f32, whatever the model holds) with
 pipeline shares, ``decode_with_fallback`` at one temperature,
 ``needs_fallback``, ``transcribe_windows`` and ``extract_window_segments``.
 The mel and the window slicing and padding run in torch on the model's
-device. Sampling, beam search, best_of and the quantisation levers raise
-``NotImplementedError``.
+device. The engine takes the KV-cache quantization levers (``kv_int8``,
+``kv_int4``, ``self_kv_int8``). Sampling, beam search, best_of, a mesh and
+the weight levers ``w_int8``/``enc_int8`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,13 +39,10 @@ from .utils import not_ported, stage_timer
 INPUT_STRIDE = 2  # mel frames per output token position (conv2 stride)
 TIME_PER_POSITION = INPUT_STRIDE * HOP_LENGTH / SAMPLE_RATE  # 0.02 s
 
-# engine options of the JAX package that this port does not have yet; each
-# is refused when set, as argument or through its environment variable
-_LEVERS = {
-    "kv_int8": "WTT_KV_INT8", "kv_int4": "WTT_KV_INT4",
-    "self_kv_int8": "WTT_SELF_KV_INT8", "w_int8": "WTT_W_INT8",
-    "enc_int8": "WTT_ENC_INT8",
-}
+def _lever(value: Optional[bool], env: str) -> bool:
+    """An engine lever: ``value`` when given, else whether ``env`` is "1"
+    (``engine.py:150-169`` of the JAX package)."""
+    return os.environ.get(env) == "1" if value is None else bool(value)
 
 
 @dataclass
@@ -104,21 +102,28 @@ class Segment:
 class DecodeEngine:
     """Bound (model, tokenizer) with cached filter masks on the model's
     device.
-    ``mesh`` and the quantisation levers are options of the JAX engine not
-    yet ported: setting one raises."""
 
-    def __init__(self, model: WhisperModel, tokenizer: Tokenizer,
-                 mesh=None, **levers):
-        for name, value in levers.items():
-            if name not in _LEVERS:
-                raise TypeError(f"unexpected engine option {name!r}")
-            if value:
-                raise not_ported(name)
-        for name, env in _LEVERS.items():
-            if os.environ.get(env) == "1":
-                raise not_ported(f"{name} ({env}=1)")
+    The KV-cache levers, each defaulting to its environment variable as in
+    the JAX engine: ``kv_int8`` (``WTT_KV_INT8=1``) stores the encoder's
+    cross K/V as int8 with per-frame scales, ``kv_int4`` (``WTT_KV_INT4``)
+    as nibble-packed int4, winning over ``kv_int8``, and ``self_kv_int8``
+    (``WTT_SELF_KV_INT8``) the self-attention cache as int8. ``mesh``,
+    ``w_int8`` and ``enc_int8`` are options of the JAX engine not yet
+    ported: setting one raises."""
+
+    def __init__(self, model: WhisperModel, tokenizer: Tokenizer, mesh=None,
+                 kv_int8: Optional[bool] = None, kv_int4: Optional[bool] = None,
+                 self_kv_int8: Optional[bool] = None, w_int8: Optional[bool] = None,
+                 enc_int8: Optional[bool] = None):
+        for name, value, env in (("w_int8", w_int8, "WTT_W_INT8"),
+                                 ("enc_int8", enc_int8, "WTT_ENC_INT8")):
+            if _lever(value, env):
+                raise not_ported(name if value else f"{name} ({env}=1)")
         if mesh is not None:
             raise not_ported("mesh")
+        self.kv_int8 = _lever(kv_int8, "WTT_KV_INT8")
+        self.kv_int4 = _lever(kv_int4, "WTT_KV_INT4")
+        self.self_kv_int8 = _lever(self_kv_int8, "WTT_SELF_KV_INT8")
         self.model = model
         self.tokenizer = tokenizer
         self.dims = model.dims
@@ -133,6 +138,11 @@ class DecodeEngine:
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    @property
+    def kv_options(self) -> Dict[str, bool]:
+        """The levers as ``decode_window`` takes them."""
+        return dict(kv_int8=self.kv_int8, kv_int4=self.kv_int4, self_kv_int8=self.self_kv_int8)
 
     def _masks(self, options: DecodingOptions):
         key = (options.suppress_tokens if not isinstance(options.suppress_tokens, list)
@@ -222,6 +232,7 @@ class DecodeEngine:
             max_new=options.sample_len or MAX_NEW_TOKENS,
             suppress_blank=options.suppress_blank,
             without_timestamps=options.without_timestamps,
+            **self.kv_options,
         )
         return self.unpack_window_outputs(out, temperature)
 

@@ -13,6 +13,10 @@ prefill's attentions (``flash_attention``), gated as the JAX package gates
 its flash kernel. Everything else is plain PyTorch; ``_attention`` is the
 JAX package's non-kernel math. Pre-softmax attention scores follow
 whisper's convention, ``q·k·dh^-0.5`` in float32.
+
+The KV cache may hold the cross-attention K/V as int8 or int4 and the
+self-attention cache as int8 (``init_cache``), each read by its own
+decode kernel; the quantizers are ``ops.quant``'s.
 """
 
 from __future__ import annotations
@@ -25,7 +29,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import flash_attention, self_attn_decode, xattn_decode
+from ..ops.kernels import (
+    flash_attention,
+    self_attn_decode,
+    self_attn_decode_int8,
+    xattn_decode,
+    xattn_decode_int4,
+    xattn_decode_int8,
+)
+from ..ops.quant import quantize_rows, quantize_rows_int4
 
 ENCODER_FLASH_MIN_LEN = 128  # shorter encoder inputs keep the plain math (whisper_jax.py:261)
 
@@ -136,8 +148,11 @@ def init_params(dims: WhisperDims, seed: int = 0, dtype=torch.float32, device=No
     """Random-weight model with the JAX ``init_params`` scales, drawn from an
     explicit ``torch.Generator`` on ``device`` (weights differ from the JAX
     package's, which draws from ``jax.random``). Encoder positions are the
-    fixed sinusoids."""
-    device = torch.device(device or "cpu")
+    fixed sinusoids. ``device`` None means the CUDA card
+    (``models.load.default_device``), which raises without one."""
+    from .load import default_device
+
+    device = default_device(device)
     model = WhisperTorch(dims, dtype=dtype, device=device, untied_proj=untied_proj)
     gen = torch.Generator(device=device).manual_seed(seed)
     ones = ("_ln_g", "ln_post_g")
@@ -206,6 +221,22 @@ def _attention(q, k, v, n_head, mask=None, return_scores=False):
     w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = _merge_heads(w @ vh)
     return (out, scores.float()) if return_scores else (out, None)
+
+
+def _int8_attention(q, k8, ks, v8, vs, n_head):
+    """Attention over int8 K/V (B, T, D) with per-frame f32 scales (B, T),
+    the JAX ``cross_attention`` int8 math (``whisper_jax.py:705-714``): q
+    and the codes in bf16 (the codes exactly), the raw q·k product rounded
+    to bf16, scores times ks·dh^-0.5 in f32, the softmax weights times vs
+    rounded to bf16 for the V product. Returns (out (B, S, D) in q's dtype,
+    scores (B, H, S, T) f32)."""
+    dh = q.shape[-1] // n_head
+    qh = _split_heads(q.bfloat16(), n_head)
+    kh = _split_heads(k8.bfloat16(), n_head)
+    scores = (qh @ kh.transpose(-1, -2)).float() * (ks[:, None, None, :] * dh**-0.5)
+    wv = (torch.softmax(scores, dim=-1) * vs[:, None, None, :]).bfloat16()
+    out = _merge_heads(wv @ _split_heads(v8.bfloat16(), n_head)).to(q.dtype)
+    return out, scores
 
 
 def _encoder_attention(q, k, v, n_head):
@@ -325,31 +356,92 @@ class KVCache(NamedTuple):
     """Self-attention cache k/v (L, B, ctx_len, D) and the encoder's
     cross-attention K/V xk/xv (L, B, T_audio, D). The decode step writes its
     new self-attention row into k/v in place (the JAX package returns an
-    updated copy; in place saves a cache-sized copy per step)."""
+    updated copy; in place saves a cache-sized copy per step).
+
+    Quantized (``init_cache``'s ``quantize_cross`` / ``quantize_self``):
+    int8 xk/xv with per-frame f32 scales xk_scale/xv_scale (L, B, T_audio);
+    for int4, xk/xv are (L, B, T_audio/2, D) int8 with two frames
+    nibble-packed per byte and parity-major scales, so the scales are twice
+    as long as the packed rows; int8 k/v with per-slot scales
+    k_scale/v_scale (L, B, ctx_len). An unquantized stream's scales are
+    None (the JAX package carries ones)."""
 
     k: torch.Tensor
     v: torch.Tensor
     xk: torch.Tensor
     xv: torch.Tensor
+    xk_scale: Optional[torch.Tensor] = None
+    xv_scale: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def cross_int4(self) -> bool:
+        return self.xk_scale is not None and self.xk_scale.shape[2] == 2 * self.xk.shape[2]
+
+    @property
+    def n_frames(self) -> int:
+        """Encoder frames: the packed int4 K/V has half as many rows."""
+        return self.xk_scale.shape[2] if self.xk_scale is not None else self.xk.shape[2]
 
 
 def init_cache(model: WhisperTorch, xa: torch.Tensor, ctx_len: Optional[int] = None,
-               dtype=None) -> KVCache:
+               dtype=None, quantize_cross=False, quantize_self: bool = False) -> KVCache:
     """Project the encoder output into every layer's cross-attention K/V and
-    allocate a zeroed self-attention cache of ``ctx_len`` slots."""
+    allocate a zeroed self-attention cache of ``ctx_len`` slots.
+
+    ``quantize_cross`` (False, True or "int8", "int4") stores the cross K/V
+    quantized, one layer at a time, so the full-precision transient is one
+    layer's (a whole bf16 cross-KV is 9.8 GB at large-v3 B=40);
+    ``quantize_self`` makes the self cache int8 (its rows are quantized as
+    they are written)."""
     dec = model.decoder
     dims = model.dims
     dtype = dtype or xa.dtype
     B, T, _ = xa.shape
     L, D = dims.n_text_layer, dims.n_text_state
     ctx_len = ctx_len or dims.n_text_ctx
-    xk = torch.empty((L, B, T, D), dtype=dtype, device=xa.device)
-    xv = torch.empty_like(xk)
-    for l in range(L):
-        xk[l] = _linear(xa, dec["cross_k_w"][l])
-        xv[l] = _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l])
-    k = torch.zeros((L, B, ctx_len, D), dtype=dtype, device=xa.device)
-    return KVCache(k=k, v=torch.zeros_like(k), xk=xk, xv=xv)
+    dev = xa.device
+    scales = {}
+    if quantize_cross:
+        qfn = quantize_rows_int4 if quantize_cross == "int4" else quantize_rows
+        rows = T // 2 if quantize_cross == "int4" else T
+        xk = torch.empty((L, B, rows, D), dtype=torch.int8, device=dev)
+        xv = torch.empty_like(xk)
+        xk_s = torch.empty((L, B, T), dtype=torch.float32, device=dev)
+        xv_s = torch.empty_like(xk_s)
+        for l in range(L):
+            xk[l], xk_s[l] = qfn(_linear(xa, dec["cross_k_w"][l]))
+            xv[l], xv_s[l] = qfn(_linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]))
+        scales.update(xk_scale=xk_s, xv_scale=xv_s)
+    else:
+        xk = torch.empty((L, B, T, D), dtype=dtype, device=dev)
+        xv = torch.empty_like(xk)
+        for l in range(L):
+            xk[l] = _linear(xa, dec["cross_k_w"][l])
+            xv[l] = _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l])
+    self_dtype = torch.int8 if quantize_self else dtype
+    k = torch.zeros((L, B, ctx_len, D), dtype=self_dtype, device=dev)
+    if quantize_self:
+        s = torch.zeros((L, B, ctx_len), dtype=torch.float32, device=dev)
+        scales.update(k_scale=s, v_scale=torch.zeros_like(s))
+    return KVCache(k=k, v=torch.zeros_like(k), xk=xk, xv=xv, **scales)
+
+
+def cross_attention_rows(q, cache: KVCache, layer: int, n_head: int, emit_scores: bool,
+                         beam_group: int = 1):
+    """Single-query cross-attention over layer ``layer`` of the cache's
+    cross K/V through the kernel for its storage: ``xattn_decode_int4`` for
+    nibble-packed K/V, ``xattn_decode_int8`` for int8, else
+    ``xattn_decode``."""
+    if cache.cross_int4:
+        return xattn_decode_int4(q, cache.xk, cache.xk_scale, cache.xv, cache.xv_scale, layer,
+                                 n_head, emit_scores=emit_scores, beam_group=beam_group)
+    if cache.xk.dtype == torch.int8:
+        return xattn_decode_int8(q, cache.xk, cache.xk_scale, cache.xv, cache.xv_scale, layer,
+                                 n_head, emit_scores=emit_scores, beam_group=beam_group)
+    return xattn_decode(q, cache.xk, cache.xv, layer, n_head, emit_scores=emit_scores,
+                        beam_group=beam_group)
 
 
 def decode_step(
@@ -371,6 +463,10 @@ def decode_step(
     rows is (B, K, 1, T) f32, the pre-softmax cross-attention scores of
     those heads, else None. Scores are requested from the cross-attention
     kernel only for layers that hold an alignment head.
+
+    A quantized cache takes its kernels: an int8 self cache
+    ``self_attn_decode_int8``, which also writes the step's new row
+    quantized; the cross K/V those of ``cross_attention_rows``.
     """
     dec = model.decoder
     dims = model.dims
@@ -383,7 +479,8 @@ def decode_step(
     else:
         pos_ids = torch.clamp(pos - pos_offset, 0, dims.n_text_ctx - 1)
         x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_ids][:, None]
-    x = x.to(cache.k.dtype)
+    self_int8 = cache.k.dtype == torch.int8
+    x = x.to(dec["tok_emb"].dtype if self_int8 else cache.k.dtype)
     pad = (
         kv_valid_from.to(torch.int32)
         if kv_valid_from is not None
@@ -391,20 +488,25 @@ def decode_step(
     )
     rows = None
     if align_heads:
-        rows = torch.zeros((B, len(align_heads), 1, cache.xk.shape[2]),
+        rows = torch.zeros((B, len(align_heads), 1, cache.n_frames),
                            dtype=torch.float32, device=x.device)
     for l in range(dims.n_text_layer):
         xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
-        cache.k[l, :, pos] = _linear(xn, dec["attn_k_w"][l])[:, 0]
-        cache.v[l, :, pos] = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])[:, 0]
+        k_new = _linear(xn, dec["attn_k_w"][l])
+        v_new = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])
         q = _linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l])
-        a = self_attn_decode(q, cache.k, cache.v, l, pos, pad, H)
+        if self_int8:
+            a = self_attn_decode_int8(q, k_new, v_new, cache.k, cache.k_scale, cache.v,
+                                      cache.v_scale, l, pos, pad, H)
+        else:
+            cache.k[l, :, pos] = k_new[:, 0]
+            cache.v[l, :, pos] = v_new[:, 0]
+            a = self_attn_decode(q, cache.k, cache.v, l, pos, pad, H)
         x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
         hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
-        c, w = xattn_decode(qc, cache.xk, cache.xv, l, H,
-                            emit_scores=bool(hits), beam_group=beam_group)
+        c, w = cross_attention_rows(qc, cache, l, H, bool(hits), beam_group)
         x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
         x = _mlp(x, dec, l)
         for k in hits:

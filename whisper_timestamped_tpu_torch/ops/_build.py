@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc, ctypes).
 
 All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface, for Hopper only (``sm_90a``), at first use:
+interface, for Hopper only (``sm_90a``), at first use: one nvcc process per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o libwtt_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu   # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libwtt_kernels.so *.o
 
 into ``build/wtt_torch_kernels/<hash of the sources and flags>/`` beside the
 package (``WTT_TORCH_BUILD_DIR`` overrides the root), so a changed source
@@ -25,10 +27,8 @@ from pathlib import Path
 from typing import Optional
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: each returns cudaGetLastError() after its launches
@@ -43,6 +43,12 @@ SIGNATURES = {
     "wtt_dtw_codes": [_P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, pad_len, B, Sq, Sk, D, H, causal, scale, stream
     "wtt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group, scale, stream
+    "wtt_xattn_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "wtt_xattn_decode_int4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, layer, pos, B, ctx, D, H, scale, stream
+    "wtt_self_attn_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                  _P],
 }
 
 _lock = threading.Lock()
@@ -74,6 +80,38 @@ def build_dir() -> Path:
     return Path(root) / h.hexdigest()[:16]
 
 
+def _compile_and_link(out_dir: Path, so: Path) -> None:
+    """One nvcc per source, all running at once, then the link. Each
+    command and its output (ptxas's register and spill report) goes to
+    ``build.log``; a failure raises with the failing command's errors."""
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = out_dir / f"libwtt_kernels.{tag}.so"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp)] + [str(obj) for _, obj, _ in jobs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
+    (out_dir / "build.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed, see {out_dir / 'build.log'}:\n" + failed[0][-4000:])
+    os.replace(tmp, so)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has none."""
     global _lib
@@ -88,20 +126,7 @@ def library() -> ctypes.CDLL:
         built = False
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libwtt_kernels.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
-                str(s) for s in _sources() if s.suffix == ".cu"
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}), see {out_dir / 'build.log'}:\n"
-                    + proc.stderr[-4000:]
-                )
-            os.replace(tmp, so)
+            _compile_and_link(out_dir, so)
             built = True
         lib = ctypes.CDLL(str(so))
         for name, argtypes in SIGNATURES.items():

@@ -12,6 +12,14 @@ wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.p
 ``flash_attention``     the library Pallas ``flash_attention`` at
                         ``models/whisper_jax.py:246`` (encoder) and ``:299``
                         (prompt prefill)
+``xattn_decode_int8``   ``cross_attention_stacked_int8_pallas`` v1 (:687), v2
+                        (:1051), v3 (:1249), v4 (:1471);
+                        ``cross_attention_int8_pallas`` (:2572) and
+                        ``cross_attention_int8_rowmajor`` (:2531), the same
+                        function unstacked
+``xattn_decode_int4``   ``cross_attention_stacked_int4_pallas`` (:1876)
+``self_attn_decode_int8``  ``self_attention_stacked_int8_pallas`` (:2205) and
+                        its ``_mxu`` variant (:2333)
 ======================  ==========================================================
 
 Dispatch is by device: for CPU tensors a wrapper runs the plain version (the
@@ -31,10 +39,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from .quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
+
 # launches of each kernel since the last reset_launches(); the wrappers add
 # one per kernel call (align_cost's one call is three launches on one stream)
 LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "xattn_decode_int8": 0, "xattn_decode_int4": 0,
+            "self_attn_decode_int8": 0}
 
 DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
 DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
@@ -95,6 +106,75 @@ def self_attn_decode_plain(q, k_all, v_all, layer: int, pos: int, pad_len, n_hea
     s = s.masked_fill(~live[:, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bht,bhtd->bhd", p, vh).reshape(B, 1, D).to(q.dtype)
+
+
+def int8_attention(q, k8, ks, v8, vs, n_head: int):
+    """Attention of q (B, S, D) over int8 K/V (B, T, D) with per-frame f32
+    scales ks/vs (B, T), the function of the int8 TPU kernels: q rounded to
+    bf16, codes widened exactly, scores (q·k)·ks·dh^-0.5 in f32, softmax
+    weights times vs rounded to bf16 before the V product, which sums in
+    f32. The dequantized K/V never exist. Returns (out (B, S, D) in q's
+    dtype, scores (B, H, S, T) f32).
+
+    The JAX package's XLA math (``cross_attention``) rounds the raw dot
+    product to bf16 as well; the TPU kernels do not, and neither does this."""
+    B, S, D = q.shape
+    T = k8.shape[1]
+    dh = D // n_head
+    qh = q.bfloat16().float().reshape(B, S, n_head, dh).transpose(1, 2)
+    kh = k8.float().reshape(B, T, n_head, dh).transpose(1, 2)
+    vh = v8.float().reshape(B, T, n_head, dh).transpose(1, 2)
+    s = (qh @ kh.transpose(-1, -2)) * ks.float()[:, None, None, :] * dh**-0.5
+    w = (torch.softmax(s, dim=-1) * vs.float()[:, None, None, :]).bfloat16().float()
+    return (w @ vh).transpose(1, 2).reshape(B, S, D).to(q.dtype), s
+
+
+def xattn_decode_int8_plain(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head: int,
+                            emit_scores: bool = False, beam_group: int = 1):
+    """``xattn_decode_plain``'s contract over int8 K/V (L, B_kv, T, D) with
+    per-frame f32 scales (L, B_kv, T) (see ``int8_attention``)."""
+    k, ks, v, vs = xk_all[layer], xk_scale[layer], xv_all[layer], xv_scale[layer]
+    if beam_group > 1:
+        rows = torch.arange(q.shape[0], device=q.device) // beam_group
+        k, ks, v, vs = (t.index_select(0, rows) for t in (k, ks, v, vs))
+    out, s = int8_attention(q, k, ks, v, vs, n_head)
+    return out, (s if emit_scores else None)
+
+
+def xattn_decode_int4_plain(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head: int,
+                            emit_scores: bool = False, beam_group: int = 1):
+    """The same over nibble-packed int4 K/V (L, B_kv, T/2, D) with
+    parity-major scales (L, B_kv, T): unpacks layer ``layer``, puts its
+    scales in frame order and runs ``xattn_decode_int8_plain``. Scores come
+    out in frame order, (B, H, 1, T)."""
+    sl = slice(layer, layer + 1)
+    return xattn_decode_int8_plain(
+        q, unpack_int4_rows(xk_all[sl]), int4_scales_frame_order(xk_scale[sl]),
+        unpack_int4_rows(xv_all[sl]), int4_scales_frame_order(xv_scale[sl]),
+        0, n_head, emit_scores, beam_group)
+
+
+def self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer: int, pos: int,
+                                pad_len, n_head: int):
+    """``self_attn_decode_plain`` over an int8 cache (L, B, ctx, D) with
+    per-slot f32 scales (L, B, ctx): dequantizes the layer's slots [0, pos]
+    to q's dtype (the JAX package's fallback, ``whisper_jax.py:982-992``)."""
+    sl = (slice(layer, layer + 1), slice(None), slice(0, pos + 1))
+    k = k_all[sl].to(q.dtype) * k_scale[sl][..., None].to(q.dtype)
+    v = v_all[sl].to(q.dtype) * v_scale[sl][..., None].to(q.dtype)
+    return self_attn_decode_plain(q, k, v, 0, pos, pad_len, n_head)
+
+
+def write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int, pos: int) -> None:
+    """Quantize a step's new self-attention rows k_new/v_new (B, 1, D) with
+    ``quantize_rows`` into slot ``pos`` of layer ``layer`` of the int8 cache
+    and its scales, in place."""
+    kq, ks = quantize_rows(k_new[:, 0])
+    vq, vs = quantize_rows(v_new[:, 0])
+    k_all[layer, :, pos] = kq
+    k_scale[layer, :, pos] = ks
+    v_all[layer, :, pos] = vq
+    v_scale[layer, :, pos] = vs
 
 
 def align_cost_plain(scores, dims):
@@ -368,4 +448,110 @@ def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None)
     _launch(name, "wtt_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             pad_len.data_ptr() if pad_len is not None else None,
             B, Sq, Sk, D, n_head, int(causal), HEAD_DIM**-0.5, _stream(q))
+    return out
+
+
+def _quantized_xattn(name, fn_name, frames_per_row, q, xk_all, xk_scale, xv_all, xv_scale,
+                     layer, n_head, emit_scores, beam_group):
+    """Check the int8 (1 frame a row) or int4 (2 frames a row) cross-attention
+    inputs and launch the kernel."""
+    B, S, D = q.shape
+    L, B_kv, R, Dk = xk_all.shape
+    T = xk_scale.shape[-1]
+    _expect(name, S == 1 and Dk == D and xv_all.shape == xk_all.shape, "shape mismatch")
+    _expect(name, xk_scale.shape == (L, B_kv, T) and xv_scale.shape == xk_scale.shape,
+            f"scales must be (L, B_kv, T), got {tuple(xk_scale.shape)} and {tuple(xv_scale.shape)}")
+    _expect(name, T == frames_per_row * R,
+            f"T={T} scales for {R} rows: int4 needs an even frame count, twice the packed rows"
+            if frames_per_row == 2 else f"T={T} scales for {R} rows")
+    _expect(name, D == n_head * HEAD_DIM, f"head width must be {HEAD_DIM}, got D={D} H={n_head}")
+    _expect(name, q.dtype == torch.bfloat16, "q must be bf16")
+    _expect(name, xk_all.dtype == torch.int8 and xv_all.dtype == torch.int8, "K/V must be int8")
+    _expect(name, xk_scale.dtype == torch.float32 and xv_scale.dtype == torch.float32,
+            "scales must be f32")
+    tensors = (q, xk_all, xk_scale, xv_all, xv_scale)
+    _expect(name, all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    _expect(name, _aligned(*tensors), "inputs must be 16-byte aligned")
+    _expect(name, B == B_kv * beam_group, f"B={B} != B_kv={B_kv} * beam_group={beam_group}")
+    _expect(name, 0 <= layer < L and 0 < T <= MAX_T, f"layer {layer} / T {T} out of range")
+    out = torch.empty_like(q)
+    scores = (
+        torch.empty((B, n_head, 1, T), dtype=torch.float32, device=q.device)
+        if emit_scores else None
+    )
+    _launch(name, fn_name, q.data_ptr(), xk_all.data_ptr(), xk_scale.data_ptr(),
+            xv_all.data_ptr(), xv_scale.data_ptr(), out.data_ptr(),
+            scores.data_ptr() if scores is not None else None,
+            layer, B, B_kv, T, D, n_head, beam_group, HEAD_DIM**-0.5, _stream(q))
+    return out, scores
+
+
+def xattn_decode_int8(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head: int,
+                      emit_scores: bool = False, beam_group: int = 1
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Cross-attention of one decode step over layer ``layer`` of the
+    stacked int8 encoder K/V with per-frame scales (see
+    ``xattn_decode_int8_plain``). On CUDA: bf16 q, int8 K/V, f32 scales,
+    head width 64, contiguous; scores are written only when
+    ``emit_scores``."""
+    name = "xattn_decode_int8"
+    if not _on_cuda(name, q, xk_all, xk_scale, xv_all, xv_scale):
+        return xattn_decode_int8_plain(q, xk_all, xk_scale, xv_all, xv_scale, layer, n_head,
+                                       emit_scores, beam_group)
+    return _quantized_xattn(name, "wtt_xattn_decode_int8", 1, q, xk_all, xk_scale, xv_all,
+                            xv_scale, layer, n_head, emit_scores, beam_group)
+
+
+def xattn_decode_int4(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head: int,
+                      emit_scores: bool = False, beam_group: int = 1
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The same over nibble-packed int4 K/V (L, B_kv, T/2, D) int8 with
+    parity-major scales (L, B_kv, T) (see ``xattn_decode_int4_plain``);
+    scores (B, H, 1, T) in frame order."""
+    name = "xattn_decode_int4"
+    if not _on_cuda(name, q, xk_all, xk_scale, xv_all, xv_scale):
+        return xattn_decode_int4_plain(q, xk_all, xk_scale, xv_all, xv_scale, layer, n_head,
+                                       emit_scores, beam_group)
+    return _quantized_xattn(name, "wtt_xattn_decode_int4", 2, q, xk_all, xk_scale, xv_all,
+                            xv_scale, layer, n_head, emit_scores, beam_group)
+
+
+def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int,
+                          pos: int, pad_len, n_head: int):
+    """Write this step's new self-attention rows k_new/v_new (B, 1, D) into
+    slot ``pos`` of layer ``layer`` of the int8 cache, quantized as
+    ``quantize_rows`` does (codes and scales, in place), then attend over
+    the live slots [min(pad_len[b], pos), pos] (see
+    ``self_attn_decode_int8_plain``). On CUDA one launch does both: bf16
+    q/k_new/v_new, int8 cache (L, B, ctx, D), f32 scales (L, B, ctx), int32
+    ``pad_len``, head width 64, contiguous. For CPU tensors the plain
+    quantizer writes the rows and the plain version attends."""
+    name = "self_attn_decode_int8"
+    tensors = (q, k_new, v_new, k_all, k_scale, v_all, v_scale, pad_len)
+    if not _on_cuda(name, *tensors):
+        write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, pos)
+        return self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos,
+                                           pad_len, n_head)
+    B, S, D = q.shape
+    L, Bk, ctx, Dk = k_all.shape
+    _expect(name, S == 1 and Bk == B and Dk == D and v_all.shape == k_all.shape
+            and k_new.shape == q.shape and v_new.shape == q.shape, "shape mismatch")
+    _expect(name, k_scale.shape == (L, B, ctx) and v_scale.shape == k_scale.shape,
+            "scales must be (L, B, ctx)")
+    _expect(name, D == n_head * HEAD_DIM, f"head width must be {HEAD_DIM}, got D={D} H={n_head}")
+    _expect(name, all(t.dtype == torch.bfloat16 for t in (q, k_new, v_new)),
+            "q/k_new/v_new must be bf16")
+    _expect(name, k_all.dtype == torch.int8 and v_all.dtype == torch.int8, "K/V cache must be int8")
+    _expect(name, k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
+            "scales must be f32")
+    _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
+    _expect(name, all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    _expect(name, _aligned(q, k_new, v_new, k_all, k_scale, v_all, v_scale),
+            "inputs must be 16-byte aligned")
+    _expect(name, 0 <= layer < L and 0 <= pos < min(ctx, MAX_T), f"layer {layer} / pos {pos} out of range")
+    out = torch.empty_like(q)
+    _launch(name, "wtt_self_attn_decode_int8", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_all.data_ptr(), k_scale.data_ptr(), v_all.data_ptr(), v_scale.data_ptr(),
+            out.data_ptr(), pad_len.data_ptr(), layer, pos, B, ctx, D, n_head,
+            HEAD_DIM**-0.5, _stream(q))
     return out

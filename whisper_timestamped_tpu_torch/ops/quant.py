@@ -1,0 +1,60 @@
+"""Symmetric per-row int8 and int4 quantization of K/V rows, in plain tensor
+code (``models/whisper_jax.py:530-633`` of the JAX package, bit for bit on
+the same f32 input: the divide is ``x / max(s, 1e-8)`` in f32 and
+``torch.round`` rounds half to even, as ``jnp.round`` does).
+
+int4 packs two frames per int8 byte along T: frame 2i in the low nibble,
+2i+1 in the high nibble, values in [-7, 7]. Its per-frame scales are
+PARITY-MAJOR: the even frames' scales, then the odd frames'.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _abs_max_over(xf: torch.Tensor, levels: float) -> torch.Tensor:
+    """max|x| over the last axis divided by ``levels``, as an IEEE quotient:
+    the divisor is a tensor because PyTorch's CUDA divide by a Python scalar
+    multiplies by the scalar's reciprocal, which differs in the last bit
+    from the quotient that the JAX package and the CUDA kernels compute."""
+    return xf.abs().amax(dim=-1) / torch.full((), levels, device=xf.device)
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row (last-axis) int8 codes and f32 scales: x (..., D) ->
+    ((..., D) int8, (...) f32) with scale max|x| / 127."""
+    xf = x.float()
+    s = _abs_max_over(xf, 127.0)
+    q = torch.round(xf / s.clamp_min(1e-8)[..., None]).to(torch.int8)
+    return q, s
+
+
+def quantize_rows_int4(x: torch.Tensor):
+    """x (..., T, D), T even -> (packed (..., T//2, D) int8, parity-major
+    scales (..., T) f32) with scale max|x| / 7 and codes clipped to [-7, 7]."""
+    T = x.shape[-2]
+    if T % 2:
+        raise ValueError(f"int4 K/V needs an even frame count, got {T}")
+    xf = x.float()
+    s = _abs_max_over(xf, 7.0)
+    q = torch.clamp(torch.round(xf / s.clamp_min(1e-8)[..., None]), -7, 7).to(torch.int32)
+    lo, hi = q[..., 0::2, :], q[..., 1::2, :]
+    packed = ((lo & 0xF) | (hi << 4)).to(torch.int8)
+    return packed, torch.cat([s[..., 0::2], s[..., 1::2]], dim=-1)
+
+
+def int4_scales_frame_order(s: torch.Tensor) -> torch.Tensor:
+    """Parity-major int4 scales (..., T) -> frame order."""
+    Tp = s.shape[-1] // 2
+    return torch.stack([s[..., :Tp], s[..., Tp:]], dim=-1).reshape(*s.shape[:-1], -1)
+
+
+def unpack_int4_rows(packed: torch.Tensor) -> torch.Tensor:
+    """(..., T//2, D) nibble-packed int8 -> (..., T, D) int8 codes in frame
+    order (each nibble sign-extended)."""
+    p32 = packed.to(torch.int32)
+    lo = (p32 << 28) >> 28
+    hi = (p32 << 24) >> 28
+    *lead, Tp, D = packed.shape
+    return torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * Tp, D).to(torch.int8)

@@ -241,6 +241,7 @@ class BatchTranscriber:
                 max_new=options.sample_len or MAX_NEW_TOKENS,
                 suppress_blank=options.suppress_blank,
                 without_timestamps=options.without_timestamps,
+                **engine.kv_options,
             )
 
     # --------------------------------------------------------------
