@@ -39,12 +39,24 @@ Phases, each printing a line; any failure raises and exits non-zero:
       launched at least 32 times per decode step and ``xattn_decode`` never;
   (h) one batch of 8 streams with a ``kv_int4`` + ``self_kv_int8`` engine,
       and one serial 35 s request with ``WTT_KV_INT8=1``: the schema, the
-      levers' kernels launched, the bf16 kernels they replace never.
+      levers' kernels launched, the bf16 kernels they replace never;
+  (i) alignment outside the batched device aligner, on the large-v3 model
+      with no known alignment heads (120): three serial requests with
+      ``detect_disfluencies`` through the per-segment kernels
+      (``attention_to_cost`` and ``dtw_codes`` once per aligned segment,
+      ``align_cost`` never), the 12 s one again through the numpy route
+      (``device_alignment=False``, the same words within 0.02 s) and with
+      ``trust_whisper_timestamps=False``, the 10-head model with
+      disfluencies (the batched aligner fetching its cost rows), and a
+      ``transcribe_batch`` of 8 streams with 120 heads (host route).
 
-(c) covers the three quantized-cache kernels too, and (e) the decode step
-with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
-record takes each kernel's launches from the phase that runs it: the bf16
-path's from (f), ``xattn_decode_int8`` from (g), the other two from (h).
+(c) covers the three quantized-cache kernels too, the per-segment route's
+``attention_to_cost``, ``median9`` and ``dtw_path`` (``dtw_codes`` at S=1),
+and (e) the decode step with the int8 and int4 cross K/V and the int8 self
+cache. The kernels' JSON record takes each kernel's launches from the phase
+that runs it: the bf16 path's from (f), ``xattn_decode_int8`` from (g), the
+int4 and int8-self kernels from (h), ``attention_to_cost`` from (i);
+``median9``, which no path runs, from its checks in (c).
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
 at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
@@ -90,6 +102,10 @@ SOURCES = {
                           "whisper_timestamped_tpu/ops/pallas_kernels.py:1876"),
     "self_attn_decode_int8": ("whisper_timestamped_tpu_torch/csrc/self_attn_decode_int8.cu",
                               "whisper_timestamped_tpu/ops/pallas_kernels.py:2205"),
+    "attention_to_cost": ("whisper_timestamped_tpu_torch/csrc/align_cost.cu",
+                          "whisper_timestamped_tpu/ops/pallas_kernels.py:165"),
+    "median9": ("whisper_timestamped_tpu_torch/csrc/median9.cu",
+                "whisper_timestamped_tpu/ops/pallas_kernels.py:114"),
 }
 # the kernels of the bf16 path ([d], [f]); the other three read quantized caches
 BF16_PATH = ("xattn_decode", "self_attn_decode", "align_cost", "dtw_codes", "flash_attention")
@@ -449,6 +465,81 @@ def phase_quant_kernels(torch, K, device):
           f"attention) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call "
           f"computes it")
     del cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_segment_kernels(torch, K, device):
+    """(c): the per-segment alignment route's kernels at the shape of one
+    120-head segment of (i): K=120 scores of N=224 token rows (200 real) by
+    M=1536 frames (1500 real), padded as the aligner pads them.
+    ``attention_to_cost`` at rtol 1e-5 / atol 1e-6 (f32 sums in another
+    order), ``median9`` on the same array equal (a selection), the
+    ``dtw_codes`` route of ``dtw_path`` (S=1, rows padded to 32) on that cost
+    with the host's origin edit: the same path as the plain version's. No
+    single PyTorch call computes any of them: library none. Returns the
+    records of ``attention_to_cost`` and ``median9`` (with ``median9``'s
+    launches: no path runs it) and prints ``dtw_path``'s times."""
+    g = torch.Generator(device=device).manual_seed(2)
+    Kh, N, M, span, n_tok = 120, 224, 1536, 1500, 200
+    scores = torch.zeros((Kh, N, M), dtype=torch.float32, device=device)
+    scores[:, :n_tok, :span] = torch.randn((Kh, n_tok, span), generator=g, device=device) * 3.0
+    rows = scores.view(Kh * N, M)
+    K.reset_launches()
+    c_k = K.attention_to_cost(scores, span, n_tokens=n_tok)
+    m_k = K.median9(rows)
+    torch.cuda.synchronize()
+    c_p = K.attention_to_cost_plain(scores, span, n_tok)
+    err_c = (c_k - c_p).abs().max().item()
+    if not torch.allclose(c_k, c_p, rtol=1e-5, atol=1e-6):
+        fail(f"attention_to_cost disagrees: max abs {err_c:.3g} (rtol 1e-5, atol 1e-6)")
+    if not torch.equal(m_k, K.median9_plain(rows)):
+        fail("median9 differs from its plain version")
+    del m_k
+    weights = c_p[:n_tok, :span].clone()
+    weights[0, 0] = weights.min()  # the host's origin edit (no max-duration mask here)
+    path_k = K.dtw_path(weights)
+    path_p = K.dtw_path(weights.cpu())
+    if not all((a == b).all() for a, b in zip(path_k, path_p)):
+        fail("dtw_path through dtw_codes differs from its plain version")
+    rec = {}
+    valid = Kh * n_tok * span
+    ms = cuda_time_ms(lambda it=0: K.attention_to_cost(scores, span, n_tokens=n_tok), iters=10)
+    plain_ms = cuda_time_ms(lambda it=0: K.attention_to_cost_plain(scores, span, n_tok), iters=3)
+    # reads each valid score once, writes the (N, M) cost; ~48 f32
+    # operations per score, as align_cost
+    b_ms, b_by = bound(valid * 4 + N * M * 4, 48 * valid, F32_FLOPS)
+    rec["attention_to_cost"] = dict(max_abs_err=err_c, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
+    print(f"[c] attention_to_cost K=120 N=224 M=1536 (n_tokens 200, span 1500): max abs err "
+          f"{err_c:.3g} (rtol 1e-5, atol 1e-6); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}, {(valid * 4 + N * M * 4) / 1e6:.1f} MB)")
+    ms = cuda_time_ms(lambda it=0: K.median9(rows), iters=10)
+    plain_ms = cuda_time_ms(lambda it=0: K.median9_plain(rows), iters=3)
+    # reads and writes every element once; 19 compare-exchanges (38 min/max)
+    b_ms, b_by = bound(2 * rows.numel() * 4, 38 * rows.numel(), F32_FLOPS)
+    rec["median9"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+    print(f"[c] median9 (26880, 1536): equal to the plain version; {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # dtw_path: the kernel's step codes at S=1 (timed alone), then the host backtrace
+    Np = -(-n_tok // 32) * 32
+    padded = torch.full((1, Np, span), K.DTW_INF, dtype=torch.float32, device=device)
+    padded[0, :n_tok] = weights
+    dims = torch.tensor([[n_tok, span, 0, 0]], dtype=torch.int32, device=device)
+    ms_d = cuda_time_ms(lambda it=0: K.dtw_codes(padded, dims), iters=10)
+    plain_d = cuda_time_ms(lambda it=0: K.dtw_codes_plain(padded, dims), iters=2)
+    cells = n_tok * span
+    bd_ms, bd_by = bound(cells * 4 + cells * 4, 6 * cells, F32_FLOPS)
+    t0 = time.perf_counter()
+    K.dtw_path(weights)
+    path_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[c] dtw_path (dtw_codes at S=1, N=224 of 200 rows, M=1500): path equal to the plain "
+          f"version's ({len(path_k[0])} steps); codes {ms_d:.4f} ms vs plain {plain_d:.4f} ms, bound "
+          f"{bd_ms:.4f} ms ({bd_by}); whole call with the copy and the host backtrace "
+          f"{path_ms:.2f} ms (host clock)")
+    rec["median9"]["launches"] = K.LAUNCHES["median9"]
+    del scores, rows, c_k, c_p, padded
     torch.cuda.empty_cache()
     return rec
 
@@ -892,6 +983,140 @@ def phase_levers(torch, K, model, tok):
     return launches
 
 
+def phase_host_alignment(torch, K, model, tok):
+    """(i): alignment outside the batched device aligner, on the large-v3
+    model with no known alignment heads (the top 6 layers' 120 heads, more
+    than the device aligner's ``MAX_K``):
+
+    - three serial requests (7, 12, 35 s) with ``detect_disfluencies``: the
+      per-segment kernels; fails unless every request has words,
+      ``attention_to_cost`` and ``dtw_codes`` launched once per aligned
+      segment and ``align_cost`` never;
+    - the 12 s request with ``device_alignment=False`` (numpy, no alignment
+      kernel): the same words, start/end within 0.02 s of the kernel route;
+    - the 12 s request with ``trust_whisper_timestamps=False`` (whole-window
+      alignment on the host);
+    - the 12 s request on the 10-head model with ``detect_disfluencies``:
+      the batched aligner with its cost rows fetched;
+    - ``transcribe_batch`` of 8 streams (5-35 s) with the 120 heads and
+      ``detect_disfluencies``: the host route at assembly.
+
+    Prints each run's stages and the phase's peak memory; returns the
+    serial kernel route's launches."""
+    import whisper_timestamped_tpu_torch.alignment as TA
+    import whisper_timestamped_tpu_torch.api as api
+    from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_timestamped
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.models import WhisperModel
+    from whisper_timestamped_tpu_torch.utils import get_stage_timings, reset_stage_timings
+
+    L, H = model.dims.n_text_layer, model.dims.n_text_head
+    unknown = WhisperModel(module=model.module, alignment_heads=None)
+    kw = dict(tokenizer=tok, suppress_tokens=f"-1,{tok.eot}", **SMOKE_OPTIONS)
+    aligned = []  # segments whose alignment plan is not empty
+    wrapped = api.perform_word_alignment
+
+    def counting(tokens, attention_scores, tokenizer, **akw):
+        if attention_scores is not None and akw.get("precomputed_jumps") is None:
+            plan = TA.plan_alignment(tokens, tokenizer,
+                                     akw.get("refine_whisper_precision_nframes", 0),
+                                     akw.get("unfinished_decoding", False))
+            aligned.append(not plan.empty)
+        return wrapped(tokens, attention_scores, tokenizer, **akw)
+
+    def run(fn):
+        reset_stage_timings()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stages = ", ".join(f"{k} {v['total_s']:.2f}s" for k, v in sorted(get_stage_timings().items())
+                           if k in ("align", "align_upload", "alignment_fetch", "batch_align",
+                                    "batch_assemble", "decode"))
+        return out, secs, dict(K.LAUNCHES), stages
+
+    torch.cuda.reset_peak_memory_stats()
+    api.perform_word_alignment = counting
+    try:
+        serial = []
+        for seed, seconds in ((1, 7), (2, 12), (3, 35)):
+            aligned.clear()
+            res, secs, launches, stages = run(
+                lambda: transcribe_timestamped(unknown, make_audio(seed, seconds),
+                                               detect_disfluencies=True, **kw))
+            n_words, n_aligned = check_result(res), sum(aligned)
+            marks = sum(w["text"] == TA.DISFLUENCY_MARK for s in res["segments"]
+                        for w in s.get("words", []))
+            print(f"[i] 120 heads, per-segment kernels, {seconds:2d} s request, disfluencies: "
+                  f"{secs:.2f} s, {len(res['segments'])} segments ({n_aligned} aligned), "
+                  f"{n_words} words ({marks} disfluency marks); launches attention_to_cost "
+                  f"{launches['attention_to_cost']}, dtw_codes {launches['dtw_codes']}, align_cost "
+                  f"{launches['align_cost']}; stages {stages}")
+            if not n_words:
+                fail(f"[i] the {seconds} s request through the per-segment kernels has no words")
+            if not (launches["attention_to_cost"] == launches["dtw_codes"] == n_aligned
+                    and launches["align_cost"] == 0):
+                fail(f"[i] {seconds} s: expected attention_to_cost and dtw_codes once per aligned "
+                     f"segment ({n_aligned}) and no align_cost: {launches}")
+            serial.append((res, launches))
+        path_launches = {k: sum(l[k] for _, l in serial) for k in serial[0][1]}
+    finally:
+        api.perform_word_alignment = wrapped
+
+    def words(res):
+        return [w for s in res["segments"] for w in s.get("words", [])]
+
+    host, secs, launches, stages = run(
+        lambda: transcribe_timestamped(unknown, make_audio(2, 12), detect_disfluencies=True,
+                                       device_alignment=False, **kw))
+    if launches["attention_to_cost"] or launches["dtw_codes"] or launches["align_cost"]:
+        fail(f"[i] device_alignment=False launched an alignment kernel: {launches}")
+    w_host, w_kern = words(host), words(serial[1][0])
+    if [w["text"] for w in w_host] != [w["text"] for w in w_kern]:
+        fail(f"[i] the host route's words differ from the kernel route's "
+             f"({len(w_host)} against {len(w_kern)} words)")
+    moved = [max(abs(a["start"] - b["start"]), abs(a["end"] - b["end"]))
+             for a, b in zip(w_host, w_kern)]
+    n_moved = sum(d > 0 for d in moved)
+    print(f"[i] 120 heads, device_alignment=False (numpy), 12 s: {secs:.2f} s, {len(w_host)} words, "
+          f"texts equal to the kernel route's, {n_moved} with another start/end (largest "
+          f"difference {max(moved, default=0.0):.3f} s, limit 0.02 s); stages {stages}")
+    if max(moved, default=0.0) > 0.02 + 1e-9:
+        fail(f"[i] the host and kernel routes' times differ by {max(moved):.3f} s (limit 0.02 s)")
+
+    whole, secs, launches, stages = run(
+        lambda: transcribe_timestamped(unknown, make_audio(2, 12),
+                                       trust_whisper_timestamps=False, **kw))
+    print(f"[i] 120 heads, trust_whisper_timestamps=False, 12 s: {secs:.2f} s, "
+          f"{len(whole['segments'])} segments, {check_result(whole)} words; stages {stages}")
+
+    fetched, secs, launches, stages = run(
+        lambda: transcribe_timestamped(model, make_audio(2, 12), detect_disfluencies=True, **kw))
+    n = check_result(fetched)
+    if not n or not launches["align_cost"] or launches["attention_to_cost"]:
+        fail(f"[i] 10 heads with disfluencies: {n} words, launches {launches} (expected the batched "
+             f"aligner)")
+    print(f"[i] 10 heads, batched aligner with fetch_cost, 12 s, disfluencies: {secs:.2f} s, {n} "
+          f"words; launches align_cost {launches['align_cost']}, dtw_codes {launches['dtw_codes']}; "
+          f"stages {stages}")
+
+    top6 = WhisperModel(module=model.module,
+                        alignment_heads=[(l, h) for l in range(max(0, L - 6), L) for h in range(H)])
+    batch = {f"i{j}": make_audio(3000 + j, sec) for j, sec in enumerate([35, 5, 12, 20, 8, 27, 15, 30])}
+    res, secs, launches, stages = run(
+        lambda: transcribe_batch(top6, batch, tok, batch_size=8, temperature=[0.0],
+                                 detect_disfluencies=True, **SMOKE_OPTIONS,
+                                 decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}")))
+    n = sum(check_result(r) for r in res.values())
+    if not n or launches["align_cost"] or launches["attention_to_cost"]:
+        fail(f"[i] batch with 120 heads: {n} words, launches {launches} (expected the host route)")
+    print(f"[i] 120 heads, transcribe_batch of 8 streams (152 s of audio), disfluencies, host route: "
+          f"{secs:.2f} s, {n} words; stages {stages}")
+    print(f"[i] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return path_launches
+
+
 def phase_profile(torch, model, tok, B: int, **levers):
     """(--profile): device time against wall time for one decoded window of
     B rows, with the engine's ``levers``."""
@@ -926,6 +1151,7 @@ def phase_profile(torch, model, tok, B: int, **levers):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "whisper_timestamped_tpu_torch")):
         fail("whisper_timestamped_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -963,6 +1189,7 @@ def main() -> int:
     rec = phase_kernels(torch, K, device)
     torch.cuda.empty_cache()
     rec.update(phase_quant_kernels(torch, K, device))
+    rec.update(phase_segment_kernels(torch, K, device))
     if "--kernels-only" in sys.argv[1:]:
         print("[c] --kernels-only: stopping after the kernel checks")
         return 0
@@ -991,6 +1218,9 @@ def main() -> int:
     lever_launches = phase_levers(torch, K, model, tok)
     for name in ("xattn_decode_int4", "self_attn_decode_int8"):
         launches[name] = lever_launches[name]
+    torch.cuda.empty_cache()
+    launches["attention_to_cost"] = phase_host_alignment(torch, K, model, tok)["attention_to_cost"]
+    launches["median9"] = rec["median9"].pop("launches")
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):
             phase_profile(torch, model, tok, B, **levers)
@@ -1000,6 +1230,7 @@ def main() -> int:
              launches=launches[name], **rec[name])
         for name in SOURCES
     ]
+    print(f"[z] {time.perf_counter() - t_start:.0f} s from start to here, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -3,10 +3,12 @@ against the JAX package's, in f32 on the CPU.
 
 The model is test_batch.py's (the synthetic golden model, alignment heads
 (0, 1), (1, 0), (1, 2)), its weights converted by ``params_from_jax_tree``.
-The port runs its device-alignment path with the kernels' plain versions;
-the JAX package runs ``device_alignment=True`` (its Pallas kernels in
-interpret mode). Segment tokens must be identical and results equal under
-test_golden.py's ``loose`` rounding; the device flow must equal the host
+Both packages run each alignment route of the batch: the device aligner
+(``device_alignment=True``; the port through the kernels' plain versions,
+the JAX package through its Pallas kernels in interpret mode), with and
+without disfluency detection, and the host route (``device_alignment=False``
+or more alignment heads than ``MAX_K``). Segment tokens must be identical
+and results equal under test_golden.py's ``loose`` rounding; the device flow must equal the host
 loop exactly; the device-flow state functions must equal JAX's exactly.
 """
 
@@ -77,9 +79,41 @@ def _tokens(res):
 
 def test_transcribe_batch_matches_jax(models):
     jax_model, model = models
-    got = B.transcribe_batch(model, AUDIOS, _tok(), **KW)
+    got = B.transcribe_batch(model, AUDIOS, _tok(), device_alignment=True, **KW)
     want = JB.transcribe_batch(jax_model, AUDIOS, make_tokenizer(language="en", task="transcribe"),
                                device_alignment=True, **KW)
+    assert list(got) == list(want)
+    for name in AUDIOS:
+        assert _tokens(got[name]) == _tokens(want[name]), name
+        assert loose(got[name]) == loose(want[name]), name
+    assert sum(len(s.get("words", [])) for r in got.values() for s in r["segments"]) > 0
+
+
+BATCH_ROUTES = {
+    "device_disfluencies": dict(device_alignment=True, detect_disfluencies=True),
+    "host": dict(device_alignment=False),
+    "host_disfluencies": dict(device_alignment=False, detect_disfluencies=True),
+    "host_over_max_k": dict(device_alignment=True, detect_disfluencies=True),
+}
+
+
+@pytest.mark.parametrize("route", sorted(BATCH_ROUTES))
+def test_transcribe_batch_routes_match_jax(models, monkeypatch, route):
+    """Each alignment route of the batch, port against JAX's
+    ``transcribe_batch`` with the same options (as test_batch.py:324 and
+    :377 hold JAX's routes to each other). ``host_over_max_k`` sets both
+    packages' ``MAX_K`` to 2, below the model's 3 heads: device alignment
+    requested, the host route taken."""
+    import whisper_timestamped_tpu.device_align as jax_device_align
+
+    jax_model, model = models
+    if route == "host_over_max_k":
+        monkeypatch.setattr(jax_device_align, "MAX_K", 2)
+        monkeypatch.setattr(B, "MAX_K", 2)
+    opts = {**KW, **BATCH_ROUTES[route]}
+    got = B.transcribe_batch(model, AUDIOS, _tok(), **opts)
+    want = JB.transcribe_batch(jax_model, AUDIOS, make_tokenizer(language="en", task="transcribe"),
+                               **opts)
     assert list(got) == list(want)
     for name in AUDIOS:
         assert _tokens(got[name]) == _tokens(want[name]), name
@@ -345,8 +379,6 @@ def test_stage_timers_lose_no_update_across_threads():
 NOT_PORTED = {
     "mesh": dict(mesh=object()),
     "vad": dict(vad="auditok"),
-    "detect_disfluencies": dict(detect_disfluencies=True),
-    "host_alignment": dict(device_alignment=False),
     "beam_size": dict(decode_options=DecodingOptions(beam_size=2)),
     "best_of": dict(decode_options=DecodingOptions(best_of=2)),
     "sampling": dict(temperature=[0.7]),
@@ -364,7 +396,7 @@ def test_unported_options_raise(models, option):
 def test_unported_transcriber_options_and_fallback_raise(models):
     _, model = models
     engine = DecodeEngine(model, _tok())
-    for kw in (dict(mesh=object()), dict(tail_batch=2), dict(fetch_alignment=True)):
+    for kw in (dict(mesh=object()), dict(tail_batch=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             B.BatchTranscriber(engine, **kw)
     # random weights fail the default quality thresholds: the schedule's

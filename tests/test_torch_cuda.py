@@ -87,6 +87,37 @@ def test_align_cost_and_dtw_kernels_match_plain(cuda, N):
                        _backtrace_batch(d_p, dims[:, 0], dims[:, 1], steps))
 
 
+@pytest.mark.parametrize("Kh", [3, 120])
+@pytest.mark.parametrize("n", [17, 33])
+def test_per_segment_kernels_match_plain(cuda, n, Kh):
+    """The per-segment route's three wrappers at large-v3's frame width:
+    ``attention_to_cost`` (tokens padded to 16 and frames to 128, as the
+    aligner pads them) at rtol 1e-5 / atol 1e-6, f32 sums in another order;
+    ``median9`` on the same scores equal (a selection); ``dtw_path`` on the
+    plain cost, kernel against plain version, equal paths."""
+    span = 1500 - 7 * n
+    N, M = -(-n // 16) * 16, -(-span // 128) * 128
+    g = torch.Generator(device=cuda).manual_seed(n * Kh)
+    scores = torch.zeros((Kh, N, M), dtype=torch.float32, device=cuda)
+    scores[:, :n, :span] = _randn(g, Kh, n, span, dtype=torch.float32, scale=3.0)
+    before = dict(K.LAUNCHES)
+    c_k = K.attention_to_cost(scores, span, n_tokens=n)
+    m_k = K.median9(scores)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["attention_to_cost"] == before["attention_to_cost"] + 1
+    assert K.LAUNCHES["median9"] == before["median9"] + 1
+    c_p = K.attention_to_cost_plain(scores, span, n)
+    torch.testing.assert_close(c_k, c_p, rtol=1e-5, atol=1e-6)
+    assert torch.equal(m_k, K.median9_plain(scores))
+    weights = c_p[:n, :span].contiguous()
+    before = K.LAUNCHES["dtw_codes"]
+    path_k = K.dtw_path(weights)
+    assert K.LAUNCHES["dtw_codes"] == before + 1
+    path_p = K.dtw_path(weights.cpu())
+    for a, b in zip(path_k, path_p):
+        assert (a == b).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 1, 96), dtype=torch.bfloat16, device=cuda)  # dh = 48
     kv = torch.zeros((1, 1, 8, 96), dtype=torch.bfloat16, device=cuda)

@@ -161,8 +161,7 @@ def test_prefill_of_232_slots_goes_through_flash_and_matches_jax(flash_calls):
     assert prefill == [(232, 232, True), (232, 1500, False)] * dims.n_text_layer
     assert rt.tokens == rj.tokens and len(rt.tokens) > 2
     np.testing.assert_allclose(rt.token_logprobs, rj.token_logprobs, **TOL)
-    n = len(rt.tokens)
-    np.testing.assert_allclose(rt.attn_dev[0, :n].numpy(), rj.attn, **TOL)
+    np.testing.assert_allclose(rt.attn, rj.attn, **TOL)
     # the small (8-slot) region of a promptless window keeps the plain math
     flash_calls.clear()
     DecodeEngine(model, tok).decode_window(

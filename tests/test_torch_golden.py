@@ -1,8 +1,10 @@
 """The port's ``transcribe_timestamped`` against the stored goldens of the
 greedy configurations of test_golden.py (same model, audio and options; f32
-on the CPU, alignment through the device aligner's plain versions), under
-test_golden.py's ``loose`` rounding. The three configurations that are also
-run against the JAX package live in test_torch_slice.py."""
+on the CPU), under test_golden.py's ``loose`` rounding: once through the
+device aligner's plain versions (``device_alignment=True``), once through
+the host route that ``device_alignment=None`` takes on a CPU model. The
+configurations that are also run against the JAX package live in
+test_torch_slice.py."""
 
 import json
 import os
@@ -39,8 +41,7 @@ def model():
     return WhisperModel(module=module, alignment_heads=[(0, 1), (1, 0), (1, 2)])
 
 
-@pytest.mark.parametrize("name", GREEDY)
-def test_port_matches_golden(model, name):
+def _check_golden(model, name, **route):
     opts = dict(CONFIGS[name])
     seed, seconds = opts.pop("_audio", (7, 7))
     tok_kw = opts.pop("_tok", {})
@@ -49,8 +50,18 @@ def test_port_matches_golden(model, name):
     kwargs = dict(tokenizer=tok, no_speech_threshold=None, logprob_threshold=None,
                   compression_ratio_threshold=None)
     kwargs.update(opts)
-    result = transcribe_timestamped(model, _audio(seed, seconds), **kwargs)
+    result = transcribe_timestamped(model, _audio(seed, seconds), **route, **kwargs)
     if "language_probs" in result:
         result = {**result, "language_probs": loose(result["language_probs"])}
     with open(os.path.join(EXPECTED_DIR, name + ".words.json"), encoding="utf-8") as f:
         assert loose(result) == loose(json.load(f))
+
+
+@pytest.mark.parametrize("name", GREEDY)
+def test_port_matches_golden(model, name):
+    _check_golden(model, name, device_alignment=True)
+
+
+@pytest.mark.parametrize("name", GREEDY)
+def test_port_host_route_matches_golden(model, name):
+    _check_golden(model, name)

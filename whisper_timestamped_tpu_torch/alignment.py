@@ -1,11 +1,20 @@
 """Word alignment: DTW over cross-attention -> word-level timestamps.
 
-Port of the host word assembly of ``whisper_timestamped_tpu/alignment.py``
-(token splitting, ``plan_alignment``, ``perform_word_alignment``). The
-batched device aligner (``device_align.py``) supplies each segment's jumps
-through ``precomputed_jumps``; without them the cost and DTW run on the host
-in numpy. The JAX module's single-segment device-kernel branches
-(``use_device_kernels``) and disfluency detection are not yet ported.
+Port of ``whisper_timestamped_tpu/alignment.py`` (token splitting,
+``plan_alignment``, ``perform_word_alignment`` with disfluency detection).
+A segment's jumps come from one of three routes:
+
+- the batched device aligner (``device_align.py``), through
+  ``precomputed_jumps`` (and ``precomputed_cost`` for disfluencies);
+- the per-segment kernels (``use_device_kernels``): the ``attention_to_cost``
+  kernel on ``device``, the weight edits on the host in float64, then
+  ``dtw_codes`` on ``device`` with the backtrace on the host;
+- the host: the cost in numpy (f32) and the DTW in numpy (float64).
+
+The routes keep the JAX package's precisions, so they can break DTW ties
+differently, as the JAX package's routes do. The native C++ DTW core of the
+JAX package (``native.py``) is not ported: the host DTW is the numpy
+wavefront.
 """
 
 from __future__ import annotations
@@ -14,11 +23,23 @@ import string
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .audio import AUDIO_TIME_PER_TOKEN, N_FRAMES
+from .models.load import default_device
+from .ops import kernels
 from .ops.dtw import dtw_path_numpy_wavefront
 from .ops.median import median_filter_numpy
-from .utils import not_ported
+from .ops.peaks import find_peaks
+from .utils import not_ported, stage_timer
+
+DISFLUENCY_MARK = "[*]"
+
+
+def dtw_path(x, allow_vertical: bool = True):
+    """Host DTW (float64): the numpy wavefront (the JAX package's
+    ``dtw_path`` uses its native C++ core when built; the port has none)."""
+    return dtw_path_numpy_wavefront(x, allow_vertical)
 
 # punctuation set (reference ``transcribe.py:1813``)
 _punctuation = (
@@ -158,6 +179,24 @@ def _attention_to_cost(scores: np.ndarray, medfilt_width: int, qk_scale: float) 
     return -w.astype(np.float64)
 
 
+def _attention_to_cost_device(scores: np.ndarray, device=None) -> np.ndarray:
+    """``_attention_to_cost`` with medfilt_width=9 and qk_scale=1 through
+    the ``attention_to_cost`` kernel on ``device`` (None: the card). As the
+    JAX wrapper does (``alignment.py:218-233``), tokens pad to a multiple of
+    16 and frames to 128 with zeros; the padded block goes to the card
+    through pinned memory. Returns the (n_tokens, span) cost in float64."""
+    dev = default_device(device)
+    K, N, span = scores.shape
+    Np = int(np.ceil(max(N, 1) / 16) * 16)
+    M = int(np.ceil(max(span, 1) / 128) * 128)
+    with stage_timer("align_upload"):
+        host = torch.zeros((K, Np, M), dtype=torch.float32, pin_memory=dev.type == "cuda")
+        host.numpy()[:, :N, :span] = scores
+        padded = host.to(dev)
+    cost = kernels.attention_to_cost(padded, span, n_tokens=N)
+    return cost[:N, :span].cpu().numpy().astype(np.float64)
+
+
 # ---------------------------------------------------------------------------
 # Alignment planning, shared by the host path and the device aligner
 # ---------------------------------------------------------------------------
@@ -236,22 +275,27 @@ def perform_word_alignment(
     unfinished_decoding: bool = False,
     medfilt_width: int = 9,
     qk_scale: float = 1.0,
-    detect_disfluencies: bool = False,
+    detect_disfluencies: bool = True,
     subwords_can_be_empty: bool = True,
     plot=False,
     use_device_kernels: bool = False,
     precomputed_jumps: Optional[np.ndarray] = None,
+    precomputed_cost: Optional[np.ndarray] = None,
+    device=None,
 ) -> List[dict]:
-    """Words with start/end times for one segment. ``precomputed_jumps``:
-    per-token start frames of the planned tokens (length
-    len(plan.tokens) + 1) from the device aligner; otherwise the cost and the
-    DTW run here on the host from ``attention_scores``."""
-    if detect_disfluencies:
-        raise not_ported("detect_disfluencies")
+    """Words with start/end times for one segment.
+
+    ``precomputed_jumps``: per-token start frames of the planned tokens
+    (length len(plan.tokens) + 1) from the batched device aligner, with
+    ``precomputed_cost``, its (n_tokens, span) cost (weight edits applied),
+    required when ``detect_disfluencies``: peak detection reads its rows.
+    Otherwise the cost and the DTW run here from ``attention_scores``: through
+    the ``attention_to_cost`` and ``dtw_codes`` kernels on ``device`` (None:
+    the card) with ``use_device_kernels``, where their gates hold
+    (medfilt_width 9 and qk_scale 1 for the cost, subwords_can_be_empty for
+    the DTW), else in numpy. ``plot`` is not yet ported."""
     if plot:
         raise not_ported("plot_word_alignment")
-    if use_device_kernels:
-        raise not_ported("single-segment device alignment (use device_align)")
     plan = plan_alignment(
         tokens, tokenizer, refine_whisper_precision_nframes, unfinished_decoding
     )
@@ -277,10 +321,16 @@ def perform_word_alignment(
         num_punctuations_per_tokens[:-2] = [0] * (len(num_punctuations_per_tokens) - 2)
 
     if precomputed_jumps is not None:
+        assert not detect_disfluencies or precomputed_cost is not None
         jumps = np.asarray(precomputed_jumps, np.int64)
         assert len(jumps) == len(tokens) + 1, (
             f"Jumps have wrong length: {len(jumps)} != {len(tokens) + 1}"
         )
+        weights = None if precomputed_cost is None else np.asarray(precomputed_cost)
+        if weights is not None:
+            assert weights.shape[0] == len(tokens), (
+                f"Cost has wrong row count: {weights.shape[0]} != {len(tokens)}"
+            )
     else:
         attention_scores = np.asarray(attention_scores)
         assert attention_scores.shape[0] > int(plan.row_indices.max()), (
@@ -290,22 +340,72 @@ def perform_word_alignment(
         attention_scores = attention_scores[plan.row_indices]
         # (n_tokens, K, ctx) -> (K, n_tokens, span)
         sliced = np.transpose(attention_scores, (1, 0, 2))[..., start_token:end_token]
-        weights = _attention_to_cost(sliced, medfilt_width, qk_scale)
+        if use_device_kernels and medfilt_width == 9 and qk_scale == 1.0:
+            weights = _attention_to_cost_device(sliced, device)
+        else:
+            weights = _attention_to_cost(sliced, medfilt_width, qk_scale)
         if max_duration and start_token < max_duration:
             # the column index is absolute in the reference even though the
             # matrix is sliced (transcribe.py:1565), kept for parity
             weights[:-1, max_duration:] = 0.0
         weights[0, 0] = weights.min()  # encourage the path to start early
-        index1s, index2s = dtw_path_numpy_wavefront(weights, allow_vertical=subwords_can_be_empty)
+        if use_device_kernels and subwords_can_be_empty:
+            cost = torch.from_numpy(weights.astype(np.float32)).to(default_device(device))
+            index1s, index2s = kernels.dtw_path(cost)
+        else:
+            index1s, index2s = dtw_path(weights, allow_vertical=subwords_can_be_empty)
         jumps = np.diff(index1s)
         jumps = np.pad(jumps, (1, 0), constant_values=1).astype(bool)
         jumps = index2s[jumps]
         jumps = np.pad(jumps, (0, 1), constant_values=index2s[-1])
 
+    jumps_start = jumps
+    disfluences = {}
+    if detect_disfluencies:
+        # a token whose cost row has several attention peaks starts at the
+        # last one; the span before it becomes a disfluency mark
+        # (reference ``transcribe.py:1656-1736``)
+        jumps_start = jumps.copy()
+        for i_token, (tok_id, begin, end) in enumerate(zip(tokens, jumps[:-1], jumps[1:])):
+            peaks, properties = find_peaks(-weights[i_token, begin:end], width=3, prominence=0.02)
+            if len(peaks) > 1:
+                if "left_ips" in properties:
+                    left = [round(x) for x in properties["left_ips"]]
+                else:
+                    left = properties["left_bases"]
+                new_begin = left[-1] + begin
+                jumps_start[i_token] = new_begin
+                if new_begin != begin:
+                    is_punctuation = (
+                        tokenizer.decode_with_timestamps([tok_id]) in _punctuation
+                    )
+                    if not is_punctuation:
+                        disfluences[i_token] = (begin, jumps_start[i_token])
+                    else:
+                        disfluences[i_token + 1] = (begin, end)
+
     word_boundaries = np.cumsum([len(t) for t in word_tokens])
     word_boundaries = np.pad(word_boundaries, (1, 0))
-    begin_times = jumps[word_boundaries[:-1]] * AUDIO_TIME_PER_TOKEN
+    begin_times = jumps_start[word_boundaries[:-1]] * AUDIO_TIME_PER_TOKEN
     end_times = jumps[word_boundaries[1:] - num_punctuations_per_tokens] * AUDIO_TIME_PER_TOKEN
+
+    if detect_disfluencies:
+        to_be_added = []
+        i_start = 0
+        for i_word, toks in enumerate(word_tokens[:-1]):
+            i_end = i_start + len(toks)
+            if i_start in disfluences and i_word > 0:
+                begin, end = disfluences[i_start]
+                to_be_added.append(
+                    (i_word, begin * AUDIO_TIME_PER_TOKEN, end * AUDIO_TIME_PER_TOKEN)
+                )
+            i_start = i_end
+        for i_word, begin, end in to_be_added[::-1]:
+            words.insert(i_word, DISFLUENCY_MARK)
+            word_tokens.insert(i_word, [])
+            word_tokens_indices.insert(i_word, [])
+            begin_times = np.insert(begin_times, i_word, begin)
+            end_times = np.insert(end_times, i_word, end)
 
     # edge rules: ignore the start/end timestamp pseudo-words (the len guards
     # cover a segment whose only text is an incomplete UTF-8 byte)

@@ -1,19 +1,24 @@
 """Public API: ``transcribe_timestamped``, the orchestrator.
 
-Port of ``whisper_timestamped_tpu/api.py`` for the default call: the greedy
-single-pass engine with alignment on the device (``_transcribe_efficient``'s
-``full_device`` branch: on the card through the CUDA kernels, on the CPU
-through their plain versions), and the per-segment alignment helpers the
-batch pipeline shares (``prefetch_ts_repair_rows``,
-``prepare_segment_tokens``, ``device_align_segments``). Options outside
-that path raise ``NotImplementedError`` naming the option.
+Port of ``whisper_timestamped_tpu/api.py`` for the greedy single-pass
+engine (``_transcribe_efficient``) with its three alignment routes: the
+batched device aligner (``full_device``: device alignment on, at most
+``MAX_K`` alignment heads, whisper's timestamps trusted), the per-segment
+kernels (device alignment on, outside those gates) and the host
+(``device_alignment=False``, or off by default on a CPU model); with
+``detect_disfluencies`` and ``trust_whisper_timestamps=False`` (whole-window
+alignment). On the card the kernels run, on the CPU their plain versions.
+The per-segment helpers are shared with the batch pipeline
+(``prefetch_ts_repair_rows``, ``prepare_segment_tokens``,
+``device_align_segments``, ``align_and_score_segment``). Options outside
+these paths raise ``NotImplementedError`` naming the option.
 """
 
 from __future__ import annotations
 
 import logging
 import sys
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -21,7 +26,7 @@ import torch
 from .alignment import _punctuation, perform_word_alignment, round_confidence, round_timestamp
 from .audio import AUDIO_TIME_PER_TOKEN, HOP_LENGTH, N_FRAMES, SAMPLE_RATE, load_audio
 from .decoding import DecodingOptions
-from .device_align import MAX_K, compute_jumps_batch, make_task
+from .device_align import MAX_K, compute_jumps_batch, default_device_alignment, make_task
 from .engine import DecodeEngine, Segment, transcribe_windows
 from .languages import LANGUAGES, LANGUAGES_WITHOUT_SPACES, normalize_language
 from .models.load import WhisperModel, load_model
@@ -90,8 +95,7 @@ def _resolve_tokenizer(model: WhisperModel, tokenizer, language, task) -> Tokeni
 
 
 def _check_ported(temperature, best_of, beam_size, naive_approach, vad,
-                  detect_disfluencies, trust_whisper_timestamps,
-                  plot_word_alignment, use_backend_timestamps, device_alignment):
+                  plot_word_alignment, use_backend_timestamps):
     temps = list(temperature) if isinstance(temperature, (list, tuple)) else [temperature]
     refused = [
         (any(float(t) > 0 for t in temps), "temperature > 0 (sampling)"),
@@ -100,11 +104,8 @@ def _check_ported(temperature, best_of, beam_size, naive_approach, vad,
         (beam_size is not None, "beam_size"),
         (naive_approach, "naive_approach"),
         (vad is not False and vad is not None, "vad"),
-        (detect_disfluencies, "detect_disfluencies"),
-        (not trust_whisper_timestamps, "trust_whisper_timestamps=False"),
         (bool(plot_word_alignment), "plot_word_alignment"),
         (use_backend_timestamps, "use_backend_timestamps"),
-        (device_alignment is False, "device_alignment=False (host alignment)"),
     ]
     for cond, option in refused:
         if cond:
@@ -161,9 +162,13 @@ def transcribe_timestamped(
     decide where and in what precision it runs (``fp16`` is accepted and,
     as in the JAX package, not read). ``seed`` seeds the ``torch.Generator``
     handed to the decoder; the greedy path draws nothing from it.
-    Alignment always runs on the model's device; ``device_alignment=False``
-    (host alignment) and the other options listed in ``_check_ported`` are
-    not yet ported and raise ``NotImplementedError``.
+
+    ``device_alignment`` runs the alignment cost and DTW on the model's
+    device: the batched aligner where its gates hold, else the per-segment
+    kernels. None (the default) means on when the model is on CUDA, off on
+    the CPU; the WTT_DEVICE_ALIGN env var ("1"/"0") overrides it. The
+    options listed in ``_check_ported`` are not yet ported and raise
+    ``NotImplementedError``.
     """
     assert (
         refine_whisper_precision >= 0
@@ -178,11 +183,13 @@ def transcribe_timestamped(
     if isinstance(temperature, (list, tuple)) and len(temperature) == 1:
         temperature = temperature[0]
     _check_ported(temperature, best_of, beam_size, naive_approach, vad,
-                  detect_disfluencies, trust_whisper_timestamps,
-                  plot_word_alignment, use_backend_timestamps, device_alignment)
+                  plot_word_alignment, use_backend_timestamps)
 
     if isinstance(model, str):
         model = load_model(model)
+    device_alignment_explicit = device_alignment is not None
+    if device_alignment is None:
+        device_alignment = default_device_alignment(model.device)
     if language is not None:
         language = normalize_language(language)
     tok = _resolve_tokenizer(model, tokenizer, language, task)
@@ -197,11 +204,6 @@ def transcribe_timestamped(
                      model_name=model.model_name, tokenizer_ranks=model.tokenizer_ranks),
         tok,
     )
-    if len(engine.align_heads) > MAX_K:
-        raise not_ported(
-            f"{len(engine.align_heads)} alignment heads (device alignment takes {MAX_K}; "
-            "host alignment)"
-        )
 
     audio = load_audio(audio)
     generator = torch.Generator(device=model.device)
@@ -225,13 +227,18 @@ def transcribe_timestamped(
         remove_punctuation_from_words=remove_punctuation_from_words,
         compute_word_confidence=compute_word_confidence,
         include_punctuation_in_confidence=include_punctuation_in_confidence,
+        detect_disfluencies=detect_disfluencies,
         verbose=verbose,
+        device_alignment=device_alignment,
+        device_alignment_explicit=device_alignment_explicit,
+        trust_whisper_timestamps=trust_whisper_timestamps,
     )
     return finalize_transcription(
         transcription,
         words,
         remove_empty_words=remove_empty_words,
         min_word_duration=min_word_duration,
+        trust_whisper_timestamps=trust_whisper_timestamps,
         refine_whisper_precision=refine_whisper_precision,
         print_words=bool(verbose),
     )
@@ -243,16 +250,20 @@ def finalize_transcription(
     *,
     remove_empty_words: bool,
     min_word_duration: float,
+    trust_whisper_timestamps: bool,
     refine_whisper_precision: float,
     print_words: bool = False,
 ) -> dict:
     """Hallucination pruning, monotonicity repair and the word->segment
-    merge (reference ``transcribe.py:313-339``)."""
+    merge (reference ``transcribe.py:313-339``). Without trusted whisper
+    timestamps the repair keeps no minimal word duration (``api.py:331-333``)."""
     if remove_empty_words:
         transcription, words = remove_last_null_duration_words(
             transcription, words, recompute_text=True
         )
-    ensure_increasing_positions(words, min_duration=min_word_duration)
+    ensure_increasing_positions(
+        words, min_duration=min_word_duration if trust_whisper_timestamps else 0
+    )
 
     whisper_segments = transcription["segments"]
     for word in words:
@@ -294,15 +305,45 @@ def _transcribe_efficient(
     remove_punctuation_from_words,
     compute_word_confidence,
     include_punctuation_in_confidence,
+    detect_disfluencies,
     verbose,
+    device_alignment=False,
+    device_alignment_explicit=True,
+    trust_whisper_timestamps=True,
 ):
-    """The single-pass engine with full on-device alignment: the attention
-    buffers never leave the device; only tokens, log-probs and jumps do."""
+    """The single-pass engine (``api.py:376``). With full on-device
+    alignment the attention buffers never leave the device; only tokens,
+    log-probs and jumps (and, for disfluencies, the cost rows) do. Otherwise
+    each window's attention comes to the host and each segment aligns
+    through the per-segment kernels (``device_alignment``) or in numpy."""
     tok = engine.tokenizer
 
     def verbose_cb(seg: Segment):
         line = f"[{format_timestamp(seg.start)} --> {format_timestamp(seg.end)}] {seg.text}"
         print(line.encode(sys.getdefaultencoding(), errors="replace").decode())
+
+    full_device = (
+        device_alignment
+        and trust_whisper_timestamps
+        and len(engine.align_heads) <= MAX_K
+    )
+    if device_alignment and not full_device:
+        # an explicit request that cannot be met warns; the auto-resolved
+        # default degrades with an info line only
+        reasons = [
+            r for cond, r in (
+                (not trust_whisper_timestamps,
+                 "trust_whisper_timestamps=False aligns whole windows on the host"),
+                (len(engine.align_heads) > MAX_K,
+                 f"{len(engine.align_heads)} alignment heads exceed the device aligner's "
+                 f"capacity ({MAX_K})"),
+            ) if cond
+        ]
+        (logger.warning if device_alignment_explicit else logger.info)(
+            "device_alignment %s but falling back to host alignment: %s",
+            "requested" if device_alignment_explicit else "auto-enabled",
+            "; ".join(reasons),
+        )
 
     opts = DecodingOptions(suppress_tokens=suppress_tokens, sample_len=sample_len)
     result = transcribe_windows(
@@ -320,40 +361,68 @@ def _transcribe_efficient(
         return_language_probs=language is None,
         verbose_callback=verbose_cb if verbose else None,
         generator=generator,
+        fetch_alignment=not full_device,
     )
     if verbose and language is None and result.language is not None:
         print(f"Detected language: {LANGUAGE_NAMES.get(result.language, result.language)}")
 
     use_space = should_use_space(result.language)
-    entries = [(seg, prepare_segment_tokens(seg, tok)) for seg in result.segments]
-    with stage_timer("align"):
-        all_jumps = device_align_segments(entries, tok, refine_whisper_precision_nframes)
 
-    words: List[dict] = []
-    segment_dicts: List[dict] = []
-    for (seg, prep), jumps in zip(entries, all_jumps):
-        if prep is None:
-            continue
-        with stage_timer("align"):
-            ws, seg_dict = align_and_score_segment(
-                seg,
-                tok,
-                prep,
-                jumps,
-                use_space=use_space,
-                refine_whisper_precision_nframes=refine_whisper_precision_nframes,
-                remove_punctuation_from_words=remove_punctuation_from_words,
-                compute_word_confidence=compute_word_confidence,
-                include_punctuation_in_confidence=include_punctuation_in_confidence,
-            )
-        if ws is None:
-            continue  # segment dropped (no aligned words)
-        idx = len(segment_dicts)
-        for w in ws:
-            w["idx_segment"] = idx
-        seg_dict["id"] = idx
-        segment_dicts.append(seg_dict)
-        words.extend(ws)
+    if not trust_whisper_timestamps:
+        words, segment_dicts = _align_words_whole_windows(
+            result,
+            tok,
+            use_space=use_space,
+            refine_whisper_precision_nframes=refine_whisper_precision_nframes,
+            remove_punctuation_from_words=remove_punctuation_from_words,
+            compute_word_confidence=compute_word_confidence,
+            include_punctuation_in_confidence=include_punctuation_in_confidence,
+            detect_disfluencies=detect_disfluencies,
+        )
+    else:
+        if full_device:
+            entries = [(seg, prepare_segment_tokens(seg, tok)) for seg in result.segments]
+            with stage_timer("align"):
+                all_jumps = device_align_segments(
+                    entries, tok, refine_whisper_precision_nframes,
+                    fetch_cost=detect_disfluencies,
+                )
+        else:
+            entries = [(seg, None) for seg in result.segments]
+            all_jumps = [None] * len(entries)
+
+        words: List[dict] = []
+        segment_dicts: List[dict] = []
+        for (seg, prep), jumps in zip(entries, all_jumps):
+            if full_device and prep is None:
+                continue
+            cost = None
+            if jumps is not None and detect_disfluencies:
+                jumps, cost = jumps
+            with stage_timer("align"):
+                ws, seg_dict = align_and_score_segment(
+                    seg,
+                    tok,
+                    use_space=use_space,
+                    refine_whisper_precision_nframes=refine_whisper_precision_nframes,
+                    remove_punctuation_from_words=remove_punctuation_from_words,
+                    compute_word_confidence=compute_word_confidence,
+                    include_punctuation_in_confidence=include_punctuation_in_confidence,
+                    detect_disfluencies=detect_disfluencies,
+                    device_alignment=device_alignment,
+                    device=engine.device,
+                    precomputed_jumps=jumps,
+                    precomputed_cost=cost,
+                    prepared=prep,
+                )
+            if ws is None:
+                continue  # segment dropped (no aligned words)
+            idx = len(segment_dicts)
+            for w in ws:
+                w["idx_segment"] = idx
+            seg_dict["id"] = idx
+            segment_dicts.append(seg_dict)
+            words.extend(ws)
 
     transcription = {
         "text": "".join(s["text"] for s in segment_dicts),
@@ -365,16 +434,137 @@ def _transcribe_efficient(
     return transcription, words
 
 
+def _align_words_whole_windows(
+    result,
+    tok: Tokenizer,
+    *,
+    use_space: bool,
+    refine_whisper_precision_nframes: int,
+    remove_punctuation_from_words: bool,
+    compute_word_confidence: bool,
+    include_punctuation_in_confidence: bool,
+    detect_disfluencies: bool,
+):
+    """``trust_whisper_timestamps=False`` in the single-pass engine
+    (``api.py:569``, reference ``transcribe.py:585-707``): each 30-s
+    window's full token sequence aligns in one host DTW against the
+    attention captured during decode, its first timestamp pinned to
+    <|0.00|> and its last to <|30.00|>, and the words go back to whisper's
+    segments by walking token counts. Returns ``(words, segment_dicts)``;
+    every segment of the stream is emitted, with or without words."""
+    ts_begin = tok.timestamp_begin
+    words: List[dict] = []
+    segment_dicts: List[dict] = []
+
+    # group consecutive segments that came out of the same window decode
+    groups: List[List[int]] = []
+    for i, seg in enumerate(result.segments):
+        if groups and result.segments[groups[-1][-1]].window is seg.window:
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+
+    for group in groups:
+        segs = [result.segments[i] for i in group]
+        window = segs[0].window
+        base_idx = len(segment_dicts)
+        for seg in segs:
+            d = seg.to_dict()
+            d["id"] = len(segment_dicts)
+            segment_dicts.append(d)
+
+        tokens_w: List[int] = []
+        rows_w: List[int] = []
+        seg_of: List[int] = []  # output segment index per aligned token
+        for gi, seg in enumerate(segs):
+            a, b = seg.token_span
+            tokens_w.extend(seg.tokens)
+            rows_w.extend(range(a, b))
+            seg_of.extend([base_idx + gi] * (b - a))
+        if not tokens_w:
+            continue
+
+        unfinished = False
+        if tokens_w[0] >= ts_begin:
+            tokens_w[0] = ts_begin  # window starts at <|0.00|>
+        else:  # a window that starts mid-text
+            tokens_w.insert(0, ts_begin)
+            rows_w.insert(0, rows_w[0])
+            seg_of.insert(0, seg_of[0])
+        if tokens_w[-1] >= ts_begin:
+            tokens_w[-1] = ts_begin + N_FRAMES // 2  # window end at <|30.00|>
+        elif window.hit_limit:
+            unfinished = True  # stuck LM: no final timestamp
+        else:
+            # early EOT: align <|endoftext|> with the row that predicted it
+            tokens_w.append(tok.eot)
+            rows_w.append(len(window.tokens))
+            seg_of.append(seg_of[-1])
+
+        if len(tokens_w) <= 1:
+            continue
+
+        full_attn = window.attn
+        if rows_w[-1] >= len(full_attn):
+            full_attn = np.concatenate([full_attn, window.eot_attn[None]], axis=0)
+        attn = full_attn[rows_w]
+
+        segment_frames = segs[0].segment_frames
+        max_duration = segment_frames // 2 if segment_frames < N_FRAMES else None
+        with stage_timer("align"):
+            ws = perform_word_alignment(
+                tokens_w,
+                attn,
+                tok,
+                use_space=use_space,
+                max_duration=max_duration,
+                refine_whisper_precision_nframes=refine_whisper_precision_nframes,
+                remove_punctuation_from_words=remove_punctuation_from_words,
+                detect_disfluencies=detect_disfluencies,
+                unfinished_decoding=unfinished,
+            )
+        if not ws:
+            continue
+
+        offset = segs[0].seek * HOP_LENGTH / SAMPLE_RATE
+        # walk the aligned token sequence to hand each word back to the
+        # whisper segment its tokens came from
+        i_token = 1  # skip the leading window-start timestamp
+        per_seg_words: Dict[int, List[dict]] = {}
+        for w in ws:
+            w["start"] = round_timestamp(w["start"] + offset)
+            w["end"] = round_timestamp(w["end"] + offset)
+            idx = seg_of[i_token] if i_token < len(seg_of) else seg_of[-1]
+            w["idx_segment"] = idx
+            per_seg_words.setdefault(idx, []).append(w)
+            i_token += len(w["tokens"])
+            while i_token < len(tokens_w) and tokens_w[i_token] >= ts_begin:
+                i_token += 1
+            words.append(w)
+
+        if compute_word_confidence:
+            for gi, seg in enumerate(segs):
+                a, b = seg.token_span
+                lps = [window.token_logprobs[a + i] for i, t in enumerate(seg.tokens) if t < tok.eot]
+                _attach_confidences(per_seg_words.get(base_idx + gi, []),
+                                    segment_dicts[base_idx + gi], lps,
+                                    include_punctuation_in_confidence)
+
+    return words, segment_dicts
+
+
 def device_align_segments(
     entries,  # [(Segment, prepare_segment_tokens output or None)]
     tok: Tokenizer,
     refine_whisper_precision_nframes: int,
     max_windows_per_chunk: int = 16,
     fetch: bool = True,
+    fetch_cost: bool = False,
 ):
     """Batched on-device alignment. Returns per-entry jumps (None where the
-    entry was not alignable). Chunked so the flattened attention buffer
-    stays bounded for long audio.
+    entry was not alignable), or (jumps, cost) pairs with ``fetch_cost``
+    (disfluency detection reads the cost rows on the host). Chunked so the
+    flattened attention buffer stays bounded for long audio.
 
     ``fetch=False`` (``api.py:716``) queues the aligner and its copies to the
     host and returns a zero-argument resolver for the same list, which the
@@ -406,11 +596,13 @@ def device_align_segments(
             )
             if task is None:
                 # empty plan: perform_word_alignment returns [] before reading jumps
-                jumps_out[ei] = np.zeros((0,), np.int64)
+                empty = np.zeros((0,), np.int64)
+                jumps_out[ei] = (empty, None) if fetch_cost else empty
                 continue
             tasks.append(task)
             idxs.append(ei)
-        deferred.append((idxs, compute_jumps_batch(flat, tasks, fetch=False)))
+        deferred.append((idxs, compute_jumps_batch(flat, tasks, fetch=False,
+                                                   fetch_cost=fetch_cost)))
 
     chunk, windows_seen = [], set()
     for ei, (seg, prep) in enumerate(entries):
@@ -509,32 +701,53 @@ def prepare_segment_tokens(seg: Segment, tok: Tokenizer, ts_row=None):
 def align_and_score_segment(
     seg: Segment,
     tok: Tokenizer,
-    prepared,
-    jumps: Optional[np.ndarray],
     *,
     use_space: bool,
     refine_whisper_precision_nframes: int,
     remove_punctuation_from_words: bool,
     compute_word_confidence: bool,
     include_punctuation_in_confidence: bool,
+    detect_disfluencies: bool,
+    device_alignment: bool = False,
+    device=None,
+    precomputed_jumps: Optional[np.ndarray] = None,
+    precomputed_cost: Optional[np.ndarray] = None,
+    prepared=None,
 ):
-    """Words and confidences of one segment from its device-aligned jumps
-    (reference per-segment flush work, ``transcribe.py:490-538, 965-995``).
-    Returns (words, segment dict), or (None, None) when nothing aligned."""
+    """Words and confidences of one segment (``api.py:918``, reference
+    per-segment flush work, ``transcribe.py:490-538, 965-995``). Returns
+    (words, segment dict), or (None, None) when nothing aligned.
+
+    ``precomputed_jumps`` (with ``prepared`` from ``prepare_segment_tokens``)
+    takes the batched device aligner's output; otherwise the segment aligns
+    from the window's host attention, through the per-segment kernels on
+    ``device`` with ``device_alignment``, else in numpy."""
     window = seg.window
     a, _ = seg.token_span
-    tokens, _, unfinished, max_duration = prepared
-    if len(tokens) <= 1:
+    prep = prepared if prepared is not None else prepare_segment_tokens(seg, tok)
+    if prep is None:
         return None, None
-    ws = perform_word_alignment(
-        tokens, None, tok,
+    tokens, local_rows, unfinished, max_duration = prep
+    kw = dict(
         use_space=use_space,
         max_duration=max_duration,
         refine_whisper_precision_nframes=refine_whisper_precision_nframes,
         remove_punctuation_from_words=remove_punctuation_from_words,
+        detect_disfluencies=detect_disfluencies,
         unfinished_decoding=unfinished,
-        precomputed_jumps=jumps,
     )
+    if len(tokens) <= 1:
+        ws = []
+    elif precomputed_jumps is not None:
+        ws = perform_word_alignment(tokens, None, tok, precomputed_jumps=precomputed_jumps,
+                                    precomputed_cost=precomputed_cost, **kw)
+    else:
+        full_attn = window.attn
+        if local_rows and local_rows[-1] >= len(full_attn):
+            # the early-EOT row lives past the text rows, in eot_attn
+            full_attn = np.concatenate([full_attn, window.eot_attn[None]], axis=0)
+        ws = perform_word_alignment(tokens, full_attn[local_rows], tok,
+                                    use_device_kernels=device_alignment, device=device, **kw)
     if len(ws) == 0:
         return None, None
 

@@ -12,6 +12,27 @@ constexpr int kThreads = 256;  // every kernel here except dtw_codes uses 256 th
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeadDim = 64;   // the only head width the attention kernels take
 
+__device__ __forceinline__ void cx(float& a, float& b) {
+  const float lo = fminf(a, b), hi = fmaxf(a, b);
+  a = lo;
+  b = hi;
+}
+
+// Median of w[0..8] (Paeth's 19-exchange network, the one the TPU kernels
+// use): a selection, so it equals the 5th smallest value exactly.
+__device__ __forceinline__ float median9(const float* w) {
+  float v0 = w[0], v1 = w[1], v2 = w[2], v3 = w[3], v4 = w[4], v5 = w[5],
+        v6 = w[6], v7 = w[7], v8 = w[8];
+  cx(v1, v2); cx(v4, v5); cx(v7, v8);
+  cx(v0, v1); cx(v3, v4); cx(v6, v7);
+  cx(v1, v2); cx(v4, v5); cx(v7, v8);
+  cx(v0, v3); cx(v5, v8); cx(v4, v7);
+  cx(v3, v6); cx(v1, v4); cx(v2, v5);
+  cx(v4, v7); cx(v4, v2); cx(v6, v4);
+  cx(v4, v2);
+  return v4;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;

@@ -10,7 +10,9 @@ Port of ``whisper_timestamped_tpu/device_align.py``:
                                                                   in lock-step)
 
 and only the (S, N) int32 start frames cross to the host: the ``jumps``
-``perform_word_alignment`` takes as ``precomputed_jumps``. The backtrace is a
+``perform_word_alignment`` takes as ``precomputed_jumps`` (with
+``fetch_cost``, the cost matrices too, for disfluency detection). The
+backtrace is a
 Python loop of small tensor ops, one iteration per path step; it runs
 max(n + m - 1) iterations over the batch's segments (the JAX loop runs the
 padded N + M - 1, the extra steps only rewrite the origin).
@@ -18,6 +20,7 @@ padded N + M - 1, the extra steps only rewrite the origin).
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -32,6 +35,18 @@ M_PAD = ((N_FRAMES // 2 + 127) // 128) * 128  # 1536: frame capacity per segment
 TOKEN_BUCKET = 64  # token rows pad to multiples of 64 (up to 256)
 SEG_BUCKET_MIN = 8  # segment counts pad geometrically: 8, 16, 32, ...
 MAX_K = 32  # most alignment heads the device aligner takes
+
+
+def default_device_alignment(device) -> bool:
+    """Resolve ``device_alignment=None`` (``device_align.py:65-81``): the
+    WTT_DEVICE_ALIGN env var wins ("1"/"0"); otherwise on when the model's
+    ``device`` is CUDA (the JAX package asks its default backend). The
+    callers still take the host path when the device aligner's gates fail
+    (more than ``MAX_K`` heads, ``trust_whisper_timestamps=False``)."""
+    env = os.environ.get("WTT_DEVICE_ALIGN")
+    if env is not None:
+        return env == "1"
+    return torch.device(device).type == "cuda"
 
 
 def _seg_bucket(S: int) -> int:
@@ -77,7 +92,7 @@ def _backtrace_batch(codes: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
 def _align_jumps(attn_flat: torch.Tensor, rows: np.ndarray, dims: np.ndarray):
     """Cost, DTW and backtrace for a padded batch of segments. rows (S, N)
     row indices into attn_flat (R, K, T); dims (S, 4) (n_tokens, span,
-    maxdur_col, start). Returns starts (S, N) int32."""
+    maxdur_col, start). Returns (starts (S, N) int32, cost (S, N, M_PAD))."""
     S, N = rows.shape
     dev = attn_flat.device
     K, T = attn_flat.shape[1], attn_flat.shape[2]
@@ -92,7 +107,7 @@ def _align_jumps(attn_flat: torch.Tensor, rows: np.ndarray, dims: np.ndarray):
     cost = align_cost(sliced, dims_t)
     codes = dtw_codes(cost, dims_t)
     steps = int((dims[:, 0] + dims[:, 1] - 1).max())
-    return _backtrace_batch(codes, dims_t[:, 0], dims_t[:, 1], steps)
+    return _backtrace_batch(codes, dims_t[:, 0], dims_t[:, 1], steps), cost
 
 
 def make_task(
@@ -118,14 +133,19 @@ def make_task(
     return SegmentAlignTask(plan=plan, flat_rows=flat, max_duration=max_duration)
 
 
-def compute_jumps_batch(attn_flat, tasks: List[SegmentAlignTask], fetch: bool = True):
+def compute_jumps_batch(attn_flat, tasks: List[SegmentAlignTask], fetch: bool = True,
+                        fetch_cost: bool = False):
     """Run the device aligner for a batch of segments. Returns, per task,
-    the (n_tokens + 1,) int64 jumps array for ``precomputed_jumps``.
+    the (n_tokens + 1,) int64 jumps array for ``precomputed_jumps``, or with
+    ``fetch_cost`` a (jumps, cost) pair, cost the segment's (n_tokens, span)
+    f32 cost matrix with the weight edits applied (``precomputed_cost``, the
+    rows disfluency detection reads).
 
-    ``fetch=False`` (``device_align.py:178-241``) queues the aligner and a
-    non-blocking copy of its start frames into pinned host memory, and
-    returns a zero-argument resolver for the same list: the batch pipeline
-    resolves at assembly time, so no read blocks its window loop."""
+    ``fetch=False`` (``device_align.py:178-244``) queues the aligner and
+    non-blocking copies of its start frames (and cost) into pinned host
+    memory, and returns a zero-argument resolver for the same list: the
+    batch pipeline resolves at assembly time, so no read blocks its window
+    loop."""
     if not tasks:
         return [] if fetch else (lambda: [])
     attn_flat = torch.as_tensor(attn_flat)
@@ -148,15 +168,19 @@ def compute_jumps_batch(attn_flat, tasks: List[SegmentAlignTask], fetch: bool = 
             maxdur = min(t.max_duration, M_PAD)
         dims[s] = (n, span, maxdur, t.plan.start_token)
 
-    starts_host = host_copy(_align_jumps(attn_flat, rows, dims))
+    starts_dev, cost_dev = _align_jumps(attn_flat, rows, dims)
+    starts_host = host_copy(starts_dev)
+    cost_host = host_copy(cost_dev) if fetch_cost else None
 
-    def resolve() -> List[np.ndarray]:
+    def resolve() -> List:
         starts = starts_host()
+        cost = cost_host() if fetch_cost else None
         out = []
         for s, t in enumerate(tasks):
             n = len(t.plan.tokens)
             span = t.plan.end_token - t.plan.start_token
-            out.append(np.concatenate([starts[s, :n], [span - 1]]).astype(np.int64))
+            jumps = np.concatenate([starts[s, :n], [span - 1]]).astype(np.int64)
+            out.append((jumps, cost[s, :n, :span]) if fetch_cost else jumps)
         return out
 
     return resolve() if fetch else resolve

@@ -6,7 +6,10 @@ path: ``DecodeEngine`` (bf16 or f32, whatever the model holds) with
 pipeline shares, ``decode_with_fallback`` at one temperature,
 ``needs_fallback``, ``transcribe_windows`` and ``extract_window_segments``.
 The mel and the window slicing and padding run in torch on the model's
-device. The engine takes the KV-cache quantization levers (``kv_int8``,
+device. ``fetch_alignment`` (the default, as in the JAX package) brings each
+window's alignment buffers to the host for the host and per-segment
+aligners; ``fetch_alignment=False`` leaves them on the device for the
+batched device aligner. The engine takes the KV-cache quantization levers (``kv_int8``,
 ``kv_int4``, ``self_kv_int8``). Sampling, beam search, best_of, a mesh and
 the weight levers ``w_int8``/``enc_int8`` raise ``NotImplementedError``.
 """
@@ -34,7 +37,7 @@ from .decoding import (
 )
 from .models.load import WhisperModel
 from .tokenizer import Tokenizer
-from .utils import not_ported, stage_timer
+from .utils import host_copy, not_ported, stage_timer
 
 INPUT_STRIDE = 2  # mel frames per output token position (conv2 stride)
 TIME_PER_POSITION = INPUT_STRIDE * HOP_LENGTH / SAMPLE_RATE  # 0.02 s
@@ -48,8 +51,11 @@ def _lever(value: Optional[bool], env: str) -> bool:
 @dataclass
 class WindowDecodeResult:
     """Everything one window decode produced (per batch element). The
-    alignment buffers stay on the device: ``attn_dev`` is the whole batch's
-    (B, max_new, K, T_audio) buffer, ``ts_logprobs_dev`` (B, max_new, 1501)."""
+    alignment buffers are either on the host (``fetch_alignment=True``:
+    ``attn`` (n_tokens, K, T_audio), ``ts_logprobs`` (n_tokens, 1501) and
+    ``eot_attn``) or on the device (``attn_dev``, the whole batch's
+    (B, max_new, K, T_audio) buffer, and ``ts_logprobs_dev``
+    (B, max_new, 1501)); the other pair is None."""
 
     tokens: List[int]  # sampled tokens, EOT excluded
     text: str
@@ -59,14 +65,22 @@ class WindowDecodeResult:
     compression_ratio: float
     token_logprobs: np.ndarray  # (n_tokens,) logprob of each sampled token
     hit_limit: bool = False  # decode reached max_new without EOT ("stuck LM")
+    attn: Optional[np.ndarray] = None  # alignment-head scores of each sampled token
+    ts_logprobs: Optional[np.ndarray] = None
+    # the row that predicted the final EOT, when one was sampled (early-EOT
+    # segments align <|endoftext|> with it)
+    eot_attn: Optional[np.ndarray] = None  # (K, T_audio)
     attn_dev: Optional[Any] = None
     ts_logprobs_dev: Optional[Any] = None
     batch_index: int = 0
     n_text: int = 0  # sampled text tokens (row n_text predicts the final EOT)
 
     def ts_logprob_row(self, i: int) -> Optional[np.ndarray]:
-        """Row i of the timestamp-logprob buffer, fetched on demand (only
-        the rare end<=start repair reads it)."""
+        """Row i of the timestamp-logprob buffer, read from the device on
+        demand when it stayed there (only the rare end<=start repair reads
+        it)."""
+        if self.ts_logprobs is not None:
+            return self.ts_logprobs[i] if i < len(self.ts_logprobs) else None
         if self.ts_logprobs_dev is not None and i < self.ts_logprobs_dev.shape[1]:
             return self.ts_logprobs_dev[self.batch_index, i].cpu().numpy()
         return None
@@ -201,6 +215,7 @@ class DecodeEngine:
         prompt_tokens: Sequence[int] = (),
         temperature: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        fetch_alignment: bool = True,
     ) -> List[WindowDecodeResult]:
         """Greedy decode of a window batch. ``generator`` is the random
         source that sampling (temperature > 0, not yet ported) will draw
@@ -234,16 +249,16 @@ class DecodeEngine:
             without_timestamps=options.without_timestamps,
             **self.kv_options,
         )
-        return self.unpack_window_outputs(out, temperature)
+        return self.unpack_window_outputs(out, temperature, fetch_alignment=fetch_alignment)
 
-    def unpack_window_outputs(self, out, temperature) -> List[WindowDecodeResult]:
-        """Device buffers -> per-row results (``engine.py:407``). Only the
-        token ids, log-probs and scalars cross to the host; the alignment
-        buffers stay on the device (fetching them, host alignment, is not
-        yet ported)."""
+    def unpack_window_outputs(self, out, temperature,
+                              fetch_alignment: bool = True) -> List[WindowDecodeResult]:
+        """Device buffers -> per-row results (``engine.py:407``): the token
+        ids, log-probs and scalars cross to the host; the alignment buffers
+        too with ``fetch_alignment``, else they stay on the device."""
         small = [out[k].cpu().numpy()
                  for k in ("tokens", "token_logprobs", "sum_logprobs", "no_speech_prob")]
-        return self.build_window_results(*small, out, temperature)
+        return self.build_window_results(*small, out, temperature, fetch_alignment=fetch_alignment)
 
     def build_window_results(
         self,
@@ -253,11 +268,18 @@ class DecodeEngine:
         nsp: np.ndarray,  # (B,)
         out,  # the device output dict (alignment buffers)
         temperature,
+        fetch_alignment: bool = True,
     ) -> List[WindowDecodeResult]:
         """Host-array half of ``unpack_window_outputs`` (``engine.py:429``):
         the batch pipeline's device flow lands the small outputs in one
-        packed read and builds the results here."""
+        packed read and builds the results here. ``fetch_alignment`` copies
+        the timestamp log-probs and the attention to the host, one pinned
+        copy per buffer for the whole batch (stage ``alignment_fetch``)."""
         tok = self.tokenizer
+        if fetch_alignment:
+            with stage_timer("alignment_fetch"):
+                waits = [host_copy(out["ts_logprobs"]), host_copy(out["attn"])]
+                ts_lp_all, attn_all = (wait() for wait in waits)
         results = []
         for b in range(tokens_all.shape[0]):
             toks = tokens_all[b]
@@ -277,8 +299,11 @@ class DecodeEngine:
                     compression_ratio=compression_ratio(text),
                     token_logprobs=logprobs_all[b, :n_text],
                     hit_limit=hit_limit,
-                    attn_dev=out["attn"],
-                    ts_logprobs_dev=out["ts_logprobs"],
+                    attn=attn_all[b, :n_text] if fetch_alignment else None,
+                    ts_logprobs=ts_lp_all[b, :n_text] if fetch_alignment else None,
+                    eot_attn=attn_all[b, n_text] if fetch_alignment and not hit_limit else None,
+                    attn_dev=None if fetch_alignment else out["attn"],
+                    ts_logprobs_dev=None if fetch_alignment else out["ts_logprobs"],
                     batch_index=b,
                     n_text=n_text,
                 )
@@ -295,6 +320,7 @@ class DecodeEngine:
         logprob_threshold: Optional[float],
         no_speech_threshold: Optional[float],
         generator: Optional[torch.Generator] = None,
+        fetch_alignment: bool = True,
     ) -> WindowDecodeResult:
         """whisper's decode_with_fallback at a single temperature of 0: the
         escalation schedule samples, which is not yet ported."""
@@ -304,7 +330,7 @@ class DecodeEngine:
         if options.beam_size:
             raise not_ported("beam_size")
         return self.decode_window(mel, options, prompt_tokens, temperature=0.0,
-                                  generator=generator)[0]
+                                  generator=generator, fetch_alignment=fetch_alignment)[0]
 
 
 def needs_fallback(
@@ -357,6 +383,7 @@ def transcribe_windows(
     return_language_probs: bool = False,
     verbose_callback=None,
     generator: Optional[torch.Generator] = None,
+    fetch_alignment: bool = True,
 ) -> TranscribeResult:
     """whisper-semantics long-form loop, emitting alignment-ready segments."""
     tok = engine.tokenizer
@@ -412,7 +439,7 @@ def transcribe_windows(
             result = engine.decode_with_fallback(
                 window(seek), base_opts, all_tokens[prompt_reset_since:], temperature,
                 compression_ratio_threshold, logprob_threshold, no_speech_threshold,
-                generator=generator,
+                generator=generator, fetch_alignment=fetch_alignment,
             )
         window_segments, seek = extract_window_segments(
             result, seek, segment_size, tok, no_speech_threshold, logprob_threshold

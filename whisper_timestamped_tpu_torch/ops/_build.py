@@ -39,6 +39,10 @@ SIGNATURES = {
     "wtt_self_attn_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # scores, dims, cost, S, K, N, M, stream
     "wtt_align_cost": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # scores, cost, K, N, M, n_tokens, span, stream
+    "wtt_attention_to_cost": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # x, out, R, M, stream
+    "wtt_median9": [_P, _P, _I, _I, _P],
     # cost, dims, codes, S, N, M, stream
     "wtt_dtw_codes": [_P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, pad_len, B, Sq, Sk, D, H, causal, scale, stream

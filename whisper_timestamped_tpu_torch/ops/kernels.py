@@ -8,7 +8,11 @@ wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.p
 ``xattn_decode``        ``cross_attention_stacked_pallas_v2`` (:854)
 ``self_attn_decode``    ``self_attention_stacked_pallas`` (:2088)
 ``align_cost``          ``attention_to_cost_batched`` (:395)
-``dtw_codes``           ``dtw_codes_batched`` (:477)
+``attention_to_cost``   ``attention_to_cost_pallas`` (:165), one segment
+``median9``             ``median9_pallas`` (:114)
+``dtw_codes``           ``dtw_codes_batched`` (:477); at S=1 with the host
+                        backtrace (``dtw_path``) ``dtw_pallas`` (:259) and
+                        ``dtw_path_pallas`` (:291)
 ``flash_attention``     the library Pallas ``flash_attention`` at
                         ``models/whisper_jax.py:246`` (encoder) and ``:299``
                         (prompt prefill)
@@ -37,15 +41,17 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
 
 # launches of each kernel since the last reset_launches(); the wrappers add
-# one per kernel call (align_cost's one call is three launches on one stream)
+# one per kernel call (align_cost's one call is three launches on one stream,
+# attention_to_cost's two; dtw_path counts under dtw_codes, which it calls)
 LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0,
             "flash_attention": 0, "xattn_decode_int8": 0, "xattn_decode_int4": 0,
-            "self_attn_decode_int8": 0}
+            "self_attn_decode_int8": 0, "attention_to_cost": 0, "median9": 0}
 
 DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
 DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
@@ -177,20 +183,23 @@ def write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int
     v_scale[layer, :, pos] = vs
 
 
-def align_cost_plain(scores, dims):
-    """Batched DTW cost. scores (S, K, N, M) f32, the alignment heads' scores
-    of each segment's token rows from its start frame on; dims (S, 4) int32
-    rows (n_tokens, span, maxdur_col, start). Returns (S, N, M) f32:
+def median9_plain(x):
+    """Width-9 sliding median along the last axis of x (..., M), edges
+    reflected as numpy's "symmetric" padding does (column -1 reads column 0,
+    repeated for rows shorter than 4). Returns f32 of x's shape."""
+    M = x.shape[-1]
+    q = torch.remainder(torch.arange(-4, M + 4, device=x.device), 2 * M)
+    src = torch.where(q < M, q, 2 * M - 1 - q)
+    return x.float()[..., src].unfold(-1, 9, 1).median(dim=-1).values
 
-    width-9 median over frames (symmetric reflection at column 0 and at the
-    true span edge) -> softmax over frames < span -> mean over heads (summed
-    in head order) -> L2 norm of each frame column over the token rows ->
-    negate; then 0 at (row < n_tokens - 1, col >= maxdur_col), and
-    cost[0, 0] = min(cost). Cells outside (n_tokens, span) are 0."""
+
+def _cost_plain(scores, n_tok, span):
+    """The cost math of ``align_cost_plain`` before its weight edits.
+    scores (S, K, N, M); n_tok, span (S,) long. Returns (cost (S, N, M),
+    valid (S, N, M) bool)."""
     S, K, N, M = scores.shape
     dev = scores.device
-    dims = dims.to(dev).long()
-    n_tok, span, maxdur = dims[:, 0], dims[:, 1].clamp(max=M), dims[:, 2]
+    span = span.clamp(max=M)
     # source column of each padded position (S, M + 8)
     p = torch.arange(M + 8, device=dev)
     src = torch.where(p < 4, 3 - p, p - 4)[None].expand(S, -1)
@@ -212,11 +221,38 @@ def align_cost_plain(scores, dims):
         acc = acc + contrib[:, k]
     mean = acc * (1.0 / K)
     norm = torch.sqrt((mean * mean).sum(dim=1, keepdim=True))
-    cost = torch.where(valid, -(mean / norm.clamp_min(1e-30)), 0.0)
+    return torch.where(valid, -(mean / norm.clamp_min(1e-30)), 0.0), valid
+
+
+def align_cost_plain(scores, dims):
+    """Batched DTW cost. scores (S, K, N, M) f32, the alignment heads' scores
+    of each segment's token rows from its start frame on; dims (S, 4) int32
+    rows (n_tokens, span, maxdur_col, start). Returns (S, N, M) f32:
+
+    width-9 median over frames (symmetric reflection at column 0 and at the
+    true span edge) -> softmax over frames < span -> mean over heads (summed
+    in head order) -> L2 norm of each frame column over the token rows ->
+    negate; then 0 at (row < n_tokens - 1, col >= maxdur_col), and
+    cost[0, 0] = min(cost). Cells outside (n_tokens, span) are 0."""
+    N, M = scores.shape[2], scores.shape[3]
+    dims = dims.to(scores.device).long()
+    n_tok, maxdur = dims[:, 0], dims[:, 2]
+    cost, valid = _cost_plain(scores, n_tok, dims[:, 1])
+    row = torch.arange(N, device=scores.device)
+    col = torch.arange(M, device=scores.device)
     masked = (row[None, :, None] < n_tok[:, None, None] - 1) & (col[None, None] >= maxdur[:, None, None])
     cost = torch.where(masked & valid, 0.0, cost)
     cost[:, 0, 0] = cost.amin(dim=(1, 2))
     return cost
+
+
+def attention_to_cost_plain(scores, span: int, n_tokens: int):
+    """One segment's DTW cost. scores (K, N, M) f32 with the true extent
+    (n_tokens, span); returns (N, M) f32: ``align_cost_plain``'s math without
+    its weight edits (no max-duration mask, no cost[0, 0] = min; the caller
+    makes both on the host). Cells outside (n_tokens, span) are 0."""
+    ext = torch.tensor([n_tokens, span], dtype=torch.long, device=scores.device)
+    return _cost_plain(scores[None], ext[:1], ext[1:])[0][0]
 
 
 def dtw_codes_plain(cost, dims):
@@ -406,6 +442,42 @@ def align_cost(scores, dims):
     return cost
 
 
+def attention_to_cost(scores, span: int, n_tokens: Optional[int] = None):
+    """One segment's DTW cost from (K, N, M) scores with the true extent
+    (n_tokens, span), n_tokens defaulting to N (see
+    ``attention_to_cost_plain``). On CUDA: f32, contiguous, M <= 4000."""
+    name = "attention_to_cost"
+    K, N, M = scores.shape
+    n_tokens = N if n_tokens is None else int(n_tokens)
+    span = int(span)
+    if not _on_cuda(name, scores):
+        return attention_to_cost_plain(scores, span, n_tokens)
+    _expect(name, scores.dtype == torch.float32, "scores must be f32")
+    _expect(name, scores.is_contiguous(), "scores must be contiguous")
+    _expect(name, 8 <= M <= 4000 and 0 < N <= 65535 and K > 0, f"unsupported N={N} M={M} K={K}")
+    _expect(name, 0 < span <= M and 0 < n_tokens <= N,
+            f"extent (n_tokens={n_tokens}, span={span}) outside ({N}, {M})")
+    cost = torch.empty((N, M), dtype=torch.float32, device=scores.device)
+    _launch(name, "wtt_attention_to_cost", scores.data_ptr(), cost.data_ptr(), K, N, M,
+            n_tokens, span, _stream(scores))
+    return cost
+
+
+def median9(x):
+    """Width-9 sliding median along the last axis, symmetric edges (see
+    ``median9_plain``). On CUDA: f32, contiguous, non-empty."""
+    name = "median9"
+    if not _on_cuda(name, x):
+        return median9_plain(x)
+    _expect(name, x.dtype == torch.float32, "x must be f32")
+    _expect(name, x.is_contiguous(), "x must be contiguous")
+    _expect(name, x.ndim >= 1 and x.numel() > 0, f"unsupported shape {tuple(x.shape)}")
+    M = x.shape[-1]
+    out = torch.empty_like(x)
+    _launch(name, "wtt_median9", x.data_ptr(), out.data_ptr(), x.numel() // M, M, _stream(x))
+    return out
+
+
 def dtw_codes(cost, dims):
     """Batched DTW step codes (see ``dtw_codes_plain``). On CUDA: f32 cost
     (S, N, M) with N a multiple of 32 up to 1024, int32 dims (S, 4). Rows
@@ -422,6 +494,38 @@ def dtw_codes(cost, dims):
     _launch(name, "wtt_dtw_codes", cost.data_ptr(), dims.data_ptr(), codes.data_ptr(),
             S, N, M, _stream(cost))
     return codes
+
+
+def dtw_path(cost) -> Tuple[np.ndarray, np.ndarray]:
+    """DTW path of one (n, m) cost: ``dtw_codes`` at S=1 (kernel or plain
+    version by the cost's device), rows padded to a multiple of 32 with the
+    unreachable cost, then the backtrace on the host from (n-1, m-1), as
+    ``dtw_path_pallas`` does. Returns (index1s, index2s) int64."""
+    n, m = cost.shape
+    N = -(-n // 32) * 32
+    padded = torch.full((N, m), DTW_INF, dtype=torch.float32, device=cost.device)
+    padded[:n] = cost
+    dims = torch.tensor([[n, m, 0, 0]], dtype=torch.int32, device=cost.device)
+    codes = dtw_codes(padded[None], dims)[0, : n + m - 1, :n].cpu().numpy()
+    i, j = n - 1, m - 1
+    path = [(i, j)]
+    while i > 0 or j > 0:
+        if i == 0:
+            j -= 1
+        elif j == 0:
+            i -= 1
+        else:
+            s = codes[i + j, i]
+            if s == DIAG:
+                i, j = i - 1, j - 1
+            elif s == LEFT:
+                j -= 1
+            else:
+                i -= 1
+        path.append((i, j))
+    path.reverse()
+    arr = np.array(path, np.int64)
+    return arr[:, 0], arr[:, 1]
 
 
 def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None):

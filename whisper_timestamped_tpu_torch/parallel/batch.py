@@ -1,7 +1,7 @@
 """Batched multi-stream transcription pipeline and serving loop.
 
-Port of ``whisper_timestamped_tpu/parallel/batch.py`` for the greedy path
-with device alignment. The reference transcribes one file at a time; here
+Port of ``whisper_timestamped_tpu/parallel/batch.py`` for the greedy path.
+The reference transcribes one file at a time; here
 many audio streams are in flight: every window iteration gathers one
 pending 30-s window from each active stream and decodes them as ONE
 batched ``decode_window`` call on the model's device, then advances each
@@ -15,16 +15,18 @@ window is a gather out of that mel stack. By default the window loop is
 the device flow (``deviceflow.py``): the next window's seek and prompt are
 computed on the device from the previous window's tokens, and the host
 drains each window with one read. ``WTT_DEVICE_FLOW=0`` forces the host
-loop. Alignment is queued after every window (``window_hook``) and its
-results are read at assembly time. ``transcribe_batch_stream`` overlaps the
+loop. With device alignment (at most ``MAX_K`` alignment heads) each
+window's alignment is queued after the window (``window_hook``) and read at
+assembly time; otherwise each window's attention comes to the host and the
+segments align in numpy at assembly, as in the JAX package.
+``transcribe_batch_stream`` overlaps the
 next batch's upload and mel (a worker thread on its own CUDA stream) and
 the previous batch's assembly (a second worker) with the current batch's
 decode.
 
 Not yet ported, and refused with ``NotImplementedError``: a mesh,
 ``tail_batch``, sampling (temperature > 0), best_of, beam search, the
-temperature fallback re-decode, vad, detect_disfluencies and host
-alignment.
+temperature fallback re-decode and vad.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..decoding import (
     decode_window,
     detect_language,
 )
+from ..device_align import MAX_K, default_device_alignment
 from ..engine import (
     TIME_PER_POSITION,
     DecodeEngine,
@@ -149,13 +152,10 @@ def slice_windows(mel_stack: torch.Tensor, rows: torch.Tensor, seeks: torch.Tens
                      cols[:, None, :]]
 
 
-def _refuse_unported(mesh=None, vad=False, detect_disfluencies=False,
-                     device_alignment=None, decode_options=None) -> None:
+def _refuse_unported(mesh=None, vad=False, decode_options=None) -> None:
     refused = [
         (mesh is not None, "mesh"),
         (vad is not False and vad is not None, "vad"),
-        (detect_disfluencies, "detect_disfluencies"),
-        (device_alignment is False, "device_alignment=False (host alignment)"),
         (decode_options is not None and bool(decode_options.beam_size), "beam_size"),
     ]
     for cond, option in refused:
@@ -167,18 +167,18 @@ class BatchTranscriber:
     """Fixed-batch window decoder over many audio streams
     (``batch.py:153``): ``batch_size`` windows per decode call, padded with
     repeated windows when fewer are pending, so every call has one shape.
-    The attention buffers stay on the device for the device aligner."""
+    ``fetch_alignment`` brings each window's attention to the host (host
+    alignment); False leaves it on the device for the device aligner."""
 
     def __init__(self, engine: DecodeEngine, batch_size: int = 8, mesh=None,
-                 fetch_alignment: bool = False, tail_batch: Optional[int] = None):
+                 fetch_alignment: bool = True, tail_batch: Optional[int] = None):
         if mesh is not None:
             raise not_ported("mesh")
         if tail_batch is not None:
             raise not_ported("tail_batch")
-        if fetch_alignment:
-            raise not_ported("host alignment (fetch_alignment=True)")
         self.engine = engine
         self.batch_size = batch_size
+        self.fetch_alignment = fetch_alignment
         # name -> {"language", "language_probs"} after transcribe_streams
         self.stream_meta: Dict[str, dict] = {}
         self._mel_stack: Optional[torch.Tensor] = None
@@ -411,7 +411,8 @@ class BatchTranscriber:
             tok_np, lp_np, sum_np, nsp_np, done, seeks = split_host_outputs(p, M)
             p_out, p_act, p_sizes = pending
             with stage_timer("decode_fetch_unpack"):
-                p_results = engine.build_window_results(tok_np, lp_np, sum_np, nsp_np, p_out, 0.0)
+                p_results = engine.build_window_results(tok_np, lp_np, sum_np, nsp_np, p_out, 0.0,
+                                                        fetch_alignment=self.fetch_alignment)
             segs, prep = extract(p_results, p_act, p_sizes)
             check_seeks(seeks)
             if bool(done[:n_streams].all()):
@@ -548,7 +549,8 @@ class BatchTranscriber:
                 if window_hook is not None:
                     flush_hook()
                 with stage_timer("decode_fetch_unpack"):
-                    results = engine.unpack_window_outputs(out, temperature[0])
+                    results = engine.unpack_window_outputs(out, temperature[0],
+                                                           fetch_alignment=self.fetch_alignment)
             if len(temperature) > 1 and any(
                 needs_fallback(r, compression_ratio_threshold, logprob_threshold,
                                no_speech_threshold)
@@ -591,9 +593,12 @@ def transcribe_batch(
 ) -> Dict[str, dict]:
     """Batched API (``batch.py:889``): name -> whisper-timestamped result
     dict, the schema of ``transcribe_timestamped``. Runs on the model's
-    device and never moves the model. Alignment always runs on the device;
-    each window's alignment is queued as the window lands and read at
-    assembly time. ``engine`` overrides the default ``DecodeEngine``.
+    device and never moves the model. ``device_alignment`` (None: on when
+    the model is on CUDA; WTT_DEVICE_ALIGN overrides) with at most
+    ``MAX_K`` alignment heads queues each window's alignment on the device
+    as the window lands and reads it at assembly time; otherwise the
+    attention comes to the host and each segment aligns in numpy at
+    assembly. ``engine`` overrides the default ``DecodeEngine``.
     ``_deferred_assembly`` (used by ``transcribe_batch_stream``) returns a
     zero-argument ``finish()`` that reads the alignment and assembles the
     results, instead of the results, once the decode is done."""
@@ -605,16 +610,23 @@ def transcribe_batch(
         prepare_segment_tokens,
         should_use_space,
     )
-    from ..device_align import MAX_K
-
-    _refuse_unported(mesh, vad, detect_disfluencies, device_alignment,
-                     window_options.get("decode_options"))
+    _refuse_unported(mesh, vad, window_options.get("decode_options"))
     if engine is None:
         engine = DecodeEngine(model, tokenizer)
-    if len(engine.align_heads) > MAX_K:
-        raise not_ported(f"{len(engine.align_heads)} alignment heads (device alignment "
-                         f"takes {MAX_K}; host alignment)")
-    bt = BatchTranscriber(engine, batch_size=batch_size)
+    device_alignment_explicit = device_alignment is not None
+    if device_alignment is None:
+        device_alignment = default_device_alignment(engine.device)
+    full_device = device_alignment and len(engine.align_heads) <= MAX_K
+    if device_alignment and not full_device:
+        # an explicit request that cannot be met warns; the auto-resolved
+        # default degrades with an info line only
+        (logger.warning if device_alignment_explicit else logger.info)(
+            "device_alignment %s but falling back to host alignment: %d alignment heads "
+            "exceed the device aligner's capacity (%d)",
+            "requested" if device_alignment_explicit else "auto-enabled",
+            len(engine.align_heads), MAX_K,
+        )
+    bt = BatchTranscriber(engine, batch_size=batch_size, fetch_alignment=not full_device)
     refine_nframes = round(refine_whisper_precision / 0.02)
 
     # each window's segments are aligned as soon as the window lands, and its
@@ -639,7 +651,7 @@ def transcribe_batch(
             if entries is None:
                 entries = _prepare_step(new_segments)
             resolver = device_align_segments(entries, engine.tokenizer, refine_nframes,
-                                             fetch=False)
+                                             fetch=False, fetch_cost=detect_disfluencies)
             for seg, p in entries:
                 preps_map[id(seg)] = p
                 # release the big device buffers (attention, timestamp logprobs)
@@ -650,8 +662,8 @@ def transcribe_batch(
     _align_step.prepare = _prepare_step
 
     all_segments = bt.transcribe_streams(
-        audios, language=language, prepared=_prepared, window_hook=_align_step,
-        **window_options,
+        audios, language=language, prepared=_prepared,
+        window_hook=_align_step if full_device else None, **window_options,
     )
     # everything past here reads the queued alignment and assembles on the
     # host; the fields it needs are captured now (the transcriber's
@@ -673,16 +685,24 @@ def transcribe_batch(
         words: List[dict] = []
         seg_dicts: List[dict] = []
         for seg in segments:
-            prep = preps_map.get(id(seg))
-            if prep is None:
+            if full_device and preps_map.get(id(seg)) is None:
                 continue
+            jumps = jumps_map.get(id(seg))
+            cost = None
+            if jumps is not None and detect_disfluencies:
+                jumps, cost = jumps
+            # the host route aligns in numpy, as the JAX package's batch does
             ws, seg_dict = align_and_score_segment(
-                seg, engine.tokenizer, prep, jumps_map.get(id(seg)),
+                seg, engine.tokenizer,
                 use_space=use_space,
                 refine_whisper_precision_nframes=refine_nframes,
                 remove_punctuation_from_words=remove_punctuation_from_words,
                 compute_word_confidence=compute_word_confidence,
                 include_punctuation_in_confidence=False,
+                detect_disfluencies=detect_disfluencies,
+                precomputed_jumps=jumps,
+                precomputed_cost=cost,
+                prepared=preps_map.get(id(seg)) if full_device else None,
             )
             if ws is None:
                 continue
@@ -703,6 +723,7 @@ def transcribe_batch(
             transcription, words,
             remove_empty_words=remove_empty_words,
             min_word_duration=min_word_duration,
+            trust_whisper_timestamps=True,
             refine_whisper_precision=refine_whisper_precision,
         )
 
@@ -731,8 +752,7 @@ def transcribe_batch_stream(
     process. An exception of the source is raised in the consumer after the
     batches before it are yielded; closing the generator early stops both
     workers."""
-    _refuse_unported(mesh, options.get("vad", False), options.get("detect_disfluencies", False),
-                     options.get("device_alignment"), options.get("decode_options"))
+    _refuse_unported(mesh, options.get("vad", False), options.get("decode_options"))
     if engine is None:
         engine = DecodeEngine(model, tokenizer)
     device = engine.device
