@@ -48,15 +48,28 @@ Phases, each printing a line; any failure raises and exits non-zero:
       (``device_alignment=False``, the same words within 0.02 s) and with
       ``trust_whisper_timestamps=False``, the 10-head model with
       disfluencies (the batched aligner fetching its cost rows), and a
-      ``transcribe_batch`` of 8 streams with 120 heads (host route).
+      ``transcribe_batch`` of 8 streams with 120 heads (host route);
+  (j) the command line on the card: a large-v3-geometry OpenAI checkpoint
+      of the seeded weights (with its ``.tiktoken`` vocabulary) written to a
+      directory under ``build/``, then ``cli.main`` in-process on three WAVs
+      (7, 12 and 35 s, the 12 s one at 44.1 kHz so the resampler runs),
+      ``--batch_size 8`` on eight more (5-35 s), one run in a subprocess
+      with JAX made unimportable, and the subtitle tool on a words JSON:
+      six formats per input, the schema, the serial run's kernels
+      (``log10_mel`` and the bf16 path's five), the batched run's tokens
+      equal to ``transcribe_batch`` on the same files.
 
 (c) covers the three quantized-cache kernels too, the per-segment route's
 ``attention_to_cost``, ``median9`` and ``dtw_path`` (``dtw_codes`` at S=1),
-and (e) the decode step with the int8 and int4 cross K/V and the int8 self
-cache. The kernels' JSON record takes each kernel's launches from the phase
-that runs it: the bf16 path's from (f), ``xattn_decode_int8`` from (g), the
-int4 and int8-self kernels from (h), ``attention_to_cost`` from (i);
-``median9``, which no path runs, from its checks in (c).
+``log10_mel`` on (g)'s stack of 40 streams and on a 10-minute stream (with
+the peak memory of the front end through the kernel and through its plain
+version) and ``stacked_matmul`` at decode shapes, and (e) the decode step
+with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
+record takes each kernel's launches from the phase that runs it: the bf16
+path's from (f), ``xattn_decode_int8`` from (g), the int4 and int8-self
+kernels from (h), ``attention_to_cost`` from (i), ``log10_mel`` from (j);
+``median9`` and ``stacked_matmul``, which no path runs, from their checks
+in (c).
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
 at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
@@ -69,17 +82,32 @@ plain, kernel, kernel, plain.
 prints no result line).
 
 The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``. Imports nothing of JAX, and makes any
+import of it fail.
 """
 
 import contextlib
+import importlib.abc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
-sys.modules["jax"] = None  # the port must never reach for JAX
+
+class _RefuseJax(importlib.abc.MetaPathFinder):
+    """The port must never reach for JAX: importing it raises. (A finder,
+    not ``sys.modules["jax"] = None``, which scipy's resampler trips on.)"""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"chip_smoke: the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, _RefuseJax())
 
 # large-v3 geometry (whisper's published ModelDimensions)
 LARGE_V3 = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20,
@@ -106,6 +134,10 @@ SOURCES = {
                           "whisper_timestamped_tpu/ops/pallas_kernels.py:165"),
     "median9": ("whisper_timestamped_tpu_torch/csrc/median9.cu",
                 "whisper_timestamped_tpu/ops/pallas_kernels.py:114"),
+    "log10_mel": ("whisper_timestamped_tpu_torch/csrc/log10_mel.cu",
+                  "whisper_timestamped_tpu/ops/pallas_kernels.py:528"),
+    "stacked_matmul": ("whisper_timestamped_tpu_torch/csrc/stacked_matmul.cu",
+                       "whisper_timestamped_tpu/ops/pallas_kernels.py:2427"),
 }
 # the kernels of the bf16 path ([d], [f]); the other three read quantized caches
 BF16_PATH = ("xattn_decode", "self_attn_decode", "align_cost", "dtw_codes", "flash_attention")
@@ -128,13 +160,16 @@ def fail(msg: str):
 
 
 def cuda_time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after a warm-up."""
+    """Mean device time of ``fn`` over ``iters`` calls, after a warm-up. The
+    timed calls queue behind a ~30 ms device sleep, so a kernel shorter than
+    the host's ~20 us a call is timed back to back, not at the host's pace."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     e0.record()
     for it in range(iters):
         fn(it)
@@ -544,11 +579,145 @@ def phase_segment_kernels(torch, K, device):
     return rec
 
 
-def make_audio(seed: int, seconds: int):
+# The front-end kernel's limits against its plain version: the raw log10
+# at atol 2e-4 on the cells above their row's max - 8 floor (JAX's own bound
+# for its kernel; the floor clamps the cells below away) and the
+# normalized log-mel at atol 1e-4. Both are f32 FMA chains over the 400
+# samples in order (cuBLAS's SGEMM without split-K, and the kernel), so on
+# the H100 they have agreed bit for bit. The matmul against its plain
+# version (f32 sums of bf16 products, each rounded once to bf16): 1e-2 of
+# the output's largest magnitude.
+MEL_ATOL, MEL_NORM_ATOL = 2e-4, 1e-4
+MATMUL_RTOL = 1e-2
+
+
+def front_end_through(torch, K, audio, plain: bool):
+    """``log_mel_spectrogram`` of ``audio`` (on the card) with 30 s of
+    padding, through the kernel or through its plain version; returns the
+    result and the peak memory the call added above what was allocated."""
+    from whisper_timestamped_tpu_torch.audio import N_SAMPLES, log_mel_spectrogram
+
+    saved = K.log10_mel
+    if plain:
+        K.log10_mel = K.log10_mel_plain
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = log_mel_spectrogram(audio, n_mels=128, padding=N_SAMPLES)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+    finally:
+        K.log10_mel = saved
+
+
+def phase_frontend_kernels(torch, K, device):
+    """(c): ``log10_mel`` on (g)'s first stack (40 streams of 5-35 s, zero-
+    padded to 35 s, plus 30 s) and on one 10-minute stream plus 30 s, the
+    inputs ``log_mel_spectrogram`` gives it there; ``stacked_matmul`` at the
+    decode step's shapes (fc1, fc2 and a D x D projection of large-v3, L=32)
+    at B = 1, 8 and 40, cycling the layers so the weights come from memory,
+    beside ``F.linear`` on the layer's slice (cuBLAS). Limits above.
+    Returns both records, ``stacked_matmul``'s with its launches (no path
+    runs it)."""
+    import numpy as np
+
+    from whisper_timestamped_tpu_torch.audio import (
+        HOP_LENGTH, N_FFT, N_SAMPLES, _front_end_constants, _padded_audio)
+
+    rec = {}
+    rng = np.random.default_rng(40)
+    secs = rng.integers(5, 36, 40)
+    secs[::8] = 35
+    stack = np.zeros((40, 35 * 16000), np.float32)
+    for j, sec in enumerate(secs):
+        stack[j, : int(sec) * 16000] = make_audio(1000 + j, int(sec))
+    consts = _front_end_constants(128, N_FFT, device)
+    n_bins = consts[0].shape[1]
+    for label, host in (("[g] stack, B=40 x (35 s + 30 s)", stack),
+                        ("one 10-minute stream + 30 s", make_audio(7, 600)[None])):
+        audio = torch.from_numpy(host).to(device)
+        x = _padded_audio(audio, N_SAMPLES, N_FFT // 2)
+        raw_k = K.log10_mel(x, *consts, HOP_LENGTH)
+        torch.cuda.synchronize()
+        raw_p = K.log10_mel_plain(x, *consts, HOP_LENGTH)
+        diff = (raw_k - raw_p).abs()
+        above = raw_p >= raw_p.amax(dim=(-2, -1), keepdim=True) - 8.0
+        err_raw, n_diff = diff[above].max().item(), int((diff > 0).sum())
+        del raw_p, diff, above
+        norm_k, peak_k = front_end_through(torch, K, audio, plain=False)
+        norm_p, peak_p = front_end_through(torch, K, audio, plain=True)
+        err_norm = (norm_k - norm_p).abs().max().item()
+        del norm_p
+        if not (err_raw <= MEL_ATOL and err_norm <= MEL_NORM_ATOL):
+            fail(f"log10_mel disagrees on the {label}: raw {err_raw:.3g} above the max - 8 floor "
+                 f"(atol {MEL_ATOL}), normalized {err_norm:.3g} (atol {MEL_NORM_ATOL})")
+        B, n_frames, n_cells = raw_k.shape[0], raw_k.shape[-1], raw_k.numel()
+        out_bytes = norm_k.numel() * 4
+        del raw_k, norm_k
+        ms = cuda_time_ms(lambda it=0: K.log10_mel(x, *consts, HOP_LENGTH), iters=10)
+        plain_ms = cuda_time_ms(lambda it=0: K.log10_mel_plain(x, *consts, HOP_LENGTH), iters=5)
+        # the DFT-matmul formulation's f32 operations a frame; the padded
+        # audio read once and the mel written once
+        flops = B * n_frames * (2 * N_FFT * n_bins * 2 + 2 * n_bins * 128)
+        b_ms, b_by = bound(x.numel() * 4 + out_bytes, flops, F32_FLOPS)
+        frames = B * n_frames
+        print(f"[c] log10_mel, {label} ({B} x {n_frames} frames, 128 mels): raw err "
+              f"{err_raw:.3g} above max - 8 (atol {MEL_ATOL}; {n_diff} of {n_cells} cells "
+              f"differ at all), normalized {err_norm:.3g} (atol {MEL_NORM_ATOL}); "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{flops / 1e9:.1f} GFLOP, {100 * b_ms / ms:.1f}% of it); log_mel_spectrogram's peak "
+              f"memory above its input: kernel {peak_k / 1e6:.1f} MB ({peak_k / frames:.0f} B a "
+              f"frame, {(peak_k - out_bytes) / frames:.0f} B without the output), plain "
+              f"{peak_p / 1e6:.1f} MB ({peak_p / frames:.0f} B a frame, "
+              f"{(peak_p - out_bytes) / frames:.0f} B without the output)")
+        if "log10_mel" not in rec:
+            rec["log10_mel"] = dict(max_abs_err=err_raw, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
+        del x, audio
+        torch.cuda.empty_cache()
+
+    g = torch.Generator(device=device).manual_seed(3)
+    L = 32
+    K.reset_launches()
+    worst = 0.0  # largest absolute error over every shape
+    for k_in, n_out in ((1280, 5120), (5120, 1280), (1280, 1280)):
+        w = (torch.randn((L, n_out, k_in), generator=g, device=device) * k_in**-0.5).bfloat16()
+        for B in (1, 8, 40):
+            x = torch.randn((B, k_in), generator=g, device=device).bfloat16()
+            err = 0.0
+            for layer in (0, 17, 31):
+                o_k = K.stacked_matmul(x, w, layer)
+                torch.cuda.synchronize()
+                o_p = K.stacked_matmul_plain(x, w, layer).float()
+                d = (o_k.float() - o_p).abs().max().item()
+                worst = max(worst, d)
+                err = max(err, d / o_p.abs().max().item())
+            if not err <= MATMUL_RTOL:
+                fail(f"stacked_matmul disagrees at B={B} K={k_in} N={n_out}: {err:.3g} of the "
+                     f"output's largest magnitude (limit {MATMUL_RTOL})")
+            ms = cuda_time_ms(lambda it=0: K.stacked_matmul(x, w, it % L))
+            plain_ms = cuda_time_ms(lambda it=0: K.stacked_matmul_plain(x, w, it % L))
+            lib_ms = cuda_time_ms(lambda it=0: torch.nn.functional.linear(x, w[it % L]))
+            b_ms, b_by = bound(2 * (n_out * k_in + B * k_in + B * n_out), 2 * B * n_out * k_in,
+                               BF16_FLOPS)
+            print(f"[c] stacked_matmul B={B:2d} K={k_in} N={n_out} L=32: err {err:.3g} of the output "
+                  f"scale (limit {MATMUL_RTOL}); {ms:.4f} ms vs plain {plain_ms:.4f} ms, F.linear "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it)")
+            if (B, k_in, n_out) == (40, 1280, 5120):
+                rec["stacked_matmul"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                             library_ms=lib_ms)
+        del w
+        torch.cuda.empty_cache()
+    rec["stacked_matmul"].update(max_abs_err=worst, launches=K.LAUNCHES["stacked_matmul"])
+    return rec
+
+
+def make_audio(seed: int, seconds: int, rate: int = 16000):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    t = np.arange(16000 * seconds) / 16000.0
+    t = np.arange(rate * seconds) / rate
     tone = 0.2 * np.sin(2 * np.pi * (220.0 + 40 * seed) * t)
     return (tone + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
 
@@ -1117,6 +1286,197 @@ def phase_host_alignment(torch, K, model, tok):
     return path_launches
 
 
+def write_wav(path: str, audio, rate: int) -> str:
+    """16-bit mono WAV of float audio in [-1, 1]."""
+    import wave
+
+    import numpy as np
+
+    pcm = np.clip(np.round(audio * 32767), -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+    return path
+
+
+def write_checkpoint(torch, model, tok, directory: str) -> str:
+    """``model``'s weights as an OpenAI-format ``large-v3.pt`` (bf16; each
+    stacked parameter copied to the host once, its layers saved as views)
+    and the tokenizer's ranks as ``multilingual.tiktoken`` beside it, as
+    ``load_model`` and the CLI find them. Returns the checkpoint's path."""
+    import base64
+    import dataclasses
+
+    lin = {"q": "query", "k": "key", "v": "value", "o": "out"}
+    block = {"attn": "attn", "cross": "cross_attn", "attn_ln": "attn_ln",
+             "cross_ln": "cross_attn_ln", "mlp_ln": "mlp_ln", "fc1": "mlp.0", "fc2": "mlp.2"}
+    single = {"conv1": "conv1", "conv2": "conv2", "ln_post": "ln_post", "ln": "ln"}
+    kinds = {"w": "weight", "b": "bias", "g": "weight"}
+    sd = {}
+    for side, params in (("encoder", model.module.encoder), ("decoder", model.module.decoder)):
+        for key, p in params.items():
+            t = p.detach().cpu()
+            if key == "pos_emb":
+                sd[f"{side}.positional_embedding"] = t
+                continue
+            if key == "tok_emb":
+                sd["decoder.token_embedding.weight"] = t
+                continue
+            stem, kind = key.rsplit("_", 1)
+            if stem in single:
+                sd[f"{side}.{single[stem]}.{kinds[kind]}"] = t
+                continue
+            if stem in block:
+                name = block[stem]
+            else:
+                attn, proj = stem.split("_")
+                name = f"{block[attn]}.{lin[proj]}"
+            for i in range(t.shape[0]):
+                sd[f"{side}.blocks.{i}.{name}.{kinds[kind]}"] = t[i]
+    path = os.path.join(directory, "large-v3.pt")
+    torch.save({"dims": dataclasses.asdict(model.dims), "model_state_dict": sd}, path)
+    with open(os.path.join(directory, "multilingual.tiktoken"), "wb") as f:
+        for token, rank in tok.bpe.ranks.items():
+            f.write(base64.b64encode(token) + b" " + str(rank).encode() + b"\n")
+    return path
+
+
+# the six formats of each input, with the word-level variants
+CLI_OUTPUTS = (".words.json", ".txt", ".vtt", ".srt", ".csv", ".tsv", ".words.vtt",
+               ".words.srt", ".words.csv", ".words.tsv")
+
+
+def check_cli_outputs(out_dir: str, wavs) -> list:
+    """Every format of every input written; returns the word counts."""
+    words = []
+    for wav in wavs:
+        base = os.path.join(out_dir, os.path.basename(wav))
+        missing = [ext for ext in CLI_OUTPUTS if not os.path.isfile(base + ext)]
+        if missing:
+            fail(f"[j] {os.path.basename(wav)}: no {missing} in {out_dir}")
+        with open(base + ".words.json", encoding="utf-8") as f:
+            words.append(check_result(json.load(f)))
+    return words
+
+
+def phase_cli(torch, K, model, tok, here: str):
+    """(j): the command line on the card, on a checkpoint of ``model``
+    written to a directory under ``build/`` (deleted at the end):
+
+    1. serial: ``cli.main`` in-process on three WAVs (7, 12 and 35 s; the
+       12 s one at 44.1 kHz) with ``-f all``, EOT suppressed and the three
+       thresholds off: every format of every input, the schema, and
+       ``log10_mel`` with the bf16 path's five kernels launched (counts
+       reset just before, read just after);
+    2. batched: ``--batch_size 8`` on eight WAVs of 5-35 s: every format,
+       words in every file, the segment tokens of each equal to
+       ``transcribe_batch`` on the same files with ``model``;
+    3. one CLI run in a subprocess with ``sys.modules['jax'] = None`` (a
+       16 kHz file: scipy's resampler trips on that entry) must exit 0;
+    4. ``make_subtitles.main`` on a words JSON of (1).
+
+    Prints each run's wall time (the checkpoint's load included), seconds a
+    file, the front-end stage (``mel``; ``prepare_audio`` in the batched
+    loop) and peak memory. Returns the launches of (1) and (2) together."""
+    from whisper_timestamped_tpu_torch import cli, make_subtitles, transcribe_batch
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.utils import get_stage_timings, reset_stage_timings
+
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(here, "build"))
+    try:
+        t0 = time.perf_counter()
+        ckpt = write_checkpoint(torch, model, tok, work)
+        print(f"[j] large-v3 checkpoint ({os.path.getsize(ckpt) / 1e9:.2f} GB) and vocabulary "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        common = ["--model", ckpt, "--language", "en", f"--suppress_tokens=-1,{tok.eot}",
+                  "--no_speech_threshold", "None", "--logprob_threshold", "None",
+                  "--compression_ratio_threshold", "None"]
+
+        def wav(name, seed, seconds, rate=16000):
+            return write_wav(os.path.join(work, name), make_audio(seed, seconds, rate), rate)
+
+        def run(label, wavs, out, *extra):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_stage_timings()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            cli.main([*wavs, "-o", out, "-f", "all", *common, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, stages = dict(K.LAUNCHES), get_stage_timings()
+            words = check_cli_outputs(out, wavs)
+            front = ", ".join(f"{k} {v['total_s']:.3f} s/{v['count']}" for k, v in sorted(stages.items())
+                              if k in ("mel", "prepare_audio"))
+            print(f"[j] {label}: {wall:.2f} s wall ({wall / len(wavs):.2f} s a file, the load "
+                  f"included), front end {front}, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, words {words}; launches "
+                  f"{launches}")
+            print(f"[j] {label} stages: " + ", ".join(f"{k} {v['total_s']:.2f}s/{v['count']}"
+                                                       for k, v in sorted(stages.items())))
+            return launches, words
+
+        serial = [wav("s7.wav", 1, 7), wav("s12.wav", 2, 12, rate=44100), wav("s35.wav", 3, 35)]
+        launches, words = run("serial, 3 files (7, 12 s at 44.1 kHz, 35 s)", serial,
+                              os.path.join(work, "serial"))
+        if not any(words):
+            fail("[j] the serial CLI run produced no words")
+        missing = [k for k in ("log10_mel", *BF16_PATH) if not launches[k]]
+        if missing:
+            fail(f"[j] the serial CLI run did not launch {missing}: {launches}")
+        total = dict(launches)
+
+        lengths = [35, 5, 12, 20, 8, 27, 15, 30]
+        batch = [wav(f"b{j}.wav", 4000 + j, sec) for j, sec in enumerate(lengths)]
+        out = os.path.join(work, "batched")
+        launches, words = run(f"--batch_size 8, 8 files ({sum(lengths)} s)", batch, out,
+                              "--batch_size", "8")
+        if not all(words):
+            fail(f"[j] a file of the batched CLI run has no words: {words}")
+        if not launches["log10_mel"]:
+            fail(f"[j] the batched CLI run did not launch log10_mel: {launches}")
+        total = {k: total[k] + launches[k] for k in total}
+        want = transcribe_batch(model, {p: p for p in batch}, tok, batch_size=8, temperature=[0.0],
+                                decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}"),
+                                **SMOKE_OPTIONS)
+        for p in batch:
+            with open(os.path.join(out, os.path.basename(p) + ".words.json"), encoding="utf-8") as f:
+                got = json.load(f)
+            if [s["tokens"] for s in got["segments"]] != [s["tokens"] for s in want[p]["segments"]]:
+                fail(f"[j] the batched CLI's {os.path.basename(p)} differs from transcribe_batch")
+        print("[j] the batched CLI's files equal transcribe_batch on the same files (segment tokens)")
+
+        torch.cuda.empty_cache()
+        out = os.path.join(work, "subprocess")
+        code = ("import sys; sys.modules['jax'] = None; "
+                "from whisper_timestamped_tpu_torch.cli import main; main()")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, serial[0], "-o", out, *common],
+                              cwd=here, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"[j] the CLI in a subprocess without JAX exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        words = check_cli_outputs(out, serial[:1])
+        print(f"[j] subprocess without JAX, 7 s file: exit 0 in {time.perf_counter() - t0:.2f} s "
+              f"(the start and the load included), {words[0]} words")
+
+        subs = os.path.join(work, "subtitles")
+        make_subtitles.main([os.path.join(work, "serial", "s35.wav.words.json"), subs,
+                             "--max_length", "42"])
+        if sorted(os.listdir(subs)) != ["s35.wav.srt", "s35.wav.vtt"]:
+            fail(f"[j] make_subtitles wrote {os.listdir(subs)}")
+        with open(os.path.join(subs, "s35.wav.srt"), encoding="utf-8") as f:
+            cues = f.read().count(" --> ")
+        print(f"[j] make_subtitles --max_length 42 on the 35 s words JSON: {cues} srt cues")
+        return total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_profile(torch, model, tok, B: int, **levers):
     """(--profile): device time against wall time for one decoded window of
     B rows, with the engine's ``levers``."""
@@ -1190,6 +1550,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec.update(phase_quant_kernels(torch, K, device))
     rec.update(phase_segment_kernels(torch, K, device))
+    rec.update(phase_frontend_kernels(torch, K, device))
     if "--kernels-only" in sys.argv[1:]:
         print("[c] --kernels-only: stopping after the kernel checks")
         return 0
@@ -1221,6 +1582,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["attention_to_cost"] = phase_host_alignment(torch, K, model, tok)["attention_to_cost"]
     launches["median9"] = rec["median9"].pop("launches")
+    torch.cuda.empty_cache()
+    launches["log10_mel"] = phase_cli(torch, K, model, tok, here)["log10_mel"]
+    launches["stacked_matmul"] = rec["stacked_matmul"].pop("launches")
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):
             phase_profile(torch, model, tok, B, **levers)

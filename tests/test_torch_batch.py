@@ -64,7 +64,7 @@ def models():
     params, dims = hf_model_to_jax(make_hf_model(seed=0))
     jax_model = JaxModel(params=jax.tree.map(jnp.asarray, params), dims=dims,
                          alignment_heads=HEADS)
-    module = params_from_jax_tree(params, WhisperDims(**dims.__dict__))
+    module = params_from_jax_tree(params, WhisperDims(**dims.__dict__), device="cpu")
     return jax_model, WhisperModel(module=module, alignment_heads=HEADS)
 
 

@@ -267,3 +267,59 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     z = torch.zeros((1, 128, 130), dtype=torch.bfloat16, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_attention(z, z, z, 2)
+
+
+@pytest.mark.parametrize("rows,seconds,n_mels", [(3, 35, 128), (2, 7.3, 80)])
+def test_log10_mel_kernel_matches_plain(cuda, rows, seconds, n_mels):
+    """The fused log-mel kernel against its plain version (TF32 off) on
+    whisper's padded input (30 s of zeros after the audio; 6500 and 3730
+    frames, neither a multiple of the 64-frame tile): the raw log10 at atol
+    2e-4 above each row's max - 8 floor, and ``log_mel_spectrogram``
+    through the kernel against its plain route at atol 1e-4."""
+    from whisper_timestamped_tpu_torch import audio as TA
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    n = int(16000 * seconds)
+    t = torch.arange(n, device=cuda) / 16000.0
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    audio = 0.2 * torch.sin(2 * torch.pi * 220.0 * t) + 0.05 * torch.randn((rows, n), generator=g,
+                                                                          device=cuda)
+    x = TA._padded_audio(audio, TA.N_SAMPLES, TA.N_FFT // 2)
+    consts = TA._front_end_constants(n_mels, TA.N_FFT, cuda)
+    before = K.LAUNCHES["log10_mel"]
+    raw_k = K.log10_mel(x, *consts, TA.HOP_LENGTH)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["log10_mel"] == before + 1
+    raw_p = K.log10_mel_plain(x, *consts, TA.HOP_LENGTH)
+    assert raw_k.shape == raw_p.shape == (rows, n_mels, (n + TA.N_SAMPLES) // TA.HOP_LENGTH)
+    assert raw_k.is_contiguous()
+    above = raw_p >= raw_p.amax(dim=(-2, -1), keepdim=True) - 8.0
+    torch.testing.assert_close(raw_k[above], raw_p[above], rtol=0, atol=2e-4)
+    norm_k = TA.log_mel_spectrogram(audio, n_mels=n_mels, padding=TA.N_SAMPLES)
+    assert K.LAUNCHES["log10_mel"] == before + 2
+    saved = K.log10_mel
+    K.log10_mel = K.log10_mel_plain
+    try:
+        norm_p = TA.log_mel_spectrogram(audio, n_mels=n_mels, padding=TA.N_SAMPLES)
+    finally:
+        K.log10_mel = saved
+    torch.testing.assert_close(norm_k, norm_p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 8, 40])
+@pytest.mark.parametrize("k_in,n_out", [(1280, 5120), (5120, 1280), (1280, 1280)])
+def test_stacked_matmul_kernel_matches_plain(cuda, B, k_in, n_out):
+    """The layer-indexed matmul at the decode step's shapes (L=32), layers 0
+    and 31, against its plain version (f32 sums, one bf16 rounding): within
+    1e-2 of the output's largest magnitude."""
+    g = torch.Generator(device=cuda).manual_seed(B * k_in + n_out)
+    w = (torch.randn((32, n_out, k_in), generator=g, device=cuda) * k_in**-0.5).bfloat16()
+    x = _randn(g, B, k_in)
+    for layer in (0, 31):
+        before = K.LAUNCHES["stacked_matmul"]
+        o_k = K.stacked_matmul(x, w, layer)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["stacked_matmul"] == before + 1
+        o_p = K.stacked_matmul_plain(x, w, layer).float()
+        assert o_k.shape == (B, n_out) and o_k.dtype == torch.bfloat16
+        assert (o_k.float() - o_p).abs().max() <= 1e-2 * o_p.abs().max()

@@ -125,7 +125,7 @@ def flash_calls(monkeypatch):
 
 def test_encode_goes_through_flash_and_matches_jax(flash_calls):
     params, dims = hf_model_to_jax(make_hf_model(seed=0))
-    module = L.params_from_jax_tree(params, W.WhisperDims(**dims.__dict__))
+    module = L.params_from_jax_tree(params, W.WhisperDims(**dims.__dict__), device="cpu")
     mel = np.random.default_rng(0).standard_normal((2, dims.n_mels, 3000)).astype(np.float32)
     want = np.asarray(J.encode(jax.tree.map(jnp.asarray, params), jnp.asarray(mel), dims))
     with torch.no_grad():
@@ -148,7 +148,7 @@ def test_prefill_of_232_slots_goes_through_flash_and_matches_jax(flash_calls):
     params = jax.tree.map(np.asarray, J.init_params(dims, jax.random.PRNGKey(3)))
     heads = ((0, 1), (1, 0), (1, 1))
     jax_model = JaxModel(params=jax.tree.map(jnp.asarray, params), dims=dims, alignment_heads=heads)
-    model = WhisperModel(module=L.params_from_jax_tree(params, W.WhisperDims(**dims.__dict__)),
+    model = WhisperModel(module=L.params_from_jax_tree(params, W.WhisperDims(**dims.__dict__), device="cpu"),
                          alignment_heads=heads)
     tok = get_tokenizer(ranks=synthetic_ranks(), multilingual=True, num_languages=99)
     mel = np.random.default_rng(4).standard_normal((80, 3000)).astype(np.float32) * 0.5

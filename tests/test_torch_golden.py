@@ -37,7 +37,7 @@ GREEDY = ["condition_off", "confidence_punct", "initial_prompt", "monolingual_en
 @pytest.fixture(scope="module")
 def model():
     params, dims = hf_model_to_jax(make_hf_model(seed=0))
-    module = params_from_jax_tree(params, WhisperDims(**dims.__dict__))
+    module = params_from_jax_tree(params, WhisperDims(**dims.__dict__), device="cpu")
     return WhisperModel(module=module, alignment_heads=[(0, 1), (1, 0), (1, 2)])
 
 

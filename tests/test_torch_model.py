@@ -40,7 +40,7 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 
 def _port(params, dims):
     tree = jax.tree.map(np.asarray, params)
-    return L.params_from_jax_tree(tree, W.WhisperDims(**dims.__dict__))
+    return L.params_from_jax_tree(tree, W.WhisperDims(**dims.__dict__), device="cpu")
 
 
 @pytest.fixture(scope="module", params=["golden_dh16", "init_dh64"])
@@ -176,6 +176,17 @@ def test_load_model_defaults_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             L.load_model(path)
         assert L.load_model(path, device="cpu").device.type == "cpu"
+
+
+def test_params_from_jax_tree_defaults_to_the_card(monkeypatch):
+    """Without a device, params_from_jax_tree places the weights on CUDA;
+    with no card visible it raises; ``device="cpu"`` works."""
+    tree, dims = hf_model_to_jax(make_hf_model(seed=0))
+    dims = W.WhisperDims(**dims.__dict__)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        L.params_from_jax_tree(tree, dims)
+    assert L.params_from_jax_tree(tree, dims, device="cpu").device.type == "cpu"
 
 
 def test_init_params_geometry():

@@ -33,6 +33,7 @@ from .models.load import WhisperModel, load_model
 from .postprocess import ensure_increasing_positions, remove_last_null_duration_words
 from .tokenizer import Tokenizer, get_tokenizer
 from .utils import not_ported, stage_timer
+from .writers import format_timestamp
 
 logger = logging.getLogger("whisper_timestamped_tpu_torch")
 
@@ -41,19 +42,6 @@ LANGUAGE_NAMES = {c: n.title() for c, n in LANGUAGES.items()}
 
 def should_use_space(language: Optional[str]) -> bool:
     return normalize_language(language or "en") not in LANGUAGES_WITHOUT_SPACES
-
-
-def format_timestamp(seconds: float) -> str:
-    """[hh:]mm:ss.mmm (the JAX package's ``writers.format_timestamp`` with
-    its defaults)."""
-    if seconds < 0:
-        raise ValueError("non-negative timestamp expected")
-    ms = round(seconds * 1000.0)
-    hours, ms = divmod(ms, 3_600_000)
-    minutes, ms = divmod(ms, 60_000)
-    secs, ms = divmod(ms, 1_000)
-    hours_marker = f"{hours:02d}:" if hours > 0 else ""
-    return f"{hours_marker}{minutes:02d}:{secs:02d}.{ms:03d}"
 
 
 def print_timestamped(w: dict) -> None:

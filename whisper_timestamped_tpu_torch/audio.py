@@ -2,10 +2,10 @@
 
 PyTorch counterpart of ``whisper_timestamped_tpu/audio.py``. The host helpers
 (``mel_filters``, ``load_audio``, ``resample``, ``pad_or_trim``, ``as_pcm16``)
-are copies of the numpy originals; ``log_mel_spectrogram`` keeps the same
-formulation as the JAX ``_stft_power``: a framing gather and two f32 matmuls
-against windowed DFT cos/sin bases, then the mel projection, on whatever
-device the audio tensor lives on.
+are copies of the numpy originals; ``log_mel_spectrogram`` pads the audio
+and normalizes the result around ``ops.kernels.log10_mel`` (the fused
+front-end kernel on the card, the JAX ``_stft_power`` formulation as its
+plain version), on whatever device the audio tensor lives on.
 """
 
 from __future__ import annotations
@@ -102,23 +102,32 @@ def _dft_bases(n_fft: int = N_FFT) -> tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def _stft_power(audio: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """|STFT|^2 with center=True reflect padding: (..., n_samples) f32 ->
-    (..., n_samples // hop, n_bins); the trailing frame is dropped as in
-    whisper's ``stft[..., :-1]``."""
-    cos_np, sin_np = _dft_bases(n_fft)
-    cos_b = torch.as_tensor(cos_np, device=audio.device)
-    sin_b = torch.as_tensor(sin_np, device=audio.device)
-    pad = n_fft // 2
-    lead = audio.shape[:-1]
-    x = torch.nn.functional.pad(
-        audio.reshape(-1, 1, audio.shape[-1]), (pad, pad), mode="reflect"
-    ).reshape(*lead, -1)
-    n_frames = audio.shape[-1] // hop
-    frames = x.unfold(-1, n_fft, hop)[..., :n_frames, :]  # (..., n_frames, n_fft)
-    real = frames @ cos_b
-    imag = frames @ sin_b
-    return real * real + imag * imag
+@functools.lru_cache(maxsize=None)
+def _front_end_constants(n_mels: int, n_fft: int, device: torch.device):
+    """The DFT bases and the mel filterbank as f32 tensors on ``device``,
+    made once per device."""
+    cos_b, sin_b = _dft_bases(n_fft)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (cos_b, sin_b, mel_filters(n_mels, n_fft=n_fft)))
+
+
+def _padded_audio(audio: torch.Tensor, padding: int, pad: int) -> torch.Tensor:
+    """(B, n) audio -> (B, pad + n + padding + pad) f32 in one buffer: the
+    audio (int16 dequantized as x / 32768), ``padding`` zeros, and ``pad``
+    samples reflected at each end (``F.pad(..., mode="reflect")`` of the
+    zero-padded audio)."""
+    B, n = audio.shape
+    body = n + padding
+    if body <= pad:
+        raise ValueError(f"reflect padding of {pad} needs more than {pad} samples, got {body}")
+    x = torch.empty((B, body + 2 * pad), dtype=torch.float32, device=audio.device)
+    x[:, pad : pad + n] = audio
+    if audio.dtype == torch.int16:
+        x[:, pad : pad + n] /= 32768.0
+    x[:, pad + n : pad + body] = 0.0
+    x[:, :pad] = x[:, pad + 1 : 2 * pad + 1].flip(-1)
+    x[:, pad + body :] = x[:, body - 1 : pad + body - 1].flip(-1)
+    return x
 
 
 def log_mel_spectrogram(
@@ -138,28 +147,28 @@ def log_mel_spectrogram(
     which raises without one). Returns (..., n_mels, n_frames) float32:
     power mel -> log10 -> clamp to max-8 -> (x+4)/4.
 
-    f32 matmuls run in full precision on the card unless the caller enabled
-    TF32 (``torch.backends.cuda.matmul.allow_tf32``, False by default).
+    The padding and the normalization run here; the framing, DFT, power, mel
+    projection and log10 are ``ops.kernels.log10_mel``: its CUDA kernel for
+    audio on the card, its plain version (f32 matmuls at full precision
+    unless the caller enabled TF32) on the CPU.
     """
+    from .ops.kernels import log10_mel
+
     if device is None and not isinstance(audio, torch.Tensor):
         from .models.load import default_device
 
         device = default_device()
     audio = torch.as_tensor(audio, device=device)
-    if audio.dtype == torch.int16:
-        audio = audio.to(torch.float32) / 32768.0
-    else:
+    if audio.dtype != torch.int16:
         audio = audio.to(torch.float32)
-    if padding > 0:
-        audio = torch.nn.functional.pad(audio, (0, padding))
-    power = _stft_power(audio, n_fft, hop)  # (..., frames, bins)
-    mel_w = torch.as_tensor(mel_filters(n_mels, n_fft=n_fft).T, device=audio.device)
-    mel_spec = power @ mel_w
-    log_spec = torch.log10(torch.clamp(mel_spec, min=1e-10))
+    lead = audio.shape[:-1]
+    x = _padded_audio(audio.reshape(-1, audio.shape[-1]), padding, n_fft // 2)
+    log_spec = log10_mel(x, *_front_end_constants(n_mels, n_fft, x.device), hop)
+    del x
     max_val = log_spec.amax(dim=(-2, -1), keepdim=True)
-    log_spec = torch.maximum(log_spec, max_val - 8.0)
-    log_spec = (log_spec + 4.0) / 4.0
-    return log_spec.transpose(-1, -2)  # (..., n_mels, frames)
+    torch.maximum(log_spec, max_val - 8.0, out=log_spec)
+    log_spec.add_(4.0).div_(4.0)
+    return log_spec.reshape(*lead, *log_spec.shape[-2:])
 
 
 def as_pcm16(audio: np.ndarray) -> Optional[np.ndarray]:

@@ -5,7 +5,7 @@ converters build the same numpy parameter tree as the JAX package (linears
 ``(in, out)``, convs ``(k, in, out)``, blocks stacked on a leading layer
 axis); ``params_from_jax_tree`` turns such a tree, or the JAX package's own
 parameters fetched as numpy, into a ``WhisperTorch`` on an explicit device
-and dtype. Nothing is downloaded.
+and dtype (the CUDA card unless another is named). Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -27,6 +27,10 @@ OFFICIAL_MODELS = (
     "medium.en", "medium", "large-v1", "large-v2", "large-v3", "large",
     "large-v3-turbo", "turbo",
 )
+
+
+def available_models() -> Tuple[str, ...]:
+    return OFFICIAL_MODELS
 
 
 @dataclass
@@ -72,7 +76,9 @@ def params_from_jax_tree(tree: Dict[str, Any], dims: WhisperDims, device=None,
     """Build a ``WhisperTorch`` from a JAX-layout parameter tree of numpy (or
     any array-like) leaves: linear ``w`` (L, in, out) becomes (L, out, in),
     conv ``w`` (k, in, out) becomes (out, in, k). Floating leaves are cast to
-    ``dtype`` and placed on ``device``."""
+    ``dtype`` and placed on ``device``, None meaning the CUDA card
+    (``default_device``, which raises without one)."""
+    device = default_device(device)
     enc, dec = tree["encoder"], tree["decoder"]
     a = lambda x: np.asarray(x, np.float32)  # noqa: E731
     lin_w = lambda x: np.swapaxes(a(x), -1, -2)  # noqa: E731
@@ -386,15 +392,15 @@ def _num_parameters_for_name_inference(params: Dict[str, Any]) -> int:
 
 def default_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means the CUDA card. Raises
-    when no card is visible and none was named: the port never falls back
-    to the CPU on its own (pass ``device="cpu"`` for that)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    when the card is meant (by default or by name) and none is visible: the
+    port never falls back to the CPU on its own (pass ``device="cpu"`` for
+    that)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
-    return torch.device("cuda")
+    return device
 
 
 def load_model(name_or_path: str, device=None, dtype=None,

@@ -53,6 +53,10 @@ SIGNATURES = {
     # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, layer, pos, B, ctx, D, H, scale, stream
     "wtt_self_attn_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                   _P],
+    # x, cos_b, sin_b, mel_w, out, B, L, n_fft, n_bins, n_mels, hop, stream
+    "wtt_log10_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w_all, out, layer, B, N, K, stream
+    "wtt_stacked_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

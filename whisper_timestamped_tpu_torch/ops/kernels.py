@@ -24,6 +24,8 @@ wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.p
 ``xattn_decode_int4``   ``cross_attention_stacked_int4_pallas`` (:1876)
 ``self_attn_decode_int8``  ``self_attention_stacked_int8_pallas`` (:2205) and
                         its ``_mxu`` variant (:2333)
+``log10_mel``           ``log10_mel_pallas`` (:528), framing the audio itself
+``stacked_matmul``      ``stacked_matmul_pallas`` (:2427), on no path
 ======================  ==========================================================
 
 Dispatch is by device: for CPU tensors a wrapper runs the plain version (the
@@ -51,7 +53,8 @@ from .quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
 # attention_to_cost's two; dtw_path counts under dtw_codes, which it calls)
 LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0,
             "flash_attention": 0, "xattn_decode_int8": 0, "xattn_decode_int4": 0,
-            "self_attn_decode_int8": 0, "attention_to_cost": 0, "median9": 0}
+            "self_attn_decode_int8": 0, "attention_to_cost": 0, "median9": 0, "log10_mel": 0,
+            "stacked_matmul": 0}
 
 DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
 DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
@@ -322,6 +325,29 @@ def flash_attention_plain(q, k, v, n_head: int, *, causal: bool = False, pad_len
         s = s.masked_fill(~live[:, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return (p @ vh).transpose(1, 2).reshape(B, Sq, D).to(q.dtype)
+
+
+def log10_mel_plain(x, cos_b, sin_b, mel_w, hop: int):
+    """log10 mel spectrogram of reflect-padded audio x (B, L) f32: frames
+    x[b, f*hop : f*hop + n_fft] for f < (L - n_fft) // hop, their windowed
+    real DFT against the bases cos_b / sin_b (n_fft, n_bins) as two f32
+    matmuls, the power spectrum, the projection on mel_w (n_mels, n_bins) and
+    log10(max(mel, 1e-10)). Returns (B, n_mels, n_frames) f32, a transposed
+    view. The JAX package's ``_stft_power`` formulation; f32 matmuls run at
+    full precision unless the caller enabled TF32."""
+    n_fft = cos_b.shape[0]
+    n_frames = (x.shape[-1] - n_fft) // hop
+    frames = x.unfold(-1, n_fft, hop)[..., :n_frames, :]  # (B, n_frames, n_fft)
+    real = frames @ cos_b
+    imag = frames @ sin_b
+    mel = (real * real + imag * imag) @ mel_w.T
+    return torch.log10(torch.clamp(mel, min=1e-10)).transpose(-1, -2)
+
+
+def stacked_matmul_plain(x, w_all, layer: int):
+    """x (B, K) @ w_all[layer]^T with w_all (L, N, K) (the port's (out, in)
+    linear layout), summed in f32; returns (B, N) in x's dtype."""
+    return (x.float() @ w_all[layer].float().T).to(x.dtype)
 
 
 def _check_flash_masks(q, k, causal: bool, pad_len) -> None:
@@ -658,4 +684,56 @@ def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer
             k_all.data_ptr(), k_scale.data_ptr(), v_all.data_ptr(), v_scale.data_ptr(),
             out.data_ptr(), pad_len.data_ptr(), layer, pos, B, ctx, D, n_head,
             HEAD_DIM**-0.5, _stream(q))
+    return out
+
+
+def log10_mel(x, cos_b, sin_b, mel_w, hop: int):
+    """log10 mel spectrogram of reflect-padded audio (see
+    ``log10_mel_plain``), framed by the kernel itself. On CUDA: f32,
+    contiguous, n_fft a multiple of 16, hop of 4, at least one frame.
+    Returns (B, n_mels, n_frames) f32, contiguous."""
+    name = "log10_mel"
+    if not _on_cuda(name, x, cos_b, sin_b, mel_w):
+        return log10_mel_plain(x, cos_b, sin_b, mel_w, hop)
+    tensors = (x, cos_b, sin_b, mel_w)
+    _expect(name, all(t.dtype == torch.float32 for t in tensors), "inputs must be f32")
+    _expect(name, all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    _expect(name, x.ndim == 2 and cos_b.shape == sin_b.shape and mel_w.shape[1] == cos_b.shape[1],
+            f"shape mismatch: x {tuple(x.shape)}, bases {tuple(cos_b.shape)}, "
+            f"mel_w {tuple(mel_w.shape)}")
+    B, L = x.shape
+    n_fft, n_bins = cos_b.shape
+    n_mels = mel_w.shape[0]
+    n_frames = (L - n_fft) // hop if L >= n_fft else 0
+    # the shared memory of a 64-frame tile: its samples, its power spectrum
+    # (odd row stride) and two 16 x 64 basis chunks
+    smem = 4 * ((63 * hop + n_fft + 3) // 4 * 4 + 64 * (n_bins | 1) + 2 * 16 * 64)
+    _expect(name, n_fft % 16 == 0 and hop % 4 == 0 and hop > 0 and smem <= 232448,
+            f"unsupported n_fft={n_fft} hop={hop}")
+    _expect(name, n_frames > 0 and 0 < B <= 65535 and n_mels > 0,
+            f"unsupported B={B} L={L} n_mels={n_mels}")
+    out = torch.empty((B, n_mels, n_frames), dtype=torch.float32, device=x.device)
+    _launch(name, "wtt_log10_mel", x.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
+            mel_w.data_ptr(), out.data_ptr(), B, L, n_fft, n_bins, n_mels, hop, _stream(x))
+    return out
+
+
+def stacked_matmul(x, w_all, layer: int):
+    """x (B, K) @ w_all[layer]^T without a copy of the layer's slice (see
+    ``stacked_matmul_plain``). On CUDA: bf16, contiguous, 16-byte aligned,
+    K a multiple of 8. Returns (B, N) bf16."""
+    name = "stacked_matmul"
+    if not _on_cuda(name, x, w_all):
+        return stacked_matmul_plain(x, w_all, layer)
+    _expect(name, x.dtype == torch.bfloat16 and w_all.dtype == torch.bfloat16, "x/w_all must be bf16")
+    _expect(name, x.is_contiguous() and w_all.is_contiguous(), "inputs must be contiguous")
+    _expect(name, _aligned(x, w_all), "inputs must be 16-byte aligned")
+    B, K = x.shape
+    L, N, Kw = w_all.shape
+    _expect(name, Kw == K, f"x (B, {K}) against w_all (L, N, {Kw})")
+    _expect(name, K % 8 == 0 and 0 < B and 0 < N <= 16 * 65535, f"unsupported B={B} N={N} K={K}")
+    _expect(name, 0 <= layer < L, f"layer {layer} out of range")
+    out = torch.empty((B, N), dtype=torch.bfloat16, device=x.device)
+    _launch(name, "wtt_stacked_matmul", x.data_ptr(), w_all.data_ptr(), out.data_ptr(), layer,
+            B, N, K, _stream(x))
     return out
