@@ -89,6 +89,7 @@ import of it fail.
 import contextlib
 import importlib.abc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -633,7 +634,7 @@ def phase_frontend_kernels(torch, K, device):
     for j, sec in enumerate(secs):
         stack[j, : int(sec) * 16000] = make_audio(1000 + j, int(sec))
     consts = _front_end_constants(128, N_FFT, device)
-    n_bins = consts[0].shape[1]
+    n_bins, mel_nonzero = consts[0].shape[1], int((consts[2] != 0).sum())
     for label, host in (("[g] stack, B=40 x (35 s + 30 s)", stack),
                         ("one 10-minute stream + 30 s", make_audio(7, 600)[None])):
         audio = torch.from_numpy(host).to(device)
@@ -657,16 +658,19 @@ def phase_frontend_kernels(torch, K, device):
         del raw_k, norm_k
         ms = cuda_time_ms(lambda it=0: K.log10_mel(x, *consts, HOP_LENGTH), iters=10)
         plain_ms = cuda_time_ms(lambda it=0: K.log10_mel_plain(x, *consts, HOP_LENGTH), iters=5)
-        # the DFT-matmul formulation's f32 operations a frame; the padded
-        # audio read once and the mel written once
-        flops = B * n_frames * (2 * N_FFT * n_bins * 2 + 2 * n_bins * 128)
+        # the least f32 work a frame: the window, a real FFT (2.5 n log2 n,
+        # FFTW's count for a real transform), the power, the mel filters'
+        # nonzero weights and the log10; the padded audio read once and the
+        # mel written once
+        flops = B * n_frames * (N_FFT + 2.5 * N_FFT * math.log2(N_FFT) + 3 * n_bins
+                                + 2 * mel_nonzero + 128)
         b_ms, b_by = bound(x.numel() * 4 + out_bytes, flops, F32_FLOPS)
         frames = B * n_frames
         print(f"[c] log10_mel, {label} ({B} x {n_frames} frames, 128 mels): raw err "
               f"{err_raw:.3g} above max - 8 (atol {MEL_ATOL}; {n_diff} of {n_cells} cells "
               f"differ at all), normalized {err_norm:.3g} (atol {MEL_NORM_ATOL}); "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-              f"{flops / 1e9:.1f} GFLOP, {100 * b_ms / ms:.1f}% of it); log_mel_spectrogram's peak "
+              f"{flops / 1e9:.2f} GFLOP, {100 * b_ms / ms:.1f}% of it); log_mel_spectrogram's peak "
               f"memory above its input: kernel {peak_k / 1e6:.1f} MB ({peak_k / frames:.0f} B a "
               f"frame, {(peak_k - out_bytes) / frames:.0f} B without the output), plain "
               f"{peak_p / 1e6:.1f} MB ({peak_p / frames:.0f} B a frame, "

@@ -112,22 +112,13 @@ def _front_end_constants(n_mels: int, n_fft: int, device: torch.device):
 
 
 def _padded_audio(audio: torch.Tensor, padding: int, pad: int) -> torch.Tensor:
-    """(B, n) audio -> (B, pad + n + padding + pad) f32 in one buffer: the
-    audio (int16 dequantized as x / 32768), ``padding`` zeros, and ``pad``
-    samples reflected at each end (``F.pad(..., mode="reflect")`` of the
-    zero-padded audio)."""
-    B, n = audio.shape
-    body = n + padding
-    if body <= pad:
-        raise ValueError(f"reflect padding of {pad} needs more than {pad} samples, got {body}")
-    x = torch.empty((B, body + 2 * pad), dtype=torch.float32, device=audio.device)
-    x[:, pad : pad + n] = audio
+    """(B, n) audio -> (B, pad + n + padding + pad) f32, the input of
+    ``log10_mel``: the audio (int16 dequantized as x / 32768), ``padding``
+    zeros, then ``pad`` samples reflected at each end."""
     if audio.dtype == torch.int16:
-        x[:, pad : pad + n] /= 32768.0
-    x[:, pad + n : pad + body] = 0.0
-    x[:, :pad] = x[:, pad + 1 : 2 * pad + 1].flip(-1)
-    x[:, pad + body :] = x[:, body - 1 : pad + body - 1].flip(-1)
-    return x
+        audio = audio.to(torch.float32) / 32768.0
+    x = torch.nn.functional.pad(audio.to(torch.float32), (0, padding))
+    return torch.nn.functional.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
 
 
 def log_mel_spectrogram(
@@ -159,8 +150,6 @@ def log_mel_spectrogram(
 
         device = default_device()
     audio = torch.as_tensor(audio, device=device)
-    if audio.dtype != torch.int16:
-        audio = audio.to(torch.float32)
     lead = audio.shape[:-1]
     x = _padded_audio(audio.reshape(-1, audio.shape[-1]), padding, n_fft // 2)
     log_spec = log10_mel(x, *_front_end_constants(n_mels, n_fft, x.device), hop)
