@@ -179,6 +179,21 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def ptxas_usage(log: str):
+    """(kernel, "registers ...; spills ...") for each entry function in the
+    ``-Xptxas -v`` report of the build log."""
+    out, entry, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and entry:
+            out.append((entry, ln.split(":", 1)[1].strip() + "; " + spill))
+            entry, spill = None, ""
+    return out
+
+
 def heads_view(x, H):
     """(B, S, H*64) -> (B, H, S, 64) view, the layout of
     ``scaled_dot_product_attention``."""
@@ -211,25 +226,43 @@ def phase_kernels(torch, K, device):
                 err_sc = max(err_sc, (s_k - s_p).abs().max().item())
             elif s_k is not None:
                 fail("xattn_decode wrote scores it was not asked for")
-        if B == 1 and emit:
-            t_main = (q, xk, xv)
-    if not (err_out <= 2e-2 and err_sc <= 1e-3):
-        fail(f"xattn_decode disagrees: out {err_out:.3g} (atol 2e-2), scores {err_sc:.3g} (atol 1e-3)")
-    q, xk, xv = t_main
-    ms = cuda_time_ms(lambda it=0: K.xattn_decode(q, xk, xv, it % L, H, emit_scores=True))
-    ms_ns = cuda_time_ms(lambda it=0: K.xattn_decode(q, xk, xv, it % L, H))
-    plain_ms = cuda_time_ms(lambda it=0: K.xattn_decode_plain(q, xk, xv, it % L, H, emit_scores=True))
-    # the library call computes the output only (no scores): beside ms_ns
-    lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q, H), heads_view(xk[it % L], H),
-                                            heads_view(xv[it % L], H)))
-    b_ms, b_by = bound(2 * T * D * 2 + 2 * D * 2 + H * T * 4, 4 * T * D, F32_FLOPS)
-    rec["xattn_decode"] = dict(max_abs_err=max(err_out, err_sc), ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    print(f"[c] xattn_decode: out err {err_out:.3g} (atol 2e-2), scores err {err_sc:.3g} "
-          f"(atol 1e-3); B=1 L=32 T=1500 D=1280 H=20: {ms:.4f} ms with scores, {ms_ns:.4f} ms "
-          f"without, vs plain {plain_ms:.4f} ms, sdpa (output only) {lib_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
-    del xk, xv, t_main
+        del xk, xv
+    # the main path's batches: serial (B=1), [f] (B=8), [g]'s bf16 engine
+    # (B=40); the layer cycles over all 32 (it % L), so K/V come from HBM
+    for B in (1, 8, 40):
+        q = randn(B, 1, D)
+        xk, xv = randn(L, B, T, D), randn(L, B, T, D)
+        for layer, emit in ((0, True), (31, False)):
+            o_k, s_k = K.xattn_decode(q, xk, xv, layer, H, emit_scores=emit)
+            torch.cuda.synchronize()
+            o_p, s_p = K.xattn_decode_plain(q, xk, xv, layer, H, emit_scores=emit)
+            err_out = max(err_out, (o_k.float() - o_p.float()).abs().max().item())
+            if emit:
+                err_sc = max(err_sc, (s_k - s_p).abs().max().item())
+            del o_k, s_k, o_p, s_p
+        if not (err_out <= 2e-2 and err_sc <= 1e-3):
+            fail(f"xattn_decode disagrees: out {err_out:.3g} (atol 2e-2), scores {err_sc:.3g} "
+                 f"(atol 1e-3)")
+        ms = cuda_time_ms(lambda it=0: K.xattn_decode(q, xk, xv, it % L, H, emit_scores=True))
+        ms_ns = cuda_time_ms(lambda it=0: K.xattn_decode(q, xk, xv, it % L, H))
+        plain_ms = cuda_time_ms(lambda it=0: K.xattn_decode_plain(q, xk, xv, it % L, H), iters=10)
+        # the library call computes the output only (no scores): beside ms_ns
+        lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q, H), heads_view(xk[it % L], H),
+                                                heads_view(xv[it % L], H)))
+        kv_bytes = 2 * B * T * D * 2 + 2 * B * D * 2
+        b_ms, b_by = bound(kv_bytes, 4 * B * T * D, F32_FLOPS)
+        bs_ms, _ = bound(kv_bytes + B * H * T * 4, 4 * B * T * D, F32_FLOPS)
+        print(f"[c] xattn_decode B={B} L=32 T=1500 D=1280 H=20: {ms_ns:.4f} ms without scores "
+              f"(bound {b_ms:.4f} ms, {b_by}), sdpa (output only) {lib_ms:.4f} ms; {ms:.4f} ms "
+              f"with scores (bound {bs_ms:.4f} ms); plain {plain_ms:.4f} ms")
+        if B == 1:  # the serial path's shape; most layers emit no scores
+            rec["xattn_decode"] = dict(ms=ms_ns, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=lib_ms, ms_with_scores=ms,
+                                       bound_ms_with_scores=bs_ms)
+        del q, xk, xv
+        torch.cuda.empty_cache()
+    rec["xattn_decode"]["max_abs_err"] = max(err_out, err_sc)
+    print(f"[c] xattn_decode: out err {err_out:.3g} (atol 2e-2), scores err {err_sc:.3g} (atol 1e-3)")
 
     # --- self_attn_decode: ctx 456, varied pad_len, pos 232 and 455 ---
     ctx, B = 456, 4
@@ -1543,11 +1576,10 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t0
     log = (_build.build_dir() / "build.log").read_text()
-    usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     print(f"[b] kernels {'built' if _build.BUILD_INFO['built'] else 'loaded'} in "
           f"{build_s:.1f} s: {_build.BUILD_INFO['path']}")
-    for ln in usage:
-        print(f"[b]   {ln}")
+    for entry, usage in ptxas_usage(log):
+        print(f"[b]   {entry}: {usage}")
 
     device = torch.device("cuda", 0)
     rec = phase_kernels(torch, K, device)

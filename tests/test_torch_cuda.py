@@ -48,6 +48,48 @@ def test_xattn_kernel_matches_plain(cuda, B, beam_group, emit):
         assert s_k is None
 
 
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 1500, K.MAX_T])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_xattn_split_kernel_matches_plain(cuda, B, T):
+    """The split-T kernel at the batches of the serial path, [f] and [g]:
+    a T below one 64-frame tile, a one-frame tail tile, and the longest T,
+    with scores, and without them at beam_group 2 where B allows."""
+    g = torch.Generator(device=cuda).manual_seed(B * 10007 + T)
+    L, D, H = 2, 1280, 20
+    for beam_group, emit in ((1, True), (2 if B % 2 == 0 else 1, False)):
+        q = _randn(g, B, 1, D)
+        xk, xv = _randn(g, L, B // beam_group, T, D), _randn(g, L, B // beam_group, T, D)
+        o_k, s_k = K.xattn_decode(q, xk, xv, 1, H, emit_scores=emit, beam_group=beam_group)
+        torch.cuda.synchronize()
+        o_p, s_p = K.xattn_decode_plain(q, xk, xv, 1, H, emit_scores=emit, beam_group=beam_group)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+        if emit:
+            torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+        else:
+            assert s_k is None
+        del xk, xv
+
+
+def test_xattn_split_counters_reset_between_calls(cuda):
+    """Back-to-back calls on one stream, each merging its splits through the
+    per-(row, head) counters, give the same output (so every launch leaves
+    its counters at 0), also after a call of another shape in between."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    L, T, D, H = 2, 1500, 1280, 20
+    assert K.xattn_split(1, H, T, K._sm_count(cuda))[0] > 1
+    q, xk, xv = _randn(g, 1, 1, D), _randn(g, L, 1, T, D), _randn(g, L, 1, T, D)
+    q8, xk8, xv8 = _randn(g, 8, 1, D), _randn(g, L, 8, T, D), _randn(g, L, 8, T, D)
+    first, _ = K.xattn_decode(q, xk, xv, 0, H)
+    again = [K.xattn_decode(q, xk, xv, 0, H)[0] for _ in range(3)]
+    K.xattn_decode(q8, xk8, xv8, 1, H, emit_scores=True)
+    again.append(K.xattn_decode(q, xk, xv, 0, H)[0])
+    torch.cuda.synchronize()
+    for o in again:
+        assert torch.equal(o, first)
+    for buf in K._xattn_counters.values():
+        assert int(buf.abs().sum()) == 0
+
+
 @pytest.mark.parametrize("pos", [232, 455])
 def test_self_attn_kernel_matches_plain(cuda, pos):
     g = torch.Generator(device=cuda).manual_seed(pos)
@@ -220,10 +262,10 @@ def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 FLASH_CASES = {
     "encoder_b1": dict(B=1, Sq=1500, Sk=1500, causal=False),
     "encoder_b8": dict(B=8, Sq=1500, Sk=1500, causal=False),
-    "prefill_self": dict(B=8, Sq=232, Sk=232, causal=True),
+    "prefill_self": dict(B=11, Sq=232, Sk=232, causal=True),  # B = len(PAD_LENS)
     "prefill_cross": dict(B=8, Sq=232, Sk=1500, causal=False),
 }
-PAD_LENS = [0, 5, 63, 64, 100, 224, 231, 232]
+PAD_LENS = [0, 5, 63, 64, 100, 127, 128, 129, 224, 231, 232]  # 128: the key tile
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
@@ -241,6 +283,28 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     o_p = K.flash_attention_plain(q, k, v, H, causal=c["causal"], pad_len=pad)
     assert torch.isfinite(o_k.float()).all()
     torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("Sk", [1, 65, 200])
+@pytest.mark.parametrize("Sq", [1, 65, 200])
+def test_flash_attention_small_shapes_match_plain(cuda, Sq, Sk):
+    """Sequences shorter than one 128-row tile, or one tile and a ragged
+    one: out-of-bounds rows arrive zero-filled and are masked; with Sq == Sk
+    also causal, left pads around the tile edge."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * 1000 + Sk)
+    B, D, H = 3, 1280, 20
+    q = _randn(g, B, Sq, D)
+    k, v = _randn(g, B, Sk, D), _randn(g, B, Sk, D)
+    cases = [(False, None)]
+    if Sq == Sk:
+        pads = [min(x, Sq) for x in (0, 64, 129)]
+        cases.append((True, torch.tensor(pads, dtype=torch.int32, device=cuda)))
+    for causal, pad in cases:
+        o_k = K.flash_attention(q, k, v, H, causal=causal, pad_len=pad)
+        torch.cuda.synchronize()
+        o_p = K.flash_attention_plain(q, k, v, H, causal=causal, pad_len=pad)
+        assert torch.isfinite(o_k.float()).all()
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
 
 
 def test_flash_attention_padded_rows_keep_their_own_slot(cuda):

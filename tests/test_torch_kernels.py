@@ -91,6 +91,63 @@ def test_xattn_plain_matches_f32_attention():
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 1500, K.MAX_T])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_xattn_split_covers_t_and_fills_the_card(B, T):
+    """The CUDA kernel's grid rule on a 132-SM card: whole 64-frame tiles
+    per split, every split non-empty, all of T covered, and at B=1, T=1500
+    at least one block per multiprocessor."""
+    n_split, per = K.xattn_split(B, 20, T, 132)
+    assert per % K.XATTN_TILE == 0
+    assert (n_split - 1) * per < T <= n_split * per
+    assert n_split <= -(-T // K.XATTN_TILE)
+    if (B, T) == (1, 1500):
+        assert n_split * 20 >= 132
+    if B == 40:
+        assert n_split == 1  # 800 (row, head) pairs fill the card unsplit
+
+
+def _split_merge(q, xk, xv, H, n_split, per):
+    """The split-T kernel's arithmetic, in f64: each split's running max m,
+    sum l of exp(s - m) and o = sum exp(s - m) v, then the merge with
+    exp(m_i - M)."""
+    B, _, D = q.shape
+    T = xk.shape[1]
+    qh = q.astype(np.float64).reshape(B, H, 1, 64)
+    kh = xk.astype(np.float64).reshape(B, T, H, 64).transpose(0, 2, 1, 3)
+    vh = xv.astype(np.float64).reshape(B, T, H, 64).transpose(0, 2, 1, 3)
+    s = (qh @ kh.transpose(0, 1, 3, 2))[:, :, 0] * 64**-0.5  # (B, H, T)
+    parts = []
+    for i in range(n_split):
+        sl = slice(i * per, min(T, (i + 1) * per))
+        m = s[..., sl].max(-1, keepdims=True)
+        e = np.exp(s[..., sl] - m)
+        parts.append((m, e.sum(-1, keepdims=True), np.einsum("bht,bhtd->bhd", e, vh[:, :, sl])))
+    M = np.max([m for m, _, _ in parts], axis=0)
+    L = sum(l * np.exp(m - M) for m, l, _ in parts)
+    O = sum(o * np.exp(m - M) for m, _, o in parts)
+    return (O / L).reshape(B, 1, D)
+
+
+@pytest.mark.parametrize("B,T", [(1, 1500), (8, 1500), (4, 129), (2, 8192)])
+def test_xattn_split_merge_matches_pallas_and_plain(B, T):
+    """Merging the splits that ``xattn_split`` picks gives the Pallas
+    kernel's output (bf16 there: atol 2e-2) and the plain version's (f32:
+    atol 1e-5)."""
+    rng = np.random.default_rng(B * 7 + T)
+    D, H = 128, 2
+    q = _bf16_values(rng, B, 1, D)
+    xk, xv = _bf16_values(rng, 1, B, T, D), _bf16_values(rng, 1, B, T, D)
+    n_split, per = K.xattn_split(B, 20, T, 132)
+    merged = _split_merge(q, xk[0], xv[0], H, n_split, per)
+    o_j, _ = P.cross_attention_stacked_pallas_v2(
+        0, jnp.asarray(q), jnp.asarray(xk), jnp.asarray(xv), H, block_t=128,
+        score_flag=jnp.int32(0), interpret=True)
+    np.testing.assert_allclose(merged, np.asarray(o_j, np.float64), atol=2e-2)
+    o_t, _ = K.xattn_decode(_t(q), _t(xk), _t(xv), 0, H)
+    np.testing.assert_allclose(merged, o_t.numpy(), rtol=0, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # self_attn_decode vs self_attention_stacked_pallas
 # ---------------------------------------------------------------------------

@@ -114,11 +114,16 @@ def _front_end_constants(n_mels: int, n_fft: int, device: torch.device):
 def _padded_audio(audio: torch.Tensor, padding: int, pad: int) -> torch.Tensor:
     """(B, n) audio -> (B, pad + n + padding + pad) f32, the input of
     ``log10_mel``: the audio (int16 dequantized as x / 32768), ``padding``
-    zeros, then ``pad`` samples reflected at each end."""
+    zeros, then ``pad`` samples reflected at each end. A signal no longer
+    than ``pad`` is reflected again at its far end, as ``np.pad`` and
+    ``jnp.pad`` do (``F.pad`` refuses it)."""
     if audio.dtype == torch.int16:
         audio = audio.to(torch.float32) / 32768.0
     x = torch.nn.functional.pad(audio.to(torch.float32), (0, padding))
-    return torch.nn.functional.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    if x.shape[-1] > pad:
+        return torch.nn.functional.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    idx = np.pad(np.arange(x.shape[-1]), pad, mode="reflect")
+    return x[:, torch.as_tensor(idx, device=x.device)]
 
 
 def log_mel_spectrogram(
@@ -151,7 +156,7 @@ def log_mel_spectrogram(
         device = default_device()
     audio = torch.as_tensor(audio, device=device)
     lead = audio.shape[:-1]
-    x = _padded_audio(audio.reshape(-1, audio.shape[-1]), padding, n_fft // 2)
+    x = _padded_audio(audio.reshape(lead.numel(), audio.shape[-1]), padding, n_fft // 2)
     log_spec = log10_mel(x, *_front_end_constants(n_mels, n_fft, x.device), hop)
     del x
     max_val = log_spec.amax(dim=(-2, -1), keepdim=True)

@@ -33,8 +33,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: each returns cudaGetLastError() after its launches
 SIGNATURES = {
-    # q, xk, xv, out, scores, layer, B, B_kv, T, D, H, beam_group, scale, stream
-    "wtt_xattn_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, xk, xv, out, scores, partials, counters, layer, B, B_kv, T, D, H, beam_group,
+    # n_split, frames_per_split, scale, stream
+    "wtt_xattn_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, out, pad_len, layer, pos, B, ctx, D, H, scale, stream
     "wtt_self_attn_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # scores, dims, cost, S, K, N, M, stream

@@ -41,6 +41,7 @@ run on the card compares the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -398,12 +399,45 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+XATTN_TILE = 64  # frames per tile of xattn_decode.cu
+XATTN_BLOCKS_PER_SM = 3
+_xattn_counters: dict = {}  # (device, stream) -> zeroed uint32 merge counters
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def xattn_split(B: int, H: int, T: int, n_sm: int) -> Tuple[int, int]:
+    """(n_split, frames per split) of ``xattn_decode``'s grid: about
+    XATTN_BLOCKS_PER_SM blocks a multiprocessor over the B * H (row, head)
+    pairs, at most one split per 64-frame tile, each split whole tiles."""
+    tiles = -(-T // XATTN_TILE)
+    want = min(max(-(-XATTN_BLOCKS_PER_SM * n_sm // (B * H)), 1), tiles)
+    per = -(-tiles // want) * XATTN_TILE
+    return -(-T // per), per
+
+
+def _merge_counters(device: torch.device, stream, n: int) -> torch.Tensor:
+    """At least n zeroed counters for the launches on ``stream``; each
+    launch leaves the ones it used at zero."""
+    key = (device, stream.cuda_stream)
+    buf = _xattn_counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _xattn_counters[key] = buf
+    return buf
+
+
 def xattn_decode(q, xk_all, xv_all, layer: int, n_head: int,
                  emit_scores: bool = False, beam_group: int = 1
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Cross-attention of one decode step over layer ``layer`` of the stacked
     encoder K/V (see ``xattn_decode_plain``). On CUDA: bf16 q/K/V, head
-    width 64, contiguous; scores are written only when ``emit_scores``."""
+    width 64, contiguous; scores are written only when ``emit_scores``. The
+    kernel splits T across blocks (``xattn_split``) and merges the splits'
+    partial softmaxes in the launch."""
     name = "xattn_decode"
     if not _on_cuda(name, q, xk_all, xv_all):
         return xattn_decode_plain(q, xk_all, xv_all, layer, n_head, emit_scores, beam_group)
@@ -416,14 +450,25 @@ def xattn_decode(q, xk_all, xv_all, layer: int, n_head: int,
     _expect(name, _aligned(q, xk_all, xv_all), "inputs must be 16-byte aligned")
     _expect(name, B == B_kv * beam_group, f"B={B} != B_kv={B_kv} * beam_group={beam_group}")
     _expect(name, 0 <= layer < L and 0 < T <= MAX_T, f"layer {layer} / T {T} out of range")
+    _expect(name, B <= 65535 and n_head <= 65535, f"unsupported B={B} H={n_head}")
     out = torch.empty_like(q)
     scores = (
         torch.empty((B, n_head, 1, T), dtype=torch.float32, device=q.device)
         if emit_scores else None
     )
+    n_split, per = xattn_split(B, n_head, T, _sm_count(q.device))
+    partials = counters = None
+    stream = torch.cuda.current_stream(q.device)
+    if n_split > 1:
+        partials = torch.empty(B * n_head * n_split * (2 + HEAD_DIM), dtype=torch.float32,
+                               device=q.device)
+        counters = _merge_counters(q.device, stream, B * n_head)
     _launch(name, "wtt_xattn_decode", q.data_ptr(), xk_all.data_ptr(), xv_all.data_ptr(),
             out.data_ptr(), scores.data_ptr() if scores is not None else None,
-            layer, B, B_kv, T, D, n_head, beam_group, HEAD_DIM**-0.5, _stream(q))
+            partials.data_ptr() if partials is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            layer, B, B_kv, T, D, n_head, beam_group, n_split, per, HEAD_DIM**-0.5,
+            ctypes.c_void_p(stream.cuda_stream))
     return out, scores
 
 
