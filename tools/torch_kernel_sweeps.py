@@ -30,15 +30,8 @@ MASK = "    if (causal || k0 + kBN > Sk) {"
 # name -> (what it changes, [(old text, new text), ...])
 FLASH_VARIANTS = {
     "as built": ("the source as it is", []),
-    "no turns": ("the warpgroups issue without taking turns",
-                 [('asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory");', ""),
-                  ('asm volatile("bar.arrive %0, 256;\\n" ::"r"(1 + (wg + 1) % kConsumerWGs) '
-                   ': "memory");', "")]),
     "3 stages": ("a three-stage K/V ring", [("constexpr int kStages = 2;",
                                              "constexpr int kStages = 3;")]),
-    "3 warpgroups, 64 keys": ("192 query rows (3 consumer warpgroups) x 64-key tiles",
-                              [("constexpr int kConsumerWGs = 2;", "constexpr int kConsumerWGs = 3;"),
-                               ("constexpr int kBN = 128;", "constexpr int kBN = 64;")]),
     "no exp2": ("exp2 replaced by a multiply (wrong output)", [(EX2, "y = x * 0.5f;")]),
     "no softmax": ("no mask, max or exp2: P = bf16(S) (wrong output)",
                    [(MASK, "    al0 = al1 = 1.f;\n    return;\n" + MASK)]),

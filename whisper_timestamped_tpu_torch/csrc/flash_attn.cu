@@ -20,14 +20,15 @@
 // ridge. large-v3 encoder, one layer: 11.5 GFLOP at B=1 (11.6 us at
 // 989 TFLOP/s bf16), 92 GFLOP at B=8.
 //
-// Design (Hopper): one block per (query tile of kBM = 64 * kConsumerWGs
-// rows, head, batch row). Each consumer warpgroup owns 64 query rows; one
+// Design (Hopper): one block per (query tile of kBM = 64 * kConsumerWGs =
+// 128 rows, head, batch row), grid 12 x 20 x B at the large-v3 encoder.
+// Each of the two consumer warpgroups owns 64 query rows; one
 // thread of a producer warpgroup issues every load by TMA
 // (cp.async.bulk.tensor, 3-D tensor maps over (B, S, D) with the 128-byte
 // swizzle): the Q tile once, then kBN-key K and V tiles into a two-stage
 // ring, with mbarriers for full and empty slots (K and V apart, so S can
 // start before V lands and K is freed before P·V ends). S = Q·Kᵀ is four
-// wgmma.mma_async m64n{kBN}k16 (bf16 in, f32 out) with Q and K read from
+// wgmma.mma_async m64n128k16 (bf16 in, f32 out) with Q and K read from
 // shared memory, both K-major. The softmax is online in the accumulator
 // registers: running max and sum in f32, exp2 of log2e-scaled scores. P is
 // rounded to bf16 in registers, as the TPU kernel rounds it, and feeds
@@ -38,10 +39,10 @@
 // scores never reach device memory.
 //
 // At head width 64 a tile's exp2s take the SFU about as long as its two
-// products take the tensor cores, so the schedule overlaps them: a
-// warpgroup issues tile i's S together with tile i-1's P·V, and the
-// warpgroups take turns to issue (named barriers in a ring), so one's
-// softmax runs while another's products hold the tensor cores.
+// products take the tensor cores, so a warpgroup issues tile i's S
+// together with tile i-1's P·V, and the warpgroups' softmaxes and products
+// interleave on the SM. (Making the warpgroups take turns to issue, with
+// named barriers, measured no gain; nor did a third ring stage.)
 //
 // Key tiles that are wholly masked are skipped: under ``causal`` those past
 // the query tile and those wholly below pad_len[b] that hold none of the
@@ -61,7 +62,7 @@ namespace {
 
 constexpr int kConsumerWGs = 2;         // warpgroups of 64 query rows
 constexpr int kBM = 64 * kConsumerWGs;  // query rows per block
-constexpr int kBN = 128;                // keys per tile
+constexpr int kBN = 128;                // keys per tile (wgmma_ss is m64n128)
 constexpr int kHead = 64;
 constexpr int kStages = 2;
 constexpr int kConsumerWarps = 4 * kConsumerWGs;
@@ -185,24 +186,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) · B (64 x 16, smem, K-major)ᵀ
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
 // d (64 x 64, f32) += A (64 x 16 bf16, registers) · B (16 x 64, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
@@ -240,16 +223,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// named barriers 1 .. kConsumerWGs order the warpgroups' wgmma issues in a
-// ring: warpgroup w waits on barrier 1 + w for its turn (its 128 threads
-// and the 128 of the one before it) and hands the turn to the next
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % kConsumerWGs) : "memory");
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -410,15 +383,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B, Sq, D)
     if (lane == 0) mbar_arrive(bar);
   };
 
-  if (wg == kConsumerWGs - 1) turn_pass(wg);  // warpgroup 0 issues first
   mbar_wait(&sm.q_full, 0);
   float al0, al1;
   // tile 0: S only
   mbar_wait(&sm.k_full[0], 0);
-  turn_wait(wg);
   wgmma_fence();
   issue_qk(0);
-  turn_pass(wg);
   wgmma_wait<0>();
   fence_regs(s);
   release(&sm.k_empty[0]);
@@ -428,12 +398,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B, Sq, D)
   for (int i = 1; i < n; ++i) {
     const int st = i % kStages, sp = (i - 1) % kStages;
     mbar_wait(&sm.k_full[st], (i / kStages) & 1);
-    turn_wait(wg);
     wgmma_fence();
     issue_qk(st);
     mbar_wait(&sm.v_full[sp], ((i - 1) / kStages) & 1);
     issue_pv(sp);
-    turn_pass(wg);
     wgmma_wait<1>();  // S is in
     fence_regs(s);
     release(&sm.k_empty[st]);
@@ -445,13 +413,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B, Sq, D)
     rescale_o(al0, al1);
     pack_p();
   }
-  // the last tile's P V; the last warpgroup has no one left to pass to
+  // the last tile's P V
   const int sp = (n - 1) % kStages;
   mbar_wait(&sm.v_full[sp], ((n - 1) / kStages) & 1);
-  turn_wait(wg);
   wgmma_fence();
   issue_pv(sp);
-  if (wg != kConsumerWGs - 1) turn_pass(wg);
   wgmma_wait<0>();
   fence_regs(o);
   fence_regs(pa);
