@@ -59,7 +59,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
       (``log10_mel`` and the bf16 path's five), the batched run's tokens
       equal to ``transcribe_batch`` on the same files.
 
-(c) covers the three quantized-cache kernels too, the per-segment route's
+(c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
+lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
+with the row write at pos 232 and 455 beside SDPA over the live slots; it
+times ``xattn_decode_int8`` at B=1, 8 and 40 beside the bf16 kernel. It
+covers the three quantized-cache kernels too, the per-segment route's
 ``attention_to_cost``, ``median9`` and ``dtw_path`` (``dtw_codes`` at S=1),
 ``log10_mel`` on (g)'s stack of 40 streams and on a 10-minute stream (with
 the peak memory of the front end through the kernel and through its plain
@@ -143,6 +147,9 @@ SOURCES = {
 # the kernels of the bf16 path ([d], [f]); the other three read quantized caches
 BF16_PATH = ("xattn_decode", "self_attn_decode", "align_cost", "dtw_codes", "flash_attention")
 QUANT_PATH = ("xattn_decode_int8", "xattn_decode_int4", "self_attn_decode_int8")
+# the self-attention checks' pad_len values: 224 leaves the splits below it
+# empty, 300 lies past most positions (only the query's own slot is live)
+SELF_PADS = (0, 5, 224, 300)
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -201,7 +208,9 @@ def heads_view(x, H):
 
 
 def phase_kernels(torch, K, device):
-    """(c): every kernel against its plain version at main-path shapes."""
+    """(c): every kernel against its plain version at main-path shapes.
+    Returns the kernels' records and the bf16 ``xattn_decode`` times by
+    batch."""
     from whisper_timestamped_tpu_torch.device_align import M_PAD, _backtrace_batch
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -229,6 +238,7 @@ def phase_kernels(torch, K, device):
         del xk, xv
     # the main path's batches: serial (B=1), [f] (B=8), [g]'s bf16 engine
     # (B=40); the layer cycles over all 32 (it % L), so K/V come from HBM
+    bf16_ms = {}  # B -> (ms without, with scores), for the int8 kernel's line
     for B in (1, 8, 40):
         q = randn(B, 1, D)
         xk, xv = randn(L, B, T, D), randn(L, B, T, D)
@@ -255,6 +265,7 @@ def phase_kernels(torch, K, device):
         print(f"[c] xattn_decode B={B} L=32 T=1500 D=1280 H=20: {ms_ns:.4f} ms without scores "
               f"(bound {b_ms:.4f} ms, {b_by}), sdpa (output only) {lib_ms:.4f} ms; {ms:.4f} ms "
               f"with scores (bound {bs_ms:.4f} ms); plain {plain_ms:.4f} ms")
+        bf16_ms[B] = (ms_ns, ms)
         if B == 1:  # the serial path's shape; most layers emit no scores
             rec["xattn_decode"] = dict(ms=ms_ns, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                        library_ms=lib_ms, ms_with_scores=ms,
@@ -264,33 +275,80 @@ def phase_kernels(torch, K, device):
     rec["xattn_decode"]["max_abs_err"] = max(err_out, err_sc)
     print(f"[c] xattn_decode: out err {err_out:.3g} (atol 2e-2), scores err {err_sc:.3g} (atol 1e-3)")
 
-    # --- self_attn_decode: ctx 456, varied pad_len, pos 232 and 455 ---
-    ctx, B = 456, 4
-    q = randn(B, 1, D)
-    k_all, v_all = randn(L, B, ctx, D), randn(L, B, ctx, D)
-    pad = torch.tensor([0, 5, 224, 300], dtype=torch.int32, device=device)
+    # --- self_attn_decode: ctx 456, B 1/8/40, pads 0/5/224/300, six slots ---
+    ctx = 456
     err = 0.0
-    for pos in (232, 455):
-        for layer in (0, 17, 31):
-            o_k = K.self_attn_decode(q, k_all, v_all, layer, pos, pad, H)
-            torch.cuda.synchronize()
-            o_p = K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
-            err = max(err, (o_k.float() - o_p.float()).abs().max().item())
-    if not err <= 2e-2:
-        fail(f"self_attn_decode disagrees: {err:.3g} (atol 2e-2)")
-    q1, k1, v1 = q[:1].contiguous(), k_all[:, :1].contiguous(), v_all[:, :1].contiguous()
-    pad1 = torch.tensor([0], dtype=torch.int32, device=device)
-    ms = cuda_time_ms(lambda it=0: K.self_attn_decode(q1, k1, v1, it % L, 232, pad1, H))
-    plain_ms = cuda_time_ms(lambda it=0: K.self_attn_decode_plain(q1, k1, v1, it % L, 232, pad1, H))
-    lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q1, H), heads_view(k1[it % L, :, :233], H),
-                                            heads_view(v1[it % L, :, :233], H)))
-    b_ms, b_by = bound(2 * 233 * D * 2 + 2 * D * 2, 4 * 233 * D, F32_FLOPS)
-    rec["self_attn_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    print(f"[c] self_attn_decode: err {err:.3g} (atol 2e-2); B=1 ctx=456 pos=232 D=1280 H=20: "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
-    del k_all, v_all, k1, v1
+    for B in (1, 8, 40):
+        q, k_new, v_new = randn(B, 1, D), randn(B, 1, D), randn(B, 1, D)
+        k_all, v_all = randn(L, B, ctx, D), randn(L, B, ctx, D)
+        # each row's pad_len one of SELF_PADS (at B=1 each in turn): 224 empties
+        # the splits below it, 300 lies past pos
+        pads = ([torch.tensor([SELF_PADS[b % 4] for b in range(B)], dtype=torch.int32,
+                              device=device)] if B > 1 else
+                [torch.tensor([p], dtype=torch.int32, device=device) for p in SELF_PADS])
+        for pos in (0, 63, 64, 65, 232, 455):
+            for pad in pads:
+                layer = pos % L
+                o_k = K.self_attn_decode(q, k_all, v_all, layer, pos, pad, H)
+                torch.cuda.synchronize()
+                o_p = K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
+                if not torch.isfinite(o_k.float()).all():
+                    fail(f"self_attn_decode: non-finite output at B={B} pos={pos}")
+                err = max(err, (o_k.float() - o_p.float()).abs().max().item())
+                # the fused row write: the cache after the call equals the plain
+                # write bit for bit (every other slot untouched), the output the
+                # kernel's on the cache written beforehand
+                if pos in (0, 64, 455):
+                    k_p, v_p = k_all.clone(), v_all.clone()
+                    k_p[layer, :, pos] = k_new[:, 0]
+                    v_p[layer, :, pos] = v_new[:, 0]
+                    k_f, v_f = k_all.clone(), v_all.clone()
+                    o_f = K.self_attn_decode(q, k_f, v_f, layer, pos, pad, H, k_new=k_new,
+                                             v_new=v_new)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(k_f, k_p) and torch.equal(v_f, v_p)):
+                        fail(f"self_attn_decode's row write differs from the plain write at "
+                             f"B={B} pos={pos}")
+                    if not torch.equal(o_f, K.self_attn_decode(q, k_p, v_p, layer, pos, pad, H)):
+                        fail(f"self_attn_decode with the row write differs from the kernel on "
+                             f"the written cache at B={B} pos={pos}")
+                    del k_p, v_p, k_f, v_f
+        if not err <= 2e-2:
+            fail(f"self_attn_decode disagrees: {err:.3g} (atol 2e-2)")
+        # timed with the row write, as decode_step calls it; the library call
+        # attends over the live slots with pad 0 (K/V sliced to pos + 1)
+        pad0 = torch.zeros((B,), dtype=torch.int32, device=device)
+        for pos in (232, 455):
+            def plain_self(it=0):
+                k_all[it % L, :, pos] = k_new[:, 0]
+                v_all[it % L, :, pos] = v_new[:, 0]
+                return K.self_attn_decode_plain(q, k_all, v_all, it % L, pos, pad0, H)
+
+            ms = cuda_time_ms(lambda it=0: K.self_attn_decode(q, k_all, v_all, it % L, pos, pad0, H,
+                                                              k_new=k_new, v_new=v_new))
+            plain_ms = cuda_time_ms(plain_self, iters=10)
+            lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q, H),
+                                                    heads_view(k_all[it % L, :, :pos + 1], H),
+                                                    heads_view(v_all[it % L, :, :pos + 1], H)))
+            # the live slots of K and V, q, the output and the row written
+            moved = 2 * B * (pos + 1) * D * 2 + 2 * B * D * 2 + 2 * B * D * 2
+            b_ms, b_by = bound(moved, 4 * B * (pos + 1) * D, F32_FLOPS)
+            n_split = K.xattn_split(B, H, pos + 1, K._sm_count(device))[0]
+            warps = K.pipeline_warps(B, H, K._sm_count(device))
+            print(f"[c] self_attn_decode B={B} ctx=456 pos={pos} D=1280 H=20 ({n_split} splits, "
+                  f"{warps} warps a block), "
+                  f"with the row write: {ms:.4f} ms vs plain (write + attention) {plain_ms:.4f} "
+                  f"ms, sdpa (live slots, pad 0) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"{moved / 1e6:.2f} MB)")
+            if (B, pos) == (1, 232):  # the serial path's shape
+                rec["self_attn_decode"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                               bound_by=b_by, library_ms=lib_ms)
+        del q, k_new, v_new, k_all, v_all
+        torch.cuda.empty_cache()
+    rec["self_attn_decode"]["max_abs_err"] = err
+    print(f"[c] self_attn_decode (B=1, 8, 40; pos 0, 63, 64, 65, 232, 455; pads "
+          f"{'/'.join(map(str, SELF_PADS))}): err {err:.3g} (atol 2e-2); the fused row write equal "
+          f"to the plain write bit for bit")
 
     # --- align_cost and dtw_codes: S=8, N in {64, 256}, K=10, M=1536 ---
     S, Kh, M = 8, 10, M_PAD
@@ -399,7 +457,7 @@ def phase_kernels(torch, K, device):
         del qf, kf, vf, mask
         torch.cuda.empty_cache()
     rec["flash_attention"]["max_abs_err"] = err_f
-    return rec
+    return rec, bf16_ms
 
 
 # The quantized kernels' output limits. The cross kernels against their
@@ -414,11 +472,13 @@ XATTN_Q_ATOL = 4e-3
 SELF_Q_RTOL, SELF_Q_ATOL = 2.0**-8, 1e-4
 
 
-def phase_quant_kernels(torch, K, device):
+def phase_quant_kernels(torch, K, device, bf16_ms):
     """(c): the three quantized-cache kernels against their plain versions
     (limits above; scores atol 1e-3; the written cache rows bit for bit),
-    at small batches and at the batch of the phase that runs them, where
-    they are also timed: B=40 for int8 ([g]), B=8 for int4 and the int8
+    at small batches and at the batches of the phases that run them, where
+    they are also timed: int8 at B=1, 8 and 40 (the record keeps [g]'s
+    B=40, scores on; ``bf16_ms[B]`` is the bf16 kernel's (without, with
+    scores) time at the same B, printed beside), B=8 for int4 and the int8
     self cache ([h]). No single PyTorch call takes int8/int4 K/V with
     per-row scales: library none."""
     from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
@@ -435,8 +495,8 @@ def phase_quant_kernels(torch, K, device):
         codes, scales = zip(*(fn(randn(B_kv, T, D)) for _ in range(L)))
         return torch.stack(codes), torch.stack(scales)
 
-    for name, fn, Bt in (("xattn_decode_int8", quantize_rows, 40),
-                         ("xattn_decode_int4", quantize_rows_int4, 8)):
+    for name, fn, batches in (("xattn_decode_int8", quantize_rows, (1, 8, 40)),
+                              ("xattn_decode_int4", quantize_rows_int4, (8,))):
         kernel, plain = getattr(K, name), getattr(K, name + "_plain")
         err_out = err_sc = 0.0
 
@@ -455,28 +515,40 @@ def phase_quant_kernels(torch, K, device):
         for B, beam_group, emit in ((1, 1, True), (1, 1, False), (4, 1, True), (4, 2, True)):
             compare(randn(B, 1, D).bfloat16(),
                     (*stacked(B // beam_group, fn), *stacked(B // beam_group, fn)), beam_group, emit)
-        # the main path's batch, scores on
-        q = randn(Bt, 1, D).bfloat16()
-        kv = (*stacked(Bt, fn), *stacked(Bt, fn))
-        compare(q, kv, 1, True)
-        if not (err_out <= XATTN_Q_ATOL and err_sc <= 1e-3):
-            fail(f"{name} disagrees: out {err_out:.3g} (atol {XATTN_Q_ATOL}), scores {err_sc:.3g} "
-                 f"(atol 1e-3)")
-        ms = cuda_time_ms(lambda it=0: kernel(q, *kv, it % L, H, emit_scores=True))
-        ms_ns = cuda_time_ms(lambda it=0: kernel(q, *kv, it % L, H))
-        plain_ms = cuda_time_ms(lambda it=0: plain(q, *kv, it % L, H, emit_scores=True), iters=5)
-        # each input read once: q, one layer's codes of K and V, their scales;
-        # the output and the scores written once; 4 f32 flops per code pair
-        moved = 2 * Bt * D * 2 + 2 * kv[0][0].numel() + 2 * Bt * T * 4 + Bt * H * T * 4
-        b_ms, b_by = bound(moved, 4 * Bt * T * D, F32_FLOPS)
-        rec[name] = dict(max_abs_err=max(err_out, err_sc), ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        print(f"[c] {name} (B=1, 4 and {Bt}): out err {err_out:.3g} (atol {XATTN_Q_ATOL}), "
-              f"scores err {err_sc:.3g} (atol 1e-3); B={Bt} L=32 T=1500 D=1280 H=20: {ms:.4f} ms "
-              f"with scores, {ms_ns:.4f} ms without, vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
-              f"ms ({b_by}, {moved / 1e6:.1f} MB); no single PyTorch call computes it")
-        del kv
-        torch.cuda.empty_cache()
+        # the main path's batches, scores on and off, each timed
+        for Bt in batches:
+            q = randn(Bt, 1, D).bfloat16()
+            kv = (*stacked(Bt, fn), *stacked(Bt, fn))
+            compare(q, kv, 1, True)
+            compare(q, kv, 1, False)
+            if not (err_out <= XATTN_Q_ATOL and err_sc <= 1e-3):
+                fail(f"{name} disagrees: out {err_out:.3g} (atol {XATTN_Q_ATOL}), scores "
+                     f"{err_sc:.3g} (atol 1e-3)")
+            ms = cuda_time_ms(lambda it=0: kernel(q, *kv, it % L, H, emit_scores=True))
+            ms_ns = cuda_time_ms(lambda it=0: kernel(q, *kv, it % L, H))
+            plain_ms = cuda_time_ms(lambda it=0: plain(q, *kv, it % L, H, emit_scores=True), iters=5)
+            # each input read once: q, one layer's codes of K and V, their scales;
+            # the output and the scores written once; 4 f32 flops per code pair
+            moved = 2 * Bt * D * 2 + 2 * kv[0][0].numel() + 2 * Bt * T * 4 + Bt * H * T * 4
+            b_ms, b_by = bound(moved, 4 * Bt * T * D, F32_FLOPS)
+            rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+            # the bf16 kernel at the same B ([c] above), a reference point: no
+            # single PyTorch call takes int8 K/V with per-row scales
+            beside = (f"; bf16 xattn_decode {bf16_ms[Bt][1]:.4f} ms with scores, "
+                      f"{bf16_ms[Bt][0]:.4f} ms without" if name == "xattn_decode_int8" else "")
+            grid = (f" ({K.xattn_split(Bt, H, T, K._sm_count(device))[0]} splits, "
+                    f"{K.pipeline_warps(Bt, H, K._sm_count(device))} warps a block)"
+                    if name == "xattn_decode_int8" else "")
+            print(f"[c] {name} B={Bt} L=32 T=1500 D=1280 H=20{grid}: {ms:.4f} ms with "
+                  f"scores, {ms_ns:.4f} ms without, vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, {moved / 1e6:.1f} MB){beside}")
+            del q, kv
+            torch.cuda.empty_cache()
+        rec[name]["max_abs_err"] = max(err_out, err_sc)
+        print(f"[c] {name} (B=1, 4 and {'/'.join(map(str, batches))}): out err {err_out:.3g} "
+              f"(atol {XATTN_Q_ATOL}), scores err {err_sc:.3g} (atol 1e-3); no single PyTorch "
+              f"call computes it")
 
     # --- self_attn_decode_int8: the fused row write, then the attention ---
     ctx = 456
@@ -846,6 +918,9 @@ def phase_end_to_end(torch, K, model, tok, label: str = "", expect_launches: boo
     if any(launches[k] for k in QUANT_PATH):
         fail(f"a quantized-cache kernel ran on the bf16 path: {launches}")
     steps = counts.get("decode_steps", 0)
+    if launches["self_attn_decode"] < model.dims.n_text_layer * steps:
+        fail(f"self_attn_decode launched {launches['self_attn_decode']} times for {steps} decode "
+             f"steps (expected >= {model.dims.n_text_layer} per step)")
     ms_step = 1e3 * timings["decode_loop"]["total_s"] / max(steps, 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[d]{label} launches on the serial path: {launches}")
@@ -867,7 +942,12 @@ def phase_reference_step(torch, K, model, label: str = "bf16", **quantize):
         K.write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, pos)
         return K.self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos, pad, H)
 
-    plain = dict(self_attn_decode=K.self_attn_decode_plain, xattn_decode=K.xattn_decode_plain,
+    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new):
+        k_all[layer, :, pos] = k_new[:, 0]
+        v_all[layer, :, pos] = v_new[:, 0]
+        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
+
+    plain = dict(self_attn_decode=plain_self, xattn_decode=K.xattn_decode_plain,
                  xattn_decode_int8=K.xattn_decode_int8_plain,
                  xattn_decode_int4=K.xattn_decode_int4_plain,
                  self_attn_decode_int8=plain_self_int8)
@@ -1043,6 +1123,9 @@ def phase_batch(torch, K, model, tok):
     if launches["flash_attention"] < 32 * iterations:
         fail(f"flash_attention launched {launches['flash_attention']} times for "
              f"{iterations} window iterations (expected >= 32 per iteration)")
+    if launches["self_attn_decode"] < 32 * steps:
+        fail(f"self_attn_decode launched {launches['self_attn_decode']} times for {steps} decode "
+             f"steps (expected >= 32 per step)")
     print(f"[f] launches on the batched path: {launches}; {iterations} window iterations, "
           f"{steps} decode steps")
     print(f"[f] transcribe_batch_stream, 2 batches x 8 streams ({audio_s} s of audio), B=8: "
@@ -1582,9 +1665,9 @@ def main() -> int:
         print(f"[b]   {entry}: {usage}")
 
     device = torch.device("cuda", 0)
-    rec = phase_kernels(torch, K, device)
+    rec, bf16_ms = phase_kernels(torch, K, device)
     torch.cuda.empty_cache()
-    rec.update(phase_quant_kernels(torch, K, device))
+    rec.update(phase_quant_kernels(torch, K, device, bf16_ms))
     rec.update(phase_segment_kernels(torch, K, device))
     rec.update(phase_frontend_kernels(torch, K, device))
     if "--kernels-only" in sys.argv[1:]:

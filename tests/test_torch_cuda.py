@@ -71,9 +71,9 @@ def test_xattn_split_kernel_matches_plain(cuda, B, T):
 
 
 def test_xattn_split_counters_reset_between_calls(cuda):
-    """Back-to-back calls on one stream, each merging its splits through the
-    per-(row, head) counters, give the same output (so every launch leaves
-    its counters at 0), also after a call of another shape in between."""
+    """Back-to-back calls on one stream, each merging its splits in the
+    launch (within a block cluster), give the same output, also after a
+    call of another shape in between: no merge state outlives a launch."""
     g = torch.Generator(device=cuda).manual_seed(11)
     L, T, D, H = 2, 1500, 1280, 20
     assert K.xattn_split(1, H, T, K._sm_count(cuda))[0] > 1
@@ -86,8 +86,6 @@ def test_xattn_split_counters_reset_between_calls(cuda):
     torch.cuda.synchronize()
     for o in again:
         assert torch.equal(o, first)
-    for buf in K._xattn_counters.values():
-        assert int(buf.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("pos", [232, 455])
@@ -101,6 +99,164 @@ def test_self_attn_kernel_matches_plain(cuda, pos):
     torch.cuda.synchronize()
     o_p = K.self_attn_decode_plain(q, k_all, v_all, 1, pos, pad, H)
     torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+
+
+SELF_PADS = (0, 5, 224, 300)  # 224: the splits below slot 224 are empty; 300: pad_len > pos
+
+
+def _self_pads(B, cuda):
+    return torch.tensor([SELF_PADS[b % 4] for b in range(B)], dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 65, 232, 455])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_self_attn_split_kernel_matches_plain(cuda, B, pos):
+    """The split self-attention at the batches of the serial path, [f] and
+    [g], and the slots around a 64-slot tile's edges, each row's pad_len
+    one of SELF_PADS (at B=1 each in turn), atol 2e-2; no NaN."""
+    g = torch.Generator(device=cuda).manual_seed(B * 1009 + pos)
+    L, ctx, D, H = 2, 456, 1280, 20
+    q = _randn(g, B, 1, D)
+    k_all, v_all = _randn(g, L, B, ctx, D), _randn(g, L, B, ctx, D)
+    pads = [_self_pads(B, cuda)] if B > 1 else [
+        torch.tensor([p], dtype=torch.int32, device=cuda) for p in SELF_PADS]
+    for pad in pads:
+        before = K.LAUNCHES["self_attn_decode"]
+        o_k = K.self_attn_decode(q, k_all, v_all, 1, pos, pad, H)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["self_attn_decode"] == before + 1
+        assert torch.isfinite(o_k.float()).all()
+        o_p = K.self_attn_decode_plain(q, k_all, v_all, 1, pos, pad, H)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("pos", [0, 64, 232, 455])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_self_attn_fused_write_bit_for_bit(cuda, B, pos):
+    """With k_new/v_new the launch writes slot pos of the layer: the whole
+    cache afterwards equals the plain indexing write bit for bit (so every
+    other slot is untouched), and the output equals the kernel's on the
+    cache written beforehand, bit for bit, and the plain version's within
+    atol 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(B * 7 + pos)
+    L, ctx, D, H = 3, 456, 1280, 20
+    q, k_new, v_new = _randn(g, B, 1, D), _randn(g, B, 1, D), _randn(g, B, 1, D)
+    k_all, v_all = _randn(g, L, B, ctx, D), _randn(g, L, B, ctx, D)
+    pad = _self_pads(B, cuda)
+    k_f, v_f = k_all.clone(), v_all.clone()
+    o_f = K.self_attn_decode(q, k_f, v_f, 1, pos, pad, H, k_new=k_new, v_new=v_new)
+    torch.cuda.synchronize()
+    k_p, v_p = k_all.clone(), v_all.clone()
+    k_p[1, :, pos] = k_new[:, 0]
+    v_p[1, :, pos] = v_new[:, 0]
+    assert torch.equal(k_f, k_p) and torch.equal(v_f, v_p)
+    assert torch.equal(o_f, K.self_attn_decode(q, k_p, v_p, 1, pos, pad, H))
+    o_p = K.self_attn_decode_plain(q, k_p, v_p, 1, pos, pad, H)
+    torch.testing.assert_close(o_f.float(), o_p.float(), rtol=0, atol=2e-2)
+
+
+def test_split_merge_on_two_streams(cuda):
+    """The three pipeline kernels, each split, on the default stream and on
+    a second one at once: each launch merges its own splits, so the outputs
+    equal across the streams and across repeated calls."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    L, T, ctx, D, H = 2, 1500, 456, 1280, 20
+    q = _randn(g, 1, 1, D)
+    xk, xv = _randn(g, L, 1, T, D), _randn(g, L, 1, T, D)
+    k8, ks = quantize_rows(xk.float())
+    v8, vs = quantize_rows(xv.float())
+    k_all, v_all = _randn(g, L, 1, ctx, D), _randn(g, L, 1, ctx, D)
+    pad = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    assert K.xattn_split(1, H, 233, K._sm_count(cuda))[0] > 1
+
+    def calls():
+        return (K.xattn_decode(q, xk, xv, 1, H, emit_scores=True)[0],
+                K.xattn_decode_int8(q, k8, ks, v8, vs, 1, H)[0],
+                K.self_attn_decode(q, k_all, v_all, 1, 232, pad, H))
+
+    first = calls()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        on_side = [calls() for _ in range(2)]
+    again = calls()
+    torch.cuda.synchronize()
+    for outs in (*on_side, again):
+        for a, b in zip(outs, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 1500])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_xattn_int8_split_kernel_matches_plain(cuda, B, T):
+    """The split-T int8 kernel at the batches of the serial path, [f] and
+    [g] and at T around a tile's edges, with scores, and without them at
+    beam_group 2 where B allows: output atol 4e-3, scores atol 1e-3 (as
+    ``test_quantized_xattn_kernels_match_plain``). That output limit is four
+    bf16 steps at outputs of ~0.2, the size a softmax over 1500 frames of
+    N(0, 1) values gives; over a few frames an output is a V row itself, so
+    V is drawn at 1/16 of N(0, 1) to keep the outputs that small."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device=cuda).manual_seed(B * 10009 + T)
+    L, D, H = 2, 1280, 20
+    for beam_group, emit in ((1, True), (2 if B % 2 == 0 else 1, False)):
+        q = _randn(g, B, 1, D)
+        xk, xks = quantize_rows(_randn(g, L, B // beam_group, T, D, dtype=torch.float32))
+        xv, xvs = quantize_rows(_randn(g, L, B // beam_group, T, D, dtype=torch.float32,
+                                       scale=1 / 16))
+        o_k, s_k = K.xattn_decode_int8(q, xk, xks, xv, xvs, 1, H, emit_scores=emit,
+                                       beam_group=beam_group)
+        torch.cuda.synchronize()
+        o_p, s_p = K.xattn_decode_int8_plain(q, xk, xks, xv, xvs, 1, H, emit_scores=emit,
+                                             beam_group=beam_group)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=4e-3)
+        if emit:
+            torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+        else:
+            assert s_k is None
+        del xk, xv
+
+
+@pytest.mark.parametrize("warps", [2, 4])
+def test_pipeline_kernels_match_plain_at_each_block_size(cuda, monkeypatch, warps):
+    """The three pipeline kernels built for 2 and 4 warps a block (the
+    wrappers' choice forced), split and unsplit, against their plain
+    versions at the tolerances above; the row write bit for bit."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+
+    monkeypatch.setattr(K, "PIPELINE_WARPS", warps)
+    g = torch.Generator(device=cuda).manual_seed(warps)
+    L, T, ctx, D, H = 2, 1500, 456, 1280, 20
+    for B, per_sm in ((1, 12), (8, 0), (40, 12)):
+        monkeypatch.setattr(K, "XATTN_WARPS_PER_SM", per_sm)
+        q, k_new, v_new = _randn(g, B, 1, D), _randn(g, B, 1, D), _randn(g, B, 1, D)
+        xk, xv = _randn(g, L, B, T, D), _randn(g, L, B, T, D)
+        o_k, s_k = K.xattn_decode(q, xk, xv, 1, H, emit_scores=True)
+        o_p, s_p = K.xattn_decode_plain(q, xk, xv, 1, H, emit_scores=True)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+        k8, ks = quantize_rows(xk.float())
+        v8, vs = quantize_rows(xv.float())
+        del xk, xv
+        o_k, s_k = K.xattn_decode_int8(q, k8, ks, v8, vs, 1, H, emit_scores=True)
+        o_p, s_p = K.xattn_decode_int8_plain(q, k8, ks, v8, vs, 1, H, emit_scores=True)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=4e-3)
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+        del k8, v8
+        k_all, v_all = _randn(g, L, B, ctx, D), _randn(g, L, B, ctx, D)
+        pad = _self_pads(B, cuda)
+        k_p, v_p = k_all.clone(), v_all.clone()
+        k_p[1, :, 455] = k_new[:, 0]
+        v_p[1, :, 455] = v_new[:, 0]
+        o_k = K.self_attn_decode(q, k_all, v_all, 1, 455, pad, H, k_new=k_new, v_new=v_new)
+        torch.cuda.synchronize()
+        assert torch.equal(k_all, k_p) and torch.equal(v_all, v_p)
+        o_p = K.self_attn_decode_plain(q, k_p, v_p, 1, 455, pad, H)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+        del k_all, v_all, k_p, v_p
 
 
 @pytest.mark.parametrize("N", [64, 256])

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from model_utils import make_tokenizer  # noqa: E402
@@ -100,7 +101,7 @@ def test_xattn_split_covers_t_and_fills_the_card(B, T):
     n_split, per = K.xattn_split(B, 20, T, 132)
     assert per % K.XATTN_TILE == 0
     assert (n_split - 1) * per < T <= n_split * per
-    assert n_split <= -(-T // K.XATTN_TILE)
+    assert n_split <= min(-(-T // K.XATTN_TILE), K.XATTN_MAX_SPLITS)
     if (B, T) == (1, 1500):
         assert n_split * 20 >= 132
     if B == 40:
@@ -180,6 +181,104 @@ def test_self_attn_padding_query_keeps_own_slot():
     k = _t(_bf16_values(rng, L, B, CTX, D))
     out = K.self_attn_decode(q, k, v, 0, 4, torch.tensor([9], dtype=torch.int32), H)
     torch.testing.assert_close(out[0, 0], v[0, 0, 4], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("pos", [0, 17, 39])
+def test_self_attn_decode_writes_the_row_and_matches_pallas(pos):
+    """With k_new/v_new on CPU tensors the wrapper writes slot pos of the
+    layer, as the JAX step's ``lax.dynamic_update_slice`` does (bit for bit,
+    every other slot untouched), then attends over the written cache as
+    ``self_attention_stacked_pallas`` does (atol 2e-2)."""
+    rng = np.random.default_rng(70 + pos)
+    L, B, CTX, D, H = 2, 3, 40, 128, 2
+    q = _bf16_values(rng, B, 1, D)
+    k, v = _bf16_values(rng, L, B, CTX, D), _bf16_values(rng, L, B, CTX, D)
+    k_new, v_new = _bf16_values(rng, B, 1, D), _bf16_values(rng, B, 1, D)
+    pad_len = np.array([0, 5, 20], np.int32)
+    layer = 1
+    at = (layer, 0, pos, 0)
+    k_j = jax.lax.dynamic_update_slice(jnp.asarray(k), jnp.asarray(k_new)[None, :, :, :], at)
+    v_j = jax.lax.dynamic_update_slice(jnp.asarray(v), jnp.asarray(v_new)[None, :, :, :], at)
+    o_j = P.self_attention_stacked_pallas(layer, jnp.asarray(q), k_j, v_j, pos,
+                                          jnp.asarray(pad_len), H, interpret=True)
+    k_t, v_t = _t(k).clone(), _t(v).clone()
+    o_t = K.self_attn_decode(_t(q), k_t, v_t, layer, pos, _t(pad_len), H,
+                             k_new=_t(k_new), v_new=_t(v_new))
+    np.testing.assert_array_equal(k_t.numpy(), np.asarray(k_j))
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=2e-2)
+    with pytest.raises(ValueError, match="neither"):
+        K.self_attn_decode(_t(q), k_t, v_t, layer, pos, _t(pad_len), H, k_new=_t(k_new))
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 232, 455])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_self_attn_split_covers_the_slots(B, pos):
+    """The pipeline's grid rule over the slots [0, pos] on a 132-SM card:
+    whole 64-slot tiles per split, every split starting at or before pos,
+    the last one holding pos; 4 splits of 64 slots at B=1, pos=232, none
+    at B=40."""
+    n_split, per = K.xattn_split(B, 20, pos + 1, 132)
+    assert per % K.XATTN_TILE == 0
+    assert (n_split - 1) * per <= pos < n_split * per
+    assert n_split <= min(-(-(pos + 1) // K.XATTN_TILE), K.XATTN_MAX_SPLITS)
+    if (B, pos) == (1, 232):
+        assert (n_split, per) == (4, 64)
+    if B == 40:
+        assert n_split == 1
+
+
+def _self_split_merge(q, k, v, H, pos, pad_len, n_split, per):
+    """The split self-attention kernel's arithmetic, in f64: split i attends
+    slots [max(lo, i * per), min(pos + 1, (i + 1) * per)) with lo =
+    min(pad_len[b], pos); a split with no slots leaves (-inf, 0, 0) and
+    weighs 0 in the merge. Returns (out (B, 1, D), empty splits)."""
+    B, _, D = q.shape
+    qh = q.astype(np.float64).reshape(B, H, 64)
+    kh = k[:, : pos + 1].astype(np.float64).reshape(B, pos + 1, H, 64).transpose(0, 2, 1, 3)
+    vh = v[:, : pos + 1].astype(np.float64).reshape(B, pos + 1, H, 64).transpose(0, 2, 1, 3)
+    s = np.einsum("bhd,bhtd->bht", qh, kh) * 64**-0.5
+    out, empty = np.zeros((B, H, 64)), 0
+    for b in range(B):
+        lo = max(0, min(int(pad_len[b]), pos))
+        parts = []
+        for i in range(n_split):
+            a, z = max(lo, i * per), min(pos + 1, (i + 1) * per)
+            if a >= z:
+                empty += 1
+                parts.append((np.full((H, 1), -np.inf), np.zeros((H, 1)), np.zeros((H, 64))))
+                continue
+            m = s[b, :, a:z].max(-1, keepdims=True)
+            e = np.exp(s[b, :, a:z] - m)
+            parts.append((m, e.sum(-1, keepdims=True), np.einsum("ht,htd->hd", e, vh[b, :, a:z])))
+        M = np.max([m for m, _, _ in parts], axis=0)
+        w = [np.where(m == -np.inf, 0.0, np.exp(m - M)) for m, _, _ in parts]
+        out[b] = sum(o * wi for (_, _, o), wi in zip(parts, w)) / sum(
+            l * wi for (_, l, _), wi in zip(parts, w))
+    return out.reshape(B, 1, D), empty
+
+
+@pytest.mark.parametrize("pos", [64, 232, 455])
+def test_self_attn_masked_split_merge_matches_pallas_and_plain(pos):
+    """Merging the splits that ``xattn_split`` picks over pos + 1 slots at
+    B=4 (large-v3's 20 heads on 132 SMs), with splits wholly below pad_len
+    and a row whose pad_len lies past pos: the Pallas kernel's output (bf16
+    weights there: atol 2e-2) and the plain version's (f32: atol 1e-5), no
+    NaN."""
+    rng = np.random.default_rng(80 + pos)
+    B, CTX, D, H = 4, 456, 128, 2
+    q = _bf16_values(rng, B, 1, D)
+    k, v = _bf16_values(rng, 1, B, CTX, D), _bf16_values(rng, 1, B, CTX, D)
+    pad_len = np.array([0, 5, 224, 300], np.int32)
+    n_split, per = K.xattn_split(B, 20, pos + 1, 132)
+    assert n_split > 1
+    merged, empty = _self_split_merge(q, k[0], v[0], H, pos, pad_len, n_split, per)
+    assert empty > 0 and np.isfinite(merged).all()
+    o_j = P.self_attention_stacked_pallas(0, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos,
+                                          jnp.asarray(pad_len), H, interpret=True)
+    np.testing.assert_allclose(merged, np.asarray(o_j, np.float64), atol=2e-2)
+    o_t = K.self_attn_decode(_t(q), _t(k), _t(v), 0, pos, _t(pad_len), H)
+    np.testing.assert_allclose(merged, o_t.numpy(), rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,31 @@
 #!/usr/bin/env python3
-"""Design sweeps of the port's two attention kernels on one NVIDIA GPU.
+"""Design sweeps of the port's attention kernels on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_sweeps.py [xattn] [flash]
+    python3 tools/torch_kernel_sweeps.py [xattn] [pipeline] [flash] [decode|step [DIR ...]]
 
-``xattn``: ``xattn_decode`` at B = 1, 8 and 40 (large-v3: T=1500, D=1280,
-H=20, the layer cycling over 32) for each ``XATTN_BLOCKS_PER_SM`` of its
-split rule, with and without scores, beside ``scaled_dot_product_attention``.
+``xattn``: the three kernels of the decode-attention pipeline
+(``csrc/decode_attn.cuh``) at each grid setting of ``XATTN_SETTINGS`` (the
+warps a block, ``PIPELINE_WARPS``, and the warps a multiprocessor the split
+rule aims at, ``XATTN_WARPS_PER_SM``), timed as ``decode`` times a checkout.
+
+``pipeline``: the pipeline's sources with one design choice changed at a
+time (``PIPELINE_VARIANTS``, built as ``flash`` builds its variants), each
+timed as ``xattn`` times it, at ``PIPELINE_SETTINGS``.
+
+``decode``: the decode attentions of the checkout at each DIR (default:
+this one), each in its own process, in the order given (so
+``decode OLD . . OLD`` times two trees in turns on one card), with their
+kernels' registers (large-v3: T=1500, ctx=456, D=1280, H=20, the layer
+cycling over 32): ``xattn_decode`` (beside SDPA) and ``xattn_decode_int8``
+at B = 1, 8 and 40 with and without scores, ``self_attn_decode`` at B = 1,
+8 and 40 and pos 232 and 455, alone and with the step's row write (on a
+tree whose wrapper does not take the new rows, two indexing copies and the
+launch, as its decode step made them), beside SDPA over the live slots.
+
+``step``: the same in turns for ``decode_step`` of a large-v3-geometry model
+of seeded random bf16 weights, with a bf16 and an int8 cross K/V at B = 1,
+8 and 40: host-clock ms a step over 64 steps, each ending in a
+synchronize, as the token loop's steps do.
 
 ``flash``: ``csrc/flash_attn.cu`` as it is and with one design choice
 changed at a time (each variant a text edit of the source, built into its
@@ -27,15 +47,39 @@ PKG = os.path.join(HERE, "whisper_timestamped_tpu_torch")
 SRC = os.path.join("csrc", "flash_attn.cu")
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
 MASK = "    if (causal || k0 + kBN > Sk) {"
-# name -> (what it changes, [(old text, new text), ...])
+# name -> (what it changes, [(source, old text, new text), ...])
 FLASH_VARIANTS = {
     "as built": ("the source as it is", []),
-    "3 stages": ("a three-stage K/V ring", [("constexpr int kStages = 2;",
+    "3 stages": ("a three-stage K/V ring", [(SRC, "constexpr int kStages = 2;",
                                              "constexpr int kStages = 3;")]),
-    "no exp2": ("exp2 replaced by a multiply (wrong output)", [(EX2, "y = x * 0.5f;")]),
+    "no exp2": ("exp2 replaced by a multiply (wrong output)", [(SRC, EX2, "y = x * 0.5f;")]),
     "no softmax": ("no mask, max or exp2: P = bf16(S) (wrong output)",
-                   [(MASK, "    al0 = al1 = 1.f;\n    return;\n" + MASK)]),
+                   [(SRC, MASK, "    al0 = al1 = 1.f;\n    return;\n" + MASK)]),
 }
+PIPE = os.path.join("csrc", "decode_attn.cuh")
+STAGES = "constexpr int kStages = 2;"
+SCORES = "    // scores of the warp's rows: kL lanes a row, kGroups rows a read"
+MERGE = "  // the splits of (b, h) are one cluster: rank 0 merges their (m, l, o)"
+PAD = "  const int lo = max(first, max(0, min(pad_len[b], pos)));"
+# name -> (what it changes, [(source, old text, new text), ...]); the last
+# three remove work to time what is left (wrong outputs on purpose)
+PIPELINE_VARIANTS = {
+    **{f"{n} stages": (f"a {n}-stage ring in the pipeline's three kernels",
+                       [(PIPE, STAGES, STAGES.replace("2", str(n)))]) for n in (3, 4)},
+    "no pad read": ("self_attn_decode's live range not waiting for pad_len (wrong output)",
+                    [(os.path.join("csrc", "self_attn_decode.cu"), PAD,
+                      "  const int lo = first;")]),
+    "no split merge": ("the splits' partials not merged (wrong output)",
+                       [(PIPE, MERGE, "  return;\n" + MERGE)]),
+    "no compute": ("the ring alone: no scores, softmax or p·V (wrong output)",
+                   [(PIPE, SCORES, "    __syncwarp();\n    issue(i + kStages);\n    continue;\n"
+                     + SCORES)]),
+}
+PIPELINE_SETTINGS = ()  # grid settings to time each variant at; none: the tree's own rule
+
+# the decode-attention pipeline's grid settings timed by ``xattn``: warps a
+# block, then the warps a multiprocessor the split rule aims at (0: no split)
+XATTN_SETTINGS = ("4:12", "2:12", "4:24", "2:24", "4:0", "2:0")
 
 TIMER = r'''
 import sys, torch
@@ -76,58 +120,160 @@ def timed(torch, fn, iters=20):
     return e0.elapsed_time(e1) / iters
 
 
-def sweep_xattn():
-    import torch
+DECODE_TIMER = r'''
+import inspect, sys, time, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+_build.library()
+entry = None
+for ln in (_build.build_dir() / "build.log").read_text().splitlines():
+    if "Compiling entry function" in ln:
+        entry = ln.split("'")[1]
+    elif "Used" in ln and "registers" in ln and entry:
+        for name in ("self_attn_decode_kernel", "xattn_decode_kernel", "xattn_decode_int8_kernel"):
+            if name in entry:
+                print(f"ptxas {name}: {ln.split(':', 1)[1].strip()}")
+        entry = None
+sdpa = torch.nn.functional.scaled_dot_product_attention
+g = torch.Generator(device="cuda").manual_seed(0)
+L, T, ctx, D, H = 32, 1500, 456, 1280, 20
+def randn(*s): return torch.randn(s, generator=g, device="cuda")
+def heads(x): return x.view(x.shape[0], x.shape[1], H, 64).transpose(1, 2)
+HOST = {}  # the host's microseconds a call in the last timing, by label
+def timed(fn, iters=20, label=None):
+    for it in range(3): fn(it)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    t0 = time.perf_counter()
+    for it in range(iters): fn(it)
+    if label:
+        HOST[label] = (time.perf_counter() - t0) * 1e6 / iters
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+def settings():
+    # the grid settings "warps a block:warps an SM" given after the tree, or the tree's own rule
+    for arg in sys.argv[2:] or [None]:
+        if arg:
+            warps, per_sm = map(int, arg.split(":"))
+            K.PIPELINE_WARPS, K.XATTN_WARPS_PER_SM = warps, per_sm
+        yield f"[{warps} warps a block, {per_sm} an SM] " if arg else ""
+fused = "k_new" in inspect.signature(K.self_attn_decode).parameters
+for B in (1, 8, 40):
+    q = randn(B, 1, D).bfloat16()
+    xk, xv = randn(L, B, T, D).bfloat16(), randn(L, B, T, D).bfloat16()
+    lib = timed(lambda it: sdpa(heads(q), heads(xk[it % L]), heads(xv[it % L])))
+    bf = {tag: [timed(lambda it: K.xattn_decode(q, xk, xv, it % L, H, emit_scores=e),
+                      label=tag + "bf16" if not e else None)
+                for e in (False, True)] for tag in settings()}
+    del xk, xv
+    codes = [quantize_rows(randn(B, T, D)) for _ in range(2 * L)]
+    kv8 = (torch.stack([c for c, _ in codes[:L]]), torch.stack([s for _, s in codes[:L]]),
+           torch.stack([c for c, _ in codes[L:]]), torch.stack([s for _, s in codes[L:]]))
+    del codes
+    for tag in settings():
+        i8 = [timed(lambda it: K.xattn_decode_int8(q, *kv8, it % L, H, emit_scores=e),
+                    label="int8" if not e else None) for e in (False, True)]
+        print(f"{tag}xattn B={B}: bf16 {bf[tag][0]:.4f} / {bf[tag][1]:.4f} ms (no scores / scores), "
+              f"sdpa {lib:.4f}; int8 {i8[0]:.4f} / {i8[1]:.4f} ms; host {HOST[tag + 'bf16']:.1f} / "
+              f"{HOST['int8']:.1f} us a call (bf16 / int8, no scores)", flush=True)
+    del kv8
+    k_new, v_new = randn(B, 1, D).bfloat16(), randn(B, 1, D).bfloat16()
+    k_all, v_all = randn(L, B, ctx, D).bfloat16(), randn(L, B, ctx, D).bfloat16()
+    pad = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    for pos in (232, 455):
+        lib = timed(lambda it: sdpa(heads(q), heads(k_all[it % L, :, :pos + 1]),
+                                    heads(v_all[it % L, :, :pos + 1])))
+        def step(it):
+            if fused:
+                return K.self_attn_decode(q, k_all, v_all, it % L, pos, pad, H, k_new=k_new, v_new=v_new)
+            k_all[it % L, :, pos] = k_new[:, 0]
+            v_all[it % L, :, pos] = v_new[:, 0]
+            return K.self_attn_decode(q, k_all, v_all, it % L, pos, pad, H)
+        for tag in settings():
+            alone = timed(lambda it: K.self_attn_decode(q, k_all, v_all, it % L, pos, pad, H))
+            written = timed(step, label="self")
+            print(f"{tag}self B={B} pos={pos}: {alone:.4f} ms alone, {written:.4f} ms with the row "
+                  f"write ({'fused' if fused else 'two copies + launch'}), sdpa {lib:.4f}; host "
+                  f"{HOST['self']:.1f} us a call with the write", flush=True)
+    del k_all, v_all
+    torch.cuda.empty_cache()
+'''
 
-    sys.path.insert(0, HERE)
-    from whisper_timestamped_tpu_torch.ops import kernels as K
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    g = torch.Generator(device="cuda").manual_seed(0)
-    L, T, D, H = 32, 1500, 1280, 20
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def heads(x):
-        return x.view(x.shape[0], x.shape[1], H, 64).transpose(1, 2)
-
-    default = K.XATTN_BLOCKS_PER_SM
+STEP_TIMER = r'''
+import sys, time, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.models import WhisperDims, init_params
+from whisper_timestamped_tpu_torch.models import whisper_torch as wt
+from whisper_timestamped_tpu_torch.ops import _build
+_build.library()
+dims = WhisperDims(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20,
+                   n_audio_layer=32, n_vocab=51866, n_text_ctx=448, n_text_state=1280,
+                   n_text_head=20, n_text_layer=32)
+module = init_params(dims, seed=0, dtype=torch.bfloat16, device="cuda")
+g = torch.Generator(device="cuda").manual_seed(0)
+heads = [(l, h) for l in range(24, 32) for h in (0, 7)][:10]
+with torch.no_grad():
     for B in (1, 8, 40):
-        q = torch.randn((B, 1, D), generator=g, device="cuda").bfloat16()
-        xk = torch.randn((L, B, T, D), generator=g, device="cuda").bfloat16()
-        xv = torch.randn((L, B, T, D), generator=g, device="cuda").bfloat16()
-        lib = timed(torch, lambda it: sdpa(heads(q), heads(xk[it % L]), heads(xv[it % L])))
-        for per_sm in (1, 2, 3, 4, 8, 16):
-            K.XATTN_BLOCKS_PER_SM = per_sm
-            ns = timed(torch, lambda it: K.xattn_decode(q, xk, xv, it % L, H))
-            sc = timed(torch, lambda it: K.xattn_decode(q, xk, xv, it % L, H, emit_scores=True))
-            split = K.xattn_split(B, H, T, n_sm)
-            print(f"xattn B={B} blocks/SM={per_sm} (n_split, frames)={split}: {ns:.4f} ms, "
-                  f"with scores {sc:.4f} ms; sdpa {lib:.4f} ms", flush=True)
-        K.XATTN_BLOCKS_PER_SM = default
-        del xk, xv
+        xa = wt.encode(module, torch.randn((B, 128, 3000), generator=g, device="cuda"))
+        for cross in (False, "int8"):
+            cache = wt.init_cache(module, xa, ctx_len=448, quantize_cross=cross)
+            tok = torch.randint(0, 50000, (B, 1), generator=g, device="cuda")
+            pad = torch.full((B,), 200, dtype=torch.int32, device="cuda")
+            for pos in range(232, 240):  # warm-up
+                wt.decode_step(module, tok, cache, pos, pos_offset=pad, kv_valid_from=pad,
+                               align_heads=heads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for pos in range(240, 304):  # a sync a step, as the token loop makes
+                logits, _ = wt.decode_step(module, tok, cache, pos, pos_offset=pad,
+                                           kv_valid_from=pad, align_heads=heads)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 64
+            print(f"decode_step B={B} {'int8' if cross else 'bf16'} cross K/V: {ms:.3f} ms a step "
+                  f"(host clock, 64 steps from slot 240, 10 alignment heads)", flush=True)
+            del cache
+        del xa
         torch.cuda.empty_cache()
+'''
 
 
-def sweep_flash():
+def run_tree(timer, tree, *args):
+    """The timer's output on the checkout at ``tree``, in a process of its
+    own with its own build directory."""
+    env = dict(os.environ, WTT_TORCH_BUILD_DIR=os.path.join(tree, "build", "wtt_torch_kernels"))
+    r = subprocess.run([sys.executable, "-c", timer, tree, *args], env=env, capture_output=True,
+                       text=True, timeout=900)
+    return r.stdout.strip() if r.returncode == 0 else "FAILED " + r.stderr.strip()[-1500:]
+
+
+def time_trees(tag, timer, trees):
+    for tree in trees or [HERE]:
+        label = os.path.relpath(os.path.abspath(tree), HERE)
+        for ln in run_tree(timer, os.path.abspath(tree)).splitlines():
+            print(f"{tag} [{label}] {ln}", flush=True)
+
+
+def sweep_variants(tag, variants, timer, *args):
+    """Each variant (text edits of the package's sources) built into its own
+    copy under build/kernel_sweeps/ and timed by ``timer`` (given ``args``)."""
     root = os.path.join(HERE, "build", "kernel_sweeps")
-    source = open(os.path.join(PKG, SRC)).read()
-    for i, (name, (what, edits)) in enumerate(FLASH_VARIANTS.items()):
+    for i, (name, (what, edits)) in enumerate(variants.items()):
         d = os.path.join(root, f"v{i}")
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(PKG, os.path.join(d, "whisper_timestamped_tpu_torch"),
                         ignore=shutil.ignore_patterns("__pycache__"))
-        src = source
-        for old, new in edits:
+        for rel, old, new in edits:
+            path = os.path.join(d, "whisper_timestamped_tpu_torch", rel)
+            src = open(path).read()
             if old not in src:
                 raise SystemExit(f"torch_kernel_sweeps: variant {name!r} no longer applies")
-            src = src.replace(old, new)
-        with open(os.path.join(d, "whisper_timestamped_tpu_torch", SRC), "w") as f:
-            f.write(src)
-        env = dict(os.environ, WTT_TORCH_BUILD_DIR=os.path.join(d, "build"))
-        r = subprocess.run([sys.executable, "-c", TIMER, d], env=env, capture_output=True,
-                           text=True, timeout=600)
-        result = r.stdout.strip() if r.returncode == 0 else "FAILED " + r.stderr.strip()[-800:]
-        print(f"flash [{name}] ({what}): {result}", flush=True)
+            with open(path, "w") as f:
+                f.write(src.replace(old, new))
+        for ln in run_tree(timer, d, *args).splitlines():
+            print(f"{tag} [{name}] ({what}): {ln}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -141,10 +287,19 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     what = sys.argv[1:] or ["xattn", "flash"]
-    if "xattn" in what:
-        sweep_xattn()
-    if "flash" in what:
-        sweep_flash()
+    mode = next((m for m in ("decode", "step") if m in what), None)
+    trees = what[what.index(mode) + 1:] if mode else []
+    if "xattn" in what[:len(what) - len(trees)]:
+        for ln in run_tree(DECODE_TIMER, HERE, *XATTN_SETTINGS).splitlines():
+            print(f"xattn {ln}", flush=True)
+    if "flash" in what[:len(what) - len(trees)]:
+        sweep_variants("flash", FLASH_VARIANTS, TIMER)
+    if "pipeline" in what[:len(what) - len(trees)]:
+        sweep_variants("pipeline", PIPELINE_VARIANTS, DECODE_TIMER, *PIPELINE_SETTINGS)
+    if mode == "decode":
+        time_trees("decode", DECODE_TIMER, trees)
+    elif mode == "step":
+        time_trees("step", STEP_TIMER, trees)
     return 0
 
 

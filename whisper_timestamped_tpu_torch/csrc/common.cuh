@@ -8,7 +8,7 @@
 
 namespace wtt {
 
-constexpr int kThreads = 256;  // every kernel here except dtw_codes uses 256 threads
+constexpr int kThreads = 256;  // the block size of the kernels that take it
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeadDim = 64;   // the only head width the attention kernels take
 
@@ -88,26 +88,17 @@ __device__ __forceinline__ void s8x8_to_f32(const uint2& u, float* f) {
   for (int j = 0; j < 8; ++j) f[j] = (float)c[j];
 }
 
-// Row sources for attend_one_head. ``load(r, chunk, f)`` widens the 8
-// values of row r at the head's columns chunk*8 .. chunk*8+7 to f32;
-// ``scale(r)`` is row r's dequantization scale, folded into the score of a
-// K row and into the softmax weight of a V row.
-
-// bf16 rows: ``base`` points at the head's first column of row 0.
-struct Bf16Rows {
-  const __nv_bfloat16* base;
-  long stride;  // elements between rows
-  __device__ __forceinline__ void load(int r, int chunk, float* f) const {
-    bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(base + r * stride + chunk * 8)), f);
-  }
-  __device__ __forceinline__ float scale(int) const { return 1.f; }
-};
+// Row sources for attend_one_head, the one-block-per-(head, row) design
+// that xattn_decode_int4 and self_attn_decode_int8 still use (the other
+// decode attentions run decode_attn.cuh's pipeline). ``load(r, chunk, f)``
+// widens the 8 values of row r at the head's columns chunk*8 .. chunk*8+7
+// to f32; ``scale(r)`` is row r's dequantization scale, folded into the
+// score of a K row and into the softmax weight of a V row.
 
 // int8 rows with one f32 scale per row. Row ``own`` takes ``own_scale``
 // instead of scales[own] (a row this launch wrote itself, whose scale
-// another block may not have stored yet); own = -1 for none. kLdg reads
-// through the read-only cache, which is wrong for rows the kernel writes.
-template <bool kLdg>
+// another block may not have stored yet); own = -1 for none. Read without
+// the read-only cache: the kernel writes these rows.
 struct Int8Rows {
   const int8_t* base;
   long stride;  // bytes between rows
@@ -115,11 +106,10 @@ struct Int8Rows {
   int own;
   float own_scale;
   __device__ __forceinline__ void load(int r, int chunk, float* f) const {
-    const uint2* src = reinterpret_cast<const uint2*>(base + r * stride + chunk * 8);
-    s8x8_to_f32(kLdg ? __ldg(src) : *src, f);
+    s8x8_to_f32(*reinterpret_cast<const uint2*>(base + r * stride + chunk * 8), f);
   }
   __device__ __forceinline__ float scale(int r) const {
-    return r == own ? own_scale : (kLdg ? __ldg(scales + r) : scales[r]);
+    return r == own ? own_scale : scales[r];
   }
 };
 

@@ -1,55 +1,82 @@
 // self_attn_decode: single-query self-attention of one decode step over one
-// layer of the stacked bf16 self-attention KV cache.
+// layer of the stacked bf16 self-attention KV cache, optionally fused with
+// the step's write of its new K/V row into that cache.
 //
 // Replaces: whisper_timestamped_tpu/ops/pallas_kernels.py:2088
-//   self_attention_stacked_pallas (kernel _self_attn_stacked_kernel :2033).
+//   self_attention_stacked_pallas (kernel _self_attn_stacked_kernel :2033),
+//   and the cache update the JAX step makes before it.
 //
-// What bounds it on the H100: bytes, and at small batch the launch. A call
-// reads the live slots of one layer's K and V; at most ctx * D * 2 bytes
-// each per row (large-v3, ctx=456: 1.2 MB each), usually far fewer, since
-// only slots [min(pad_len, pos), pos] are live.
-//
-// Design: one block per (head, batch row), 256 threads, the same row-per-8-
-// lanes dot products, shared-memory softmax and grouped p·V sum as
-// xattn_decode (common.cuh). The block reads only the live slots: a slot s
-// is live when pad_len[b] <= s <= pos, or s == pos. The second clause keeps
+// What bounds it on the H100: bytes, and at small batch the latency of the
+// first loads. A call reads the live slots of one layer's K and V; at most
+// ctx * D * 2 bytes each per row (large-v3, ctx=456: 1.2 MB each), usually
+// far fewer, since only slots [min(pad_len, pos), pos] are live: a slot s
+// is live when pad_len[b] <= s <= pos, or s == pos (the second clause keeps
 // a padding-slot query's own slot, so no row is ever fully masked and no
-// NaN reaches later cache slots. No scores are written.
+// NaN reaches later cache slots). No scores are written.
+//
+// Design: xattn_decode's (decode_attn.cuh, bf16 rows), split over the slots
+// [0, pos]. The grid is (n_split, H, B), sized by the wrapper from pos + 1
+// with xattn_decode's rule (ops.kernels.xattn_split, pipeline_warps):
+// large-v3 B=1, pos=232 -> 4 splits of 64 slots, 80 blocks of 4 warps;
+// B=8 -> 4 splits, 640 blocks of 2; B=40 -> no split, 800 blocks of 2.
+// Block (s, h, b) attends slots [max(lo, s * F), min(pos + 1, (s + 1) * F))
+// with lo = min(pad_len[b], pos) read on the device; a split wholly below
+// lo has no rows, leaves (m = -inf, l = 0, o = 0) and still joins its
+// cluster's merge, which gives it weight 0. Slot pos is always live, so the
+// merged max is finite.
+//
+// The fused write: with k_new/v_new given, the block whose split holds slot
+// pos writes head h's 64 values of each into slot pos of layer ``layer``,
+// row b, and its ring copies that slot's row from k_new/v_new instead of
+// the cache, so the launch never reads a row it writes. No other block
+// reads slot pos. One launch a layer replaces the two indexing copies and
+// the attention.
 
-#include "common.cuh"
+#include "decode_attn.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(wtt::kThreads)
-self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
-                        const __nv_bfloat16* __restrict__ k,  // (L, B, ctx, D)
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out,      // (B, D)
-                        const int* __restrict__ pad_len,      // (B,)
-                        int layer, int pos, int B, int ctx, int D,
-                        float scale) {
-  extern __shared__ float p[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int lo = max(0, min(pad_len[b], pos));
-  const long slab = ((long)layer * B + b) * (long)ctx * D;
-  wtt::attend_one_head(q + (long)b * D + h * wtt::kHeadDim,
-                       wtt::Bf16Rows{k + slab + h * wtt::kHeadDim, D},
-                       wtt::Bf16Rows{v + slab + h * wtt::kHeadDim, D}, lo, pos, scale,
-                       nullptr, out + (long)b * D + h * wtt::kHeadDim, p);
+using Rows = wtt::decode::Bf16Rows<true>;
+
+template <int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
+self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
+                        const __nv_bfloat16* __restrict__ k_new,  // (B, D) or null
+                        const __nv_bfloat16* __restrict__ v_new,
+                        __nv_bfloat16* k,                         // (L, B, ctx, D)
+                        __nv_bfloat16* v,
+                        __nv_bfloat16* __restrict__ out,          // (B, D)
+                        const int* __restrict__ pad_len,          // (B,)
+                        int layer, int pos, int B, int ctx, int D, int H,
+                        int slots_per_split, float scale) {
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int first = split * slots_per_split;
+  const int hi = min(pos + 1, first + slots_per_split);
+  const int lo = max(first, max(0, min(pad_len[b], pos)));
+  const long slab = ((long)layer * B + b) * (long)ctx * D + h * wtt::kHeadDim;
+  const long col = (long)b * D + h * wtt::kHeadDim;
+  const bool own = k_new != nullptr && pos < hi;  // this split holds slot pos
+  if (own && threadIdx.x < 16) {  // 8 16-byte pieces of K, then 8 of V
+    const int piece = threadIdx.x & 7;
+    const __nv_bfloat16* src = (threadIdx.x < 8 ? k_new : v_new) + col + piece * 8;
+    __nv_bfloat16* dst = (threadIdx.x < 8 ? k : v) + slab + (long)pos * D + piece * 8;
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  }
+  const Rows rows{k + slab, v + slab, D, own ? pos : -1, own ? k_new + col : nullptr,
+                  own ? v_new + col : nullptr};
+  wtt::decode::attend<kWarps>(rows, q + col, lo, hi, scale, nullptr, out + col, gridDim.x);
 }
 
 }  // namespace
 
-extern "C" int wtt_self_attn_decode(const void* q, const void* k, const void* v,
-                                    void* out, const void* pad_len, int layer,
-                                    int pos, int B, int ctx, int D, int H,
-                                    float scale, void* stream) {
-  dim3 grid(H, B);
-  self_attn_decode_kernel<<<grid, wtt::kThreads,
-                            (size_t)(pos + 1) * sizeof(float),
-                            (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (const int*)pad_len,
-      layer, pos, B, ctx, D, scale);
-  return (int)cudaGetLastError();
+extern "C" int wtt_self_attn_decode(const void* q, const void* k_new, const void* v_new,
+                                    void* k, void* v, void* out, const void* pad_len, int layer,
+                                    int pos, int B, int ctx, int D, int H, int n_split,
+                                    int slots_per_split, int warps, float scale, void* stream) {
+  return (int)wtt::decode::launch<Rows>(
+      warps, self_attn_decode_kernel<2>, self_attn_decode_kernel<4>, dim3(n_split, H, B),
+      (cudaStream_t)stream, (const __nv_bfloat16*)q,
+      (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (__nv_bfloat16*)k,
+      (__nv_bfloat16*)v, (__nv_bfloat16*)out, (const int*)pad_len, layer, pos, B, ctx, D, H,
+      slots_per_split, scale);
 }

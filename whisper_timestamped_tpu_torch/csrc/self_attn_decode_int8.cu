@@ -64,8 +64,8 @@ self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
   // 2. attend over the live slots
   const int lo = max(0, min(pad_len[b], pos));
   wtt::attend_one_head(q + (long)b * D + col,
-                       wtt::Int8Rows<false>{k + row0 * D + col, D, k_scale + row0, pos, ks},
-                       wtt::Int8Rows<false>{v + row0 * D + col, D, v_scale + row0, pos, vs},
+                       wtt::Int8Rows{k + row0 * D + col, D, k_scale + row0, pos, ks},
+                       wtt::Int8Rows{v + row0 * D + col, D, v_scale + row0, pos, vs},
                        lo, pos, scale, nullptr, out + (long)b * D + col, p);
 }
 

@@ -464,9 +464,10 @@ def decode_step(
     those heads, else None. Scores are requested from the cross-attention
     kernel only for layers that hold an alignment head.
 
-    A quantized cache takes its kernels: an int8 self cache
-    ``self_attn_decode_int8``, which also writes the step's new row
-    quantized; the cross K/V those of ``cross_attention_rows``.
+    The self-attention kernel writes the step's new K/V row into slot
+    ``pos`` of the cache in the same launch: ``self_attn_decode`` for a bf16
+    cache, ``self_attn_decode_int8`` (the row quantized) for an int8 one.
+    The cross K/V take the kernel of ``cross_attention_rows``.
     """
     dec = model.decoder
     dims = model.dims
@@ -499,9 +500,7 @@ def decode_step(
             a = self_attn_decode_int8(q, k_new, v_new, cache.k, cache.k_scale, cache.v,
                                       cache.v_scale, l, pos, pad, H)
         else:
-            cache.k[l, :, pos] = k_new[:, 0]
-            cache.v[l, :, pos] = v_new[:, 0]
-            a = self_attn_decode(q, cache.k, cache.v, l, pos, pad, H)
+            a = self_attn_decode(q, cache.k, cache.v, l, pos, pad, H, k_new=k_new, v_new=v_new)
         x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])

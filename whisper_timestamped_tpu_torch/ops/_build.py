@@ -33,11 +33,12 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: each returns cudaGetLastError() after its launches
 SIGNATURES = {
-    # q, xk, xv, out, scores, partials, counters, layer, B, B_kv, T, D, H, beam_group,
-    # n_split, frames_per_split, scale, stream
-    "wtt_xattn_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, out, pad_len, layer, pos, B, ctx, D, H, scale, stream
-    "wtt_self_attn_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, xk, xv, out, scores, layer, B, B_kv, T, D, H, beam_group, n_split,
+    # frames_per_split, warps, scale, stream
+    "wtt_xattn_decode": [_P] * 5 + [_I] * 10 + [_F, _P],
+    # q, k_new, v_new, k, v, out, pad_len, layer, pos, B, ctx, D, H, n_split,
+    # slots_per_split, warps, scale, stream
+    "wtt_self_attn_decode": [_P] * 7 + [_I] * 9 + [_F, _P],
     # scores, dims, cost, S, K, N, M, stream
     "wtt_align_cost": [_P, _P, _P, _I, _I, _I, _I, _P],
     # scores, cost, K, N, M, n_tokens, span, stream
@@ -48,8 +49,10 @@ SIGNATURES = {
     "wtt_dtw_codes": [_P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, pad_len, B, Sq, Sk, D, H, causal, scale, stream
     "wtt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group,
+    # n_split, frames_per_split, warps, scale, stream
+    "wtt_xattn_decode_int8": [_P] * 7 + [_I] * 10 + [_F, _P],
     # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group, scale, stream
-    "wtt_xattn_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "wtt_xattn_decode_int4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, layer, pos, B, ctx, D, H, scale, stream
     "wtt_self_attn_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

@@ -399,9 +399,15 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-XATTN_TILE = 64  # frames per tile of xattn_decode.cu
-XATTN_BLOCKS_PER_SM = 3
-_xattn_counters: dict = {}  # (device, stream) -> zeroed uint32 merge counters
+XATTN_TILE = 64  # rows a split is cut into whole multiples of
+XATTN_MAX_SPLITS = 8  # the splits of a (row, head) merge in one (portable) block cluster
+# The grid of the decode-attention pipeline (csrc/decode_attn.cuh), chosen
+# from tools/torch_kernel_sweeps.py's measurements of its three kernels:
+# the warps a multiprocessor that the split rule aims at. PIPELINE_WARPS
+# (2 or 4) overrides the warps a block (``pipeline_warps``), for the
+# sweeps.
+XATTN_WARPS_PER_SM = 12
+PIPELINE_WARPS: Optional[int] = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -409,25 +415,38 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def pipeline_warps(B: int, H: int, n_sm: int) -> int:
+    """Warps a block of the pipeline's kernels: 4 while the B * H (row,
+    head) pairs are fewer than the multiprocessors, else 2, so that a large
+    batch's blocks are resident at once (or PIPELINE_WARPS)."""
+    if PIPELINE_WARPS is not None:
+        return PIPELINE_WARPS
+    return 4 if B * H < n_sm else 2
+
+
 def xattn_split(B: int, H: int, T: int, n_sm: int) -> Tuple[int, int]:
-    """(n_split, frames per split) of ``xattn_decode``'s grid: about
-    XATTN_BLOCKS_PER_SM blocks a multiprocessor over the B * H (row, head)
-    pairs, at most one split per 64-frame tile, each split whole tiles."""
+    """(n_split, rows per split) of the grid of the decode-attention
+    pipeline's kernels (``xattn_decode``, ``xattn_decode_int8`` over T
+    frames, ``self_attn_decode`` over T = pos + 1 slots): about
+    XATTN_WARPS_PER_SM warps a multiprocessor over the B * H (row, head)
+    pairs in blocks of ``pipeline_warps`` warps, at most one split per 64
+    rows and XATTN_MAX_SPLITS in all, each split whole 64-row pieces."""
     tiles = -(-T // XATTN_TILE)
-    want = min(max(-(-XATTN_BLOCKS_PER_SM * n_sm // (B * H)), 1), tiles)
+    per_block = B * H * pipeline_warps(B, H, n_sm)
+    want = min(max(-(-XATTN_WARPS_PER_SM * n_sm // per_block), 1), tiles, XATTN_MAX_SPLITS)
     per = -(-tiles // want) * XATTN_TILE
     return -(-T // per), per
 
 
-def _merge_counters(device: torch.device, stream, n: int) -> torch.Tensor:
-    """At least n zeroed counters for the launches on ``stream``; each
-    launch leaves the ones it used at zero."""
-    key = (device, stream.cuda_stream)
-    buf = _xattn_counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _xattn_counters[key] = buf
-    return buf
+def _grid(q, B: int, H: int, T: int) -> Tuple[int, int, int]:
+    """(n_split, rows per split, warps a block) of a pipeline launch over T
+    rows on q's device."""
+    n_sm = _sm_count(q.device)
+    return (*xattn_split(B, H, T, n_sm), pipeline_warps(B, H, n_sm))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def xattn_decode(q, xk_all, xv_all, layer: int, n_head: int,
@@ -456,43 +475,47 @@ def xattn_decode(q, xk_all, xv_all, layer: int, n_head: int,
         torch.empty((B, n_head, 1, T), dtype=torch.float32, device=q.device)
         if emit_scores else None
     )
-    n_split, per = xattn_split(B, n_head, T, _sm_count(q.device))
-    partials = counters = None
-    stream = torch.cuda.current_stream(q.device)
-    if n_split > 1:
-        partials = torch.empty(B * n_head * n_split * (2 + HEAD_DIM), dtype=torch.float32,
-                               device=q.device)
-        counters = _merge_counters(q.device, stream, B * n_head)
     _launch(name, "wtt_xattn_decode", q.data_ptr(), xk_all.data_ptr(), xv_all.data_ptr(),
-            out.data_ptr(), scores.data_ptr() if scores is not None else None,
-            partials.data_ptr() if partials is not None else None,
-            counters.data_ptr() if counters is not None else None,
-            layer, B, B_kv, T, D, n_head, beam_group, n_split, per, HEAD_DIM**-0.5,
-            ctypes.c_void_p(stream.cuda_stream))
+            out.data_ptr(), _ptr(scores), layer, B, B_kv, T, D, n_head, beam_group,
+            *_grid(q, B, n_head, T), HEAD_DIM**-0.5, _stream(q))
     return out, scores
 
 
-def self_attn_decode(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int):
+def self_attn_decode(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int,
+                     k_new=None, v_new=None):
     """Self-attention of one decode step over layer ``layer`` of the stacked
     cache, live slots [min(pad_len[b], pos), pos] (see
-    ``self_attn_decode_plain``). On CUDA: bf16, head width 64, contiguous,
-    int32 ``pad_len`` on the same device."""
+    ``self_attn_decode_plain``). With ``k_new``/``v_new`` (B, 1, D), the
+    step's new rows, it first writes them into slot ``pos`` of layer
+    ``layer`` of k_all/v_all, in place, and attends over the written cache.
+    On CUDA one launch does both: bf16 q/K/V and new rows, head width 64,
+    contiguous, int32 ``pad_len`` on the same device. For CPU tensors the
+    rows are written by indexing and the plain version attends."""
     name = "self_attn_decode"
-    if not _on_cuda(name, q, k_all, v_all, pad_len):
+    _expect(name, (k_new is None) == (v_new is None), "give both k_new and v_new, or neither")
+    new = () if k_new is None else (k_new, v_new)
+    if not _on_cuda(name, q, k_all, v_all, pad_len, *new):
+        if new:
+            k_all[layer, :, pos] = k_new[:, 0]
+            v_all[layer, :, pos] = v_new[:, 0]
         return self_attn_decode_plain(q, k_all, v_all, layer, pos, pad_len, n_head)
     B, S, D = q.shape
     L, Bk, ctx, Dk = k_all.shape
-    _expect(name, S == 1 and Bk == B and Dk == D and v_all.shape == k_all.shape, "shape mismatch")
+    _expect(name, S == 1 and Bk == B and Dk == D and v_all.shape == k_all.shape
+            and all(t.shape == q.shape for t in new), "shape mismatch")
     _expect(name, D == n_head * HEAD_DIM, f"head width must be {HEAD_DIM}, got D={D} H={n_head}")
-    _expect(name, all(t.dtype == torch.bfloat16 for t in (q, k_all, v_all)), "q/K/V must be bf16")
+    _expect(name, all(t.dtype == torch.bfloat16 for t in (q, k_all, v_all, *new)),
+            "q/K/V and the new rows must be bf16")
     _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
-    _expect(name, all(t.is_contiguous() for t in (q, k_all, v_all, pad_len)), "inputs must be contiguous")
-    _expect(name, _aligned(q, k_all, v_all), "inputs must be 16-byte aligned")
+    _expect(name, all(t.is_contiguous() for t in (q, k_all, v_all, pad_len, *new)),
+            "inputs must be contiguous")
+    _expect(name, _aligned(q, k_all, v_all, *new), "inputs must be 16-byte aligned")
     _expect(name, 0 <= layer < L and 0 <= pos < min(ctx, MAX_T), f"layer {layer} / pos {pos} out of range")
+    _expect(name, B <= 65535 and n_head <= 65535, f"unsupported B={B} H={n_head}")
     out = torch.empty_like(q)
-    _launch(name, "wtt_self_attn_decode", q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-            out.data_ptr(), pad_len.data_ptr(), layer, pos, B, ctx, D, n_head,
-            HEAD_DIM**-0.5, _stream(q))
+    _launch(name, "wtt_self_attn_decode", q.data_ptr(), _ptr(k_new), _ptr(v_new),
+            k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(), pad_len.data_ptr(), layer, pos,
+            B, ctx, D, n_head, *_grid(q, B, n_head, pos + 1), HEAD_DIM**-0.5, _stream(q))
     return out
 
 
@@ -629,7 +652,8 @@ def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None)
 def _quantized_xattn(name, fn_name, frames_per_row, q, xk_all, xk_scale, xv_all, xv_scale,
                      layer, n_head, emit_scores, beam_group):
     """Check the int8 (1 frame a row) or int4 (2 frames a row) cross-attention
-    inputs and launch the kernel."""
+    inputs and launch the kernel: the int8 kernel split over T (see
+    ``xattn_decode``), the int4 kernel one block per (head, row)."""
     B, S, D = q.shape
     L, B_kv, R, Dk = xk_all.shape
     T = xk_scale.shape[-1]
@@ -649,15 +673,20 @@ def _quantized_xattn(name, fn_name, frames_per_row, q, xk_all, xk_scale, xv_all,
     _expect(name, _aligned(*tensors), "inputs must be 16-byte aligned")
     _expect(name, B == B_kv * beam_group, f"B={B} != B_kv={B_kv} * beam_group={beam_group}")
     _expect(name, 0 <= layer < L and 0 < T <= MAX_T, f"layer {layer} / T {T} out of range")
+    _expect(name, B <= 65535 and n_head <= 65535, f"unsupported B={B} H={n_head}")
     out = torch.empty_like(q)
     scores = (
         torch.empty((B, n_head, 1, T), dtype=torch.float32, device=q.device)
         if emit_scores else None
     )
-    _launch(name, fn_name, q.data_ptr(), xk_all.data_ptr(), xk_scale.data_ptr(),
-            xv_all.data_ptr(), xv_scale.data_ptr(), out.data_ptr(),
-            scores.data_ptr() if scores is not None else None,
-            layer, B, B_kv, T, D, n_head, beam_group, HEAD_DIM**-0.5, _stream(q))
+    ptrs = (q.data_ptr(), xk_all.data_ptr(), xk_scale.data_ptr(), xv_all.data_ptr(),
+            xv_scale.data_ptr(), out.data_ptr(), _ptr(scores))
+    if frames_per_row == 1:
+        _launch(name, fn_name, *ptrs, layer, B, B_kv, T, D, n_head, beam_group,
+                *_grid(q, B, n_head, T), HEAD_DIM**-0.5, _stream(q))
+    else:
+        _launch(name, fn_name, *ptrs, layer, B, B_kv, T, D, n_head, beam_group, HEAD_DIM**-0.5,
+                _stream(q))
     return out, scores
 
 
@@ -668,7 +697,8 @@ def xattn_decode_int8(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head:
     stacked int8 encoder K/V with per-frame scales (see
     ``xattn_decode_int8_plain``). On CUDA: bf16 q, int8 K/V, f32 scales,
     head width 64, contiguous; scores are written only when
-    ``emit_scores``."""
+    ``emit_scores``. The kernel splits T across blocks as ``xattn_decode``
+    does."""
     name = "xattn_decode_int8"
     if not _on_cuda(name, q, xk_all, xk_scale, xv_all, xv_scale):
         return xattn_decode_int8_plain(q, xk_all, xk_scale, xv_all, xv_scale, layer, n_head,
