@@ -37,9 +37,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
       time, audio-s per s, ms/step, peak memory and words of each; fails
       unless every stream of the int8 run has words, ``xattn_decode_int8``
       launched at least 32 times per decode step and ``xattn_decode`` never;
-  (h) one batch of 8 streams with a ``kv_int4`` + ``self_kv_int8`` engine,
-      and one serial 35 s request with ``WTT_KV_INT8=1``: the schema, the
-      levers' kernels launched, the bf16 kernels they replace never;
+  (h) one batch of 8 streams with a ``kv_int4`` + ``self_kv_int8`` engine
+      (with its ms/step), and one serial 35 s request with
+      ``WTT_KV_INT8=1``: the schema, the levers' kernels launched (the
+      engine's at least 32 times a step), the bf16 kernels they replace
+      never;
   (i) alignment outside the batched device aligner, on the large-v3 model
       with no known alignment heads (120): three serial requests with
       ``detect_disfluencies`` through the per-segment kernels
@@ -62,9 +64,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
 (c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
 lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
 with the row write at pos 232 and 455 beside SDPA over the live slots; it
-times ``xattn_decode_int8`` at B=1, 8 and 40 beside the bf16 kernel. It
-covers the three quantized-cache kernels too, the per-segment route's
-``attention_to_cost``, ``median9`` and ``dtw_path`` (``dtw_codes`` at S=1),
+times ``xattn_decode_int8`` at B=1, 8 and 40 beside the bf16 kernel,
+``xattn_decode_int4`` at the same batches beside the int8 kernel, and
+``self_attn_decode_int8`` with its quantized row write at B=1, 8 and 40
+and pos 232 and 455 beside ``self_attn_decode`` with its write, each with
+its grid and bound. It covers the per-segment route's ``attention_to_cost``,
+``median9`` and ``dtw_path`` (``dtw_codes`` at S=1),
 ``log10_mel`` on (g)'s stack of 40 streams and on a 10-minute stream (with
 the peak memory of the front end through the kernel and through its plain
 version) and ``stacked_matmul`` at decode shapes, and (e) the decode step
@@ -209,8 +214,10 @@ def heads_view(x, H):
 
 def phase_kernels(torch, K, device):
     """(c): every kernel against its plain version at main-path shapes.
-    Returns the kernels' records and the bf16 ``xattn_decode`` times by
-    batch."""
+    Returns the kernels' records and the bf16 decode attentions' times, to
+    print beside the quantized kernels': ``xattn_decode``'s by batch (without,
+    with scores) under "xattn", ``self_attn_decode``'s with the row write by
+    (batch, pos) under "self"."""
     from whisper_timestamped_tpu_torch.device_align import M_PAD, _backtrace_batch
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -278,6 +285,7 @@ def phase_kernels(torch, K, device):
     # --- self_attn_decode: ctx 456, B 1/8/40, pads 0/5/224/300, six slots ---
     ctx = 456
     err = 0.0
+    self_ms = {}  # (B, pos) -> ms with the row write
     for B in (1, 8, 40):
         q, k_new, v_new = randn(B, 1, D), randn(B, 1, D), randn(B, 1, D)
         k_all, v_all = randn(L, B, ctx, D), randn(L, B, ctx, D)
@@ -333,6 +341,7 @@ def phase_kernels(torch, K, device):
             # the live slots of K and V, q, the output and the row written
             moved = 2 * B * (pos + 1) * D * 2 + 2 * B * D * 2 + 2 * B * D * 2
             b_ms, b_by = bound(moved, 4 * B * (pos + 1) * D, F32_FLOPS)
+            self_ms[(B, pos)] = ms
             n_split = K.xattn_split(B, H, pos + 1, K._sm_count(device))[0]
             warps = K.pipeline_warps(B, H, K._sm_count(device))
             print(f"[c] self_attn_decode B={B} ctx=456 pos={pos} D=1280 H=20 ({n_split} splits, "
@@ -457,7 +466,7 @@ def phase_kernels(torch, K, device):
         del qf, kf, vf, mask
         torch.cuda.empty_cache()
     rec["flash_attention"]["max_abs_err"] = err_f
-    return rec, bf16_ms
+    return rec, dict(xattn=bf16_ms, self=self_ms)
 
 
 # The quantized kernels' output limits. The cross kernels against their
@@ -475,17 +484,22 @@ SELF_Q_RTOL, SELF_Q_ATOL = 2.0**-8, 1e-4
 def phase_quant_kernels(torch, K, device, bf16_ms):
     """(c): the three quantized-cache kernels against their plain versions
     (limits above; scores atol 1e-3; the written cache rows bit for bit),
-    at small batches and at the batches of the phases that run them, where
-    they are also timed: int8 at B=1, 8 and 40 (the record keeps [g]'s
-    B=40, scores on; ``bf16_ms[B]`` is the bf16 kernel's (without, with
-    scores) time at the same B, printed beside), B=8 for int4 and the int8
-    self cache ([h]). No single PyTorch call takes int8/int4 K/V with
-    per-row scales: library none."""
+    at small batches and at the batches of the phases that run them (B=1,
+    8 and 40), where they are also timed beside the kernel of the same
+    batch that reads wider rows: int8 and int4 cross-attention with and
+    without scores (the int4 line with int8's time beside it; the int8
+    line with the bf16 kernel's, ``bf16_ms["xattn"][B]``), the int8 self
+    cache with its quantized write at pos 232 and 455 (beside bf16
+    ``self_attn_decode`` with its write, ``bf16_ms["self"][(B, pos)]``).
+    The record keeps [g]'s B=40 (scores on) for int8 and [h]'s B=8 for the
+    int4 kernel (scores on) and the int8 self cache (pos 232). No single
+    PyTorch call takes int8/int4 K/V with per-row scales: library none."""
     from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
 
     g = torch.Generator(device=device).manual_seed(1)
     rec = {}
     L, T, D, H = 32, 1500, 1280, 20
+    n_sm = K._sm_count(device)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=device)
@@ -495,8 +509,9 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
         codes, scales = zip(*(fn(randn(B_kv, T, D)) for _ in range(L)))
         return torch.stack(codes), torch.stack(scales)
 
-    for name, fn, batches in (("xattn_decode_int8", quantize_rows, (1, 8, 40)),
-                              ("xattn_decode_int4", quantize_rows_int4, (8,))):
+    int8_ms = {}  # B -> (ms without, with scores), printed beside int4's
+    for name, fn, fpr, rec_b in (("xattn_decode_int8", quantize_rows, 1, 40),
+                                 ("xattn_decode_int4", quantize_rows_int4, 2, 8)):
         kernel, plain = getattr(K, name), getattr(K, name + "_plain")
         err_out = err_sc = 0.0
 
@@ -516,7 +531,7 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
             compare(randn(B, 1, D).bfloat16(),
                     (*stacked(B // beam_group, fn), *stacked(B // beam_group, fn)), beam_group, emit)
         # the main path's batches, scores on and off, each timed
-        for Bt in batches:
+        for Bt in (1, 8, 40):
             q = randn(Bt, 1, D).bfloat16()
             kv = (*stacked(Bt, fn), *stacked(Bt, fn))
             compare(q, kv, 1, True)
@@ -531,24 +546,27 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
             # the output and the scores written once; 4 f32 flops per code pair
             moved = 2 * Bt * D * 2 + 2 * kv[0][0].numel() + 2 * Bt * T * 4 + Bt * H * T * 4
             b_ms, b_by = bound(moved, 4 * Bt * T * D, F32_FLOPS)
-            rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None)
-            # the bf16 kernel at the same B ([c] above), a reference point: no
-            # single PyTorch call takes int8 K/V with per-row scales
-            beside = (f"; bf16 xattn_decode {bf16_ms[Bt][1]:.4f} ms with scores, "
-                      f"{bf16_ms[Bt][0]:.4f} ms without" if name == "xattn_decode_int8" else "")
-            grid = (f" ({K.xattn_split(Bt, H, T, K._sm_count(device))[0]} splits, "
-                    f"{K.pipeline_warps(Bt, H, K._sm_count(device))} warps a block)"
-                    if name == "xattn_decode_int8" else "")
-            print(f"[c] {name} B={Bt} L=32 T=1500 D=1280 H=20{grid}: {ms:.4f} ms with "
-                  f"scores, {ms_ns:.4f} ms without, vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}, {moved / 1e6:.1f} MB){beside}")
+            if Bt == rec_b:
+                rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
+            # the kernel of the same B that reads wider rows, a reference point
+            if name == "xattn_decode_int8":
+                int8_ms[Bt] = (ms_ns, ms)
+                wider = (f"bf16 xattn_decode {bf16_ms['xattn'][Bt][1]:.4f} ms with scores, "
+                         f"{bf16_ms['xattn'][Bt][0]:.4f} ms without")
+            else:
+                wider = (f"xattn_decode_int8 {int8_ms[Bt][1]:.4f} ms with scores, "
+                         f"{int8_ms[Bt][0]:.4f} ms without")
+            n_split, per = K.xattn_split(Bt, H, T // fpr, n_sm, fpr)
+            print(f"[c] {name} B={Bt} L=32 T=1500 D=1280 H=20 ({n_split} splits of {per} rows, "
+                  f"{K.pipeline_warps(Bt, H, n_sm, fpr)} warps a block): {ms:.4f} ms with scores, "
+                  f"{ms_ns:.4f} ms without, vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, {moved / 1e6:.1f} MB); {wider}")
             del q, kv
             torch.cuda.empty_cache()
         rec[name]["max_abs_err"] = max(err_out, err_sc)
-        print(f"[c] {name} (B=1, 4 and {'/'.join(map(str, batches))}): out err {err_out:.3g} "
-              f"(atol {XATTN_Q_ATOL}), scores err {err_sc:.3g} (atol 1e-3); no single PyTorch "
-              f"call computes it")
+        print(f"[c] {name} (B=1, 4, 8 and 40): out err {err_out:.3g} (atol {XATTN_Q_ATOL}), "
+              f"scores err {err_sc:.3g} (atol 1e-3); no single PyTorch call computes it")
 
     # --- self_attn_decode_int8: the fused row write, then the attention ---
     ctx = 456
@@ -570,6 +588,8 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
             if not all(torch.equal(a, b) for a, b in zip(ck, cp)):
                 fail(f"self_attn_decode_int8 wrote other cache rows than the plain quantizer "
                      f"(B={B}, layer {layer}, pos {pos})")
+            if not torch.isfinite(o_k.float()).all():
+                fail(f"self_attn_decode_int8: non-finite output at B={B} pos={pos}")
             diff = (o_k.float() - ref).abs()
             if not bool((diff <= SELF_Q_ATOL + SELF_Q_RTOL * ref.abs()).all()):
                 fail(f"self_attn_decode_int8 disagrees at B={B} layer {layer} pos {pos}: max abs "
@@ -579,34 +599,50 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
         return q, k_new, v_new, cache
 
     pad4 = torch.tensor([0, 5, 224, 300], dtype=torch.int32, device=device)
+    for pos in (0, 63, 64, 65):  # the edges of a 64-slot split
+        compare_self(4, pad4, pos, (pos % L,))
     for pos in (232, 455):
         compare_self(4, pad4, pos, (0, 17, 31))
-    # the main path's batch: varied padding, one row past pos
-    Bt, pos = 8, 232
+    # each row's pad_len one of SELF_PADS (at B=1 each in turn), then timed at
+    # the batches that run it, with pad 0; [h]'s B=8 varied, one row past pos
     pad8 = torch.tensor([0, 3, 17, 100, 224, 231, 232, 300], dtype=torch.int32, device=device)
-    q, k_new, v_new, cache = compare_self(Bt, pad8, pos, (0, 31))
-    pad0 = torch.zeros((Bt,), dtype=torch.int32, device=device)
+    compare_self(8, pad8, 232, (0, 31))
+    for pad in SELF_PADS:
+        compare_self(1, torch.tensor([pad], dtype=torch.int32, device=device), 232, (5,))
+    for Bt in (1, 8, 40):
+        pads = torch.tensor([SELF_PADS[b % 4] for b in range(Bt)], dtype=torch.int32, device=device)
+        pad0 = torch.zeros((Bt,), dtype=torch.int32, device=device)
+        for pos in (232, 455):
+            q, k_new, v_new, cache = compare_self(Bt, pads, pos, (pos % L,))
 
-    def plain_self(it=0):
-        K.write_quantized_row(k_new, v_new, *cache, it % L, pos)
-        return K.self_attn_decode_int8_plain(q, *cache, it % L, pos, pad0, H)
+            def plain_self(it=0):
+                K.write_quantized_row(k_new, v_new, *cache, it % L, pos)
+                return K.self_attn_decode_int8_plain(q, *cache, it % L, pos, pad0, H)
 
-    ms = cuda_time_ms(lambda it=0: K.self_attn_decode_int8(q, k_new, v_new, *cache, it % L, pos, pad0, H))
-    plain_ms = cuda_time_ms(plain_self)
-    # q, k_new, v_new and the output; the live slots' codes and scales of K
-    # and V; the written row's codes and scales; 4 f32 flops per code pair
-    live = pos + 1
-    moved = Bt * (4 * D * 2 + 2 * live * (D + 4) + 2 * (D + 4))
-    b_ms, b_by = bound(moved, 4 * Bt * live * D, F32_FLOPS)
-    rec["self_attn_decode_int8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"[c] self_attn_decode_int8 (B=4 and {Bt}): max abs err {err:.3g} against the plain "
-          f"version in f32 (limit 2^-8 of it + {SELF_Q_ATOL}), written rows equal the plain "
-          f"quantizer's; B={Bt} ctx=456 pos=232 D=1280 H=20: {ms:.4f} ms vs plain (write + "
-          f"attention) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call "
-          f"computes it")
-    del cache
-    torch.cuda.empty_cache()
+            ms = cuda_time_ms(lambda it=0: K.self_attn_decode_int8(q, k_new, v_new, *cache, it % L,
+                                                                   pos, pad0, H))
+            plain_ms = cuda_time_ms(plain_self, iters=5)
+            # q, k_new, v_new and the output; the live slots' codes and scales of
+            # K and V; the written row's codes and scales; 4 f32 flops per code pair
+            live = pos + 1
+            moved = Bt * (4 * D * 2 + 2 * live * (D + 4) + 2 * (D + 4))
+            b_ms, b_by = bound(moved, 4 * Bt * live * D, F32_FLOPS)
+            if (Bt, pos) == (8, 232):
+                rec["self_attn_decode_int8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                                    bound_by=b_by, library_ms=None)
+            n_split = K.xattn_split(Bt, H, live, n_sm)[0]
+            print(f"[c] self_attn_decode_int8 B={Bt} ctx=456 pos={pos} D=1280 H=20 ({n_split} "
+                  f"splits, {K.pipeline_warps(Bt, H, n_sm)} warps a block), with its quantized "
+                  f"write: {ms:.4f} ms vs plain (write + attention) {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.2f} MB); bf16 self_attn_decode with its "
+                  f"write {bf16_ms['self'][(Bt, pos)]:.4f} ms")
+            del cache
+            torch.cuda.empty_cache()
+    rec["self_attn_decode_int8"]["max_abs_err"] = err
+    print(f"[c] self_attn_decode_int8 (B=1, 4, 8 and 40; pos 0, 63, 64, 65, 232, 455; pads "
+          f"{'/'.join(map(str, SELF_PADS))}): max abs err {err:.3g} against the plain version in "
+          f"f32 (limit 2^-8 of it + {SELF_Q_ATOL}), written rows equal the plain quantizer's; no "
+          f"single PyTorch call computes it")
     return rec
 
 
@@ -1229,7 +1265,7 @@ def phase_levers(torch, K, model, tok):
     from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_timestamped
     from whisper_timestamped_tpu_torch.decoding import DecodingOptions
     from whisper_timestamped_tpu_torch.engine import DecodeEngine
-    from whisper_timestamped_tpu_torch.utils import get_counts, reset_stage_timings
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
 
     engine = DecodeEngine(model, tok, kv_int4=True, self_kv_int8=True)
     n_layer = model.dims.n_text_layer
@@ -1244,6 +1280,7 @@ def phase_levers(torch, K, model, tok):
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     steps = get_counts().get("decode_steps", 0)
+    ms_step = 1e3 * get_stage_timings()["decode_loop"]["total_s"] / max(steps, 1)
     words = sum(check_result(r) for r in res.values())
     if not words:
         fail("[h] kv_int4 + self_kv_int8: no stream produced words")
@@ -1252,7 +1289,8 @@ def phase_levers(torch, K, model, tok):
             or launches["xattn_decode"] or launches["self_attn_decode"] or launches["xattn_decode_int8"]):
         fail(f"[h] kv_int4 + self_kv_int8 launches for {steps} steps: {launches}")
     print(f"[h] kv_int4 + self_kv_int8 engine, transcribe_batch, 8 streams (158 s of audio): "
-          f"{wall:.2f} s, {steps} steps, {words} words; launches {launches}")
+          f"{wall:.2f} s, {steps} steps, decode loop {ms_step:.2f} ms/step, {words} words; "
+          f"launches {launches}")
 
     os.environ["WTT_KV_INT8"] = "1"
     try:

@@ -30,6 +30,14 @@ def _randn(gen, *shape, dtype=torch.bfloat16, device="cuda", scale=1.0):
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 
+# The quantized kernels' limits, as chip_smoke.py states them: the cross
+# kernels' bf16 output against the plain version (which rounds the
+# V-weighted weights to bf16) atol 4e-3; the self kernel against the plain
+# version in f32, half a bf16 step (2^-8 of it) plus 1e-4.
+XATTN_Q_ATOL = 4e-3
+SELF_Q_RTOL, SELF_Q_ATOL = 2.0**-8, 1e-4
+
+
 @pytest.mark.parametrize("B,beam_group,emit", [(1, 1, True), (1, 1, False), (4, 2, True)])
 def test_xattn_kernel_matches_plain(cuda, B, beam_group, emit):
     g = torch.Generator(device=cuda).manual_seed(B + beam_group)
@@ -156,25 +164,32 @@ def test_self_attn_fused_write_bit_for_bit(cuda, B, pos):
 
 
 def test_split_merge_on_two_streams(cuda):
-    """The three pipeline kernels, each split, on the default stream and on
+    """The five pipeline kernels, each split, on the default stream and on
     a second one at once: each launch merges its own splits, so the outputs
-    equal across the streams and across repeated calls."""
-    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+    equal across the streams and across repeated calls (the int8 self
+    cache's write goes to a cache of its own each call)."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
 
     g = torch.Generator(device=cuda).manual_seed(12)
     L, T, ctx, D, H = 2, 1500, 456, 1280, 20
-    q = _randn(g, 1, 1, D)
+    q, k_new, v_new = _randn(g, 1, 1, D), _randn(g, 1, 1, D), _randn(g, 1, 1, D)
     xk, xv = _randn(g, L, 1, T, D), _randn(g, L, 1, T, D)
     k8, ks = quantize_rows(xk.float())
     v8, vs = quantize_rows(xv.float())
+    k4, ks4 = quantize_rows_int4(xk.float())
+    v4, vs4 = quantize_rows_int4(xv.float())
     k_all, v_all = _randn(g, L, 1, ctx, D), _randn(g, L, 1, ctx, D)
+    cache8 = (*quantize_rows(k_all.float()), *quantize_rows(v_all.float()))
     pad = torch.zeros((1,), dtype=torch.int32, device=cuda)
     assert K.xattn_split(1, H, 233, K._sm_count(cuda))[0] > 1
 
     def calls():
         return (K.xattn_decode(q, xk, xv, 1, H, emit_scores=True)[0],
                 K.xattn_decode_int8(q, k8, ks, v8, vs, 1, H)[0],
-                K.self_attn_decode(q, k_all, v_all, 1, 232, pad, H))
+                *K.xattn_decode_int4(q, k4, ks4, v4, vs4, 1, H, emit_scores=True),
+                K.self_attn_decode(q, k_all, v_all, 1, 232, pad, H),
+                K.self_attn_decode_int8(q, k_new, v_new, *[t.clone() for t in cache8], 1, 232,
+                                        pad, H))
 
     first = calls()
     side = torch.cuda.Stream(cuda)
@@ -222,10 +237,10 @@ def test_xattn_int8_split_kernel_matches_plain(cuda, B, T):
 
 @pytest.mark.parametrize("warps", [2, 4])
 def test_pipeline_kernels_match_plain_at_each_block_size(cuda, monkeypatch, warps):
-    """The three pipeline kernels built for 2 and 4 warps a block (the
+    """The five pipeline kernels built for 2 and 4 warps a block (the
     wrappers' choice forced), split and unsplit, against their plain
-    versions at the tolerances above; the row write bit for bit."""
-    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+    versions at the tolerances above; the row writes bit for bit."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
 
     monkeypatch.setattr(K, "PIPELINE_WARPS", warps)
     g = torch.Generator(device=cuda).manual_seed(warps)
@@ -240,12 +255,19 @@ def test_pipeline_kernels_match_plain_at_each_block_size(cuda, monkeypatch, warp
         torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
         k8, ks = quantize_rows(xk.float())
         v8, vs = quantize_rows(xv.float())
+        k4, ks4 = quantize_rows_int4(xk.float())
+        v4, vs4 = quantize_rows_int4(xv.float())
         del xk, xv
         o_k, s_k = K.xattn_decode_int8(q, k8, ks, v8, vs, 1, H, emit_scores=True)
         o_p, s_p = K.xattn_decode_int8_plain(q, k8, ks, v8, vs, 1, H, emit_scores=True)
         torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=4e-3)
         torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
         del k8, v8
+        o_k, s_k = K.xattn_decode_int4(q, k4, ks4, v4, vs4, 1, H, emit_scores=True)
+        o_p, s_p = K.xattn_decode_int4_plain(q, k4, ks4, v4, vs4, 1, H, emit_scores=True)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=XATTN_Q_ATOL)
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+        del k4, v4
         k_all, v_all = _randn(g, L, B, ctx, D), _randn(g, L, B, ctx, D)
         pad = _self_pads(B, cuda)
         k_p, v_p = k_all.clone(), v_all.clone()
@@ -256,7 +278,9 @@ def test_pipeline_kernels_match_plain_at_each_block_size(cuda, monkeypatch, warp
         assert torch.equal(k_all, k_p) and torch.equal(v_all, v_p)
         o_p = K.self_attn_decode_plain(q, k_p, v_p, 1, 455, pad, H)
         torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+        cache = (*quantize_rows(k_all.float()), *quantize_rows(v_all.float()))
         del k_all, v_all, k_p, v_p
+        _check_self_int8(q, k_new, v_new, cache, 1, 455, pad, H)
 
 
 @pytest.mark.parametrize("N", [64, 256])
@@ -388,6 +412,84 @@ def test_self_attn_int8_kernel_matches_plain(cuda, pos):
         for a, b in zip(ck, cp):
             assert torch.equal(a, b)
         torch.testing.assert_close(o_k.float(), o_p, rtol=2.0**-8, atol=1e-4)
+
+
+INT4_T = (2, 62, 64, 66, 128, 130, 1500)  # frames: one packed row, a 64-row piece's edges
+
+
+@pytest.mark.parametrize("warps", [2, 4])
+@pytest.mark.parametrize("T", INT4_T)
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_xattn_int4_split_kernel_matches_plain(cuda, monkeypatch, B, T, warps):
+    """The int4 kernel split over the T/2 packed rows, at the batches of the
+    serial path, [h] and [g], at T around a 64-packed-row piece's edges and
+    at both block sizes (forced): with scores (their shape (B, H, 1, T),
+    frame order, as the plain version unpacks them) and without them at
+    beam_group 2 where B allows; output atol XATTN_Q_ATOL, scores atol
+    1e-3. V is drawn at 1/16 of N(0, 1), as in the int8 test above."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows_int4
+
+    monkeypatch.setattr(K, "PIPELINE_WARPS", warps)
+    g = torch.Generator(device=cuda).manual_seed(B * 10009 + T * 3 + warps)
+    L, D, H = 2, 1280, 20
+    for beam_group, emit in ((1, True), (2 if B % 2 == 0 else 1, False)):
+        q = _randn(g, B, 1, D)
+        xk, xks = quantize_rows_int4(_randn(g, L, B // beam_group, T, D, dtype=torch.float32))
+        xv, xvs = quantize_rows_int4(_randn(g, L, B // beam_group, T, D, dtype=torch.float32,
+                                            scale=1 / 16))
+        before = K.LAUNCHES["xattn_decode_int4"]
+        o_k, s_k = K.xattn_decode_int4(q, xk, xks, xv, xvs, 1, H, emit_scores=emit,
+                                       beam_group=beam_group)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["xattn_decode_int4"] == before + 1
+        o_p, s_p = K.xattn_decode_int4_plain(q, xk, xks, xv, xvs, 1, H, emit_scores=emit,
+                                             beam_group=beam_group)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=XATTN_Q_ATOL)
+        if emit:
+            assert s_k.shape == (B, H, 1, T)
+            torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+        else:
+            assert s_k is None
+
+
+def _check_self_int8(q, k_new, v_new, cache, layer, pos, pad, H):
+    """One launch of the int8 self kernel on a copy of ``cache``: the whole
+    cache and its scales afterwards equal the plain quantizer's write bit
+    for bit, and the output the plain version's in f32 within SELF_Q_RTOL /
+    SELF_Q_ATOL; no NaN."""
+    ck = [t.clone() for t in cache]
+    before = K.LAUNCHES["self_attn_decode_int8"]
+    o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, layer, pos, pad, H)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["self_attn_decode_int8"] == before + 1
+    cp = [t.clone() for t in cache]
+    K.write_quantized_row(k_new, v_new, *cp, layer, pos)
+    for a, b in zip(ck, cp):
+        assert torch.equal(a, b)
+    assert torch.isfinite(o_k.float()).all()
+    o_p = K.self_attn_decode_int8_plain(q.float(), *cp, layer, pos, pad, H)
+    torch.testing.assert_close(o_k.float(), o_p, rtol=SELF_Q_RTOL, atol=SELF_Q_ATOL)
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 65, 232, 455])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_self_attn_int8_split_kernel_matches_plain(cuda, B, pos):
+    """The int8 self kernel split over the pos + 1 slots with its quantized
+    row write, at the batches of the serial path, [h] and [g] and the
+    slots around a 64-slot split's edges, each row's pad_len one of
+    SELF_PADS (at B=1 each in turn: 224 empties the splits below it, 300
+    lies past pos)."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device=cuda).manual_seed(B * 4099 + pos)
+    L, ctx, D, H = 2, 456, 1280, 20
+    q, k_new, v_new = _randn(g, B, 1, D), _randn(g, B, 1, D), _randn(g, B, 1, D)
+    cache = (*quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32)),
+             *quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32)))
+    pads = [_self_pads(B, cuda)] if B > 1 else [
+        torch.tensor([p], dtype=torch.int32, device=cuda) for p in SELF_PADS]
+    for pad in pads:
+        _check_self_int8(q, k_new, v_new, cache, 1, pos, pad, H)
 
 
 def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(cuda):

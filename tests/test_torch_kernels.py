@@ -108,6 +108,24 @@ def test_xattn_split_covers_t_and_fills_the_card(B, T):
         assert n_split == 1  # 800 (row, head) pairs fill the card unsplit
 
 
+@pytest.mark.parametrize("T", [2, 64, 126, 128, 130, 1500, K.MAX_T])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_int4_split_covers_the_packed_rows(B, T):
+    """The grid rule over the T/2 nibble-packed rows of the int4 kernel on a
+    132-SM card: whole 64-packed-row pieces (128 frames) per split, every
+    split non-empty, every packed row covered, at most XATTN_MAX_SPLITS;
+    blocks of 4 warps at every batch; at large-v3's T = 1500, 6 splits at
+    B=1, 3 at B=8, none at B=40."""
+    rows = T // 2
+    n_split, per = K.xattn_split(B, 20, rows, 132, frames_per_row=2)
+    assert per % K.XATTN_TILE == 0
+    assert (n_split - 1) * per < rows <= n_split * per
+    assert n_split <= min(-(-rows // K.XATTN_TILE), K.XATTN_MAX_SPLITS)
+    if T == 1500:
+        assert (n_split, per) == {1: (6, 128), 8: (3, 256), 40: (1, 768)}[B]
+    assert K.pipeline_warps(B, 20, 132, frames_per_row=2) == 4
+
+
 def _split_merge(q, xk, xv, H, n_split, per):
     """The split-T kernel's arithmetic, in f64: each split's running max m,
     sum l of exp(s - m) and o = sum exp(s - m) v, then the merge with

@@ -254,6 +254,37 @@ def test_xattn_int4_plain_matches_pallas(beam_group, score_flag):
             assert s_t is None
 
 
+@pytest.mark.parametrize("B,T", [(1, 1500), (8, 1500), (4, 258)])
+def test_xattn_int4_split_merge_matches_pallas_and_plain(B, T):
+    """The int4 kernel's split is over the T/2 packed rows (``xattn_split``
+    over T // 2 rows of two frames, large-v3's 20 heads on 132 SMs), so split i holds frames
+    [2 i per, 2 (i + 1) per). Merging those splits' (m, l, o) in f64 over the
+    unpacked codes and frame-ordered scales gives the int4 Pallas kernel's
+    output in interpret mode (atol 3e-2, as the plain version is held to it)
+    and the plain version's (atol 4e-3, as the card tests hold the kernel to
+    it); the scores, in frame order, equal the plain version's at f32
+    tolerance."""
+    rng = np.random.default_rng(B * 13 + T)
+    D, H = 128, 2
+    q = _t(_f32(rng, B, 1, D)).bfloat16().float().numpy()
+    k4, ks = map(np.asarray, J._quantize_rows_int4(jnp.asarray(_f32(rng, 1, B, T, D))))
+    v4, vs = map(np.asarray, J._quantize_rows_int4(jnp.asarray(_f32(rng, 1, B, T, D))))
+    n_split, per = K.xattn_split(B, 20, T // 2, 132, frames_per_row=2)
+    assert n_split > 1 and per % K.XATTN_TILE == 0
+    frames = [np.asarray(J._unpack_int4_rows(jnp.asarray(a)))[0] for a in (k4, v4)]
+    scales = [np.asarray(J._int4_scales_frame_order(jnp.asarray(a)))[0] for a in (ks, vs)]
+    merged, s = _int8_split_merge(q, frames[0], scales[0], frames[1], scales[1], H, n_split,
+                                  2 * per)
+    o_j, _ = P.cross_attention_stacked_int4_pallas(
+        0, jnp.asarray(q), *map(jnp.asarray, (k4, ks, v4, vs)), H, block_t=128,
+        score_flag=jnp.int32(0), interpret=True)
+    np.testing.assert_allclose(merged, np.asarray(o_j, np.float64), atol=3e-2)
+    o_t, s_t = K.xattn_decode_int4(_t(q), _t(k4), _t(ks), _t(v4), _t(vs), 0, H, emit_scores=True)
+    np.testing.assert_allclose(merged, o_t.numpy(), rtol=0, atol=4e-3)
+    assert s_t.shape == (B, H, 1, T)
+    np.testing.assert_allclose(s, s_t.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def _self_inputs(seed):
     rng = np.random.default_rng(seed)
     ctx = 40
@@ -297,6 +328,79 @@ def test_self_attn_int8_wrapper_writes_the_row():
     assert torch.equal(caches[0][0], _t(k8)[0]) and torch.equal(caches[0][1, :, 21:], _t(k8)[1, :, 21:])
     want = K.self_attn_decode_int8_plain(_t(q), *caches, 1, 20, _t(pad), H_)
     assert torch.equal(out, want)
+
+
+def _self_int8_split_merge(q, k8, ks, v8, vs, H, pos, pad_len, n_split, per):
+    """The split int8 self kernel's arithmetic, in f64: split i attends slots
+    [max(lo, i * per), min(pos + 1, (i + 1) * per)) with lo = min(pad_len[b],
+    pos), scores (q·k)·ks·dh^-0.5 over the exact codes, weights exp(s - m)·vs;
+    a split with no slots leaves (-inf, 0, 0) and weighs 0 in the merge.
+    Returns (out (B, 1, D), empty splits)."""
+    B, _, D = q.shape
+    n = pos + 1
+    qh = q.astype(np.float64).reshape(B, H, 64)
+    kh = k8[:, :n].astype(np.float64).reshape(B, n, H, 64).transpose(0, 2, 1, 3)
+    vh = v8[:, :n].astype(np.float64).reshape(B, n, H, 64).transpose(0, 2, 1, 3)
+    s = np.einsum("bhd,bhtd->bht", qh, kh) * ks[:, None, :n].astype(np.float64) * 64**-0.5
+    out, empty = np.zeros((B, H, 64)), 0
+    for b in range(B):
+        lo = max(0, min(int(pad_len[b]), pos))
+        parts = []
+        for i in range(n_split):
+            a, z = max(lo, i * per), min(n, (i + 1) * per)
+            if a >= z:
+                empty += 1
+                parts.append((np.full((H, 1), -np.inf), np.zeros((H, 1)), np.zeros((H, 64))))
+                continue
+            m = s[b, :, a:z].max(-1, keepdims=True)
+            e = np.exp(s[b, :, a:z] - m)
+            w = e * vs[b, a:z].astype(np.float64)
+            parts.append((m, e.sum(-1, keepdims=True), np.einsum("ht,htd->hd", w, vh[b, :, a:z])))
+        M = np.max([m for m, _, _ in parts], axis=0)
+        wt = [np.where(m == -np.inf, 0.0, np.exp(m - M)) for m, _, _ in parts]
+        out[b] = sum(o * w for (_, _, o), w in zip(parts, wt)) / sum(
+            l * w for (_, l, _), w in zip(parts, wt))
+    return out.reshape(B, 1, D), empty
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 232, 455])
+def test_self_attn_int8_split_merge_matches_pallas_and_plain(pos):
+    """The int8 self kernel's launch at B=4, ctx 456: the step's new rows
+    quantized into slot pos bit for bit as the JAX step does
+    (``_quantize_rows`` + ``lax.dynamic_update_slice``), then the splits
+    that ``xattn_split`` picks over pos + 1 slots (large-v3's 20 heads on
+    132 SMs), some wholly below pad_len (224) and one row's pad_len past
+    pos (300), merged in f64: the int8 Pallas kernel's output in interpret
+    mode (atol 2e-2: it rounds the weights to bf16) and the plain
+    version's (f32 over the dequantized cache: atol 1e-5), no NaN."""
+    rng = np.random.default_rng(90 + pos)
+    B, CTX, D, H = 4, 456, 128, 2
+    q = _t(_f32(rng, B, 1, D)).bfloat16().float().numpy()
+    k_new, v_new = (_t(_f32(rng, B, 1, D)).bfloat16().float().numpy() for _ in range(2))
+    k8, ks = map(np.asarray, J._quantize_rows(jnp.asarray(_f32(rng, 1, B, CTX, D))))
+    v8, vs = map(np.asarray, J._quantize_rows(jnp.asarray(_f32(rng, 1, B, CTX, D))))
+    pad = np.array([0, 5, 224, 300], np.int32)
+    kq, kqs = J._quantize_rows(jnp.asarray(k_new[:, 0]))
+    vq, vqs = J._quantize_rows(jnp.asarray(v_new[:, 0]))
+    up = jax.lax.dynamic_update_slice
+    written = [np.asarray(a) for a in (
+        up(jnp.asarray(k8), kq[None, :, None, :], (0, 0, pos, 0)),
+        up(jnp.asarray(ks), kqs[None, :, None], (0, 0, pos)),
+        up(jnp.asarray(v8), vq[None, :, None, :], (0, 0, pos, 0)),
+        up(jnp.asarray(vs), vqs[None, :, None], (0, 0, pos)))]
+    caches = [_t(a).clone() for a in (k8, ks, v8, vs)]
+    o_t = K.self_attn_decode_int8(_t(q), _t(k_new), _t(v_new), *caches, 0, pos, _t(pad), H)
+    for got, want in zip(caches, written):
+        np.testing.assert_array_equal(got.numpy(), want)
+    n_split, per = K.xattn_split(B, 20, pos + 1, 132)
+    merged, empty = _self_int8_split_merge(q, *(a[0] for a in written), H, pos, pad, n_split, per)
+    if pos >= 232:
+        assert n_split > 1 and empty > 0
+    assert np.isfinite(merged).all()
+    o_j = P.self_attention_stacked_int8_pallas(0, jnp.asarray(q), *map(jnp.asarray, written), pos,
+                                               jnp.asarray(pad), H, interpret=True)
+    np.testing.assert_allclose(merged, np.asarray(o_j, np.float64), atol=2e-2)
+    np.testing.assert_allclose(merged, o_t.numpy(), rtol=0, atol=1e-5)
 
 
 def test_xattn_plain_matches_pallas_v1():

@@ -3,7 +3,7 @@
 
     python3 tools/torch_kernel_sweeps.py [xattn] [pipeline] [flash] [decode|step [DIR ...]]
 
-``xattn``: the three kernels of the decode-attention pipeline
+``xattn``: the five kernels of the decode-attention pipeline
 (``csrc/decode_attn.cuh``) at each grid setting of ``XATTN_SETTINGS`` (the
 warps a block, ``PIPELINE_WARPS``, and the warps a multiprocessor the split
 rule aims at, ``XATTN_WARPS_PER_SM``), timed as ``decode`` times a checkout.
@@ -16,11 +16,13 @@ timed as ``xattn`` times it, at ``PIPELINE_SETTINGS``.
 this one), each in its own process, in the order given (so
 ``decode OLD . . OLD`` times two trees in turns on one card), with their
 kernels' registers (large-v3: T=1500, ctx=456, D=1280, H=20, the layer
-cycling over 32): ``xattn_decode`` (beside SDPA) and ``xattn_decode_int8``
-at B = 1, 8 and 40 with and without scores, ``self_attn_decode`` at B = 1,
-8 and 40 and pos 232 and 455, alone and with the step's row write (on a
-tree whose wrapper does not take the new rows, two indexing copies and the
-launch, as its decode step made them), beside SDPA over the live slots.
+cycling over 32): ``xattn_decode`` (beside SDPA), ``xattn_decode_int8`` and
+``xattn_decode_int4`` at B = 1, 8 and 40 with and without scores,
+``self_attn_decode`` at B = 1, 8 and 40 and pos 232 and 455, alone and with
+the step's row write (on a tree whose wrapper does not take the new rows,
+two indexing copies and the launch, as its decode step made them), beside
+SDPA over the live slots, and ``self_attn_decode_int8`` with its quantized
+row write at the same B and pos.
 
 ``step``: the same in turns for ``decode_step`` of a large-v3-geometry model
 of seeded random bf16 weights, with a bf16 and an int8 cross K/V at B = 1,
@@ -64,11 +66,17 @@ PAD = "  const int lo = max(first, max(0, min(pad_len[b], pos)));"
 # name -> (what it changes, [(source, old text, new text), ...]); the last
 # three remove work to time what is left (wrong outputs on purpose)
 PIPELINE_VARIANTS = {
-    **{f"{n} stages": (f"a {n}-stage ring in the pipeline's three kernels",
+    **{f"{n} stages": (f"a {n}-stage ring in the pipeline's five kernels",
                        [(PIPE, STAGES, STAGES.replace("2", str(n)))]) for n in (3, 4)},
-    "no pad read": ("self_attn_decode's live range not waiting for pad_len (wrong output)",
-                    [(os.path.join("csrc", "self_attn_decode.cu"), PAD,
-                      "  const int lo = first;")]),
+    **{f"int4 {n} blocks": (f"xattn_decode_int4 built for {n} blocks of 4 warps an SM "
+                            f"({65536 // (128 * n) // 8 * 8} registers)",
+                            [(os.path.join("csrc", "xattn_decode_int4.cu"),
+                              "__launch_bounds__(32 * kWarps)",
+                              f"__launch_bounds__(32 * kWarps, {4 * n} / kWarps)")])
+       for n in (7, 8)},
+    "no pad read": ("the self kernels' live range not waiting for pad_len (wrong output)",
+                    [(os.path.join("csrc", f), PAD, "  const int lo = first;")
+                     for f in ("self_attn_decode.cu", "self_attn_decode_int8.cu")]),
     "no split merge": ("the splits' partials not merged (wrong output)",
                        [(PIPE, MERGE, "  return;\n" + MERGE)]),
     "no compute": ("the ring alone: no scores, softmax or p·V (wrong output)",
@@ -124,14 +132,15 @@ DECODE_TIMER = r'''
 import inspect, sys, time, torch
 sys.path.insert(0, sys.argv[1])
 from whisper_timestamped_tpu_torch.ops import kernels as K, _build
-from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
 _build.library()
 entry = None
 for ln in (_build.build_dir() / "build.log").read_text().splitlines():
     if "Compiling entry function" in ln:
         entry = ln.split("'")[1]
     elif "Used" in ln and "registers" in ln and entry:
-        for name in ("self_attn_decode_kernel", "xattn_decode_kernel", "xattn_decode_int8_kernel"):
+        for name in ("self_attn_decode_kernel", "xattn_decode_kernel", "xattn_decode_int8_kernel",
+                     "xattn_decode_int4_kernel", "self_attn_decode_int8_kernel"):
             if name in entry:
                 print(f"ptxas {name}: {ln.split(':', 1)[1].strip()}")
         entry = None
@@ -168,20 +177,25 @@ for B in (1, 8, 40):
                       label=tag + "bf16" if not e else None)
                 for e in (False, True)] for tag in settings()}
     del xk, xv
-    codes = [quantize_rows(randn(B, T, D)) for _ in range(2 * L)]
-    kv8 = (torch.stack([c for c, _ in codes[:L]]), torch.stack([s for _, s in codes[:L]]),
-           torch.stack([c for c, _ in codes[L:]]), torch.stack([s for _, s in codes[L:]]))
-    del codes
+    def stacked(fn):  # (codes K, scales K, codes V, scales V), one layer quantized at a time
+        codes = [fn(randn(B, T, D)) for _ in range(2 * L)]
+        return (torch.stack([c for c, _ in codes[:L]]), torch.stack([s for _, s in codes[:L]]),
+                torch.stack([c for c, _ in codes[L:]]), torch.stack([s for _, s in codes[L:]]))
+    kv8, kv4 = stacked(quantize_rows), stacked(quantize_rows_int4)
     for tag in settings():
         i8 = [timed(lambda it: K.xattn_decode_int8(q, *kv8, it % L, H, emit_scores=e),
                     label="int8" if not e else None) for e in (False, True)]
+        i4 = [timed(lambda it: K.xattn_decode_int4(q, *kv4, it % L, H, emit_scores=e),
+                    label="int4" if not e else None) for e in (False, True)]
         print(f"{tag}xattn B={B}: bf16 {bf[tag][0]:.4f} / {bf[tag][1]:.4f} ms (no scores / scores), "
-              f"sdpa {lib:.4f}; int8 {i8[0]:.4f} / {i8[1]:.4f} ms; host {HOST[tag + 'bf16']:.1f} / "
-              f"{HOST['int8']:.1f} us a call (bf16 / int8, no scores)", flush=True)
-    del kv8
+              f"sdpa {lib:.4f}; int8 {i8[0]:.4f} / {i8[1]:.4f} ms; int4 {i4[0]:.4f} / {i4[1]:.4f} "
+              f"ms; host {HOST[tag + 'bf16']:.1f} / {HOST['int8']:.1f} / {HOST['int4']:.1f} us a "
+              f"call (bf16 / int8 / int4, no scores)", flush=True)
+    del kv8, kv4
     k_new, v_new = randn(B, 1, D).bfloat16(), randn(B, 1, D).bfloat16()
     k_all, v_all = randn(L, B, ctx, D).bfloat16(), randn(L, B, ctx, D).bfloat16()
     pad = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    cache8 = (*quantize_rows(k_all.float()), *quantize_rows(v_all.float()))
     for pos in (232, 455):
         lib = timed(lambda it: sdpa(heads(q), heads(k_all[it % L, :, :pos + 1]),
                                     heads(v_all[it % L, :, :pos + 1])))
@@ -194,10 +208,13 @@ for B in (1, 8, 40):
         for tag in settings():
             alone = timed(lambda it: K.self_attn_decode(q, k_all, v_all, it % L, pos, pad, H))
             written = timed(step, label="self")
+            int8 = timed(lambda it: K.self_attn_decode_int8(q, k_new, v_new, *cache8, it % L, pos,
+                                                            pad, H), label="self8")
             print(f"{tag}self B={B} pos={pos}: {alone:.4f} ms alone, {written:.4f} ms with the row "
-                  f"write ({'fused' if fused else 'two copies + launch'}), sdpa {lib:.4f}; host "
-                  f"{HOST['self']:.1f} us a call with the write", flush=True)
-    del k_all, v_all
+                  f"write ({'fused' if fused else 'two copies + launch'}), sdpa {lib:.4f}; int8 "
+                  f"with its quantized write {int8:.4f} ms; host {HOST['self']:.1f} / "
+                  f"{HOST['self8']:.1f} us a call with the write (bf16 / int8)", flush=True)
+    del k_all, v_all, cache8
     torch.cuda.empty_cache()
 '''
 

@@ -12,22 +12,36 @@
 //
 // The write: row b's new K (and V) is quantized as quantize_rows does,
 // scale = max|x| / 127 over the whole D-wide row, code = rint(x / max(scale,
-// 1e-8)) (IEEE divide, round half to even), bit for bit. Every block
-// (head, b) computes the row's scale itself, writes its own head's 64 codes
-// into slot pos, and head 0's block stores the scales. Slot pos then takes
-// its scale from registers (another head's block may not have stored it
-// yet) and its codes from what this block wrote; the cache is read without
-// the read-only cache, since this launch writes it.
+// 1e-8)) (IEEE divide, round half to even), bit for bit.
 //
-// What bounds it on the H100: bytes, and at small batch the launch. A call
-// reads the live slots of one layer's int8 K and V (at most ctx * D bytes
-// each per row; large-v3, ctx=456: 0.58 MB) and their scales.
+// What bounds it on the H100: bytes, and at small batch the latency of the
+// first loads. A call reads the live slots of one layer's int8 K and V (at
+// most ctx * D bytes each per row; large-v3, ctx=456: 0.58 MB) and their
+// scales, and the new rows.
+//
+// Design: self_attn_decode's (decode_attn.cuh, split over the slots [0,
+// pos], the same grid (n_split, H, B) from ops.kernels: large-v3 B=1,
+// pos=232 -> 4 splits of 64 slots, blocks of 4 warps; B=8 -> 4 splits,
+// blocks of 2; B=40 -> no split) with int8 rows: block (s, h, b) attends
+// slots [max(lo, s * F), min(pos + 1, (s + 1) * F)) with lo = min(pad_len[b],
+// pos) read on the device; a split wholly below lo leaves (-inf, 0, 0) and
+// weighs 0 in its cluster's merge. Only the blocks whose split holds slot
+// pos write: once their first tiles are in flight, each reduces |k_new[b]|
+// and |v_new[b]| over all D columns (2 x 2.5 KB, from L2), stores its
+// head's 64 codes of each into slot pos, and head 0's block stores the two
+// scales. Such a block takes slot pos's codes from its own shared memory and
+// its scales from registers, never from the cache row being written (its
+// ring skips that row), and no other block reads slot pos. One launch a
+// layer.
 
-#include "common.cuh"
+#include "decode_attn.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(wtt::kThreads)
+using Rows = wtt::decode::Int8Rows<true>;
+
+template <int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                              const __nv_bfloat16* __restrict__ k_new,  // (B, D)
                              const __nv_bfloat16* __restrict__ v_new,
@@ -35,38 +49,21 @@ self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                              int8_t* v, float* v_scale,
                              __nv_bfloat16* __restrict__ out,          // (B, D)
                              const int* __restrict__ pad_len,          // (B,)
-                             int layer, int pos, int B, int ctx, int D, float scale) {
-  extern __shared__ float p[];
-  __shared__ float red[32];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+                             int layer, int pos, int B, int ctx, int D, int H,
+                             int slots_per_split, float scale) {
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int first = split * slots_per_split;
+  const int hi = min(pos + 1, first + slots_per_split);
+  const int lo = max(first, max(0, min(pad_len[b], pos)));
   const long row0 = ((long)layer * B + b) * ctx;  // slot 0's row
-  const long col = (long)h * wtt::kHeadDim;
-
-  // 1. quantize and write this step's row (slot pos)
-  float kmax = 0.f, vmax = 0.f;
-  for (int i = tid; i < D; i += wtt::kThreads) {
-    kmax = fmaxf(kmax, fabsf(__bfloat162float(k_new[(long)b * D + i])));
-    vmax = fmaxf(vmax, fabsf(__bfloat162float(v_new[(long)b * D + i])));
-  }
-  const float ks = wtt::block_reduce<0>(kmax, red) / 127.f;
-  const float vs = wtt::block_reduce<0>(vmax, red) / 127.f;
-  if (tid < wtt::kHeadDim) {
-    const long dst = (row0 + pos) * D + col + tid;
-    k[dst] = (int8_t)rintf(__bfloat162float(k_new[(long)b * D + col + tid]) / fmaxf(ks, 1e-8f));
-    v[dst] = (int8_t)rintf(__bfloat162float(v_new[(long)b * D + col + tid]) / fmaxf(vs, 1e-8f));
-  }
-  if (h == 0 && tid == 0) {
-    k_scale[row0 + pos] = ks;
-    v_scale[row0 + pos] = vs;
-  }
-  __syncthreads();  // this block's codes of slot pos are visible to it
-
-  // 2. attend over the live slots
-  const int lo = max(0, min(pad_len[b], pos));
-  wtt::attend_one_head(q + (long)b * D + col,
-                       wtt::Int8Rows{k + row0 * D + col, D, k_scale + row0, pos, ks},
-                       wtt::Int8Rows{v + row0 * D + col, D, v_scale + row0, pos, vs},
-                       lo, pos, scale, nullptr, out + (long)b * D + col, p);
+  const int head = h * wtt::kHeadDim;
+  const long col = (long)b * D + head;
+  const bool own = pos < hi;  // this split holds slot pos: it writes the row
+  const Rows rows{k + row0 * D + head, v + row0 * D + head, D, k_scale + row0, v_scale + row0,
+                  own ? pos : -1, k_new + (long)b * D, v_new + (long)b * D, D, head,
+                  k + (row0 + pos) * D + head, v + (row0 + pos) * D + head,
+                  h == 0 ? k_scale + row0 + pos : nullptr, h == 0 ? v_scale + row0 + pos : nullptr};
+  wtt::decode::attend<kWarps>(rows, q + col, lo, hi, scale, nullptr, out + col, gridDim.x);
 }
 
 }  // namespace
@@ -74,13 +71,13 @@ self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
 extern "C" int wtt_self_attn_decode_int8(const void* q, const void* k_new, const void* v_new,
                                          void* k, void* k_scale, void* v, void* v_scale,
                                          void* out, const void* pad_len, int layer, int pos,
-                                         int B, int ctx, int D, int H, float scale,
+                                         int B, int ctx, int D, int H, int n_split,
+                                         int slots_per_split, int warps, float scale,
                                          void* stream) {
-  dim3 grid(H, B);
-  self_attn_decode_int8_kernel<<<grid, wtt::kThreads, (size_t)(pos + 1) * sizeof(float),
-                                 (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
-      (int8_t*)k, (float*)k_scale, (int8_t*)v, (float*)v_scale, (__nv_bfloat16*)out,
-      (const int*)pad_len, layer, pos, B, ctx, D, scale);
-  return (int)cudaGetLastError();
+  return (int)wtt::decode::launch<Rows>(
+      warps, self_attn_decode_int8_kernel<2>, self_attn_decode_int8_kernel<4>,
+      dim3(n_split, H, B), (cudaStream_t)stream, (const __nv_bfloat16*)q,
+      (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (int8_t*)k, (float*)k_scale,
+      (int8_t*)v, (float*)v_scale, (__nv_bfloat16*)out, (const int*)pad_len, layer, pos, B, ctx,
+      D, H, slots_per_split, scale);
 }

@@ -34,7 +34,7 @@
 
 namespace {
 
-using Rows = wtt::decode::Int8Rows;
+using Rows = wtt::decode::Int8Rows<false>;
 
 template <int kWarps>
 __global__ void __launch_bounds__(32 * kWarps)

@@ -52,11 +52,12 @@ SIGNATURES = {
     # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group,
     # n_split, frames_per_split, warps, scale, stream
     "wtt_xattn_decode_int8": [_P] * 7 + [_I] * 10 + [_F, _P],
-    # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group, scale, stream
-    "wtt_xattn_decode_int4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, layer, pos, B, ctx, D, H, scale, stream
-    "wtt_self_attn_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                  _P],
+    # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group,
+    # n_split, rows_per_split, warps, scale, stream
+    "wtt_xattn_decode_int4": [_P] * 7 + [_I] * 10 + [_F, _P],
+    # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, layer, pos, B, ctx, D, H,
+    # n_split, slots_per_split, warps, scale, stream
+    "wtt_self_attn_decode_int8": [_P] * 9 + [_I] * 9 + [_F, _P],
     # x, cos_b, sin_b, mel_w, out, B, L, n_fft, n_bins, n_mels, hop, stream
     "wtt_log10_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w_all, out, layer, B, N, K, stream

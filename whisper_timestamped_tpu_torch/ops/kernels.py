@@ -60,7 +60,7 @@ LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_code
 DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
 DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
 HEAD_DIM = 64  # the only head width the attention kernels take
-MAX_T = 8192  # attention rows that fit the kernels' shared-memory softmax
+MAX_T = 8192  # the longest attention (frames, or cache slots) the decode wrappers take
 
 
 def reset_launches() -> None:
@@ -402,7 +402,7 @@ def _aligned(*tensors) -> bool:
 XATTN_TILE = 64  # rows a split is cut into whole multiples of
 XATTN_MAX_SPLITS = 8  # the splits of a (row, head) merge in one (portable) block cluster
 # The grid of the decode-attention pipeline (csrc/decode_attn.cuh), chosen
-# from tools/torch_kernel_sweeps.py's measurements of its three kernels:
+# from tools/torch_kernel_sweeps.py's measurements of its kernels:
 # the warps a multiprocessor that the split rule aims at. PIPELINE_WARPS
 # (2 or 4) overrides the warps a block (``pipeline_warps``), for the
 # sweeps.
@@ -415,34 +415,40 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def pipeline_warps(B: int, H: int, n_sm: int) -> int:
+def pipeline_warps(B: int, H: int, n_sm: int, frames_per_row: int = 1) -> int:
     """Warps a block of the pipeline's kernels: 4 while the B * H (row,
     head) pairs are fewer than the multiprocessors, else 2, so that a large
-    batch's blocks are resident at once (or PIPELINE_WARPS)."""
+    batch's blocks are resident at once; 4 at every batch for rows of two
+    frames (int4), whose tiles carry twice the frames a byte, so that more
+    warps an SM hide their work (or PIPELINE_WARPS)."""
     if PIPELINE_WARPS is not None:
         return PIPELINE_WARPS
-    return 4 if B * H < n_sm else 2
+    return 4 if frames_per_row == 2 or B * H < n_sm else 2
 
 
-def xattn_split(B: int, H: int, T: int, n_sm: int) -> Tuple[int, int]:
+def xattn_split(B: int, H: int, T: int, n_sm: int, frames_per_row: int = 1) -> Tuple[int, int]:
     """(n_split, rows per split) of the grid of the decode-attention
     pipeline's kernels (``xattn_decode``, ``xattn_decode_int8`` over T
-    frames, ``self_attn_decode`` over T = pos + 1 slots): about
+    frames, ``xattn_decode_int4`` over T = frames / 2 packed rows,
+    ``self_attn_decode`` and ``self_attn_decode_int8`` over T = pos + 1
+    slots): about
     XATTN_WARPS_PER_SM warps a multiprocessor over the B * H (row, head)
-    pairs in blocks of ``pipeline_warps`` warps, at most one split per 64
-    rows and XATTN_MAX_SPLITS in all, each split whole 64-row pieces."""
+    pairs in blocks of ``pipeline_warps`` warps (for rows of
+    ``frames_per_row`` frames), at most one split per 64 rows and
+    XATTN_MAX_SPLITS in all, each split whole 64-row pieces."""
     tiles = -(-T // XATTN_TILE)
-    per_block = B * H * pipeline_warps(B, H, n_sm)
+    per_block = B * H * pipeline_warps(B, H, n_sm, frames_per_row)
     want = min(max(-(-XATTN_WARPS_PER_SM * n_sm // per_block), 1), tiles, XATTN_MAX_SPLITS)
     per = -(-tiles // want) * XATTN_TILE
     return -(-T // per), per
 
 
-def _grid(q, B: int, H: int, T: int) -> Tuple[int, int, int]:
+def _grid(q, B: int, H: int, T: int, frames_per_row: int = 1) -> Tuple[int, int, int]:
     """(n_split, rows per split, warps a block) of a pipeline launch over T
-    rows on q's device."""
+    rows of ``frames_per_row`` frames on q's device."""
     n_sm = _sm_count(q.device)
-    return (*xattn_split(B, H, T, n_sm), pipeline_warps(B, H, n_sm))
+    return (*xattn_split(B, H, T, n_sm, frames_per_row),
+            pipeline_warps(B, H, n_sm, frames_per_row))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -652,8 +658,8 @@ def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None)
 def _quantized_xattn(name, fn_name, frames_per_row, q, xk_all, xk_scale, xv_all, xv_scale,
                      layer, n_head, emit_scores, beam_group):
     """Check the int8 (1 frame a row) or int4 (2 frames a row) cross-attention
-    inputs and launch the kernel: the int8 kernel split over T (see
-    ``xattn_decode``), the int4 kernel one block per (head, row)."""
+    inputs and launch the kernel, split over its rows as ``xattn_decode``
+    is split over T (the int4 kernel over the T/2 packed rows)."""
     B, S, D = q.shape
     L, B_kv, R, Dk = xk_all.shape
     T = xk_scale.shape[-1]
@@ -679,14 +685,10 @@ def _quantized_xattn(name, fn_name, frames_per_row, q, xk_all, xk_scale, xv_all,
         torch.empty((B, n_head, 1, T), dtype=torch.float32, device=q.device)
         if emit_scores else None
     )
-    ptrs = (q.data_ptr(), xk_all.data_ptr(), xk_scale.data_ptr(), xv_all.data_ptr(),
-            xv_scale.data_ptr(), out.data_ptr(), _ptr(scores))
-    if frames_per_row == 1:
-        _launch(name, fn_name, *ptrs, layer, B, B_kv, T, D, n_head, beam_group,
-                *_grid(q, B, n_head, T), HEAD_DIM**-0.5, _stream(q))
-    else:
-        _launch(name, fn_name, *ptrs, layer, B, B_kv, T, D, n_head, beam_group, HEAD_DIM**-0.5,
-                _stream(q))
+    _launch(name, fn_name, q.data_ptr(), xk_all.data_ptr(), xk_scale.data_ptr(),
+            xv_all.data_ptr(), xv_scale.data_ptr(), out.data_ptr(), _ptr(scores), layer, B, B_kv,
+            T, D, n_head, beam_group, *_grid(q, B, n_head, R, frames_per_row), HEAD_DIM**-0.5,
+            _stream(q))
     return out, scores
 
 
@@ -712,7 +714,8 @@ def xattn_decode_int4(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head:
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The same over nibble-packed int4 K/V (L, B_kv, T/2, D) int8 with
     parity-major scales (L, B_kv, T) (see ``xattn_decode_int4_plain``);
-    scores (B, H, 1, T) in frame order."""
+    scores (B, H, 1, T) in frame order. The kernel splits the T/2 packed
+    rows across blocks as ``xattn_decode`` splits T."""
     name = "xattn_decode_int4"
     if not _on_cuda(name, q, xk_all, xk_scale, xv_all, xv_scale):
         return xattn_decode_int4_plain(q, xk_all, xk_scale, xv_all, xv_scale, layer, n_head,
@@ -729,8 +732,9 @@ def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer
     the live slots [min(pad_len[b], pos), pos] (see
     ``self_attn_decode_int8_plain``). On CUDA one launch does both: bf16
     q/k_new/v_new, int8 cache (L, B, ctx, D), f32 scales (L, B, ctx), int32
-    ``pad_len``, head width 64, contiguous. For CPU tensors the plain
-    quantizer writes the rows and the plain version attends."""
+    ``pad_len``, head width 64, contiguous; the kernel splits the pos + 1
+    slots across blocks as ``self_attn_decode`` does. For CPU tensors the
+    plain quantizer writes the rows and the plain version attends."""
     name = "self_attn_decode_int8"
     tensors = (q, k_new, v_new, k_all, k_scale, v_all, v_scale, pad_len)
     if not _on_cuda(name, *tensors):
@@ -754,11 +758,12 @@ def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer
     _expect(name, _aligned(q, k_new, v_new, k_all, k_scale, v_all, v_scale),
             "inputs must be 16-byte aligned")
     _expect(name, 0 <= layer < L and 0 <= pos < min(ctx, MAX_T), f"layer {layer} / pos {pos} out of range")
+    _expect(name, B <= 65535 and n_head <= 65535, f"unsupported B={B} H={n_head}")
     out = torch.empty_like(q)
     _launch(name, "wtt_self_attn_decode_int8", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_all.data_ptr(), k_scale.data_ptr(), v_all.data_ptr(), v_scale.data_ptr(),
             out.data_ptr(), pad_len.data_ptr(), layer, pos, B, ctx, D, n_head,
-            HEAD_DIM**-0.5, _stream(q))
+            *_grid(q, B, n_head, pos + 1), HEAD_DIM**-0.5, _stream(q))
     return out
 
 
