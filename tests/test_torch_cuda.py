@@ -595,7 +595,7 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
 def test_log10_mel_kernel_matches_plain(cuda, rows, seconds, n_mels):
     """The fused log-mel kernel against its plain version (TF32 off) on
     whisper's padded input (30 s of zeros after the audio; 6500 and 3730
-    frames, neither a multiple of the 64-frame tile): the raw log10 at atol
+    frames, neither a multiple of the 32-frame tile): the raw log10 at atol
     2e-4 above each row's max - 8 floor, and ``log_mel_spectrogram``
     through the kernel against its plain route at atol 1e-4."""
     from whisper_timestamped_tpu_torch import audio as TA
@@ -645,3 +645,125 @@ def test_stacked_matmul_kernel_matches_plain(cuda, B, k_in, n_out):
         o_p = K.stacked_matmul_plain(x, w, layer).float()
         assert o_k.shape == (B, n_out) and o_k.dtype == torch.bfloat16
         assert (o_k.float() - o_p).abs().max() <= 1e-2 * o_p.abs().max()
+
+
+def _mel_witness(x, n_fft, hop, mel_w):
+    """The float64 log10 mel of reflect-padded rows x on the card: periodic
+    Hann window, ``torch.fft.rfft`` in float64, the filterbank. The
+    kernel's witness only; the port never calls it."""
+    n_frames = (x.shape[-1] - n_fft) // hop
+    frames = x.double().unfold(-1, n_fft, hop)[:, :n_frames]
+    window = torch.hann_window(n_fft, periodic=True, dtype=torch.float64, device=x.device)
+    spec = torch.fft.rfft(frames * window, dim=-1)
+    mel = (spec.real**2 + spec.imag**2) @ mel_w.double().T
+    return torch.log10(torch.clamp(mel, min=1e-10)).transpose(-1, -2)
+
+
+@pytest.mark.parametrize("n_fft", [400, 512])
+@pytest.mark.parametrize("rows,seconds", [(2, 7.3), (3, 35)])
+def test_log10_mel_fft_kernel_near_float64(cuda, n_fft, rows, seconds):
+    """The FFT kernel at whisper's n_fft and at 512, on rows whose frame
+    counts (3730 and 6500 at hop 160) are not multiples of its 32-frame
+    tile, against the float64 witness: within 2e-4 on the cells within 6
+    decades of their row's loudest and 1e-3 on every cell above the max - 8
+    floor, the limits its plain version is held to on the CPU; and against
+    the plain version itself as ``test_log10_mel_kernel_matches_plain``."""
+    from whisper_timestamped_tpu_torch import audio as TA
+
+    n = int(16000 * seconds)
+    t = torch.arange(n, device=cuda) / 16000.0
+    g = torch.Generator(device=cuda).manual_seed(rows * n_fft)
+    audio = 0.2 * torch.sin(2 * torch.pi * 220.0 * t) + 0.05 * torch.randn((rows, n), generator=g,
+                                                                          device=cuda)
+    x = TA._padded_audio(audio, TA.N_SAMPLES, n_fft // 2)
+    consts = TA._front_end_constants(80, n_fft, cuda)
+    raw_k = K.log10_mel(x, *consts, TA.HOP_LENGTH)
+    torch.cuda.synchronize()
+    exact = _mel_witness(x, n_fft, TA.HOP_LENGTH, consts[2])
+    assert raw_k.shape == exact.shape and raw_k.shape[-1] % 32  # the kernel's tile: 32 frames
+    top = exact.amax(dim=(-2, -1), keepdim=True)
+    above, loud = exact >= top - 8.0, exact >= top - 6.0
+    err = (raw_k.double() - exact).abs()
+    assert err[loud].max() <= 2e-4 and err[above].max() <= 1e-3
+    raw_p = K.log10_mel_plain(x, *consts, TA.HOP_LENGTH)
+    above_p = raw_p >= raw_p.amax(dim=(-2, -1), keepdim=True) - 8.0
+    torch.testing.assert_close(raw_k[above_p], raw_p[above_p], rtol=0, atol=2e-4)
+
+
+def _tilted_harmonics(n, rows, device):
+    """rows of a 100-180 Hz harmonic series whose harmonics fall 1.5
+    decades of power each, plus 1e-6 noise: the top band is many decades
+    below each frame's peak, as in speech, so most bins are refined."""
+    g = torch.Generator(device=device).manual_seed(rows)
+    t = torch.arange(n, device=device, dtype=torch.float64) / 16000.0
+    out = torch.zeros((rows, n), dtype=torch.float64, device=device)
+    for r in range(rows):
+        f0 = 100.0 + 80.0 * r / max(rows - 1, 1)
+        for h in range(1, int(7900 // f0) + 1):
+            out[r] += 0.3 * 10.0 ** (-0.75 * (h - 1)) * torch.sin(2 * torch.pi * f0 * h * t + h)
+    return (out + 1e-6 * torch.randn((rows, n), generator=g, device=device,
+                                      dtype=torch.float64)).float()
+
+
+@pytest.mark.parametrize("n_fft", [400, 512])
+def test_log10_mel_refines_dense_tiles(cuda, n_fft):
+    """On rows whose bins mostly lie below the refinement threshold (the
+    tiles take the dense refinement, the whole DFT product again) and on
+    tone-and-noise rows (the sparse one, a bin at a time): the kernel within
+    2e-4 of its plain version above the max - 8 floor, and within 2e-4
+    (loud) and 1e-3 (above the floor) of the float64 witness."""
+    from whisper_timestamped_tpu_torch import audio as TA
+
+    n = 16000 * 12
+    t = torch.arange(n, device=cuda) / 16000.0
+    g = torch.Generator(device=cuda).manual_seed(n_fft)
+    noisy = 0.2 * torch.sin(2 * torch.pi * 500.0 * t) + 0.05 * torch.randn((2, n), generator=g,
+                                                                          device=cuda)
+    consts = TA._front_end_constants(128, n_fft, cuda)
+    for audio in (_tilted_harmonics(n, 3, cuda), noisy):
+        x = TA._padded_audio(audio, TA.N_SAMPLES, n_fft // 2)
+        raw_k = K.log10_mel(x, *consts, TA.HOP_LENGTH)
+        raw_p = K.log10_mel_plain(x, *consts, TA.HOP_LENGTH)
+        above_p = raw_p >= raw_p.amax(dim=(-2, -1), keepdim=True) - 8.0
+        torch.testing.assert_close(raw_k[above_p], raw_p[above_p], rtol=0, atol=2e-4)
+        exact = _mel_witness(x, n_fft, TA.HOP_LENGTH, consts[2])
+        top = exact.amax(dim=(-2, -1), keepdim=True)
+        err = (raw_k.double() - exact).abs()
+        assert err[exact >= top - 6.0].max() <= 2e-4 and err[exact >= top - 8.0].max() <= 1e-3
+
+
+def test_log10_mel_refuses_what_the_kernel_does_not_take(cuda):
+    from whisper_timestamped_tpu_torch import audio as TA
+
+    x = torch.zeros((1, 16000), device=cuda)
+    consts = TA._front_end_constants(80, TA.N_FFT, cuda)
+    with pytest.raises(ValueError, match="hop"):
+        K.log10_mel(x, *consts, 162)
+    odd = TA._front_end_constants(80, 392, cuda)  # 196 = 4 * 7 * 7: no plan
+    with pytest.raises(ValueError, match="n_fft=392"):
+        K.log10_mel(x, *odd, 160)
+
+
+MATMUL_SHAPES = [(1280, 5120), (5120, 1280), (1280, 1280), (1280, 1000)]
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 40, 41, 256, 300])
+@pytest.mark.parametrize("k_in,n_out", MATMUL_SHAPES)
+def test_stacked_matmul_at_every_split(cuda, monkeypatch, B, k_in, n_out):
+    """The tensor-core matmul at the batches around its column widths (8,
+    64, 256 and two column groups at 300) and the decode shapes plus a
+    ragged N, at every split count ``matmul_split`` can choose for the
+    shape (1 to 8), within 1e-2 of the output's largest magnitude; the
+    layer read in place from the stack."""
+    g = torch.Generator(device=cuda).manual_seed(B * 7 + k_in + n_out)
+    w = (torch.randn((3, n_out, k_in), generator=g, device=cuda) * k_in**-0.5).bfloat16()
+    x = _randn(g, B, k_in)
+    rule = K.matmul_split
+    for n_split in range(1, 1 + min(K.MATMUL_MAX_SPLITS, -(-k_in // K.MATMUL_TILE))):
+        monkeypatch.setattr(K, "matmul_split", lambda *a, s=n_split: (s, *rule(*a)[1:]))
+        for layer in (0, 2):
+            o_k = K.stacked_matmul(x, w, layer)
+            torch.cuda.synchronize()
+            o_p = K.stacked_matmul_plain(x, w, layer).float()
+            assert o_k.shape == (B, n_out)
+            assert (o_k.float() - o_p).abs().max() <= 1e-2 * o_p.abs().max(), (n_split, layer)

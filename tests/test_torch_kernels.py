@@ -395,3 +395,65 @@ def test_compute_jumps_batch_matches_jax():
     assert len(j_port) == len(specs)
     for a, b in zip(j_port, j_jax):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# stacked_matmul: the split rule and the split-K merge
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's nine shapes, the batches around the block widths, a ragged N
+MATMUL_CASES = ([(B, Kd, N) for Kd, N in ((1280, 5120), (5120, 1280), (1280, 1280))
+                 for B in (1, 8, 40)]
+                + [(B, 1280, 5120) for B in (41, 256, 300)] + [(40, 1280, 1000)])
+
+
+def _k_ranges(Kd, n_split):
+    """The k-ranges of the splits, as csrc/stacked_matmul.cu cuts them:
+    split s takes 64-wide k-tiles [s T / n_split, (s + 1) T / n_split)."""
+    T = -(-Kd // K.MATMUL_TILE)
+    return [(s * T // n_split * K.MATMUL_TILE, min(Kd, (s + 1) * T // n_split * K.MATMUL_TILE))
+            for s in range(n_split)]
+
+
+@pytest.mark.parametrize("B,Kd,N", MATMUL_CASES)
+def test_matmul_split_covers_k_and_fills_the_card(B, Kd, N):
+    """Whole k-tiles, none empty, every k once, at most 8 splits; at least
+    one block for each of the 132 SMs where the shape allows, with the
+    fewest splits that give it."""
+    n_split, cols, groups = K.matmul_split(B, N, Kd, 132)
+    k_tiles = -(-Kd // 64)
+    assert 1 <= n_split <= min(K.MATMUL_MAX_SPLITS, k_tiles)
+    assert groups == -(-B // 256) and cols in K.MATMUL_COLS and cols >= -(-B // groups)
+    ranges = _k_ranges(Kd, n_split)
+    assert all(lo % 64 == 0 and lo < hi for lo, hi in ranges)
+    assert [k for lo, hi in ranges for k in range(lo, hi)] == list(range(Kd))
+    tiles = -(-N // 64) * groups
+    if tiles * min(K.MATMUL_MAX_SPLITS, k_tiles) >= 132:
+        assert n_split * tiles >= 132 and (n_split - 1) * tiles < 132
+    else:
+        assert n_split == min(K.MATMUL_MAX_SPLITS, k_tiles)
+
+
+@pytest.mark.parametrize("B,Kd,N", [(8, 1280, 256), (40, 640, 512), (3, 1000, 128)])
+def test_matmul_split_merge_matches_pallas_and_plain(B, Kd, N):
+    """Each split's f32 partial over its k-tiles, summed in split order in
+    f32 as the cluster's ranks sum them (and in float64, the witness), then
+    rounded once to bf16: against ``stacked_matmul_pallas`` in interpret
+    mode at atol 1e-4 (f32 sums in another order) and against
+    ``stacked_matmul_plain`` within the kernel's 1e-2 of the output scale."""
+    rng = np.random.default_rng(B + Kd)
+    L, layer = 2, 1
+    x = _bf16_values(rng, B, Kd)
+    w = _bf16_values(rng, L, Kd, N, scale=Kd**-0.5)  # JAX's (L, K, N)
+    w_port = torch.from_numpy(np.ascontiguousarray(np.swapaxes(w, 1, 2)))
+    n_split = K.matmul_split(B, N, Kd, 132)[0]
+    assert n_split > 1
+    parts = [torch.from_numpy(x[:, lo:hi]) @ w_port[layer][:, lo:hi].T for lo, hi in _k_ranges(Kd, n_split)]
+    merged = parts[0].clone()
+    for p in parts[1:]:
+        merged += p
+    ref = np.asarray(P.stacked_matmul_pallas(layer, jnp.asarray(x), jnp.asarray(w), interpret=True))
+    np.testing.assert_allclose(merged.numpy(), ref, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(sum(p.double() for p in parts).numpy(), ref, rtol=0, atol=1e-4)
+    plain = K.stacked_matmul_plain(torch.from_numpy(x).bfloat16(), w_port.bfloat16(), layer)
+    assert (merged.bfloat16().float() - plain.float()).abs().max() <= 1e-2 * np.abs(ref).max()

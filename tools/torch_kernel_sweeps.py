@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Design sweeps of the port's attention kernels on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_sweeps.py [xattn] [pipeline] [flash] [decode|step [DIR ...]]
+    python3 tools/torch_kernel_sweeps.py [xattn] [pipeline] [flash] [matmul-variants]
+                                         [matmul-splits] [mel-variants] [mel-refine]
+                                         [mel-refine-variants]
+                                         [decode|step|matmul|mel|encoder [DIR ...]]
+    python3 tools/torch_kernel_sweeps.py mel-accuracy [ROW ...]
 
 ``xattn``: the five kernels of the decode-attention pipeline
 (``csrc/decode_attn.cuh``) at each grid setting of ``XATTN_SETTINGS`` (the
@@ -28,6 +32,53 @@ row write at the same B and pos.
 of seeded random bf16 weights, with a bf16 and an int8 cross K/V at B = 1,
 8 and 40: host-clock ms a step over 64 steps, each ending in a
 synchronize, as the token loop's steps do.
+
+``matmul``: ``stacked_matmul`` of the checkout at each DIR, in turns as
+``decode`` times them, at the nine shapes ``chip_smoke.py`` [c] times
+(K x N in 1280 x 5120, 5120 x 1280 and 1280 x 1280, B = 1, 8 and 40, L =
+32, the layer cycling so the weights come from memory) beside
+``F.linear`` on the layer's slice, with its error against the plain
+version, the bound and, on a tree with ``matmul_split``, its grid.
+
+``encoder``: ``flash_attention`` of the checkout at each DIR, in turns, at
+the encoder's shape (B = 1 and 8, T = 1500, D = 1280, H = 20), timed as
+``flash`` times its variants.
+
+``matmul-splits``: ``stacked_matmul`` of this checkout at the same shapes
+at every split count it can take, beside ``F.linear``.
+
+``matmul-variants``: ``csrc/stacked_matmul.cu`` with one design choice
+changed at a time (``MATMUL_VARIANTS``, built as ``flash`` builds its
+variants), each timed as ``matmul`` times the tree.
+
+``mel-variants``: ``log10_mel`` with one design choice changed or one
+stage of its work removed at a time (``MEL_VARIANTS``), each timed as
+``mel`` times the tree.
+
+``mel``: ``log10_mel`` of the checkout at each DIR, in turns, on
+``chip_smoke.py`` [c]'s inputs ((g)'s stack of 40 streams of 5-35 s,
+zero-padded to 35 s, plus 30 s: 40 x 6500 frames, 128 mels; one 10-minute
+stream plus 30 s), beside its plain version and the same function as
+several library calls (``torch.stft`` with the window, the power, the mel
+product, the clamp and ``log10``: cuFFT, timed only), with its error
+against the plain version and against a float64 FFT of the same frames
+(``torch.fft.rfft``), and the float64 FFT's own distance to the plain
+version (what any exact kernel would show against it).
+
+``mel-refine-variants``: ``log10_mel`` with the parts of its refinement
+removed one after another (``MEL_REFINE_VARIANTS``), each timed as ``mel``
+times the tree.
+
+``mel-refine``: ``mel`` on this checkout alone, once for each refinement
+threshold (``K.MEL_REFINE_BELOW``: 0, none refined, then 1e-7, 1e-6, 1e-5).
+``mel`` and ``mel-refine`` also take speech-like rows (40 tilted harmonic
+series, 35 s each plus 30 s), whose bins mostly lie below the threshold.
+
+``mel-accuracy``: on the CPU, no card: where the FFT loses accuracy on
+rows of [c]'s stack (default all 40), the kernel's arithmetic emulated
+with its passes and its split each in float32 or float64, beside
+``torch.fft.rfft`` in float32 and the plain DFT product, each against the
+float64 FFT (see ``mel_accuracy``).
 
 ``flash``: ``csrc/flash_attn.cu`` as it is and with one design choice
 changed at a time (each variant a text edit of the source, built into its
@@ -82,6 +133,72 @@ PIPELINE_VARIANTS = {
     "no compute": ("the ring alone: no scores, softmax or p·V (wrong output)",
                    [(PIPE, SCORES, "    __syncwarp();\n    issue(i + kStages);\n    continue;\n"
                      + SCORES)]),
+}
+MM = os.path.join("csrc", "stacked_matmul.cu")
+MM_RING = "  const int n = 65536 / (kWBytes + kCols * kTileK * 2);"
+MM_PUSH = "    for (int h = 0; h < 2; ++h) {\n      const int n = warp * 16 + (lane >> 2) + 8 * h;"
+MM_SUM = "  // this rank's rows of the live columns, each summed over the splits in"
+MM_ENTRY = "  extern __shared__ uint8_t smem_raw[];"
+MM_MMA = "      for (int kk = 0; kk < kTileK / 16; ++kk) wgmma_ss(acc, dw + 2 * kk, dx + 2 * kk, 1);"
+# name -> (what it changes, [(source, old text, new text), ...]); the last
+# four remove work to time what is left (wrong outputs on purpose)
+MATMUL_VARIANTS = {
+    "as built": ("the source as it is", []),
+    **{f"{kb} KB rings": (f"rings of about {kb} KB a block",
+                         [(MM, MM_RING, MM_RING.replace("65536", str(kb * 1024)))])
+       for kb in (128,)},
+    "no push": ("no sums sent to the owning ranks (wrong output)",
+                [(MM, MM_PUSH, MM_PUSH.replace("h < 2", "h < 0"))]),
+    "no sum": ("no sums over the splits, no output stores (wrong output)",
+               [(MM, MM_SUM, "  return;\n" + MM_SUM)]),
+    "no mma": ("the ring alone: no wgmma (wrong output)", [(MM, MM_MMA, "")]),
+    "no work": ("the launch alone: every block returns at once (wrong output)",
+                [(MM, MM_ENTRY, "  return;\n" + MM_ENTRY)]),
+}
+MEL = os.path.join("csrc", "log10_mel.cu")
+MEL_LOAD = "        cp_async4(buf + i, src + i);"
+MEL_PASS = "      switch (R) {"
+MEL_FRAME = "      case 5: first_pass<5>(sbuf, win2, z, N, fs, hop, tid); s0 = 1; break;"
+MEL_POST = "    for (int k = warp; k <= N / 2; k += kMelWarps) {"
+MEL_PROJ = "      for (; k + 3 <= r.y; k += 4) {"
+# name -> (what it changes, [(source, old text, new text), ...]); the
+# variants from "no load" on remove work to time what is left (wrong
+# outputs on purpose)
+MEL_VARIANTS = {
+    "as built": ("the source as it is", []),
+    "radix 8 first": ("the passes 8, 5, 5 at n_fft = 400 (the plan's radix 8 first: a framing copy)",
+                      [(os.path.join("ops", "kernels.py"), "MEL_RADICES = (5, 3, 8, 4, 2)",
+                        "MEL_RADICES = (8, 4, 2, 5, 3)")]),
+    "8 warps": ("blocks of 8 warps (256 threads)",
+                [(MEL, "constexpr int kMelThreads = 512;", "constexpr int kMelThreads = 256;")]),
+    "one block an SM": ("a grid of one block an SM",
+                        [(MEL, "std::max(per_sm, 1) * n_sm", "n_sm")]),
+    "no load": ("no samples loaded (wrong output)", [(MEL, MEL_LOAD, "")]),
+    "no barriers": ("no barriers inside the tile loop (wrong output)",
+                    [(MEL, "    __syncthreads();", "")]),
+    "no first pass": ("no framing, window or first pass (wrong output)",
+                      [(MEL, MEL_FRAME, "      case 5: s0 = 1; break;")]),
+    "no split": ("no split into the real signal's bins (wrong output)",
+                 [(MEL, MEL_POST, "    if (N < 0)\n" + MEL_POST)]),
+    "no passes": ("no FFT passes (wrong output)", [(MEL, MEL_PASS, "      if (R < 0) switch (R) {")]),
+    "no mel": ("no mel sums (wrong output)", [(MEL, MEL_PROJ, "      r.y = -1;\n" + MEL_PROJ)]),
+}
+MEL_NREF = "    const int n_ref = n_refine, span4"
+MEL_SCAN = "    if (live) {\n      const float at"
+# name -> (what it changes, [(source, old text, new text), ...]): the
+# refinement's parts removed one after another, to time what each costs
+# (wrong outputs wherever a bin needs refining)
+MEL_REFINE_VARIANTS = {
+    "as built": ("the source as it is", []),
+    "no refinement": ("neither refinement path (the scan still runs)",
+                      [(MEL, MEL_NREF, MEL_NREF.replace("n_refine,", "0 * n_refine,"))]),
+    "no scan": ("no refinement and no scan (the peaks still taken)",
+                [(MEL, MEL_NREF, MEL_NREF.replace("n_refine,", "0 * n_refine,")),
+                 (MEL, MEL_SCAN, MEL_SCAN.replace("live", "false"))]),
+    "no peaks": ("no refinement, scan or peaks: the FFT alone",
+                 [(MEL, MEL_NREF, MEL_NREF.replace("n_refine,", "0 * n_refine,")),
+                  (MEL, MEL_SCAN, MEL_SCAN.replace("live", "false")),
+                  (MEL, "    atomicMax(peak + lane, top);", "")]),
 }
 PIPELINE_SETTINGS = ()  # grid settings to time each variant at; none: the tree's own rule
 
@@ -257,6 +374,247 @@ with torch.no_grad():
 '''
 
 
+MATMUL_TIMER = r'''
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+_build.library()
+entry = None
+for ln in (_build.build_dir() / "build.log").read_text().splitlines():
+    if "Compiling entry function" in ln:
+        entry = ln.split("'")[1]
+    elif "Used" in ln and "registers" in ln and entry:
+        if "stacked_matmul" in entry:
+            print(f"ptxas {entry}: {ln.split(':', 1)[1].strip()}")
+        entry = None
+g = torch.Generator(device="cuda").manual_seed(3)
+n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+def timed(fn, iters=50):
+    for it in range(3): fn(it)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    for it in range(iters): fn(it)
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+L = 32
+for k_in, n_out in ((1280, 5120), (5120, 1280), (1280, 1280)):
+    w = (torch.randn((L, n_out, k_in), generator=g, device="cuda") * k_in**-0.5).bfloat16()
+    for B in (1, 8, 40):
+        x = torch.randn((B, k_in), generator=g, device="cuda").bfloat16()
+        o = K.stacked_matmul(x, w, 5).float()
+        ref = K.stacked_matmul_plain(x, w, 5).float()
+        err = ((o - ref).abs().max() / ref.abs().max()).item()
+        ms = timed(lambda it: K.stacked_matmul(x, w, it % L))
+        lib = timed(lambda it: torch.nn.functional.linear(x, w[it % L]))
+        bound = 2 * (n_out * k_in + B * k_in + B * n_out) / 3.35e12 * 1e3
+        grid = (f"grid {K.matmul_split(B, n_out, k_in, n_sm)} (n_split, cols, groups)"
+                if hasattr(K, "matmul_split") else "")
+        print(f"stacked_matmul B={B:2d} K={k_in} N={n_out}: {ms:.4f} ms, F.linear "
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it), err "
+              f"{err:.3g} of the output scale; {grid}", flush=True)
+    del w
+    torch.cuda.empty_cache()
+'''
+
+# ``matmul-splits``: the matmul timer's shapes at every split count (the
+# rule's own choice marked), the grid otherwise as ``matmul_split`` gives it
+MATMUL_SPLITS_TIMER = r'''
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+_build.library()
+g = torch.Generator(device="cuda").manual_seed(3)
+n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+def timed(fn, iters=50):
+    for it in range(3): fn(it)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    for it in range(iters): fn(it)
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+rule, L = K.matmul_split, 32
+for k_in, n_out in ((1280, 5120), (5120, 1280), (1280, 1280)):
+    w = (torch.randn((L, n_out, k_in), generator=g, device="cuda") * k_in**-0.5).bfloat16()
+    for B in (1, 8, 40):
+        x = torch.randn((B, k_in), generator=g, device="cuda").bfloat16()
+        lib = timed(lambda it: torch.nn.functional.linear(x, w[it % L]))
+        row = []
+        for s in range(1, 1 + min(K.MATMUL_MAX_SPLITS, -(-k_in // K.MATMUL_TILE))):
+            K.matmul_split = lambda *a, s=s: (s, *rule(*a)[1:])
+            row.append(f"{s}: {timed(lambda it: K.stacked_matmul(x, w, it % L)):.4f}")
+        K.matmul_split = rule
+        print(f"B={B:2d} K={k_in} N={n_out} (rule: {rule(B, n_out, k_in, n_sm)[0]} splits; "
+              f"F.linear {lib:.4f} ms) ms by splits: " + ", ".join(row), flush=True)
+    del w
+    torch.cuda.empty_cache()
+'''
+
+MEL_TIMER = r'''
+import importlib.util, sys, torch
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+# this checkout's chip_smoke.py (its inputs, witness and library yardstick), whatever the tree timed
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+make_audio, mel_library, mel_witness = smoke.make_audio, smoke.mel_library, smoke.mel_witness
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+from whisper_timestamped_tpu_torch.audio import (HOP_LENGTH, N_FFT, N_SAMPLES,
+                                                 _front_end_constants, _padded_audio)
+_build.library()
+if _build.BUILD_INFO.get("built"):  # the kernel's registers and spills, from ptxas
+    import os
+    log = open(os.path.join(os.path.dirname(_build.BUILD_INFO["path"]), "build.log")).read()
+    ptxas = log[log.index("log10_mel.cu"):].split("Compile time")[0].splitlines()
+    print("ptxas log10_mel: " + "; ".join(ln.strip() for ln in ptxas
+                                          if "spill" in ln or "registers" in ln))
+def timed(fn, iters=10):
+    for it in range(2): fn(it)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    for it in range(iters): fn(it)
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+cos_b, sin_b, mel_w = _front_end_constants(128, N_FFT, torch.device("cuda"))
+# chip_smoke.py [c]'s inputs: (g)'s first stack and a 10-minute stream
+rng = np.random.default_rng(40)
+secs = rng.integers(5, 36, 40)
+secs[::8] = 35
+stack = np.zeros((40, 35 * 16000), np.float32)
+for j, sec in enumerate(secs):
+    stack[j, : int(sec) * 16000] = make_audio(1000 + j, int(sec))
+# speech-like rows: 100-180 Hz harmonic series falling 1.5 decades of
+# power a harmonic, plus 1e-6 noise (most bins many decades below the
+# frame's peak: the kernel's dense refinement)
+t = np.arange(35 * 16000) / 16000.0
+tilted = np.zeros((40, t.size))
+for r in range(40):
+    f0 = 100.0 + 2.0 * r
+    for h in range(1, int(7900 // f0) + 1):
+        tilted[r] += 0.3 * 10.0 ** (-0.75 * (h - 1)) * np.sin(2 * np.pi * f0 * h * t + h)
+tilted = (tilted + 1e-6 * np.random.default_rng(41).standard_normal(tilted.shape)).astype(np.float32)
+# with thresholds after the checkout and chip_smoke.py: each in turn as
+# K.MEL_REFINE_BELOW, the kernel's refinement threshold
+cases = [(label, host, refine) for refine in (sys.argv[3:] or [None])
+         for label, host in (("[g] stack 40 x (35 s + 30 s)", stack),
+                             ("10-minute stream + 30 s", make_audio(7, 600)[None]),
+                             ("tilted harmonics 40 x (35 s + 30 s)", tilted))]
+for label, host, refine in cases:
+    if refine is not None:
+        K.MEL_REFINE_BELOW = float(refine)
+        label = f"{label}, refined below {refine} of the frame's peak"
+    x = _padded_audio(torch.from_numpy(host).cuda(), N_SAMPLES, N_FFT // 2)
+    raw_k = K.log10_mel(x, cos_b, sin_b, mel_w, HOP_LENGTH)
+    raw_p = K.log10_mel_plain(x, cos_b, sin_b, mel_w, HOP_LENGTH)
+    n_frames = raw_k.shape[-1]
+    exact = mel_witness(torch, x, mel_w, n_frames)
+    top = exact.amax(dim=(-2, -1), keepdim=True)
+    above, loud = exact >= top - 8.0, exact >= top - 6.0
+    above_p = raw_p >= raw_p.amax(dim=(-2, -1), keepdim=True) - 8.0
+    err_p = (raw_k - raw_p).abs()[above_p].max().item()
+    floor_p = (exact.float() - raw_p).abs()[above_p].max().item()
+    wk, wp = (raw_k.double() - exact).abs(), (raw_p.double() - exact).abs()
+    wl = (mel_library(torch, x, mel_w, n_frames).double() - exact).abs()
+    lib_err = f"{wl[loud].max().item():.3g} / {wl[above].max().item():.3g}"
+    del wl
+    del raw_k, raw_p, exact
+    ms = timed(lambda it: K.log10_mel(x, cos_b, sin_b, mel_w, HOP_LENGTH))
+    plain = timed(lambda it: K.log10_mel_plain(x, cos_b, sin_b, mel_w, HOP_LENGTH), iters=3)
+    lib = timed(lambda it: mel_library(torch, x, mel_w, n_frames))
+    bound = (x.numel() + x.shape[0] * 128 * n_frames) * 4 / 3.35e12 * 1e3
+    print(f"log10_mel {label} ({x.shape[0]} x {n_frames} frames): {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"library calls {lib:.4f} ms, bytes bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it); "
+          f"err vs plain {err_p:.3g} above max - 8 (the float64 witness rounded to f32 vs plain: "
+          f"{floor_p:.3g}); vs float64 loud / above: kernel "
+          f"{wk[loud].max().item():.3g} / {wk[above].max().item():.3g}, plain {wp[loud].max().item():.3g} / "
+          f"{wp[above].max().item():.3g}, library (cuFFT in f32) {lib_err}", flush=True)
+    del x, wk, wp
+    torch.cuda.empty_cache()
+'''
+
+
+def mel_accuracy(rows) -> None:
+    """Where ``log10_mel``'s FFT loses accuracy (on the CPU, no card): on
+    rows of ``chip_smoke.py`` [c]'s stack, the kernel's arithmetic emulated
+    from its plan (the passes, then the split into the real signal's bins
+    and the power, then the mel sums) with the passes and the split each in
+    float32 or float64, beside ``torch.fft.rfft`` in float32 and the plain
+    DFT product in float32, each against the float64 FFT: the largest
+    error on the cells within 6 decades of the row's loudest and on those
+    above the max - 8 floor."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from chip_smoke import make_audio
+    from whisper_timestamped_tpu_torch.audio import (HOP_LENGTH, N_FFT, N_SAMPLES, _dft_bases,
+                                                     _padded_audio, mel_filters)
+    from whisper_timestamped_tpu_torch.ops.kernels import mel_fft_plan
+
+    radices, tw, window = mel_fft_plan(N_FFT)
+    N, mel_w = N_FFT // 2, mel_filters(128, n_fft=N_FFT).astype(np.float64)
+    w64 = np.exp(-2j * np.pi * np.arange(N_FFT) / N_FFT)
+
+    def emulated(xw, passes64, split64):
+        ct = np.complex128 if passes64 else np.complex64
+        W = w64 if passes64 else (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+        z, ns = (xw[:, 0::2] + 1j * xw[:, 1::2]).astype(ct), 1
+        for R in radices:
+            j = np.arange(N // R)
+            k = j % ns
+            v = np.stack([z[:, j + r * (N // R)] for r in range(R)], -1)
+            v = v * W[k[:, None] * np.arange(R) * (N_FFT // (ns * R))]
+            v = v @ np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R).astype(ct).T
+            z = np.empty_like(z)
+            for r in range(R):
+                z[:, (j - k) * R + k + r * ns] = v[..., r]
+            ns *= R
+        st = np.complex128 if split64 else np.complex64
+        W = (w64 if split64 else (tw[:, 0] + 1j * tw[:, 1])).astype(st)
+        k = np.arange(N // 2 + 1)
+        a, c = z[:, k].astype(st), z[:, (N - k) % N].astype(st)
+        fe, u = (a + np.conj(c)) * st(0.5), W[k] * ((a - np.conj(c)) * st(-0.5j))
+        power = np.empty((len(xw), N + 1), np.float64 if split64 else np.float32)
+        power[:, N - k] = (fe - u).real ** 2 + (fe - u).imag ** 2
+        power[:, k] = (fe + u).real ** 2 + (fe + u).imag ** 2
+        return power
+
+    rng = np.random.default_rng(40)  # chip_smoke.py [c]'s stack
+    secs = rng.integers(5, 36, 40)
+    secs[::8] = 35
+    cos_b, sin_b = _dft_bases(N_FFT)
+    mel32 = mel_w.astype(np.float32)
+    for j in rows:
+        audio = np.zeros((1, 35 * 16000), np.float32)
+        audio[0, : int(secs[j]) * 16000] = make_audio(1000 + j, int(secs[j]))
+        x = _padded_audio(torch.from_numpy(audio), N_SAMPLES, N)[0].numpy()
+        n_frames = (len(x) - N_FFT) // HOP_LENGTH
+        frames = x[np.arange(n_frames)[:, None] * HOP_LENGTH + np.arange(N_FFT)[None, :]]
+        spec = np.fft.rfft(frames.astype(np.float64) * (0.5 - 0.5 * np.cos(
+            2 * np.pi * np.arange(N_FFT) / N_FFT)), axis=-1)
+        exact = np.log10(np.maximum((spec.real**2 + spec.imag**2) @ mel_w.T, 1e-10))
+        loud, above = exact >= exact.max() - 6.0, exact >= exact.max() - 8.0
+        xw = frames * window
+        spec32 = torch.fft.rfft(torch.from_numpy(xw)).numpy()
+        re, im = frames @ cos_b, frames @ sin_b
+        powers = {f"passes f{64 if p else 32}, split f{64 if q else 32}": emulated(xw, p, q)
+                  for p in (False, True) for q in (False, True)}
+        powers["torch.fft.rfft f32"] = (spec32.real**2 + spec32.imag**2).astype(np.float32)
+        powers["plain DFT product f32"] = re * re + im * im
+        out = []
+        for label, power in powers.items():
+            mel = power.astype(np.float64 if power.dtype == np.float64 else np.float32)
+            mel = mel @ (mel_w.T if power.dtype == np.float64 else mel32.T)
+            d = np.abs(np.log10(np.maximum(mel, 1e-10)) - exact)
+            out.append(f"{label} {d[loud].max():.3g} / {d[above].max():.3g}")
+        tone = (220.0 + 40 * (1000 + j)) % 16000
+        print(f"mel-accuracy row {j} ({secs[j]} s, tone {min(tone, 16000 - tone):.0f} Hz after "
+              f"aliasing), against float64, loud / above: " + "; ".join(out), flush=True)
+
+
 def run_tree(timer, tree, *args):
     """The timer's output on the checkout at ``tree``, in a process of its
     own with its own build directory."""
@@ -266,10 +624,10 @@ def run_tree(timer, tree, *args):
     return r.stdout.strip() if r.returncode == 0 else "FAILED " + r.stderr.strip()[-1500:]
 
 
-def time_trees(tag, timer, trees):
+def time_trees(tag, timer, trees, *args):
     for tree in trees or [HERE]:
         label = os.path.relpath(os.path.abspath(tree), HERE)
-        for ln in run_tree(timer, os.path.abspath(tree)).splitlines():
+        for ln in run_tree(timer, os.path.abspath(tree), *args).splitlines():
             print(f"{tag} [{label}] {ln}", flush=True)
 
 
@@ -297,6 +655,9 @@ def sweep_variants(tag, variants, timer, *args):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["mel-accuracy"]:
+        mel_accuracy([int(a) for a in sys.argv[2:]] or range(40))
+        return 0
     if not torch.cuda.is_available():
         print("torch_kernel_sweeps: needs a CUDA device", file=sys.stderr)
         return 1
@@ -304,7 +665,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     what = sys.argv[1:] or ["xattn", "flash"]
-    mode = next((m for m in ("decode", "step") if m in what), None)
+    mode = next((m for m in ("decode", "step", "matmul", "mel", "encoder") if m in what), None)
     trees = what[what.index(mode) + 1:] if mode else []
     if "xattn" in what[:len(what) - len(trees)]:
         for ln in run_tree(DECODE_TIMER, HERE, *XATTN_SETTINGS).splitlines():
@@ -313,10 +674,29 @@ def main() -> int:
         sweep_variants("flash", FLASH_VARIANTS, TIMER)
     if "pipeline" in what[:len(what) - len(trees)]:
         sweep_variants("pipeline", PIPELINE_VARIANTS, DECODE_TIMER, *PIPELINE_SETTINGS)
+    if "matmul-variants" in what[:len(what) - len(trees)]:
+        sweep_variants("matmul", MATMUL_VARIANTS, MATMUL_TIMER)
+    if "matmul-splits" in what[:len(what) - len(trees)]:
+        for ln in run_tree(MATMUL_SPLITS_TIMER, HERE).splitlines():
+            print(f"matmul-splits {ln}", flush=True)
+    if "mel-refine" in what[:len(what) - len(trees)]:
+        for ln in run_tree(MEL_TIMER, HERE, os.path.join(HERE, "chip_smoke.py"),
+                           "0", "1e-7", "1e-6", "1e-5").splitlines():
+            print(f"mel-refine {ln}", flush=True)
+    if "mel-refine-variants" in what[:len(what) - len(trees)]:
+        sweep_variants("mel", MEL_REFINE_VARIANTS, MEL_TIMER, os.path.join(HERE, "chip_smoke.py"))
+    if "mel-variants" in what[:len(what) - len(trees)]:
+        sweep_variants("mel", MEL_VARIANTS, MEL_TIMER, os.path.join(HERE, "chip_smoke.py"))
     if mode == "decode":
         time_trees("decode", DECODE_TIMER, trees)
     elif mode == "step":
         time_trees("step", STEP_TIMER, trees)
+    elif mode == "matmul":
+        time_trees("matmul", MATMUL_TIMER, trees)
+    elif mode == "mel":
+        time_trees("mel", MEL_TIMER, trees, os.path.join(HERE, "chip_smoke.py"))
+    elif mode == "encoder":
+        time_trees("encoder", TIMER, trees)
     return 0
 
 

@@ -58,10 +58,11 @@ SIGNATURES = {
     # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, layer, pos, B, ctx, D, H,
     # n_split, slots_per_split, warps, scale, stream
     "wtt_self_attn_decode_int8": [_P] * 9 + [_I] * 9 + [_F, _P],
-    # x, cos_b, sin_b, mel_w, out, B, L, n_fft, n_bins, n_mels, hop, stream
-    "wtt_log10_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w_all, out, layer, B, N, K, stream
-    "wtt_stacked_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, twiddles, window, cos_b, sin_b, bases_t, mel_w, out, radices (host int array),
+    # n_stages, B, L, n_fft, n_bins, n_mels, hop, refine_below, stream
+    "wtt_log10_mel": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # x, w_all, out, layer, L, B, N, K, cols, groups, n_split, stream
+    "wtt_stacked_matmul": [_P, _P, _P] + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

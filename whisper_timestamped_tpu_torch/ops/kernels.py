@@ -382,10 +382,18 @@ def _expect(name: str, cond: bool, what: str) -> None:
         raise ValueError(f"{name}: {what}")
 
 
-def _launch(name: str, fn_name: str, *args) -> None:
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+
+
+def _launch(name: str, fn_name: str, *args, refused: Optional[str] = None) -> None:
+    """Call the C entry point ``fn_name``; with ``refused``, its
+    cudaErrorInvalidValue (what it returns, launching nothing, for
+    arguments it does not take) raises ``ValueError`` with that text."""
     from ._build import library
 
     rc = getattr(library(), fn_name)(*args)
+    if rc == CUDA_ERROR_INVALID_VALUE and refused is not None:
+        raise ValueError(f"{name}: {refused}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1
@@ -767,11 +775,59 @@ def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer
     return out
 
 
+# the FFT's passes, taken greedily in this order: an odd first pass reads
+# the staged samples itself (csrc/log10_mel.cu), so 5 and 3 come first
+MEL_RADICES = (5, 3, 8, 4, 2)
+# a bin whose FFT power is below this share of its frame's largest is
+# recomputed by the plain version's sums (csrc/log10_mel.cu, "Refinement")
+MEL_REFINE_BELOW = 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def mel_fft_plan(n_fft: int) -> Tuple[Tuple[int, ...], np.ndarray, np.ndarray]:
+    """(radices, twiddles, window) of ``log10_mel``'s real FFT of n_fft
+    samples, taken as an N = n_fft / 2-point complex FFT of the frame's
+    (even, odd) sample pairs: the radices of its Stockham passes (each 5,
+    3, 8, 4 or 2, greedily in that order; their product N), whose output is
+    in natural bin order; the twiddles exp(-2 pi i m / n_fft) for m < n_fft,
+    (n_fft, 2) as (cos, -sin); the periodic Hann window (n_fft). Both are
+    computed in float64 and rounded to float32 (the window equals column 0
+    of ``audio._dft_bases``' cos basis). Pass s (after passes whose
+    radices multiply to ns) twiddles element r of butterfly j by
+    twiddles[(j mod ns) r n_fft / (ns R)]; the split into the real signal's
+    bins uses twiddles[k]. Raises ``ValueError`` unless n_fft is an even
+    2^a 3^b 5^c of at least 4."""
+    if n_fft < 4 or n_fft % 2:
+        raise ValueError(f"log10_mel: no FFT plan for n_fft={n_fft} (an even 2^a 3^b 5^c)")
+    radices, rest = [], n_fft // 2
+    for r in MEL_RADICES:
+        while rest % r == 0:
+            radices.append(r)
+            rest //= r
+    if rest != 1:
+        raise ValueError(f"log10_mel: no FFT plan for n_fft={n_fft} (an even 2^a 3^b 5^c)")
+    angle = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    twiddles = np.stack([np.cos(angle), -np.sin(angle)], -1).astype(np.float32)
+    return tuple(radices), twiddles, (0.5 * (1.0 - np.cos(angle))).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _mel_plan_tensors(n_fft: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    _, twiddles, window = mel_fft_plan(n_fft)
+    return torch.as_tensor(twiddles, device=device), torch.as_tensor(window, device=device)
+
+
 def log10_mel(x, cos_b, sin_b, mel_w, hop: int):
     """log10 mel spectrogram of reflect-padded audio (see
-    ``log10_mel_plain``), framed by the kernel itself. On CUDA: f32,
-    contiguous, n_fft a multiple of 16, hop of 4, at least one frame.
-    Returns (B, n_mels, n_frames) f32, contiguous."""
+    ``log10_mel_plain``), framed by the kernel itself. On CUDA the kernel
+    takes the frames' real FFT (``mel_fft_plan``: its twiddles and window)
+    in place of the DFT product, and recomputes the bins below
+    MEL_REFINE_BELOW of their frame's largest power from cos_b and sin_b
+    as the plain version sums them. f32, contiguous, n_fft an even
+    2^a 3^b 5^c whose tables and buffers fit in a block's shared memory,
+    hop a multiple of 4, at least one frame;
+    anything else raises ``ValueError`` (the kernel's entry point refuses
+    what does not fit). Returns (B, n_mels, n_frames) f32, contiguous."""
     name = "log10_mel"
     if not _on_cuda(name, x, cos_b, sin_b, mel_w):
         return log10_mel_plain(x, cos_b, sin_b, mel_w, hop)
@@ -784,24 +840,52 @@ def log10_mel(x, cos_b, sin_b, mel_w, hop: int):
     B, L = x.shape
     n_fft, n_bins = cos_b.shape
     n_mels = mel_w.shape[0]
-    n_frames = (L - n_fft) // hop if L >= n_fft else 0
-    # the shared memory of a 64-frame tile: its samples, its power spectrum
-    # (odd row stride) and two 16 x 64 basis chunks
-    smem = 4 * ((63 * hop + n_fft + 3) // 4 * 4 + 64 * (n_bins | 1) + 2 * 16 * 64)
-    _expect(name, n_fft % 16 == 0 and hop % 4 == 0 and hop > 0 and smem <= 232448,
-            f"unsupported n_fft={n_fft} hop={hop}")
-    _expect(name, n_frames > 0 and 0 < B <= 65535 and n_mels > 0,
-            f"unsupported B={B} L={L} n_mels={n_mels}")
+    _expect(name, n_bins == n_fft // 2 + 1, f"bases of {n_bins} bins for n_fft={n_fft}")
+    radices = mel_fft_plan(n_fft)[0]
+    n_frames = (L - n_fft) // hop if L >= n_fft and hop > 0 else 0
+    _expect(name, n_frames > 0 and B > 0 and n_mels > 0,
+            f"unsupported B={B} L={L} n_mels={n_mels} hop={hop}")
     out = torch.empty((B, n_mels, n_frames), dtype=torch.float32, device=x.device)
-    _launch(name, "wtt_log10_mel", x.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
-            mel_w.data_ptr(), out.data_ptr(), B, L, n_fft, n_bins, n_mels, hop, _stream(x))
+    twiddles, window = _mel_plan_tensors(n_fft, x.device)
+    bases_t = torch.stack((cos_b.T, sin_b.T))  # (2, n_bins, n_fft): a bin's basis contiguous
+    _launch(name, "wtt_log10_mel", x.data_ptr(), twiddles.data_ptr(), window.data_ptr(),
+            cos_b.data_ptr(), sin_b.data_ptr(), bases_t.data_ptr(), mel_w.data_ptr(), out.data_ptr(),
+            (ctypes.c_int * len(radices))(*radices), len(radices), B, L, n_fft, n_bins, n_mels,
+            hop, MEL_REFINE_BELOW, _stream(x),
+            refused=f"unsupported n_fft={n_fft} hop={hop} n_mels={n_mels} (hop a multiple of 4, "
+                    "the tables and buffers within a block's shared memory)")
     return out
+
+
+MATMUL_TILE = 64  # output features a block, and k a tile
+MATMUL_COLS = (8, 16, 32, 64, 128, 256)  # the batch widths a block is built for (wgmma's N)
+MATMUL_MAX_SPLITS = 8  # the k-splits of a tile merge in one (portable) block cluster
+MATMUL_MAX_ROWS = 256 * 65535  # the rows of x one launch takes (65535 column groups)
+
+
+def matmul_split(B: int, N: int, K: int, n_sm: int) -> Tuple[int, int, int]:
+    """(n_split, cols, groups) of ``stacked_matmul``'s grid: B is cut into
+    ``groups`` column groups of at most 256, each run by blocks built for
+    ``cols`` batch columns (the group rounded up to one of MATMUL_COLS); a
+    block owns 64 output features and one of ``n_split`` ranges of the
+    whole 64-wide k-tiles, split s taking tiles [s T / n_split, (s + 1) T /
+    n_split) of T. K is split only while the ceil(N / 64) * groups blocks
+    leave multiprocessors idle, into the fewest splits that give every one
+    a block (at most MATMUL_MAX_SPLITS and T): more splits only add merge
+    work (tools/torch_kernel_sweeps.py ``matmul``)."""
+    groups = -(-B // 256)
+    per = -(-B // groups)
+    cols = next(c for c in MATMUL_COLS if c >= per)
+    blocks = -(-N // MATMUL_TILE) * groups
+    k_tiles = -(-K // MATMUL_TILE)
+    return max(1, min(-(-n_sm // blocks), k_tiles, MATMUL_MAX_SPLITS)), cols, groups
 
 
 def stacked_matmul(x, w_all, layer: int):
     """x (B, K) @ w_all[layer]^T without a copy of the layer's slice (see
     ``stacked_matmul_plain``). On CUDA: bf16, contiguous, 16-byte aligned,
-    K a multiple of 8. Returns (B, N) bf16."""
+    K a multiple of 8; any B >= 1 (a launch for each MATMUL_MAX_ROWS rows)
+    and N up to 16 * 65535. Returns (B, N) bf16."""
     name = "stacked_matmul"
     if not _on_cuda(name, x, w_all):
         return stacked_matmul_plain(x, w_all, layer)
@@ -811,9 +895,13 @@ def stacked_matmul(x, w_all, layer: int):
     B, K = x.shape
     L, N, Kw = w_all.shape
     _expect(name, Kw == K, f"x (B, {K}) against w_all (L, N, {Kw})")
-    _expect(name, K % 8 == 0 and 0 < B and 0 < N <= 16 * 65535, f"unsupported B={B} N={N} K={K}")
+    _expect(name, K % 8 == 0 and 0 < K and 0 < B and 0 < N <= 16 * 65535,
+            f"unsupported B={B} N={N} K={K}")
     _expect(name, 0 <= layer < L, f"layer {layer} out of range")
     out = torch.empty((B, N), dtype=torch.bfloat16, device=x.device)
-    _launch(name, "wtt_stacked_matmul", x.data_ptr(), w_all.data_ptr(), out.data_ptr(), layer,
-            B, N, K, _stream(x))
+    for b0 in range(0, B, MATMUL_MAX_ROWS):  # the grid's column groups stop at 65535
+        rows = min(B - b0, MATMUL_MAX_ROWS)
+        n_split, cols, groups = matmul_split(rows, N, K, _sm_count(x.device))
+        _launch(name, "wtt_stacked_matmul", x[b0:].data_ptr(), w_all.data_ptr(),
+                out[b0:].data_ptr(), layer, L, rows, N, K, cols, groups, n_split, _stream(x))
     return out
