@@ -71,7 +71,9 @@ times ``xattn_decode_int8`` at B=1, 8 and 40 beside the bf16 kernel,
 ``self_attn_decode_int8`` with its quantized row write at B=1, 8 and 40
 and pos 232 and 455 beside ``self_attn_decode`` with its write, each with
 its grid and bound. It covers the per-segment route's ``attention_to_cost``,
-``median9`` and ``dtw_path`` (``dtw_codes`` at S=1),
+``median9`` and ``dtw_path`` (``dtw_codes.cu``'s DP and walk at S=1), the
+whole batched aligner at (g)'s flush shape against the old path (window
+copies, codes, a Python backtrace) with the DTW's chain floor,
 ``log10_mel`` on (g)'s stack of 40 streams and on a 10-minute stream
 against its plain version and a float64 FFT of the same frames (the
 witness), beside the same function as several library calls (cuFFT's
@@ -223,7 +225,7 @@ def phase_kernels(torch, K, device):
     print beside the quantized kernels': ``xattn_decode``'s by batch (without,
     with scores) under "xattn", ``self_attn_decode``'s with the row write by
     (batch, pos) under "self"."""
-    from whisper_timestamped_tpu_torch.device_align import M_PAD, _backtrace_batch
+    from whisper_timestamped_tpu_torch.device_align import M_PAD
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=device).manual_seed(0)
@@ -379,13 +381,17 @@ def phase_kernels(torch, K, device):
         dims = dims.to(torch.int32).to(device)
         scores = randn(S, Kh, N, M, dtype=torch.float32, scale=3.0)
         c_k = K.align_cost(scores, dims)
+        again = K.align_cost(scores, dims)
         torch.cuda.synchronize()
         c_p = K.align_cost_plain(scores, dims)
         if not torch.allclose(c_k, c_p, rtol=1e-5, atol=1e-6):
             fail(f"align_cost disagrees at N={N}: max abs {(c_k - c_p).abs().max().item():.3g}")
+        if not torch.equal(c_k, again):
+            fail(f"align_cost differs from run to run at N={N}")
         err_c = max(err_c, (c_k - c_p).abs().max().item())
-        # DTW on the same cost: codes equal where written, jumps equal
+        # DTW on the same cost: codes equal where written, start frames equal
         d_k = K.dtw_codes(c_p, dims)
+        st_k = K.dtw_starts(c_p, dims)
         torch.cuda.synchronize()
         d_p = K.dtw_codes_plain(c_p, dims)
         dh = dims.cpu()
@@ -393,19 +399,12 @@ def phase_kernels(torch, K, device):
             nd = int(dh[s, 0] + dh[s, 1] - 1)
             if not torch.equal(d_k[s, :nd], d_p[s, :nd]):
                 fail(f"dtw_codes differs at N={N} segment {s}")
-        steps = int((dh[:, 0] + dh[:, 1] - 1).max())
-        st_k = _backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps)
-        st_p = _backtrace_batch(d_p, dims[:, 0], dims[:, 1], steps)
-        if not torch.equal(st_k, st_p):
-            fail(f"jumps differ at N={N}")
+        if not torch.equal(st_k, K.dtw_starts_plain(c_p, dims)):
+            fail(f"dtw_starts (the DP with its walk) differs from its plain version at N={N}")
         if N == 256:
             timed = (scores, dims, c_p, dh)
-        t0 = time.perf_counter()
-        _backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps)
-        torch.cuda.synchronize()
-        bt_ms = (time.perf_counter() - t0) * 1e3
-        print(f"[c] align_cost N={N}: max abs err {err_c:.3g} (rtol 1e-5, atol 1e-6); "
-              f"dtw_codes N={N}: codes and jumps equal; backtrace {steps} steps: {bt_ms:.1f} ms")
+        print(f"[c] align_cost N={N}: max abs err {err_c:.3g} (rtol 1e-5, atol 1e-6), equal from run "
+              f"to run; dtw_codes N={N}: codes equal, the walk's start frames equal")
     scores, dims, cost, dh = timed
     # the work this data needs: the valid (token, frame) cells of each segment
     cells = int((dh[:, 0].long() * dh[:, 1].long()).sum())
@@ -417,16 +416,26 @@ def phase_kernels(torch, K, device):
     b_ms, b_by = bound(Kh * cells * 4 + S * 256 * M * 4, 48 * Kh * cells, F32_FLOPS)
     rec["align_cost"] = dict(max_abs_err=err_c, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    ms_d = cuda_time_ms(lambda it=0: K.dtw_codes(cost, dims), iters=10)
-    plain_d = cuda_time_ms(lambda it=0: K.dtw_codes_plain(cost, dims), iters=2)
-    # reads each valid cost cell once, writes its step code once; ~6 ops a cell
-    bd_ms, bd_by = bound(cells * 4 + cells * 4, 6 * cells, F32_FLOPS)
+    ms_d = cuda_time_ms(lambda it=0: K.dtw_starts(cost, dims), iters=10)
+    plain_d = cuda_time_ms(lambda it=0: K.dtw_starts_plain(cost, dims), iters=2)
+    codes_ms = cuda_time_ms(lambda it=0: K.dtw_codes(cost, dims), iters=10)
+    # reads each valid cost cell once, writes the start frames; ~6 ops a cell
+    bd_ms, bd_by = bound(cells * 4 + S * 256 * 4, 6 * cells, F32_FLOPS)
+    steps = int((dh[:, 0] + dh[:, 1] - 1).max())
+    floor_ms = steps * dtw_step_ns(torch, device) * 1e-6
+    # the record times the DP with its walk (dtw_starts), what the main path
+    # runs; codes_ms is the same kernel writing the int32 codes (dtw_codes)
     rec["dtw_codes"] = dict(max_abs_err=0.0, ms=ms_d, plain_ms=plain_d,
-                            bound_ms=bd_ms, bound_by=bd_by, library_ms=None)
+                            bound_ms=bd_ms, bound_by=bd_by, library_ms=None,
+                            function="dtw_starts", codes_ms=codes_ms)
     print(f"[c] S=8 K=10 N=256 M=1536 ({cells} valid cells): align_cost {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); dtw_codes {ms_d:.4f} ms vs plain "
-          f"{plain_d:.4f} ms, bound {bd_ms:.4f} ms ({bd_by}); no single PyTorch call computes either")
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the DTW with its walk (dtw_starts) "
+          f"{ms_d:.4f} ms vs plain (codes + the Python backtrace) {plain_d:.4f} ms, bound "
+          f"{bd_ms:.4f} ms ({bd_by}), chain floor {floor_ms:.4f} ms ({steps} dependent steps); "
+          f"the same kernel writing the int32 codes instead {codes_ms:.4f} ms; no single PyTorch "
+          f"call computes either")
     del scores, cost
+    phase_aligner(torch, K, device)
 
     # --- flash_attention: the encoder at B=1 and B=8, the 232-slot prefill ---
     P = 232
@@ -472,6 +481,126 @@ def phase_kernels(torch, K, device):
         torch.cuda.empty_cache()
     rec["flash_attention"]["max_abs_err"] = err_f
     return rec, dict(xattn=bf16_ms, self=self_ms)
+
+
+def dtw_step_ns(torch, device, steps: int = 1 << 20) -> float:
+    """The DP's chain floor a step: one warp's dependent shuffle + min + add
+    steps (``wtt_dtw_chain``), ns a step from CUDA events over one launch."""
+    import ctypes
+
+    from whisper_timestamped_tpu_torch.ops import _build
+
+    out = torch.empty(32, dtype=torch.float32, device=device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    lib = _build.library()
+    if lib.wtt_dtw_chain(out.data_ptr(), 1024, stream) != 0:
+        fail("the DTW chain probe did not launch")
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    lib.wtt_dtw_chain(out.data_ptr(), steps, stream)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) * 1e6 / steps
+
+
+def old_align_jumps(torch, K, attn_flat, rows, dims):
+    """The aligner as the parent tree ran it: a Python loop of S window
+    copies into a zeroed (S, K, N, 1536) tensor, the pre-sliced cost, the
+    int32 codes, and the backtrace as a Python loop of small tensor ops."""
+    from whisper_timestamped_tpu_torch.device_align import M_PAD
+
+    S, N = rows.shape
+    K_, T = attn_flat.shape[1], attn_flat.shape[2]
+    rows_t = torch.as_tensor(rows, dtype=torch.long, device=attn_flat.device)
+    sliced = torch.zeros((S, K_, N, M_PAD), dtype=torch.float32, device=attn_flat.device)
+    for s in range(S):
+        st = int(dims[s, 3])
+        w = min(M_PAD, T - st)
+        sliced[s, :, :, :w] = attn_flat[rows_t[s], :, st : st + w].transpose(0, 1)
+    dims_t = torch.as_tensor(dims, dtype=torch.int32, device=attn_flat.device)
+    cost = K.align_cost(sliced, dims_t)
+    codes = K.dtw_codes(cost, dims_t)
+    steps = int((dims[:, 0] + dims[:, 1] - 1).max())
+    return K.backtrace_batch(codes, dims_t[:, 0], dims_t[:, 1], steps), cost
+
+
+def phase_aligner(torch, K, device):
+    """(c): the whole batched aligner (``device_align._align_jumps``: the
+    gather-form cost and the DTW with its walk, two kernel calls) at (g)'s
+    flush shape: 32 segments (S_pad) of up to 256 token rows (n_pad), K=10,
+    read from a (40 * 224, 10, 1500) attention buffer. The cost against its
+    plain version (rtol 1e-5 / atol 1e-6), the start frames against the
+    plain version's and the old path's (``old_align_jumps``), equal; both
+    paths timed on the host clock (each ending in a synchronize) and the
+    gather-form cost alone by CUDA events, beside its bound."""
+    import numpy as np
+
+    from whisper_timestamped_tpu_torch.device_align import M_PAD, _align_jumps
+
+    rng = np.random.default_rng(32)
+    R, Kh, T, S, N = 40 * 224, 10, 1500, 32, 256
+    attn = torch.randn((R, Kh, T), generator=torch.Generator(device=device).manual_seed(32),
+                       device=device) * 3.0
+    n_tok = rng.integers(2, N + 1, S)
+    span = np.minimum(n_tok + rng.integers(0, 1400, S), 1500)
+    start = rng.integers(0, T - span + 1)
+    maxdur = np.where(np.arange(S) % 2 == 0, M_PAD, span // 2)
+    dims = np.stack([n_tok, span, maxdur, start], 1).astype(np.int32)
+    rows = rng.integers(0, R, (S, N))
+    K.reset_launches()
+    starts, cost = _align_jumps(attn, rows, dims)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if launches["align_cost"] != 1 or launches["dtw_codes"] != 1:
+        fail(f"the aligner is not one align_cost and one dtw_codes call: {launches}")
+    rows_t = torch.as_tensor(rows, dtype=torch.int32, device=device)
+    dims_t = torch.as_tensor(dims, device=device)
+    c_p = K.align_cost_gather_plain(attn, rows_t, dims_t, M_PAD)
+    err = (cost - c_p).abs().max().item()
+    if not torch.allclose(cost, c_p, rtol=1e-5, atol=1e-6):
+        fail(f"align_cost_gather disagrees at (g)'s flush shape: max abs {err:.3g}")
+    del c_p
+    if not torch.equal(starts, K.dtw_starts_plain(cost, dims_t)):
+        fail("the aligner's start frames differ from the plain walk's")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_old = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        old_starts, _ = old_align_jumps(torch, K, attn, rows, dims)
+        torch.cuda.synchronize()
+        t_old.append(time.perf_counter() - t0)
+    old_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # the old path's cost (pre-sliced windows) rounds its softmax sums in
+    # another order, so a near tie may fall the other way: counted, not held
+    differ = int((old_starts != starts).any(dim=1).sum())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_new = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _align_jumps(attn, rows, dims)
+        torch.cuda.synchronize()
+        t_new.append(time.perf_counter() - t0)
+    new_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms = cuda_time_ms(lambda it=0: K.align_cost_gather(attn, rows_t, dims_t, M_PAD), iters=10)
+    cells = int((dims[:, 0].astype(np.int64) * dims[:, 1]).sum())
+    b_ms, b_by = bound(Kh * cells * 4 + S * N * M_PAD * 4, 48 * Kh * cells, F32_FLOPS)
+    ms_d = cuda_time_ms(lambda it=0: K.dtw_starts(cost, dims_t), iters=10)
+    steps = int((dims[:, 0] + dims[:, 1] - 1).max())
+    floor_ms = steps * dtw_step_ns(torch, device) * 1e-6
+    print(f"[c] the aligner at (g)'s flush shape (S=32, n_pad 256, K=10, a (8960, 10, 1500) "
+          f"buffer, {cells} valid cells): {1e3 * min(t_new):.3f} ms host clock "
+          f"({', '.join(f'{1e3 * t:.3f}' for t in t_new)}), transient peak +{new_peak:.3f} GB; the "
+          f"old path (S window copies, codes, Python backtrace) {1e3 * min(t_old):.1f} ms "
+          f"({', '.join(f'{1e3 * t:.1f}' for t in t_old)}), +{old_peak:.3f} GB; start frames equal to "
+          f"the plain walk's; {differ} of {S} segments' start frames differ from the old path's; "
+          f"cost vs plain max abs {err:.3g}; align_cost_gather {ms:.4f} ms (bound {b_ms:.4f} ms, "
+          f"{b_by}), dtw_starts {ms_d:.4f} ms (chain floor {floor_ms:.4f} ms, {steps} steps)")
+    del attn, cost, starts, old_starts
+    torch.cuda.empty_cache()
 
 
 # The quantized kernels' output limits. The cross kernels against their
@@ -657,7 +786,7 @@ def phase_segment_kernels(torch, K, device):
     M=1536 frames (1500 real), padded as the aligner pads them.
     ``attention_to_cost`` at rtol 1e-5 / atol 1e-6 (f32 sums in another
     order), ``median9`` on the same array equal (a selection), the
-    ``dtw_codes`` route of ``dtw_path`` (S=1, rows padded to 32) on that cost
+    one-launch DP and walk of ``dtw_path`` (S=1) on that cost
     with the host's origin edit: the same path as the plain version's. No
     single PyTorch call computes any of them: library none. Returns the
     records of ``attention_to_cost`` and ``median9`` (with ``median9``'s
@@ -680,10 +809,13 @@ def phase_segment_kernels(torch, K, device):
     del m_k
     weights = c_p[:n_tok, :span].clone()
     weights[0, 0] = weights.min()  # the host's origin edit (no max-duration mask here)
+    before = K.LAUNCHES["dtw_codes"]
     path_k = K.dtw_path(weights)
-    path_p = K.dtw_path(weights.cpu())
+    if K.LAUNCHES["dtw_codes"] != before + 1:
+        fail("dtw_path did not launch the DTW kernel once")
+    path_p = K.dtw_path_plain(weights)
     if not all((a == b).all() for a, b in zip(path_k, path_p)):
-        fail("dtw_path through dtw_codes differs from its plain version")
+        fail("dtw_path (the kernel's own walk) differs from its plain version")
     rec = {}
     valid = Kh * n_tok * span
     ms = cuda_time_ms(lambda it=0: K.attention_to_cost(scores, span, n_tokens=n_tok), iters=10)
@@ -704,24 +836,25 @@ def phase_segment_kernels(torch, K, device):
                           library_ms=None)
     print(f"[c] median9 (26880, 1536): equal to the plain version; {ms:.4f} ms vs plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    # dtw_path: the kernel's step codes at S=1 (timed alone), then the host backtrace
-    Np = -(-n_tok // 32) * 32
-    padded = torch.full((1, Np, span), K.DTW_INF, dtype=torch.float32, device=device)
-    padded[0, :n_tok] = weights
+    # dtw_path: the DP and the walk in one launch (timed alone), then the whole call
     dims = torch.tensor([[n_tok, span, 0, 0]], dtype=torch.int32, device=device)
-    ms_d = cuda_time_ms(lambda it=0: K.dtw_codes(padded, dims), iters=10)
-    plain_d = cuda_time_ms(lambda it=0: K.dtw_codes_plain(padded, dims), iters=2)
+    out = torch.empty(1 + 2 * (n_tok + span - 1), dtype=torch.int32, device=device)
+    ms_d = cuda_time_ms(lambda it=0: K._dtw("dtw_path", weights[None], dims, path=out), iters=10)
+    plain_d = cuda_time_ms(lambda it=0: K.dtw_codes_plain(weights[None], dims), iters=2)
     cells = n_tok * span
-    bd_ms, bd_by = bound(cells * 4 + cells * 4, 6 * cells, F32_FLOPS)
-    t0 = time.perf_counter()
-    K.dtw_path(weights)
-    path_ms = (time.perf_counter() - t0) * 1e3
-    print(f"[c] dtw_path (dtw_codes at S=1, N=224 of 200 rows, M=1500): path equal to the plain "
-          f"version's ({len(path_k[0])} steps); codes {ms_d:.4f} ms vs plain {plain_d:.4f} ms, bound "
-          f"{bd_ms:.4f} ms ({bd_by}); whole call with the copy and the host backtrace "
-          f"{path_ms:.2f} ms (host clock)")
+    bd_ms, bd_by = bound(cells * 4 + 2 * (n_tok + span) * 4, 6 * cells, F32_FLOPS)
+    floor_ms = (n_tok + span - 1) * dtw_step_ns(torch, device) * 1e-6
+    t_call = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        K.dtw_path(weights)
+        t_call.append((time.perf_counter() - t0) * 1e3)
+    print(f"[c] dtw_path (n=200, m=1500): path equal to the plain version's ({len(path_k[0])} "
+          f"steps); the kernel (DP and walk) {ms_d:.4f} ms vs plain codes {plain_d:.4f} ms, bound "
+          f"{bd_ms:.4f} ms ({bd_by}), chain floor {floor_ms:.4f} ms; whole call with the path's "
+          f"copy {min(t_call):.3f} ms (host clock, {', '.join(f'{t:.3f}' for t in t_call)})")
     rec["median9"]["launches"] = K.LAUNCHES["median9"]
-    del scores, rows, c_k, c_p, padded
+    del scores, rows, c_k, c_p, out
     torch.cuda.empty_cache()
     return rec
 
@@ -1021,6 +1154,8 @@ def phase_end_to_end(torch, K, model, tok, label: str = "", expect_launches: boo
         fail("no request produced words")
     if expect_launches and not all(launches[k] for k in BF16_PATH):
         fail(f"a kernel was not launched on the serial path: {launches}")
+    if launches["align_cost"] != launches["dtw_codes"]:
+        fail(f"the aligner is not one align_cost and one dtw_codes launch a batch: {launches}")
     if any(launches[k] for k in QUANT_PATH):
         fail(f"a quantized-cache kernel ran on the bf16 path: {launches}")
     steps = counts.get("decode_steps", 0)
@@ -1183,6 +1318,12 @@ def phase_reference_encode(torch, K, model):
             print(f"[e] encoder stage, large-v3, B={B}, 32 layers: " + "; ".join(line))
 
 
+def stage_line(timings: dict, name: str) -> str:
+    """A stage's total seconds and calls, as the stage timer kept them."""
+    t = timings.get(name)
+    return f"{t['total_s']:.3f} s over {t['count']} calls" if t else "not run"
+
+
 def phase_batch(torch, K, model, tok):
     """(f): the batched serving path at B=8, two batches of 8 streams."""
     from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_batch_stream
@@ -1232,8 +1373,12 @@ def phase_batch(torch, K, model, tok):
     if launches["self_attn_decode"] < 32 * steps:
         fail(f"self_attn_decode launched {launches['self_attn_decode']} times for {steps} decode "
              f"steps (expected >= 32 per step)")
+    if launches["align_cost"] != launches["dtw_codes"]:
+        fail(f"the batched aligner is not one align_cost and one dtw_codes launch a batch: {launches}")
     print(f"[f] launches on the batched path: {launches}; {iterations} window iterations, "
           f"{steps} decode steps")
+    print(f"[f] batch_align: {stage_line(timings, 'batch_align')}; aligner batches (align_cost "
+          f"+ dtw_codes calls): {launches['align_cost']}")
     print(f"[f] transcribe_batch_stream, 2 batches x 8 streams ({audio_s} s of audio), B=8: "
           f"{wall:.2f} s wall, batches yielded at {[round(a, 2) for a in at]} s, "
           f"{wall / len(batches):.2f} s per batch, {audio_s / wall:.2f} audio-s per s, "
@@ -1319,6 +1464,11 @@ def phase_production(torch, K, model, tok, turns: bool = False):
               f"steps, {counts.get('decode_dispatch', 0)} window iterations, peak memory "
               f"{peak_gb:.2f} GB, {sum(words.values())} words "
               f"({len(words) - len(silent)} of {len(words)} streams with words)")
+        if not launches["align_cost"] or launches["align_cost"] != launches["dtw_codes"]:
+            fail(f"[g] {label}: the batched aligner is not one align_cost and one dtw_codes "
+                 f"launch a batch: {launches}")
+        print(f"[g] {label} batch_align: {stage_line(timings, 'batch_align')}; aligner batches "
+              f"{launches['align_cost']}")
         print(f"[g] {label} launches: {launches}; stages: "
               + ", ".join(f"{k} {v['total_s']:.2f}s/{v['count']}" for k, v in sorted(timings.items())))
         del got, engine

@@ -80,9 +80,10 @@ def test_attention_to_cost_matches_pallas(Kh, N, M, n_tokens, span):
 
 @pytest.mark.parametrize("shape", [(4, 7), (17, 99), (23, 151), (33, 128)])
 def test_dtw_path_kernel_route_matches_pallas(shape):
-    """``dtw_path`` (``dtw_codes`` at S=1, rows padded to 32) against
-    ``dtw_path_pallas`` (rows padded to 16, frames to 128): equal paths, so
-    the padding does not reach the result."""
+    """``dtw_path`` (on a CPU tensor its plain version: the codes at S=1,
+    then the host walk) against ``dtw_path_pallas`` (rows padded to 16,
+    frames to 128): equal paths, so the padding does not reach the
+    result."""
     rng = np.random.default_rng(shape[0] * 1000 + shape[1])
     x = -rng.random(shape).astype(np.float32)
     i1j, i2j = dtw_path_pallas(x, interpret=True)

@@ -9,11 +9,14 @@ The first test builds the kernels with nvcc into build/. Shapes are the
 large-v3 main path's (D=1280, H=20, T=1500, ctx=456, M=1536).
 """
 
+import math
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from whisper_timestamped_tpu_torch.device_align import M_PAD, _backtrace_batch  # noqa: E402
+from whisper_timestamped_tpu_torch.device_align import M_PAD  # noqa: E402
 from whisper_timestamped_tpu_torch.ops import kernels as K  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -305,8 +308,155 @@ def test_align_cost_and_dtw_kernels_match_plain(cuda, N):
         nd = int(dims[s, 0] + dims[s, 1] - 1)
         assert torch.equal(d_k[s, :nd], d_p[s, :nd])
     steps = int((dims[:, 0] + dims[:, 1] - 1).max())
-    assert torch.equal(_backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps),
-                       _backtrace_batch(d_p, dims[:, 0], dims[:, 1], steps))
+    assert torch.equal(K.backtrace_batch(d_k, dims[:, 0], dims[:, 1], steps),
+                       K.backtrace_batch(d_p, dims[:, 0], dims[:, 1], steps))
+
+
+def _segments(gen, S, N, M, kind, device):
+    """(cost (S, N, M) f32, dims (S, 4) int32): segment 0 full, the others
+    random extents; "ties" small integer costs, "dummies" the aligner's
+    2 x 2 padding segments, "thin" one-row and one-column segments."""
+    n = torch.randint(1, N + 1, (S,), generator=gen)
+    m = torch.randint(1, M + 1, (S,), generator=gen)
+    n[0], m[0] = N, M
+    if kind == "ties":
+        cost = -torch.randint(0, 3, (S, N, M), generator=gen).float()
+    else:
+        cost = -torch.rand((S, N, M), generator=gen)
+    if kind == "dummies":
+        n[1:], m[1:] = 2, 2
+    elif kind == "thin":
+        n[1], m[2], n[3], m[3] = 1, 1, 1, 1
+    dims = torch.stack([n, m, torch.full((S,), M), torch.zeros(S, dtype=torch.long)], 1)
+    return cost.to(device), dims.to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "dummies", "thin"])
+@pytest.mark.parametrize("N,M", [(64, 1536), (128, 1536), (256, 1536), (384, 1536), (512, 1536),
+                                 (1024, 700), (1024, 1536), (96, 1499)])
+def test_dtw_starts_kernel_matches_plain(cuda, kind, N, M):
+    """The DP and its walk in one launch: start frames equal to the plain
+    version's bit for bit (blocks of 1, 2, 4, 6 and 8 warps, by the warp
+    rule; at N=1024, M=1536 the walk's codes do not fit in shared memory and
+    stay in device memory; M=1499 is padded to a multiple of 4), and the
+    codes of the same kernel equal to ``dtw_codes_plain`` where the segment
+    writes them."""
+    cost, dims = _segments(torch.Generator().manual_seed(N + M), 4, N, M, kind, cuda)
+    before = K.LAUNCHES["dtw_codes"]
+    st_k = K.dtw_starts(cost, dims)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["dtw_codes"] == before + 1
+    assert torch.equal(st_k, K.dtw_starts_plain(cost, dims))
+    d_k = K.dtw_codes(cost, dims)
+    torch.cuda.synchronize()
+    d_p = K.dtw_codes_plain(cost, dims)
+    for s in range(4):
+        nd = int(dims[s, 0] + dims[s, 1] - 1)
+        assert torch.equal(d_k[s, :nd], d_p[s, :nd])
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("n,m", [(1, 9), (9, 1), (17, 1500), (200, 1500), (226, 1499), (700, 900)])
+def test_dtw_path_kernel_matches_plain(cuda, kind, n, m):
+    """The path walked on the card equal to the host walk of the plain
+    codes, n not a multiple of 32, the codes never copied."""
+    cost, _ = _segments(torch.Generator().manual_seed(n * m), 1, n, m, kind, cuda)
+    path_k = K.dtw_path(cost[0].contiguous())
+    path_p = K.dtw_path_plain(cost[0])
+    for a, b in zip(path_k, path_p):
+        assert a.dtype == np.int64 and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("N", [64, 256])
+def test_align_cost_gather_matches_plain_and_repeats(cuda, N):
+    """The gather form reads each segment's window of a (R, K, T) buffer
+    (repeated rows, windows that reach past T): at rtol 1e-5 / atol 1e-6 of
+    the plain version, and the same bits from run to run (no float
+    atomics); the pre-sliced form of the same window at the same tolerance
+    (its lanes' tiles start at frame 0, the gather form's at -(start & 3):
+    the softmax sums add in another order)."""
+    gen = torch.Generator().manual_seed(N)
+    S, Kh, T = 8, 10, 1500
+    R = 40 * 224
+    attn = _randn(torch.Generator(device=cuda).manual_seed(N), R, Kh, T, dtype=torch.float32,
+                  scale=3.0)
+    n_tok = torch.randint(2, N + 1, (S,), generator=gen)
+    span = torch.clamp(n_tok + torch.randint(0, 1400, (S,), generator=gen), max=1500)
+    start = torch.randint(0, 1500, (S,), generator=gen)
+    start[0], span[0] = T - int(span[0]), int(span[0])
+    span[1] = 3
+    maxdur = torch.where(torch.arange(S) % 2 == 0, M_PAD, span // 2)
+    dims = torch.stack([n_tok, span, maxdur, start], 1).to(torch.int32).to(cuda)
+    rows = torch.randint(0, R, (S, N), generator=gen)
+    rows[2] = rows[2, 0]
+    rows = rows.to(torch.int32).to(cuda)
+    before = K.LAUNCHES["align_cost"]
+    c_k = K.align_cost_gather(attn, rows, dims, M_PAD)
+    again = K.align_cost_gather(attn, rows, dims, M_PAD)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["align_cost"] == before + 2
+    assert torch.equal(c_k, again)
+    c_p = K.align_cost_gather_plain(attn, rows, dims, M_PAD)
+    torch.testing.assert_close(c_k, c_p, rtol=1e-5, atol=1e-6)
+    window = K.gather_window(attn, rows, dims, M_PAD)
+    torch.testing.assert_close(K.align_cost(window, dims), c_k, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("M,offset", [(1499, 0), (1536, 1), (1497, 3)])
+def test_align_cost_pads_what_it_cannot_read_in_16_bytes(cuda, M, offset):
+    """Frames not a multiple of 4, or scores not 16-byte aligned (a view at
+    ``offset`` floats into its storage): the three wrappers pad a copy and
+    launch the one 16-byte staging path once; at rtol 1e-5 / atol 1e-6 of
+    the plain versions, the cost M frames wide, a span past M cut to M."""
+    gen = torch.Generator(device=cuda).manual_seed(M + offset)
+    S, Kh, N, T = 3, 4, 40, M
+
+    def view(*shape):
+        flat = _randn(gen, offset + math.prod(shape), dtype=torch.float32, scale=3.0)
+        return flat[offset:].view(shape)
+
+    scores = view(S, Kh, N, M)
+    dims = torch.tensor([[N, M + 7, 1536, 0], [17, M - 300, 600, 0], [2, 3, 1536, 0]],
+                        dtype=torch.int32, device=cuda)
+    before = K.LAUNCHES["align_cost"]
+    c_k = K.align_cost(scores, dims)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["align_cost"] == before + 1 and c_k.shape == (S, N, M)
+    torch.testing.assert_close(c_k, K.align_cost_plain(scores, dims), rtol=1e-5, atol=1e-6)
+    one = scores[0].contiguous() if offset == 0 else view(Kh, N, M)
+    c_k = K.attention_to_cost(one, M - 5, n_tokens=N - 3)
+    torch.cuda.synchronize()
+    assert c_k.shape == (N, M)
+    torch.testing.assert_close(c_k, K.attention_to_cost_plain(one, M - 5, N - 3), rtol=1e-5, atol=1e-6)
+    attn = view(2 * N, Kh, T)
+    rows = torch.arange(S * N, device=cuda, dtype=torch.int32).reshape(S, N) % (2 * N)
+    dims[:, 3] = torch.tensor([0, T - 40, T + 2], dtype=torch.int32)
+    c_k = K.align_cost_gather(attn, rows, dims, 1536)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c_k, K.align_cost_gather_plain(attn, rows, dims, 1536),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_alignment_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    dims = torch.tensor([[4, 8, 8, 0]], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        K.align_cost(torch.zeros((1, 2, 8, 1600), device=cuda), dims)
+    with pytest.raises(ValueError, match="f32"):
+        K.align_cost(torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16), dims)
+    with pytest.raises(ValueError, match="int32"):
+        K.align_cost_gather(torch.zeros((4, 2, 64), device=cuda), torch.zeros((1, 8), device=cuda,
+                                                                             dtype=torch.int64), dims, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.align_cost_gather(torch.zeros((4, 64, 2), device=cuda).transpose(1, 2),
+                            torch.zeros((1, 8), device=cuda, dtype=torch.int32), dims, 64)
+    with pytest.raises(ValueError, match="unsupported"):
+        K.attention_to_cost(torch.zeros((2, 8, 2048), device=cuda), 1500)
+    with pytest.raises(ValueError, match="unsupported"):
+        K.dtw_starts(torch.zeros((1, 1056, 8), device=cuda), dims)
+    with pytest.raises(ValueError, match="unsupported"):
+        K.dtw_path(torch.zeros((1100, 8), device=cuda))
+    with pytest.raises(ValueError, match="dims"):
+        K.dtw_codes(torch.zeros((1, 8, 8), device=cuda), dims.long())
 
 
 @pytest.mark.parametrize("Kh", [3, 120])

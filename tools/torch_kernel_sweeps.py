@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Design sweeps of the port's attention kernels on one NVIDIA GPU.
+"""Design sweeps of the port's kernels on one NVIDIA GPU.
 
     python3 tools/torch_kernel_sweeps.py [xattn] [pipeline] [flash] [matmul-variants]
                                          [matmul-splits] [mel-variants] [mel-refine]
-                                         [mel-refine-variants]
-                                         [decode|step|matmul|mel|encoder [DIR ...]]
+                                         [mel-refine-variants] [align-variants]
+                                         [dtw-variants]
+                                         [decode|step|matmul|mel|encoder|align|
+                                          align-launches [DIR ...]]
     python3 tools/torch_kernel_sweeps.py mel-accuracy [ROW ...]
 
 ``xattn``: the five kernels of the decode-attention pipeline
@@ -79,6 +81,18 @@ rows of [c]'s stack (default all 40), the kernel's arithmetic emulated
 with its passes and its split each in float32 or float64, beside
 ``torch.fft.rfft`` in float32 and the plain DFT product, each against the
 float64 FFT (see ``mel_accuracy``).
+
+``align``: the alignment kernels of the checkout at each DIR, in turns
+(``align build/parent . . build/parent``): ``align_cost`` and the DTW at
+``chip_smoke.py`` [c]'s S=8 shape (the DTW with its walk; a tree
+without the walk, its codes then the Python backtrace), ``attention_to_cost`` at the 120-head segment, ``dtw_path``'s
+whole call and the whole batched aligner at (g)'s flush shape (host
+clock). ``align-launches``: each CUDA launch of those kernels alone
+(torch.profiler's device time by kernel). ``align-variants`` and
+``dtw-variants``: the cost kernel's and the DTW kernel's sources with one
+design choice changed or one part of the work removed at a time
+(``ALIGN_VARIANTS``, ``DTW_VARIANTS``), each timed as ``align`` times the
+tree.
 
 ``flash``: ``csrc/flash_attn.cu`` as it is and with one design choice
 changed at a time (each variant a text edit of the source, built into its
@@ -536,6 +550,164 @@ for label, host, refine in cases:
 '''
 
 
+# ``align-launches``: each CUDA launch of the alignment kernels of the
+# checkout at each DIR alone (torch.profiler's device time by kernel name),
+# at chip_smoke.py [c]'s two cost shapes and the DTW beside them
+ALIGN_LAUNCHES_TIMER = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+_build.library()
+from torch.profiler import ProfilerActivity, profile
+g = torch.Generator(device="cuda").manual_seed(0)
+def profiled(label, fn, iters=20):
+    for _ in range(3): fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters): fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time, e.count // iters) for e in prof.key_averages()
+            if e.device_time > 0 and e.count >= iters and "Memset" not in e.key
+            and "Memcpy" not in e.key]
+    print(f"{label}: " + "; ".join(f"{k[:48]} {t / 1e3:.4f} ms x{c}" for k, t, c in rows),
+          flush=True)
+S, Kh, N, M = 8, 10, 256, 1536
+gen = torch.Generator().manual_seed(N)
+n_tok = torch.randint(2, N + 1, (S,), generator=gen)
+n_tok[0] = N
+span = torch.maximum(n_tok + torch.randint(0, 1400, (S,), generator=gen), n_tok).clamp(max=1500)
+span[1] = max(int(n_tok[1]), 3)
+maxdur = torch.where(torch.arange(S) % 2 == 0, M, torch.clamp(span // 2, min=1))
+dims = torch.stack([n_tok, span, maxdur, torch.zeros(S, dtype=torch.long)], 1).to(torch.int32).cuda()
+scores = torch.randn((S, Kh, N, M), generator=g, device="cuda") * 3.0
+profiled("align_cost S=8 K=10 N=256 M=1536", lambda: K.align_cost(scores, dims))
+cost = K.align_cost(scores, dims)
+profiled("dtw_codes S=8 N=256 M=1536", lambda: K.dtw_codes(cost, dims))
+if hasattr(K, "dtw_starts"):
+    profiled("dtw_starts S=8 N=256 M=1536", lambda: K.dtw_starts(cost, dims))
+del scores, cost
+Kh, N, span1, n1 = 120, 224, 1500, 200
+scores = torch.zeros((Kh, N, M), device="cuda")
+scores[:, :n1, :span1] = torch.randn((Kh, n1, span1), generator=g, device="cuda") * 3.0
+profiled("attention_to_cost K=120 N=224 M=1536", lambda: K.attention_to_cost(scores, span1, n_tokens=n1))
+"""
+
+
+# ``align``: the alignment kernels of the checkout at each DIR, in turns
+# (the parent's from ``git archive`` against this one's): align_cost and the
+# DTW at chip_smoke.py [c]'s S=8 shape, attention_to_cost at its 120-head
+# segment, dtw_path's whole call, and the whole batched aligner
+# (``device_align._align_jumps``) at (g)'s flush shape on the host clock.
+# A tree without the DTW's walk (``dtw_starts``) is timed as it ran: the
+# codes, then ``_backtrace_batch``'s Python loop.
+ALIGN_TIMER = r"""
+import sys, time, torch
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+from whisper_timestamped_tpu_torch import device_align as DA
+_build.library()
+g = torch.Generator(device="cuda").manual_seed(0)
+def timed(fn, iters=10):
+    for _ in range(3): fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    for _ in range(iters): fn()
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+def host(fn, iters=5):
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize(); t0 = time.perf_counter(); fn(); torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return min(out)
+S, Kh, N, M = 8, 10, 256, 1536
+gen = torch.Generator().manual_seed(N)
+n_tok = torch.randint(2, N + 1, (S,), generator=gen)
+n_tok[0] = N
+span = torch.maximum(n_tok + torch.randint(0, 1400, (S,), generator=gen), n_tok).clamp(max=1500)
+span[1] = max(int(n_tok[1]), 3)
+maxdur = torch.where(torch.arange(S) % 2 == 0, M, torch.clamp(span // 2, min=1))
+dims = torch.stack([n_tok, span, maxdur, torch.zeros(S, dtype=torch.long)], 1).to(torch.int32).cuda()
+scores = torch.randn((S, Kh, N, M), generator=g, device="cuda") * 3.0
+cost = K.align_cost(scores, dims)
+line = [f"align_cost S=8 {timed(lambda: K.align_cost(scores, dims)):.4f}"]
+walk = hasattr(K, "dtw_starts")
+if walk:
+    line.append(f"dtw_starts S=8 {timed(lambda: K.dtw_starts(cost, dims)):.4f}")
+else:
+    codes = K.dtw_codes(cost, dims)
+    line.append(f"dtw_codes S=8 {timed(lambda: K.dtw_codes(cost, dims)):.4f}, then the backtrace "
+                f"{host(lambda: DA._backtrace_batch(codes, dims[:, 0], dims[:, 1], int((dims[:, 0] + dims[:, 1] - 1).max()))):.2f} (host)")
+del scores
+Kh, N, span1, n1 = 120, 224, 1500, 200
+scores = torch.zeros((Kh, N, M), device="cuda")
+scores[:, :n1, :span1] = torch.randn((Kh, n1, span1), generator=g, device="cuda") * 3.0
+line.append(f"attention_to_cost K=120 {timed(lambda: K.attention_to_cost(scores, span1, n_tokens=n1)):.4f}")
+weights = K.attention_to_cost(scores, span1, n_tokens=n1)[:n1, :span1].contiguous()
+line.append(f"dtw_path whole call {host(lambda: K.dtw_path(weights)):.3f} (host)")
+del scores
+rng = np.random.default_rng(32)
+R, Kh, T, S, N = 40 * 224, 10, 1500, 32, 256
+attn = torch.randn((R, Kh, T), generator=g, device="cuda") * 3.0
+n_tok = rng.integers(2, N + 1, S)
+span = np.minimum(n_tok + rng.integers(0, 1400, S), 1500)
+dims = np.stack([n_tok, span, np.where(np.arange(S) % 2 == 0, 1536, span // 2),
+                 rng.integers(0, T - span + 1)], 1).astype(np.int32)
+rows = rng.integers(0, R, (S, N))
+line.append(f"aligner at (g)'s flush shape {host(lambda: DA._align_jumps(attn, rows, dims), 3):.3f} (host)")
+print("ms: " + "; ".join(line), flush=True)
+"""
+# ``align-variants``: the alignment kernels with one design choice changed
+# at a time, each timed as ``align`` times the tree; the last two remove
+# work to time what is left (wrong outputs on purpose)
+AC = os.path.join("csrc", "align_cost.cu")
+DT = os.path.join("csrc", "dtw_codes.cu")
+ALIGN_VARIANTS = {
+    "as built": ("the sources as they are", []),
+    "2 row warps": ("cost rows blocks of 2 warps",
+                    [(AC, "constexpr int kRowWarps = 4;", "constexpr int kRowWarps = 2;")]),
+    "8 row warps": ("cost rows blocks of 8 warps",
+                    [(AC, "constexpr int kRowWarps = 4;", "constexpr int kRowWarps = 8;"),
+                     (AC, "__launch_bounds__(32 * kRowWarps, 3)", "__launch_bounds__(32 * kRowWarps, 1)")]),
+    "64-frame column tiles": ("cost column blocks of 64 frames and 4 (or 16) row groups",
+                              [(AC, "constexpr int kColTile = 32;", "constexpr int kColTile = 64;"),
+                               (AC, "constexpr int kColGroups = 8;", "constexpr int kColGroups = 4;"),
+                               (AC, "constexpr int kMaxColGroups = 32;", "constexpr int kMaxColGroups = 16;")]),
+    "accurate exp": ("expf, not __expf, in the softmax",
+                     [(AC, "__expf(med[t][o] - mx)", "expf(med[t][o] - mx)")]),
+    "one head group": ("the cost's rows launch with one head group at every K",
+                       [(os.path.join("ops", "kernels.py"), "    return max(1, min(8, K // COST_HEADS_A_GROUP))",
+                         "    return 1")]),
+    "no median": ("the median replaced by the window's centre (wrong output)",
+                  [(AC, "median_pair(v + o, med[t][o], med[t][o + 1]);",
+                    "(med[t][o] = v[o + 4], med[t][o + 1] = v[o + 5]);")]),
+}
+# ``dtw-variants``: the DTW kernel with another warp count, another barrier
+# spacing, or one part of its work removed (wrong outputs on purpose), one
+# at a time, each timed as ``align`` times the tree
+DTW_VARIANTS = {
+    "as built": ("the sources as they are", []),
+    **{f"{w} warps": (f"DTW blocks of {w} warps (the rule: one per 64 rows, 4 at N=256)", [
+        (os.path.join("ops", "kernels.py"), "    return min(8, -(-N // DTW_ROWS_A_WARP))",
+         f"    return max(-(-N // 128), {w})")]) for w in (2, 8)},
+    "no packing": ("no packed code stores", [(DT, "      if (packed != nullptr)\n", "      if (false)\n")]),
+    "no walk": ("no walk", [(DT, "  if (threadIdx.x < 32) walk<kShared>(sg, starts, path);", "")]),
+    "no barrier": ("no barrier between the working warps", [
+        (DT, "      if (step % kSync == kSync - 1 || step == steps - 1) working_warps_sync(W);", "")]),
+    **{f"barriers every {n} steps": (f"the working warps {n} steps apart, meeting every {n} steps", [
+        (DT, "constexpr int kSync = 8;", f"constexpr int kSync = {n};"),
+        (DT, "constexpr int kMaxSmem = 227 * 1024 - 9 * 1024;",
+         f"constexpr int kMaxSmem = 227 * 1024 - {max(9, 1 + 8 * 4 * n * 8 * 4 // 1024)} * 1024;")])
+       for n in (4, 16)},
+    "no prefetch": ("the tile's cost loaded at its step, not the step before", [
+        (DT, "    load_tile<R>(sg, i0, k + 1, xn);  // the next tile, in flight during this one",
+         "    load_tile<R>(sg, i0, k, x);"),
+        (DT, "      x[r][0] = xn[r][0];\n      x[r][1] = xn[r][1];", "")]),
+}
+
+
 def mel_accuracy(rows) -> None:
     """Where ``log10_mel``'s FFT loses accuracy (on the CPU, no card): on
     rows of ``chip_smoke.py`` [c]'s stack, the kernel's arithmetic emulated
@@ -665,7 +837,8 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     what = sys.argv[1:] or ["xattn", "flash"]
-    mode = next((m for m in ("decode", "step", "matmul", "mel", "encoder") if m in what), None)
+    mode = next((m for m in ("decode", "step", "matmul", "mel", "encoder", "align-launches", "align")
+                 if m in what), None)
     trees = what[what.index(mode) + 1:] if mode else []
     if "xattn" in what[:len(what) - len(trees)]:
         for ln in run_tree(DECODE_TIMER, HERE, *XATTN_SETTINGS).splitlines():
@@ -685,6 +858,10 @@ def main() -> int:
             print(f"mel-refine {ln}", flush=True)
     if "mel-refine-variants" in what[:len(what) - len(trees)]:
         sweep_variants("mel", MEL_REFINE_VARIANTS, MEL_TIMER, os.path.join(HERE, "chip_smoke.py"))
+    if "align-variants" in what[:len(what) - len(trees)]:
+        sweep_variants("align", ALIGN_VARIANTS, ALIGN_TIMER)
+    if "dtw-variants" in what[:len(what) - len(trees)]:
+        sweep_variants("dtw", DTW_VARIANTS, ALIGN_TIMER)
     if "mel-variants" in what[:len(what) - len(trees)]:
         sweep_variants("mel", MEL_VARIANTS, MEL_TIMER, os.path.join(HERE, "chip_smoke.py"))
     if mode == "decode":
@@ -697,6 +874,10 @@ def main() -> int:
         time_trees("mel", MEL_TIMER, trees, os.path.join(HERE, "chip_smoke.py"))
     elif mode == "encoder":
         time_trees("encoder", TIMER, trees)
+    elif mode == "align-launches":
+        time_trees("align-launches", ALIGN_LAUNCHES_TIMER, trees)
+    elif mode == "align":
+        time_trees("align", ALIGN_TIMER, trees)
     return 0
 
 

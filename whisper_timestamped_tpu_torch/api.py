@@ -571,7 +571,10 @@ def device_align_segments(
                 offsets[key] = total
                 bufs.append(w.attn_dev)
                 total += w.attn_dev.shape[0] * w.attn_dev.shape[1]
-        flat = torch.cat([b.reshape(-1, *b.shape[2:]) for b in bufs], dim=0)
+        flat = [b.reshape(-1, *b.shape[2:]) for b in bufs]
+        # one buffer (a batch's windows share one): its view, no copy, as the JAX
+        # package's api.py:752-753 takes it
+        flat = flat[0] if len(flat) == 1 else torch.cat(flat, dim=0)
         tasks, idxs = [], []
         for ei, seg, prep in chunk:
             tokens, local_rows, unfinished, max_duration = prep

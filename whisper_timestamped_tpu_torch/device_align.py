@@ -3,19 +3,16 @@
 Port of ``whisper_timestamped_tpu/device_align.py``:
 
     attention buffer (device, from decode_window)
-      -> gather each segment's token rows and its frame window  (torch)
-      -> fused cost: median9, softmax, head mean, L2, negate     (align_cost kernel)
-      -> wavefront DTW step codes                                (dtw_codes kernel)
-      -> backtrace to per-token start frames                     (torch, all segments
-                                                                  in lock-step)
+      -> fused cost of each segment's token rows and frame window, read in
+         place: median9, softmax, head mean, L2, negate  (align_cost kernel, two launches)
+      -> DTW and the walk back to per-token start frames (dtw_codes kernel, one launch)
 
 and only the (S, N) int32 start frames cross to the host: the ``jumps``
 ``perform_word_alignment`` takes as ``precomputed_jumps`` (with
-``fetch_cost``, the cost matrices too, for disfluency detection). The
-backtrace is a
-Python loop of small tensor ops, one iteration per path step; it runs
-max(n + m - 1) iterations over the batch's segments (the JAX loop runs the
-padded N + M - 1, the extra steps only rewrite the origin).
+``fetch_cost``, the cost matrices too, for disfluency detection). No window
+copy and no step codes are made in device memory. On CPU tensors the plain
+versions run: the gather and slice, the cost, the DP and a Python loop of
+small tensor ops for the backtrace (``ops.kernels.backtrace_batch``).
 """
 
 from __future__ import annotations
@@ -28,7 +25,7 @@ import torch
 
 from .alignment import AlignmentPlan, plan_alignment
 from .audio import N_FRAMES
-from .ops.kernels import DIAG, LEFT, align_cost, dtw_codes
+from .ops.kernels import align_cost_gather, dtw_starts
 from .utils import host_copy
 
 M_PAD = ((N_FRAMES // 2 + 127) // 128) * 128  # 1536: frame capacity per segment
@@ -64,50 +61,17 @@ class SegmentAlignTask(NamedTuple):
     max_duration: Optional[int]  # absolute column cap (segment_frames // 2)
 
 
-def _backtrace_batch(codes: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
-                     steps: int) -> torch.Tensor:
-    """Walk the step codes backward from (n-1, m-1), all segments at once.
-
-    codes (S, D, N) diagonal-major; returns starts (S, N) int32 with
-    starts[s, i] = first frame of token row i on the optimal path (the host
-    path's jumps[i]); rows >= n stay 0. ``steps`` >= max(n + m - 1)."""
-    S, D, N = codes.shape
-    rng = torch.arange(S, device=codes.device)
-    i, j = (n - 1).long(), (m - 1).long()
-    starts = torch.zeros((S, N), dtype=torch.int32, device=codes.device)
-    for _ in range(steps):
-        starts[rng, i] = j.to(torch.int32)  # backward walk: last write = min j
-        c = codes[rng, (i + j).clamp(max=D - 1), i]
-        at_origin = (i == 0) & (j == 0)
-        # host backtrace rules: at i==0 step left, at j==0 step up, else follow the code
-        left = c == LEFT
-        diag = c == DIAG
-        ni = torch.where(i == 0, 0, torch.where(j == 0, i - 1, torch.where(left, i, i - 1)))
-        nj = torch.where(i == 0, j - 1, torch.where(j == 0, j, torch.where(left | diag, j - 1, j)))
-        i = torch.where(at_origin, 0, ni)
-        j = torch.clamp(torch.where(at_origin, 0, nj), min=0)
-    return starts
-
-
 def _align_jumps(attn_flat: torch.Tensor, rows: np.ndarray, dims: np.ndarray):
     """Cost, DTW and backtrace for a padded batch of segments. rows (S, N)
     row indices into attn_flat (R, K, T); dims (S, 4) (n_tokens, span,
     maxdur_col, start). Returns (starts (S, N) int32, cost (S, N, M_PAD))."""
-    S, N = rows.shape
+    if rows.size and not 0 <= int(rows.min()) <= int(rows.max()) < attn_flat.shape[0]:
+        raise ValueError(f"row indices outside the {attn_flat.shape[0]} attention rows")
     dev = attn_flat.device
-    K, T = attn_flat.shape[1], attn_flat.shape[2]
-    rows_t = torch.as_tensor(rows, dtype=torch.long, device=dev)
-    # each segment's token rows, frames [start, start + M_PAD), zero past T
-    sliced = torch.zeros((S, K, N, M_PAD), dtype=torch.float32, device=dev)
-    for s in range(S):
-        st = int(dims[s, 3])
-        w = min(M_PAD, T - st)
-        sliced[s, :, :, :w] = attn_flat[rows_t[s], :, st : st + w].transpose(0, 1)
+    rows_t = torch.as_tensor(rows, dtype=torch.int32, device=dev)
     dims_t = torch.as_tensor(dims, dtype=torch.int32, device=dev)
-    cost = align_cost(sliced, dims_t)
-    codes = dtw_codes(cost, dims_t)
-    steps = int((dims[:, 0] + dims[:, 1] - 1).max())
-    return _backtrace_batch(codes, dims_t[:, 0], dims_t[:, 1], steps), cost
+    cost = align_cost_gather(attn_flat, rows_t, dims_t, M_PAD)
+    return dtw_starts(cost, dims_t), cost
 
 
 def make_task(

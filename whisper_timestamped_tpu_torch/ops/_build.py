@@ -30,8 +30,9 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: each returns cudaGetLastError() after its launches
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C entry points: each returns cudaGetLastError() after its launches, but
+# those of RETURNS
 SIGNATURES = {
     # q, xk, xv, out, scores, layer, B, B_kv, T, D, H, beam_group, n_split,
     # frames_per_split, warps, scale, stream
@@ -39,14 +40,18 @@ SIGNATURES = {
     # q, k_new, v_new, k, v, out, pad_len, layer, pos, B, ctx, D, H, n_split,
     # slots_per_split, warps, scale, stream
     "wtt_self_attn_decode": [_P] * 7 + [_I] * 9 + [_F, _P],
-    # scores, dims, cost, S, K, N, M, stream
-    "wtt_align_cost": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # scores, cost, K, N, M, n_tokens, span, stream
-    "wtt_attention_to_cost": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # scores, rows (null: pre-sliced), dims, cost, scratch, partial, S, K, N, M, T, G, stream
+    "wtt_align_cost": [_P] * 6 + [_I] * 6 + [_P],
+    # scores, cost, partial, K, N, M, n_tokens, span, G, stream
+    "wtt_attention_to_cost": [_P] * 3 + [_I] * 6 + [_P],
     # x, out, R, M, stream
     "wtt_median9": [_P, _P, _I, _I, _P],
-    # cost, dims, codes, S, N, M, stream
-    "wtt_dtw_codes": [_P, _P, _P, _I, _I, _I, _P],
+    # cost, dims, codes, starts, path, packed, packed bytes, S, N, M, warps, stream
+    "wtt_dtw": [_P] * 6 + [_L] + [_I] * 4 + [_P],
+    # S, N, M, warps, walks: the bytes of wtt_dtw's device-memory scratch
+    "wtt_dtw_scratch_bytes": [_I] * 5,
+    # out, steps, stream (the DP's chain floor, timed by chip_smoke.py)
+    "wtt_dtw_chain": [_P, _I, _P],
     # q, k, v, out, pad_len, B, Sq, Sk, D, H, causal, scale, stream
     "wtt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group,
@@ -64,6 +69,7 @@ SIGNATURES = {
     # x, w_all, out, layer, L, B, N, K, cols, groups, n_split, stream
     "wtt_stacked_matmul": [_P, _P, _P] + [_I] * 8 + [_P],
 }
+RETURNS = {"wtt_dtw_scratch_bytes": _L}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -146,7 +152,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RETURNS.get(name, _I)
         BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0, built=built)
         _lib = lib
         return lib

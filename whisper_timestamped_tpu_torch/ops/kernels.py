@@ -7,12 +7,15 @@ wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.p
 ======================  ==========================================================
 ``xattn_decode``        ``cross_attention_stacked_pallas_v2`` (:854)
 ``self_attn_decode``    ``self_attention_stacked_pallas`` (:2088)
-``align_cost``          ``attention_to_cost_batched`` (:395)
+``align_cost``          ``attention_to_cost_batched`` (:395); ``align_cost_gather``
+                        with the device aligner's gather and window slice
+                        (``device_align.py:145-152``)
 ``attention_to_cost``   ``attention_to_cost_pallas`` (:165), one segment
 ``median9``             ``median9_pallas`` (:114)
-``dtw_codes``           ``dtw_codes_batched`` (:477); at S=1 with the host
-                        backtrace (``dtw_path``) ``dtw_pallas`` (:259) and
-                        ``dtw_path_pallas`` (:291)
+``dtw_codes``           ``dtw_codes_batched`` (:477); ``dtw_starts`` with the
+                        device aligner's backtrace (``device_align.py:100``);
+                        ``dtw_path`` ``dtw_pallas`` (:259) and
+                        ``dtw_path_pallas`` (:291) with its backtrace
 ``flash_attention``     the library Pallas ``flash_attention`` at
                         ``models/whisper_jax.py:246`` (encoder) and ``:299``
                         (prompt prefill)
@@ -50,8 +53,10 @@ import torch
 from .quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
 
 # launches of each kernel since the last reset_launches(); the wrappers add
-# one per kernel call (align_cost's one call is three launches on one stream,
-# attention_to_cost's two; dtw_path counts under dtw_codes, which it calls)
+# one per kernel call (align_cost's and align_cost_gather's one call is two
+# launches on one stream, rows then columns, as is attention_to_cost's;
+# dtw_starts and dtw_path launch dtw_codes.cu's kernel and count under
+# dtw_codes)
 LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0,
             "flash_attention": 0, "xattn_decode_int8": 0, "xattn_decode_int4": 0,
             "self_attn_decode_int8": 0, "attention_to_cost": 0, "median9": 0, "log10_mel": 0,
@@ -250,6 +255,30 @@ def align_cost_plain(scores, dims):
     return cost
 
 
+def gather_window(attn, rows, dims, M: int):
+    """Each segment's scores as the device aligner slices them
+    (``device_align.py:145-152``): attn (R, K, T) attention rows, rows (S,
+    N) row indices, dims (S, 4) with the start frame in column 3. Returns
+    (S, K, N, M) f32: token row i of segment s is attn[rows[s, i]], frames
+    [start, start + M), 0 past T (the start clamped to [0, T], as
+    ``lax.dynamic_slice`` clamps it)."""
+    S, N = rows.shape
+    K, T = attn.shape[1], attn.shape[2]
+    dev = attn.device
+    start = dims.to(dev)[:, 3].long().clamp(0, T)
+    col = start[:, None] + torch.arange(M, device=dev)  # (S, M)
+    x = attn.float()[rows.to(dev).long()]  # (S, N, K, T)
+    x = torch.gather(x, 3, col.clamp(max=T - 1)[:, None, None, :].expand(S, N, K, M))
+    x = torch.where((col < T)[:, None, None, :], x, 0.0)
+    return x.transpose(1, 2).contiguous()
+
+
+def align_cost_gather_plain(attn, rows, dims, M: int):
+    """``align_cost_plain`` of each segment's window of the attention rows
+    (``gather_window``): index, slice, then the cost."""
+    return align_cost_plain(gather_window(attn, rows, dims, M), dims)
+
+
 def attention_to_cost_plain(scores, span: int, n_tokens: int):
     """One segment's DTW cost. scores (K, N, M) f32 with the true extent
     (n_tokens, span); returns (N, M) f32: ``align_cost_plain``'s math without
@@ -349,6 +378,75 @@ def stacked_matmul_plain(x, w_all, layer: int):
     """x (B, K) @ w_all[layer]^T with w_all (L, N, K) (the port's (out, in)
     linear layout), summed in f32; returns (B, N) in x's dtype."""
     return (x.float() @ w_all[layer].float().T).to(x.dtype)
+
+
+def backtrace_batch(codes, n, m, steps: int):
+    """Walk the step codes backward from (n-1, m-1), all segments at once
+    (``device_align._backtrace_batch`` of the JAX package, a Python loop of
+    small tensor ops here). codes (S, D, N) diagonal-major; returns starts
+    (S, N) int32 with starts[s, i] = first frame of token row i on the
+    optimal path (the host path's jumps[i]); rows >= n stay 0. ``steps`` >=
+    max(n + m - 1)."""
+    S, D, N = codes.shape
+    rng = torch.arange(S, device=codes.device)
+    n, m = torch.as_tensor(n, device=codes.device), torch.as_tensor(m, device=codes.device)
+    i, j = (n - 1).long(), (m - 1).long()
+    starts = torch.zeros((S, N), dtype=torch.int32, device=codes.device)
+    for _ in range(steps):
+        starts[rng, i] = j.to(torch.int32)  # backward walk: last write = min j
+        c = codes[rng, (i + j).clamp(max=D - 1), i]
+        at_origin = (i == 0) & (j == 0)
+        # host backtrace rules: at i==0 step left, at j==0 step up, else follow the code
+        left = c == LEFT
+        diag = c == DIAG
+        ni = torch.where(i == 0, 0, torch.where(j == 0, i - 1, torch.where(left, i, i - 1)))
+        nj = torch.where(i == 0, j - 1, torch.where(j == 0, j, torch.where(left | diag, j - 1, j)))
+        i = torch.where(at_origin, 0, ni)
+        j = torch.clamp(torch.where(at_origin, 0, nj), min=0)
+    return starts
+
+
+def dtw_starts_plain(cost, dims):
+    """Per-token start frames of each segment's DTW path: ``backtrace_batch``
+    of ``dtw_codes_plain``. cost (S, N, M) f32, dims (S, 4) int32 with the
+    true extent (n, m) in columns 0-1. Returns (S, N) int32."""
+    dims = dims.to(cost.device)
+    n, m = dims[:, 0].clamp(max=cost.shape[1]), dims[:, 1].clamp(max=cost.shape[2])
+    steps = int((n + m - 1).max()) if cost.shape[0] else 0
+    return backtrace_batch(dtw_codes_plain(cost, dims), n, m, steps)
+
+
+def _walk_path(codes, n: int, m: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The path from (0, 0) to (n-1, m-1) through diagonal-major codes, walked
+    back from the end with the host rules (``dtw_path_pallas``'s loop)."""
+    i, j = n - 1, m - 1
+    path = [(i, j)]
+    while i > 0 or j > 0:
+        if i == 0:
+            j -= 1
+        elif j == 0:
+            i -= 1
+        else:
+            s = codes[i + j, i]
+            if s == DIAG:
+                i, j = i - 1, j - 1
+            elif s == LEFT:
+                j -= 1
+            else:
+                i -= 1
+        path.append((i, j))
+    path.reverse()
+    arr = np.array(path, np.int64)
+    return arr[:, 0], arr[:, 1]
+
+
+def dtw_path_plain(cost) -> Tuple[np.ndarray, np.ndarray]:
+    """DTW path of one (n, m) cost: ``dtw_codes_plain`` at S=1, then the
+    backtrace on the host, as ``dtw_path_pallas`` does. Returns (index1s,
+    index2s) int64."""
+    n, m = cost.shape
+    dims = torch.tensor([[n, m, 0, 0]], dtype=torch.int32, device=cost.device)
+    return _walk_path(dtw_codes_plain(cost[None], dims)[0].cpu().numpy(), n, m)
 
 
 def _check_flash_masks(q, k, causal: bool, pad_len) -> None:
@@ -533,9 +631,40 @@ def self_attn_decode(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int
     return out
 
 
+MAX_COST_FRAMES = 1536  # the frames (M) the cost kernel takes (a lane's registers hold 7 tiles of 8)
+COST_HEADS_A_GROUP = 16  # heads a row block of the cost kernel takes, about (up to 8 groups)
+
+
+def cost_head_groups(K: int) -> int:
+    """Head groups of the cost kernel's rows launch: K / 16 of them, 1 to 8,
+    each its own row block, so that a segment of many heads (120) still
+    fills the card; the columns launch adds their partials in order."""
+    return max(1, min(8, K // COST_HEADS_A_GROUP))
+
+
+def _cost_partial(S: int, N: int, M: int, G: int, device) -> Optional[torch.Tensor]:
+    """The head groups' partial sums after the first group's (None at G=1)."""
+    return torch.empty((G - 1, S, N, M), dtype=torch.float32, device=device) if G > 1 else None
+
+
+def _cost_tickets(S: int, M: int, device) -> torch.Tensor:
+    """The columns launch's per-segment tickets, then its 32-frame tiles' minima."""
+    return torch.empty(S + S * -(-M // 32), dtype=torch.int32, device=device)
+
+
+def _by_4_frames(x):
+    """x, or a copy of it padded with zero frames to a multiple of 4 on its
+    last axis where that is not one or where x is not 16-byte aligned: the
+    cost kernel stages its rows in 16-byte pieces."""
+    if x.shape[-1] % 4 == 0 and _aligned(x):
+        return x
+    return torch.nn.functional.pad(x, (0, -x.shape[-1] % 4))
+
+
 def align_cost(scores, dims):
     """Batched DTW cost matrices (see ``align_cost_plain``). On CUDA: f32
-    scores (S, K, N, M) with M <= 4000, int32 dims (S, 4), contiguous."""
+    scores (S, K, N, M) with M <= 1536, int32 dims (S, 4), contiguous; M
+    not a multiple of 4 (or scores not 16-byte aligned) is padded."""
     name = "align_cost"
     if not _on_cuda(name, scores, dims):
         return align_cost_plain(scores, dims)
@@ -543,17 +672,56 @@ def align_cost(scores, dims):
     _expect(name, scores.dtype == torch.float32 and dims.dtype == torch.int32, "scores f32, dims int32")
     _expect(name, dims.shape == (S, 4), "dims must be (S, 4)")
     _expect(name, scores.is_contiguous() and dims.is_contiguous(), "inputs must be contiguous")
-    _expect(name, 8 <= M <= 4000 and 0 < N <= 65535 and K > 0, f"unsupported N={N} M={M} K={K}")
-    cost = torch.empty((S, N, M), dtype=torch.float32, device=scores.device)
-    _launch(name, "wtt_align_cost", scores.data_ptr(), dims.data_ptr(), cost.data_ptr(),
-            S, K, N, M, _stream(scores))
+    _expect(name, 0 < M <= MAX_COST_FRAMES and 0 < N <= 65535 and 0 < S <= 65535 and K > 0,
+            f"unsupported N={N} M={M} K={K}")
+    scores = _by_4_frames(scores)
+    Mp = scores.shape[3]
+    if Mp != M:  # the span stays within the M frames given (padded frames cost 0)
+        dims = torch.cat([dims[:, :1], dims[:, 1:2].clamp(max=M), dims[:, 2:]], 1)
+    cost = torch.empty((S, N, Mp), dtype=torch.float32, device=scores.device)
+    G = cost_head_groups(K)
+    # the scratch stays referenced until the launch is queued (a freed block may be handed out again)
+    tickets, partial = _cost_tickets(S, Mp, scores.device), _cost_partial(S, N, Mp, G, scores.device)
+    _launch(name, "wtt_align_cost", scores.data_ptr(), None, dims.data_ptr(), cost.data_ptr(),
+            tickets.data_ptr(), _ptr(partial), S, K, N, Mp, Mp, G, _stream(scores))
+    return cost if Mp == M else cost[..., :M].contiguous()
+
+
+def align_cost_gather(attn, rows, dims, M: int):
+    """``align_cost`` of each segment's window of the attention rows, read
+    in place (see ``align_cost_gather_plain``): attn (R, K, T), rows (S, N)
+    row indices in [0, R), dims (S, 4). Returns (S, N, M) f32. On CUDA: f32
+    attn, int32 rows and dims, contiguous, M <= 1536; the kernel reads
+    token row i of segment s at attn[rows[s, i]] without a copy (T not a
+    multiple of 4, or attn not 16-byte aligned, takes a padded copy)."""
+    name = "align_cost"
+    if not _on_cuda(name, attn, rows, dims):
+        return align_cost_gather_plain(attn, rows, dims, M)
+    S, N = rows.shape
+    _expect(name, attn.ndim == 3 and attn.dtype == torch.float32, "attn must be (R, K, T) f32")
+    _expect(name, rows.dtype == torch.int32 and dims.dtype == torch.int32, "rows, dims int32")
+    _expect(name, dims.shape == (S, 4), "dims must be (S, 4)")
+    _expect(name, attn.is_contiguous() and rows.is_contiguous() and dims.is_contiguous(),
+            "inputs must be contiguous")
+    K, T = attn.shape[1], attn.shape[2]
+    _expect(name, 0 < M <= MAX_COST_FRAMES and 0 < N <= 65535 and 0 < S <= 65535 and K > 0 and T > 0,
+            f"unsupported N={N} M={M} K={K} T={T}")
+    # zero frames past T read as the slice's zeros; a start past T reads only zeros either way
+    attn = _by_4_frames(attn)
+    cost = torch.empty((S, N, M), dtype=torch.float32, device=attn.device)
+    G = cost_head_groups(K)
+    tickets, partial = _cost_tickets(S, M, attn.device), _cost_partial(S, N, M, G, attn.device)
+    _launch(name, "wtt_align_cost", attn.data_ptr(), rows.data_ptr(), dims.data_ptr(),
+            cost.data_ptr(), tickets.data_ptr(), _ptr(partial), S, K, N, M, attn.shape[2], G,
+            _stream(attn))
     return cost
 
 
 def attention_to_cost(scores, span: int, n_tokens: Optional[int] = None):
     """One segment's DTW cost from (K, N, M) scores with the true extent
     (n_tokens, span), n_tokens defaulting to N (see
-    ``attention_to_cost_plain``). On CUDA: f32, contiguous, M <= 4000."""
+    ``attention_to_cost_plain``). On CUDA: f32, contiguous, M <= 1536; M
+    not a multiple of 4 (or scores not 16-byte aligned) is padded."""
     name = "attention_to_cost"
     K, N, M = scores.shape
     n_tokens = N if n_tokens is None else int(n_tokens)
@@ -562,13 +730,17 @@ def attention_to_cost(scores, span: int, n_tokens: Optional[int] = None):
         return attention_to_cost_plain(scores, span, n_tokens)
     _expect(name, scores.dtype == torch.float32, "scores must be f32")
     _expect(name, scores.is_contiguous(), "scores must be contiguous")
-    _expect(name, 8 <= M <= 4000 and 0 < N <= 65535 and K > 0, f"unsupported N={N} M={M} K={K}")
+    _expect(name, 0 < M <= MAX_COST_FRAMES and 0 < N <= 65535 and K > 0,
+            f"unsupported N={N} M={M} K={K}")
     _expect(name, 0 < span <= M and 0 < n_tokens <= N,
             f"extent (n_tokens={n_tokens}, span={span}) outside ({N}, {M})")
-    cost = torch.empty((N, M), dtype=torch.float32, device=scores.device)
-    _launch(name, "wtt_attention_to_cost", scores.data_ptr(), cost.data_ptr(), K, N, M,
-            n_tokens, span, _stream(scores))
-    return cost
+    scores = _by_4_frames(scores)
+    Mp = scores.shape[2]
+    cost = torch.empty((N, Mp), dtype=torch.float32, device=scores.device)
+    partial = _cost_partial(1, N, Mp, cost_head_groups(K), scores.device)
+    _launch(name, "wtt_attention_to_cost", scores.data_ptr(), cost.data_ptr(), _ptr(partial), K,
+            N, Mp, n_tokens, span, cost_head_groups(K), _stream(scores))
+    return cost if Mp == M else cost[:, :M].contiguous()
 
 
 def median9(x):
@@ -586,54 +758,82 @@ def median9(x):
     return out
 
 
-def dtw_codes(cost, dims):
-    """Batched DTW step codes (see ``dtw_codes_plain``). On CUDA: f32 cost
-    (S, N, M) with N a multiple of 32 up to 1024, int32 dims (S, 4). Rows
-    d >= n+m-1 of a segment are left unwritten."""
-    name = "dtw_codes"
-    if not _on_cuda(name, cost, dims):
-        return dtw_codes_plain(cost, dims)
+DTW_MAX_N = 1024  # rows the DTW kernel takes (8 warps of 4 rows a lane)
+DTW_ROWS_A_WARP = 64  # the warp count's rule: one warp per 64 rows, up to 8
+
+
+def dtw_warps(N: int) -> int:
+    """Warps of the DTW kernel's block for N <= 1024 token rows: one per 64
+    rows, up to 8 (so at most 4 rows a lane)."""
+    return min(8, -(-N // DTW_ROWS_A_WARP))
+
+
+def _dtw(name: str, cost, dims, codes=None, starts=None, path=None) -> None:
+    """Launch dtw_codes.cu's kernel on (S, N, M) cost for the outputs given
+    (codes of (S, N + M' - 1, N), M' = M rounded up to a multiple of 4,
+    zeroed). Where the walk's packed codes do not fit in the block's shared
+    memory they go to a device-memory scratch of the size the C side
+    reports (``wtt_dtw_scratch_bytes``), which it checks again at launch."""
+    from ._build import library
+
     S, N, M = cost.shape
     _expect(name, cost.dtype == torch.float32 and dims.dtype == torch.int32, "cost f32, dims int32")
     _expect(name, dims.shape == (S, 4), "dims must be (S, 4)")
     _expect(name, cost.is_contiguous() and dims.is_contiguous(), "inputs must be contiguous")
-    _expect(name, 0 < N <= 1024 and N % 32 == 0 and M > 0, f"unsupported N={N} M={M}")
-    codes = torch.empty((S, N + M - 1, N), dtype=torch.int32, device=cost.device)
-    _launch(name, "wtt_dtw_codes", cost.data_ptr(), dims.data_ptr(), codes.data_ptr(),
-            S, N, M, _stream(cost))
-    return codes
+    _expect(name, 0 < N <= DTW_MAX_N and M > 0 and 0 < S <= 2**31 - 1, f"unsupported N={N} M={M}")
+    if M % 4 or not _aligned(cost):  # the kernel reads 16-byte pieces of each row
+        cost = torch.nn.functional.pad(cost, (0, -M % 4))
+        M = cost.shape[2]
+    warps, walks = dtw_warps(N), starts is not None or path is not None
+    n_bytes = library().wtt_dtw_scratch_bytes(S, N, M, warps, int(walks))
+    packed = torch.empty(n_bytes, dtype=torch.uint8, device=cost.device) if n_bytes > 0 else None
+    _launch("dtw_codes", "wtt_dtw", cost.data_ptr(), dims.data_ptr(), _ptr(codes), _ptr(starts),
+            _ptr(path), _ptr(packed), n_bytes, S, N, M, warps, _stream(cost),
+            refused=f"{name} does not take N={N} M={M}")
+
+
+def dtw_codes(cost, dims):
+    """Batched DTW step codes (see ``dtw_codes_plain``). On CUDA: f32 cost
+    (S, N, M) with N up to 1024, int32 dims (S, 4)."""
+    name = "dtw_codes"
+    if not _on_cuda(name, cost, dims):
+        return dtw_codes_plain(cost, dims)
+    S, N, M = cost.shape
+    codes = torch.zeros((S, N + M + (-M % 4) - 1, N), dtype=torch.int32, device=cost.device)
+    _dtw(name, cost, dims, codes=codes)
+    return codes[:, : N + M - 1]
+
+
+def dtw_starts(cost, dims):
+    """Per-token start frames of each segment's DTW path (see
+    ``dtw_starts_plain``): the DP and the walk back in one launch, the
+    codes never leaving the block (or the L2). On CUDA: as ``dtw_codes``.
+    Returns (S, N) int32."""
+    name = "dtw_starts"
+    if not _on_cuda(name, cost, dims):
+        return dtw_starts_plain(cost, dims)
+    S, N, M = cost.shape
+    starts = torch.empty((S, N), dtype=torch.int32, device=cost.device)
+    _dtw(name, cost, dims, starts=starts)
+    return starts
 
 
 def dtw_path(cost) -> Tuple[np.ndarray, np.ndarray]:
-    """DTW path of one (n, m) cost: ``dtw_codes`` at S=1 (kernel or plain
-    version by the cost's device), rows padded to a multiple of 32 with the
-    unreachable cost, then the backtrace on the host from (n-1, m-1), as
-    ``dtw_path_pallas`` does. Returns (index1s, index2s) int64."""
+    """DTW path of one (n, m) cost (see ``dtw_path_plain``). On CUDA (f32,
+    contiguous, n <= 1024) the kernel walks the path itself and only the
+    path (at most n+m-1 pairs) is copied to the host. Returns (index1s,
+    index2s) int64."""
+    name = "dtw_path"
+    if not _on_cuda(name, cost):
+        return dtw_path_plain(cost)
     n, m = cost.shape
-    N = -(-n // 32) * 32
-    padded = torch.full((N, m), DTW_INF, dtype=torch.float32, device=cost.device)
-    padded[:n] = cost
+    D = n + m - 1
     dims = torch.tensor([[n, m, 0, 0]], dtype=torch.int32, device=cost.device)
-    codes = dtw_codes(padded[None], dims)[0, : n + m - 1, :n].cpu().numpy()
-    i, j = n - 1, m - 1
-    path = [(i, j)]
-    while i > 0 or j > 0:
-        if i == 0:
-            j -= 1
-        elif j == 0:
-            i -= 1
-        else:
-            s = codes[i + j, i]
-            if s == DIAG:
-                i, j = i - 1, j - 1
-            elif s == LEFT:
-                j -= 1
-            else:
-                i -= 1
-        path.append((i, j))
-    path.reverse()
-    arr = np.array(path, np.int64)
-    return arr[:, 0], arr[:, 1]
+    out = torch.empty(1 + 2 * D, dtype=torch.int32, device=cost.device)
+    _dtw(name, cost[None], dims, path=out)
+    host = out.cpu().numpy()
+    first = int(host[0])
+    return (host[1 + first : 1 + D].astype(np.int64), host[1 + D + first :].astype(np.int64))
 
 
 def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None):
