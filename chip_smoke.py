@@ -61,7 +61,17 @@ phases have run, so their lines are printed too):
       with JAX made unimportable, and the subtitle tool on a words JSON:
       six formats per input, the schema, the serial run's kernels
       (``log10_mel`` and the bf16 path's five), the batched run's tokens
-      equal to ``transcribe_batch`` on the same files.
+      equal to ``transcribe_batch`` on the same files;
+  (k) sampling, the temperature fallback and the two-pass engine: the
+      sampler's frequencies on a (40, 51866) logits batch against the
+      softmax at T = 0.2 and 1.0, and its time a step at B = 1, 8, 40; a
+      serial 30 s request through the schedule (0.0, 0.2, 0.4) with
+      quality thresholds that random weights fail (every bf16-path kernel
+      launched; the same seed repeats its tokens, another does not); a
+      ``transcribe_batch`` of 8 streams at B=8 with the fallback re-decode
+      and with ``best_of=2`` (``align_cost``/``dtw_codes`` launched); the
+      two-pass engine with ``best_of=2`` on a 35 s request (``log10_mel``
+      and ``flash_attention`` launched in its second pass).
 
 (c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
 lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
@@ -1855,6 +1865,202 @@ def phase_cli(torch, K, model, tok, here: str):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# [k]'s quality thresholds: random weights fail them at every temperature
+# (their log-probs sit far below -0.5), as in the temperature_fallback
+# golden, so every window is decoded again at each step of the schedule
+FALLBACK_OPTIONS = dict(language="en", compression_ratio_threshold=None, logprob_threshold=-0.5,
+                        no_speech_threshold=0.99)
+
+
+def phase_sampler(torch, device):
+    """(k): the sampler alone. One fixed (40, 51866) f32 logits batch with
+    -inf columns, drawn 4096 times through ``make_gumbel_source`` and
+    ``sample_tokens`` at T = 0.2 and 1.0: each row's frequencies of its 16
+    likeliest tokens within 5 standard errors of softmax(logits / T), and no
+    -inf column drawn. Each row's 16 likeliest logits lie within 0.3 of each
+    other and the rest about 8 below, so each of the 16 has an expected
+    count of tens at both temperatures (a normal approximation of a count
+    near 0 would fail a right sampler). Times one draw (and one draw plus
+    its argmax) at B = 1, 8 and 40."""
+    from whisper_timestamped_tpu_torch.decoding import (
+        make_gumbel_source,
+        sample_tokens,
+        temperature_divisor,
+    )
+
+    B, V, n = 40, LARGE_V3["n_vocab"], 4096
+    g = torch.Generator(device=device).manual_seed(77)
+    logits = torch.randn((B, V), generator=g, device=device) - 8.0
+    logits[:, 50000:50400] = float("-inf")
+    logits[torch.rand((B, V), generator=g, device=device) < 0.1] = float("-inf")
+    rows = torch.arange(B, device=device)
+    # 16 finite columns a row (the first 16 of a random order of the
+    # finite ones) take logits 0 to 0.3
+    order = torch.rand((B, V), generator=g, device=device).masked_fill(torch.isinf(logits), 2.0)
+    logits.scatter_(1, order.argsort(dim=1)[:, :16],
+                    torch.linspace(0.0, 0.3, 16, device=device).expand(B, 16).contiguous())
+    worst = 0.0
+    for T in (0.2, 1.0):
+        draw = make_gumbel_source(123, device)
+        t_div = temperature_divisor(T, device)
+        counts = torch.zeros((B, V), dtype=torch.float64, device=device)
+        for _ in range(n):
+            counts[rows, sample_tokens(logits, t_div, draw)] += 1
+        if counts[torch.isinf(logits)].sum().item() != 0:
+            fail(f"[k] the sampler drew a -inf column at T={T}")
+        p = torch.softmax(logits.double() / T, dim=-1)
+        top = p.topk(16, dim=-1).indices
+        pt, ft = p.gather(1, top), counts.gather(1, top) / n
+        se = (pt * (1 - pt) / n).sqrt()
+        z = ((ft - pt).abs() / se.clamp_min(1e-30)).max().item()
+        worst = max(worst, z)
+        if not bool(((ft - pt).abs() <= 5 * se).all()):
+            fail(f"[k] sampler frequencies at T={T} off the softmax by {z:.2f} standard errors "
+                 "(limit 5)")
+        print(f"[k] sampler, (40, {V}) logits, {n} draws, T={T}: the 16 likeliest tokens of each "
+              f"row within {z:.2f} standard errors of softmax(logits/T) (limit 5); no -inf "
+              f"column drawn; top-token probability {pt[:, 0].mean().item():.3f} on average")
+    times = []
+    for b in (1, 8, 40):
+        draw = make_gumbel_source(5, device)
+        t_div = temperature_divisor(0.7, device)
+        x = logits[:b].contiguous()
+        times.append((b, cuda_time_ms(lambda it=0: draw(b, V), iters=50),
+                      cuda_time_ms(lambda it=0: sample_tokens(x, t_div, draw), iters=50)))
+    print("[k] sampler per step: " + "; ".join(
+        f"B={b}: draw {d:.4f} ms, draw + argmax {s:.4f} ms" for b, d, s in times))
+
+
+def phase_sampling(torch, K, model, tok):
+    """(k): sampling, the temperature fallback and the two-pass engine at
+    large-v3 width, EOT suppressed (every window decodes its 224 tokens):
+
+    1. serial: ``transcribe_timestamped`` on one 30 s request with the
+       schedule (0.0, 0.2, 0.4) and ``FALLBACK_OPTIONS``; every kernel of
+       the bf16 path launched (counts reset just before, read just after);
+       the same ``seed`` twice gives the same tokens, another seed others
+       (24-token windows at T=0.7);
+    2. batched: ``transcribe_batch`` at B=8 on eight 5-35 s streams, once
+       with the schedule (0.0, 0.2) and ``FALLBACK_OPTIONS`` (windows
+       re-decoded, ``align_cost``/``dtw_codes`` launched), once at
+       ``temperature=[0.7]`` with ``best_of=2``;
+    3. two-pass: ``naive_approach`` with ``best_of=2`` at T=0.7 on a 35 s
+       request: ``log10_mel`` and ``flash_attention`` launched in pass 2.
+
+    Prints seconds, ms/step, re-decoded windows, teacher-forced segments
+    and peak memory."""
+    import whisper_timestamped_tpu_torch.engine_naive as naive
+    from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_timestamped
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    eot_off = f"-1,{tok.eot}"
+
+    def begin():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_timings()
+        K.reset_launches()
+        return time.perf_counter()
+
+    def end(t0):
+        torch.cuda.synchronize()
+        steps = get_counts().get("decode_steps", 0)
+        loop = get_stage_timings().get("decode_loop", {}).get("total_s", 0.0)
+        return (time.perf_counter() - t0, 1e3 * loop / max(steps, 1), steps,
+                torch.cuda.max_memory_allocated() / 1e9, dict(K.LAUNCHES), get_counts())
+
+    # 1. serial, with the fallback schedule
+    t0 = begin()
+    res = transcribe_timestamped(model, make_audio(50, 30), tokenizer=tok, suppress_tokens=eot_off,
+                                 temperature=(0.0, 0.2, 0.4), **FALLBACK_OPTIONS)
+    secs, ms_step, steps, peak, launches, _ = end(t0)
+    words = check_result(res)
+    temps = sorted({s["temperature"] for s in res["segments"]})
+    windows = len({s["seek"] for s in res["segments"]})
+    if not all(launches[k] for k in BF16_PATH):
+        fail(f"[k] serial fallback: a bf16-path kernel was not launched: {launches}")
+    if temps != [0.4] or not words:
+        fail(f"[k] serial fallback: windows ended at temperatures {temps} (expected [0.4]), "
+             f"{words} words")
+    print(f"[k] serial transcribe_timestamped, 30 s, schedule (0.0, 0.2, 0.4), logprob "
+          f"threshold -0.5: {secs:.2f} s, {windows} window(s) ended at temperature {temps}, "
+          f"{steps} decode steps, {ms_step:.2f} ms/step, {words} words, peak memory {peak:.2f} GB; "
+          f"bf16-path launches {({k: launches[k] for k in BF16_PATH})}")
+    seeded = [transcribe_timestamped(model, make_audio(51, 7), tokenizer=tok, suppress_tokens=eot_off,
+                                     temperature=0.7, sample_len=24, seed=seed, **SMOKE_OPTIONS)
+              for seed in (1, 1, 2)]
+    toks = [[s["tokens"] for s in r["segments"]] for r in seeded]
+    if toks[0] != toks[1] or toks[0] == toks[2]:
+        fail("[k] sampling on the card: the same seed did not repeat its tokens, or another "
+             "seed gave the same")
+    print("[k] sampling on the card, T=0.7, 24-token windows: seed 1 twice gives the same tokens, "
+          "seed 2 others")
+
+    # 2. batched, B=8
+    streams = {f"k{j}": make_audio(3000 + j, sec) for j, sec in enumerate([35, 5, 12, 20, 8, 27, 15, 30])}
+    audio_s = 152
+    for label, kw in (
+        ("schedule (0.0, 0.2)", dict(temperature=[0.0, 0.2], **FALLBACK_OPTIONS,
+                                     decode_options=DecodingOptions(suppress_tokens=eot_off))),
+        ("temperature [0.7], best_of=2", dict(temperature=[0.7], **SMOKE_OPTIONS,
+                                              decode_options=DecodingOptions(
+                                                  suppress_tokens=eot_off, best_of=2))),
+    ):
+        t0 = begin()
+        res = transcribe_batch(model, streams, tok, batch_size=8, **kw)
+        secs, ms_step, steps, peak, launches, counts = end(t0)
+        words = sum(check_result(r) for r in res.values())
+        redecoded = counts.get("fallback_redecodes", 0)
+        temps = sorted({s["temperature"] for r in res.values() for s in r["segments"]})
+        if not launches["align_cost"] or launches["align_cost"] != launches["dtw_codes"]:
+            fail(f"[k] batched {label}: align_cost/dtw_codes not launched one each a batch: "
+                 f"{launches}")
+        if label.startswith("schedule") and (not redecoded or temps != [0.2]):
+            fail(f"[k] batched {label}: {redecoded} windows re-decoded, temperatures {temps}")
+        if not label.startswith("schedule") and temps != [0.7]:
+            fail(f"[k] batched {label}: temperatures {temps}")
+        if not words:
+            fail(f"[k] batched {label}: no words")
+        print(f"[k] transcribe_batch, B=8, 8 streams ({audio_s} s of audio), {label}: "
+              f"{secs:.2f} s, {counts.get('decode_dispatch', 0)} decode calls, {redecoded} windows "
+              f"re-decoded, {steps} decode steps, {ms_step:.2f} ms/step, {words} words, peak "
+              f"memory {peak:.2f} GB; launches {launches}")
+
+    # 3. the two-pass engine; the launches of pass 2 alone
+    pass2 = {}
+    serial_driver = naive.drive_teacher_forced_serial
+
+    def counted_driver(gen, engine):
+        torch.cuda.synchronize()
+        before = dict(K.LAUNCHES)
+        try:
+            return serial_driver(gen, engine)
+        finally:
+            torch.cuda.synchronize()
+            pass2.update({k: K.LAUNCHES[k] - before[k] for k in before})
+
+    naive.drive_teacher_forced_serial = counted_driver
+    try:
+        t0 = begin()
+        res = transcribe_timestamped(model, make_audio(52, 35), tokenizer=tok,
+                                     suppress_tokens=eot_off, naive_approach=True, best_of=2,
+                                     temperature=0.7, **SMOKE_OPTIONS)
+        secs, ms_step, steps, peak, launches, counts = end(t0)
+    finally:
+        naive.drive_teacher_forced_serial = serial_driver
+    timings = get_stage_timings()
+    words = check_result(res)
+    if not (pass2.get("log10_mel") and pass2.get("flash_attention")) or not words:
+        fail(f"[k] two-pass: pass 2 launches {pass2}, {words} words")
+    print(f"[k] two-pass transcribe_timestamped, 35 s, best_of=2, T=0.7: {secs:.2f} s (pass 1 "
+          f"{stage_line(timings, 'naive_pass1')}, pass 2 {stage_line(timings, 'naive_pass2')}), "
+          f"{counts.get('tf_segments', 0)} teacher-forced segments, {steps} decode steps at "
+          f"{ms_step:.2f} ms/step, {words} words, peak memory {peak:.2f} GB; pass 2 launches "
+          f"{ {k: v for k, v in pass2.items() if v} }")
+
+
 def phase_profile(torch, model, tok, B: int, **levers):
     """(--profile): device time against wall time for one decoded window of
     B rows, with the engine's ``levers``."""
@@ -1962,6 +2168,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["log10_mel"] = phase_cli(torch, K, model, tok, here)["log10_mel"]
     launches["stacked_matmul"] = rec["stacked_matmul"].pop("launches")
+    torch.cuda.empty_cache()
+    phase_sampler(torch, device)
+    phase_sampling(torch, K, model, tok)
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):
             phase_profile(torch, model, tok, B, **levers)

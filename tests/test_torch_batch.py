@@ -380,8 +380,6 @@ NOT_PORTED = {
     "mesh": dict(mesh=object()),
     "vad": dict(vad="auditok"),
     "beam_size": dict(decode_options=DecodingOptions(beam_size=2)),
-    "best_of": dict(decode_options=DecodingOptions(best_of=2)),
-    "sampling": dict(temperature=[0.7]),
 }
 
 
@@ -393,15 +391,27 @@ def test_unported_options_raise(models, option):
         B.transcribe_batch(model, {"a": _audio(5, 2)}, _tok(), **kw)
 
 
-def test_unported_transcriber_options_and_fallback_raise(models):
-    _, model = models
+def test_unported_transcriber_options_and_fallback_raise(models, monkeypatch):
+    """A mesh and ``tail_batch`` are refused. The fallback re-decode runs:
+    random weights fail the logprob threshold at 0.0, every window is
+    decoded again at 0.2 (JAX's noise substituted), and the segments equal
+    the JAX transcriber's."""
+    from test_torch_sampling import jax_gumbel_source
+    from whisper_timestamped_tpu.engine import DecodeEngine as JaxEngine
+    from whisper_timestamped_tpu_torch import decoding
+
+    jax_model, model = models
     engine = DecodeEngine(model, _tok())
     for kw in (dict(mesh=object()), dict(tail_batch=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             B.BatchTranscriber(engine, **kw)
-    # random weights fail the default quality thresholds: the schedule's
-    # re-decode would be needed, and it is refused rather than skipped
-    with pytest.raises(NotImplementedError, match="fallback"):
-        B.BatchTranscriber(engine, batch_size=2).transcribe_streams(
-            {"a": _audio(6, 3)}, language="en", temperature=(0.0, 0.2),
-            logprob_threshold=0.0, no_speech_threshold=None)
+    monkeypatch.setattr(decoding, "make_gumbel_source", jax_gumbel_source)
+    kw = dict(language="en", temperature=(0.0, 0.2), logprob_threshold=0.0,
+              no_speech_threshold=None)
+    got = B.BatchTranscriber(engine, batch_size=2).transcribe_streams({"a": _audio(6, 3)}, **kw)
+    want = JB.BatchTranscriber(JaxEngine(jax_model, make_tokenizer(language="en",
+                                                                   task="transcribe")),
+                               batch_size=2).transcribe_streams({"a": _audio(6, 3)}, **kw)
+    assert got["a"] and {s.temperature for s in got["a"]} == {0.2}
+    assert [s.tokens for s in got["a"]] == [s.tokens for s in want["a"]]
+    assert [(s.start, s.end) for s in got["a"]] == [(s.start, s.end) for s in want["a"]]

@@ -172,7 +172,6 @@ def test_cli_batch_size_matches_serial(ckpt, tmp_path):
 @pytest.mark.parametrize("flags,option", [
     (["--accurate"], "best_of|beam_size|temperature"),
     (["--vad", "True"], "vad"),
-    (["--naive"], "naive"),
     (["--plot"], "plot"),
     (["--beam_size", "3", "--batch_size", "2"], "beam_size"),
 ])
@@ -182,6 +181,40 @@ def test_cli_refuses_unported_options(ckpt, tmp_path, flags, option):
     with pytest.raises(NotImplementedError, match=f"({option}).* not yet ported"):
         cli.main([*wavs[:2], "--model", path, "--device", "cpu", "-o", str(tmp_path), *QUIET,
                   *flags])
+
+
+SAMPLING_FLAGS = {
+    "naive": [*QUIET, "--naive"],
+    "best_of": [*QUIET, "--best_of", "2", "--temperature", "0.7"],
+    # the default compression-ratio threshold: greedy output of the random
+    # model is too repetitive, its sample at 0.2 is not
+    "fallback": ["--language", "en", "--no_speech_threshold", "None", "--logprob_threshold",
+                 "None", "--temperature_increment_on_fallback", "0.2"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLING_FLAGS))
+def test_cli_sampling_and_two_pass_match_jax_cli(ckpt, tmp_path, monkeypatch, case):
+    """``--naive``, ``--best_of 2 --temperature 0.7`` and a fallback step
+    run (the first was refused before): with JAX's noise substituted in
+    process, the port's words JSON equals the JAX CLI's under the goldens'
+    loose rounding."""
+    from test_torch_sampling import jax_gumbel_source
+    from whisper_timestamped_tpu_torch import decoding
+
+    monkeypatch.setattr(decoding, "make_gumbel_source", jax_gumbel_source)
+    path, wavs = ckpt
+    common = [wavs[2], "--model", path, "--device", "cpu", "-f", "json", *SAMPLING_FLAGS[case]]
+    cli.main([*common, "-o", str(tmp_path / "ours")])
+    jax_cli.main([*common, "-o", str(tmp_path / "jax")])
+    name = os.path.basename(wavs[2]) + ".words.json"
+    ours = json.load(open(tmp_path / "ours" / name, encoding="utf-8"))
+    theirs = json.load(open(tmp_path / "jax" / name, encoding="utf-8"))
+    assert [s["tokens"] for s in ours["segments"]] == [s["tokens"] for s in theirs["segments"]]
+    assert loose(ours) == loose(theirs)
+    assert [w for s in ours["segments"] for w in s.get("words", [])]
+    if case != "naive":
+        assert all(s["temperature"] > 0 for s in ours["segments"])
 
 
 def test_cli_needs_the_card_by_default(ckpt, monkeypatch):

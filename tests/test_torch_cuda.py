@@ -917,3 +917,99 @@ def test_stacked_matmul_at_every_split(cuda, monkeypatch, B, k_in, n_out):
             o_p = K.stacked_matmul_plain(x, w, layer).float()
             assert o_k.shape == (B, n_out)
             assert (o_k.float() - o_p).abs().max() <= 1e-2 * o_p.abs().max(), (n_split, layer)
+
+
+# ---------------------------------------------------------------------------
+# sampling and the teacher-forced forward on the card
+# ---------------------------------------------------------------------------
+
+
+def test_gumbel_source_on_the_card_is_seeded(cuda):
+    """The sampler's noise on the card: the same seed gives the same draws,
+    another seed others; finite f32 on the card."""
+    from whisper_timestamped_tpu_torch.decoding import make_gumbel_source
+
+    a, b, c = (make_gumbel_source(s, cuda) for s in (7, 7, 8))
+    for _ in range(3):
+        x, y, z = a(40, 51866), b(40, 51866), c(40, 51866)
+        assert x.device.type == "cuda" and x.dtype == torch.float32
+        assert torch.isfinite(x).all()
+        assert torch.equal(x, y) and not torch.equal(x, z)
+
+
+def _small_models():
+    """A small model of the kernels' head width (64) in bf16 on the card, and
+    the same weights in f32 on the CPU, with a tokenizer of its vocabulary."""
+    import copy
+
+    from whisper_timestamped_tpu_torch.models import WhisperDims, WhisperModel, init_params
+    from whisper_timestamped_tpu_torch.tokenizer import get_tokenizer, synthetic_ranks
+
+    tok = get_tokenizer(ranks=synthetic_ranks(), multilingual=True, num_languages=99,
+                        language="en", task="transcribe")
+    dims = WhisperDims(n_mels=80, n_audio_state=256, n_audio_head=4, n_audio_layer=2,
+                       n_vocab=tok.n_vocab, n_text_state=256, n_text_head=4, n_text_layer=2)
+    cpu = init_params(dims, seed=3, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda", torch.bfloat16)
+    heads = [(0, 1), (1, 0), (1, 3)]
+    return (WhisperModel(module=card, alignment_heads=heads),
+            WhisperModel(module=cpu, alignment_heads=heads), tok)
+
+
+def test_sampled_decode_window_on_card_matches_plain(cuda, monkeypatch):
+    """One window at temperature 0.7 on the card through the kernels, and
+    the same call with the plain versions in place of the kernels (same
+    card, same bf16 weights): the draws come from one source (the same
+    seed), so the tokens are equal; log-probs within 5e-2."""
+    import whisper_timestamped_tpu_torch.models.whisper_torch as wt
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+
+    model, _, tok = _small_models()
+    mel = torch.randn((80, 3000), generator=torch.Generator(device=cuda).manual_seed(2),
+                      device=cuda) * 0.5
+    opts = DecodingOptions(language="en", sample_len=24)
+    engine = DecodeEngine(model, tok)
+    before = dict(K.LAUNCHES)
+    got = engine.decode_window(mel, opts, temperature=0.7, rng_seed=4)[0]
+    torch.cuda.synchronize()
+    assert all(K.LAUNCHES[k] > before[k] for k in ("xattn_decode", "self_attn_decode",
+                                                   "flash_attention"))
+
+    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new):
+        k_all[layer, :, pos] = k_new[:, 0]
+        v_all[layer, :, pos] = v_new[:, 0]
+        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
+
+    monkeypatch.setattr(wt, "self_attn_decode", plain_self)
+    monkeypatch.setattr(wt, "xattn_decode", K.xattn_decode_plain)
+    monkeypatch.setattr(wt, "flash_attention", K.flash_attention_plain)
+    want = engine.decode_window(mel, opts, temperature=0.7, rng_seed=4)[0]
+    assert got.tokens == want.tokens and len(got.tokens) > 2
+    np.testing.assert_allclose(got.token_logprobs, want.token_logprobs, rtol=0, atol=5e-2)
+    greedy = engine.decode_window(mel, opts)[0]
+    assert greedy.tokens != got.tokens
+
+
+def test_decode_full_align_heads_on_card_matches_cpu(cuda):
+    """The teacher-forced forward with ``align_heads`` on the card (bf16,
+    the encoder through ``flash_attention``) against the same weights in
+    f32 on the CPU (plain versions): alignment rows and logits at atol
+    2e-2 of their scale."""
+    from whisper_timestamped_tpu_torch.models.whisper_torch import decode_full, encode
+
+    card, cpu, _ = _small_models()
+    g = torch.Generator().manual_seed(6)
+    mel = torch.randn((2, 80, 3000), generator=g) * 0.5
+    tokens = torch.randint(0, card.dims.n_vocab, (2, 40), generator=g)
+    heads = card.alignment_heads
+    with torch.no_grad():
+        before = K.LAUNCHES["flash_attention"]
+        lc, rc = decode_full(card.module, tokens.to(cuda), encode(card.module, mel.to(cuda)),
+                             align_heads=heads)
+        assert K.LAUNCHES["flash_attention"] > before
+        lp, rp = decode_full(cpu.module, tokens, encode(cpu.module, mel), align_heads=heads)
+    assert rc.shape == rp.shape == (2, len(heads), 40, 1500)
+    scale_r, scale_l = rp.abs().max().item(), lp.abs().max().item()
+    torch.testing.assert_close(rc.cpu(), rp, rtol=0, atol=2e-2 * scale_r)
+    torch.testing.assert_close(lc.float().cpu(), lp, rtol=0, atol=2e-2 * scale_l)

@@ -230,14 +230,9 @@ def test_align_words_whole_windows_matches_jax(detect_disfluencies):
 
 
 NOT_PORTED = {
-    "temperature": dict(temperature=0.7),
-    "fallback": dict(temperature=[0.0, 0.2]),
-    "best_of": dict(best_of=2),
     "beam_size": dict(beam_size=3),
-    "naive_approach": dict(naive_approach=True),
     "vad": dict(vad="auditok"),
     "plot_word_alignment": dict(plot_word_alignment=True),
-    "use_backend_timestamps": dict(use_backend_timestamps=True),
 }
 
 
@@ -268,6 +263,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import whisper_timestamped_tpu_torch.api, whisper_timestamped_tpu_torch.ops.kernels\n"
+        "import whisper_timestamped_tpu_torch.engine_naive, whisper_timestamped_tpu_torch.backend_timestamps\n"
         "import whisper_timestamped_tpu_torch.ops.peaks\n"
         "import whisper_timestamped_tpu_torch.parallel.batch, whisper_timestamped_tpu_torch.parallel.deviceflow\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("

@@ -1,17 +1,21 @@
 """Public API: ``transcribe_timestamped``, the orchestrator.
 
-Port of ``whisper_timestamped_tpu/api.py`` for the greedy single-pass
-engine (``_transcribe_efficient``) with its three alignment routes: the
-batched device aligner (``full_device``: device alignment on, at most
-``MAX_K`` alignment heads, whisper's timestamps trusted), the per-segment
-kernels (device alignment on, outside those gates) and the host
+Port of ``whisper_timestamped_tpu/api.py``. It routes as the JAX package
+does: ``best_of`` > 1, ``use_backend_timestamps`` or ``naive_approach``
+take the two-pass engine (``engine_naive.transcribe_naive``), everything
+else the single-pass engine (``_transcribe_efficient``), greedy or sampled,
+with the temperature fallback. The single-pass engine has three alignment
+routes: the batched device aligner (``full_device``: device alignment on,
+at most ``MAX_K`` alignment heads, whisper's timestamps trusted), the
+per-segment kernels (device alignment on, outside those gates) and the host
 (``device_alignment=False``, or off by default on a CPU model); with
 ``detect_disfluencies`` and ``trust_whisper_timestamps=False`` (whole-window
 alignment). On the card the kernels run, on the CPU their plain versions.
 The per-segment helpers are shared with the batch pipeline
 (``prefetch_ts_repair_rows``, ``prepare_segment_tokens``,
-``device_align_segments``, ``align_and_score_segment``). Options outside
-these paths raise ``NotImplementedError`` naming the option.
+``device_align_segments``, ``align_and_score_segment``). ``beam_size``,
+``vad`` and ``plot_word_alignment`` are not yet ported and raise
+``NotImplementedError`` naming the option.
 """
 
 from __future__ import annotations
@@ -82,18 +86,11 @@ def _resolve_tokenizer(model: WhisperModel, tokenizer, language, task) -> Tokeni
     )
 
 
-def _check_ported(temperature, best_of, beam_size, naive_approach, vad,
-                  plot_word_alignment, use_backend_timestamps):
-    temps = list(temperature) if isinstance(temperature, (list, tuple)) else [temperature]
+def _check_ported(beam_size, vad, plot_word_alignment):
     refused = [
-        (any(float(t) > 0 for t in temps), "temperature > 0 (sampling)"),
-        (len(temps) != 1, "a temperature fallback schedule"),
-        ((best_of or 0) > 1, "best_of"),
         (beam_size is not None, "beam_size"),
-        (naive_approach, "naive_approach"),
         (vad is not False and vad is not None, "vad"),
         (bool(plot_word_alignment), "plot_word_alignment"),
-        (use_backend_timestamps, "use_backend_timestamps"),
     ]
     for cond, option in refused:
         if cond:
@@ -148,8 +145,10 @@ def transcribe_timestamped(
     ``words`` carrying text/start/end/confidence), ``language``, plus
     ``language_probs`` on auto-detection. The model's device and dtype
     decide where and in what precision it runs (``fp16`` is accepted and,
-    as in the JAX package, not read). ``seed`` seeds the ``torch.Generator``
-    handed to the decoder; the greedy path draws nothing from it.
+    as in the JAX package, not read). ``seed`` seeds the sampler: the
+    window at frame ``seek`` samples with ``(seed or 0) + seek`` (greedy
+    decoding draws nothing). ``best_of`` > 1, ``use_backend_timestamps``
+    and ``naive_approach`` run the two-pass engine.
 
     ``device_alignment`` runs the alignment cost and DTW on the model's
     device: the batched aligner where its gates hold, else the per-segment
@@ -170,8 +169,9 @@ def transcribe_timestamped(
     ), "word_alignment_most_top_layers must be a strictly positive number"
     if isinstance(temperature, (list, tuple)) and len(temperature) == 1:
         temperature = temperature[0]
-    _check_ported(temperature, best_of, beam_size, naive_approach, vad,
-                  plot_word_alignment, use_backend_timestamps)
+    _check_ported(beam_size, vad, plot_word_alignment)
+    if (best_of or 0) > 1 or use_backend_timestamps:
+        naive_approach = True  # as the JAX package routes (api.py:172-175)
 
     if isinstance(model, str):
         model = load_model(model)
@@ -194,15 +194,14 @@ def transcribe_timestamped(
     )
 
     audio = load_audio(audio)
-    generator = torch.Generator(device=model.device)
-    generator.manual_seed(seed or 0)
-
-    transcription, words = _transcribe_efficient(
-        engine,
-        audio,
+    temperatures = (
+        [float(t) for t in temperature] if isinstance(temperature, (list, tuple))
+        else [float(temperature)]
+    )
+    common = dict(
         language=language,
         task=task,
-        temperatures=[float(temperature)],
+        temperatures=temperatures,
         compression_ratio_threshold=compression_ratio_threshold,
         logprob_threshold=logprob_threshold,
         no_speech_threshold=no_speech_threshold,
@@ -210,17 +209,28 @@ def transcribe_timestamped(
         initial_prompt=initial_prompt,
         suppress_tokens=suppress_tokens,
         sample_len=sample_len,
-        generator=generator,
+        seed=seed,
+        trust_whisper_timestamps=trust_whisper_timestamps,
         refine_whisper_precision_nframes=refine_whisper_precision_nframes,
         remove_punctuation_from_words=remove_punctuation_from_words,
         compute_word_confidence=compute_word_confidence,
         include_punctuation_in_confidence=include_punctuation_in_confidence,
         detect_disfluencies=detect_disfluencies,
         verbose=verbose,
-        device_alignment=device_alignment,
-        device_alignment_explicit=device_alignment_explicit,
-        trust_whisper_timestamps=trust_whisper_timestamps,
     )
+    if naive_approach:
+        from .engine_naive import transcribe_naive
+
+        transcription, words = transcribe_naive(
+            engine, audio, best_of=best_of, beam_size=beam_size, patience=patience,
+            length_penalty=length_penalty, use_backend_timestamps=use_backend_timestamps,
+            **common,
+        )
+    else:
+        transcription, words = _transcribe_efficient(
+            engine, audio, device_alignment=device_alignment,
+            device_alignment_explicit=device_alignment_explicit, **common,
+        )
     return finalize_transcription(
         transcription,
         words,
@@ -228,7 +238,8 @@ def transcribe_timestamped(
         min_word_duration=min_word_duration,
         trust_whisper_timestamps=trust_whisper_timestamps,
         refine_whisper_precision=refine_whisper_precision,
-        print_words=bool(verbose),
+        # the two-pass engine prints each word as it is aligned
+        print_words=bool(verbose and not naive_approach),
     )
 
 
@@ -288,7 +299,7 @@ def _transcribe_efficient(
     initial_prompt,
     suppress_tokens,
     sample_len,
-    generator,
+    seed,
     refine_whisper_precision_nframes,
     remove_punctuation_from_words,
     compute_word_confidence,
@@ -348,7 +359,7 @@ def _transcribe_efficient(
         decode_options=opts,
         return_language_probs=language is None,
         verbose_callback=verbose_cb if verbose else None,
-        generator=generator,
+        rng_seed=seed or 0,
         fetch_alignment=not full_device,
     )
     if verbose and language is None and result.language is not None:

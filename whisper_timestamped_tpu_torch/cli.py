@@ -7,10 +7,12 @@ formats with ``.words.*`` variants, filtered JSON on stdout, and the
 ``--batch_size`` route through ``transcribe_batch_stream``. It differs where
 the hardware does: ``--device`` is ``cuda`` (the default; no fallback to the
 CPU when there is no card) or ``cpu``, ``--dtype`` names a torch dtype,
-``--threads`` sets torch's CPU threads and ``--backend`` only logs. Options
-whose engines are not yet ported (``--accurate``, beam search, best_of, a
-fallback schedule, ``--vad``, ``--naive``, ``--plot``) raise the entry
-points' ``NotImplementedError``.
+``--threads`` sets torch's CPU threads and ``--backend`` only logs.
+Sampling (``--temperature`` above 0), ``--best_of``, a fallback step
+(``--temperature_increment_on_fallback``) and the two-pass ``--naive`` run.
+Options whose engines are not yet ported (``--accurate``, which sets beam
+5, ``--beam_size``, ``--vad``, ``--plot``) raise the entry points'
+``NotImplementedError``, naming the option.
 
     python -m whisper_timestamped_tpu_torch.cli audio.wav --model large-v3.pt -o out
 """

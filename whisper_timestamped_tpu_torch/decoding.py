@@ -2,12 +2,18 @@
 
 Port of ``whisper_timestamped_tpu/decoding.py``. ``decode_window`` is the
 counterpart of ``decode_window_jit``: it encodes a batch of 30-s windows,
-prefills the right-aligned prompt region, then runs the greedy token loop
-(a Python loop over tokens where JAX has ``lax.while_loop``) into
+prefills the right-aligned prompt region, then runs the token loop (a
+Python loop over tokens where JAX has ``lax.while_loop``) into
 preallocated buffers of fixed shape: the chosen tokens, their filtered
 log-probabilities, the timestamp-slice log-probabilities, and the
 alignment heads' cross-attention rows. Row convention as in the reference:
 ``attn[:, k]`` is the attention of the forward that predicted token k.
+
+At temperature 0 the token is the argmax of the filtered logits. Above it
+the token is sampled as ``jax.random.categorical`` samples it, by the
+Gumbel-max rule: ``argmax(logits / T + g)`` with ``g`` a (B, V) draw of
+standard Gumbel noise per executed step, from ``make_gumbel_source`` (the
+one place the loop gets its noise from; the greedy loop draws nothing).
 
 The loop checks ``finished.all()`` on the host once per step (one device
 sync per step, where the JAX loop tests its condition on the device).
@@ -17,7 +23,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +79,41 @@ class DecodingOptions:
 def compression_ratio(text: str) -> float:
     b = text.encode("utf-8")
     return len(b) / len(zlib.compress(b)) if b else 0.0
+
+
+def make_gumbel_source(seed: int, device) -> Callable[[int, int], torch.Tensor]:
+    """The sampler's noise: a function ``draw(B, V)`` that returns the next
+    step's (B, V) f32 tensor of standard Gumbel noise on ``device``, from a
+    ``torch.Generator`` seeded with ``seed``. ``-log(E)`` with ``E`` a unit
+    exponential draw is Gumbel; ``E`` is kept above the smallest normal
+    float so no column gets infinite noise. No host sync, so the draw can
+    be captured in a CUDA graph."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(B: int, V: int) -> torch.Tensor:
+        e = torch.empty((B, V), dtype=torch.float32, device=device).exponential_(generator=gen)
+        return e.clamp_min_(tiny).log_().neg_()
+
+    return draw
+
+
+def temperature_divisor(temperature: float, device) -> torch.Tensor:
+    """max(T, 1e-6) in f32, as the scalar tensor that ``sample_tokens``
+    divides by (JAX's ``logits / jnp.maximum(temperature, 1e-6)``): a
+    tensor divisor keeps the IEEE quotient on CUDA too, where a Python
+    scalar becomes a multiply by its reciprocal."""
+    return torch.tensor(max(np.float32(temperature), np.float32(1e-6)), dtype=torch.float32,
+                        device=device)
+
+
+def sample_tokens(logits: torch.Tensor, t_div: torch.Tensor, draw) -> torch.Tensor:
+    """One sampled token per row of the filtered f32 logits (B, V):
+    ``argmax(logits / t_div + g)`` with ``g = draw(B, V)``, the Gumbel-max
+    form of ``jax.random.categorical``. A -inf column stays -inf; ties go
+    to the first maximum."""
+    return torch.argmax(logits / t_div + draw(*logits.shape), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -285,11 +326,21 @@ def decode_window(
     kv_int8: bool = False,
     kv_int4: bool = False,
     self_kv_int8: bool = False,
+    temperature: float = 0.0,
+    rng_seed: int = 0,
+    capture_attention: bool = True,
 ):
-    """Greedy decode of one 30-s window for a batch. Returns a dict of
-    buffers: tokens (B, max_new) int32 (EOT-filled), n_steps, sum_logprobs
-    (B,), token_logprobs (B, max_new), ts_logprobs (B, max_new, V-ts_begin),
-    attn (B, max_new, K, T_audio), no_speech_prob (B,), n_sampled (B,).
+    """Decode one 30-s window for a batch. Returns a dict of buffers: tokens
+    (B, max_new) int32 (EOT-filled), n_steps, sum_logprobs (B,),
+    token_logprobs (B, max_new), ts_logprobs (B, max_new, V-ts_begin), attn
+    (B, max_new, K, T_audio), no_speech_prob (B,), n_sampled (B,).
+
+    ``temperature`` > 0 samples each token from the filtered logits scaled
+    by 1 / max(T, 1e-6), with noise from ``make_gumbel_source(rng_seed)``;
+    the log-probabilities stay those of the unscaled logits, as in JAX.
+    ``capture_attention=False`` keeps no alignment rows: no scores are
+    asked of the cross-attention kernel, and ``attn`` and ``ts_logprobs``
+    are None.
 
     ``kv_int8`` / ``kv_int4`` store the encoder's cross K/V as int8 / int4
     (int4 wins when both are set), ``self_kv_int8`` the self-attention cache
@@ -311,8 +362,9 @@ def decode_window(
                        quantize_self=self_kv_int8)
     pad_len = (P - prompt_len).to(torch.int32)
 
+    align_heads = list(align_heads) if capture_attention else []
     with stage_timer("prefill"):
-        x, prefill_rows = _prefill(model, cache, prompt, pad_len, list(align_heads))
+        x, prefill_rows = _prefill(model, cache, prompt, pad_len, align_heads)
         sot_slot = P - sot_index_from_end
         x_sel = x[:, [sot_slot, P - 1]]
         sel_logits = _logits(_ln(x_sel, model.decoder["ln_g"], model.decoder["ln_b"]), model.decoder)
@@ -323,9 +375,14 @@ def decode_window(
     T_audio = xa.shape[1]
     tokens = torch.full((B, max_new), eot, dtype=torch.int32, device=dev)
     token_logprobs = torch.zeros((B, max_new), dtype=torch.float32, device=dev)
-    ts_logprobs = torch.zeros((B, max_new, V - ts_begin), dtype=torch.float32, device=dev)
-    attn = torch.zeros((B, max_new, K, T_audio), dtype=torch.float32, device=dev)
-    attn[:, 0] = prefill_rows
+    ts_logprobs = attn = None
+    if capture_attention:
+        ts_logprobs = torch.zeros((B, max_new, V - ts_begin), dtype=torch.float32, device=dev)
+        attn = torch.zeros((B, max_new, K, T_audio), dtype=torch.float32, device=dev)
+        attn[:, 0] = prefill_rows
+    if temperature > 0:
+        t_div = temperature_divisor(temperature, dev)
+        gumbel = make_gumbel_source(rng_seed, dev)
     sum_logprobs = torch.zeros((B,), dtype=torch.float32, device=dev)
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     last_token = prompt[:, -1]
@@ -347,7 +404,10 @@ def decode_window(
                     max_initial_timestamp_index=max_initial_timestamp_index,
                 )
             logprobs = torch.log_softmax(logits, dim=-1)
-            tok = torch.argmax(logits, dim=-1)
+            if temperature > 0:
+                tok = sample_tokens(logits, t_div, gumbel)
+            else:
+                tok = torch.argmax(logits, dim=-1)
             # sequence-length cap: force EOT when the true position would exceed n_ctx
             overflow = (P + i - pad_len) >= (dims.n_text_ctx - 1)
             tok = torch.where(finished | overflow, eot, tok)
@@ -357,7 +417,8 @@ def decode_window(
             sum_logprobs += torch.where(newly, tok_logprob, 0.0)
             tokens[:, i] = tok.to(torch.int32)
             token_logprobs[:, i] = torch.where(newly, tok_logprob, 0.0)
-            ts_logprobs[:, i] = logprobs[:, ts_begin:]
+            if capture_attention:
+                ts_logprobs[:, i] = logprobs[:, ts_begin:]
             max_timestamp = torch.where((tok >= ts_begin) & newly,
                                         torch.maximum(max_timestamp, tok), max_timestamp)
             finished = finished | (tok == eot)
@@ -365,7 +426,7 @@ def decode_window(
             # feed the chosen token; its forward predicts token i+1
             logits_new, rows = decode_step(
                 model, tok[:, None], cache, P + i,
-                pos_offset=pad_len, kv_valid_from=pad_len, align_heads=list(align_heads),
+                pos_offset=pad_len, kv_valid_from=pad_len, align_heads=align_heads,
             )
             if i + 1 < max_new and rows is not None:
                 attn[:, i + 1] = rows[:, :, 0]

@@ -1,17 +1,20 @@
 """Long-form transcription engine: the 30-second sliding-window loop.
 
-Port of ``whisper_timestamped_tpu/engine.py`` for the greedy single-pass
-path: ``DecodeEngine`` (bf16 or f32, whatever the model holds) with
-``build_prompt``, ``decode_window`` and the result unpacking the batch
-pipeline shares, ``decode_with_fallback`` at one temperature,
-``needs_fallback``, ``transcribe_windows`` and ``extract_window_segments``.
-The mel and the window slicing and padding run in torch on the model's
-device. ``fetch_alignment`` (the default, as in the JAX package) brings each
-window's alignment buffers to the host for the host and per-segment
-aligners; ``fetch_alignment=False`` leaves them on the device for the
-batched device aligner. The engine takes the KV-cache quantization levers (``kv_int8``,
-``kv_int4``, ``self_kv_int8``). Sampling, beam search, best_of, a mesh and
-the weight levers ``w_int8``/``enc_int8`` raise ``NotImplementedError``.
+Port of ``whisper_timestamped_tpu/engine.py``: ``DecodeEngine`` (bf16 or
+f32, whatever the model holds) with ``build_prompt``, ``decode_window``
+(greedy at temperature 0, sampled above it) and the result unpacking the
+batch pipeline shares, ``decode_window_best_of``, ``decode_with_fallback``
+(whisper's temperature schedule), ``sequence_score``, ``needs_fallback``,
+``transcribe_windows`` (window ``seek`` samples with ``rng_seed + seek``)
+and ``extract_window_segments``. The mel and the window slicing and padding
+run in torch on the model's device. ``fetch_alignment`` (the default, as in
+the JAX package) brings each window's alignment buffers to the host for the
+host and per-segment aligners; ``fetch_alignment=False`` leaves them on the
+device for the batched device aligner; ``capture_attention=False`` keeps
+none (the two-pass engine's first pass). The engine takes the KV-cache
+quantization levers (``kv_int8``, ``kv_int4``, ``self_kv_int8``). Beam
+search, a mesh and the weight levers ``w_int8``/``enc_int8`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ class WindowDecodeResult:
     temperature: float
     compression_ratio: float
     token_logprobs: np.ndarray  # (n_tokens,) logprob of each sampled token
+    sum_logprob: float = 0.0  # over the sampled tokens and the final EOT
     hit_limit: bool = False  # decode reached max_new without EOT ("stuck LM")
     attn: Optional[np.ndarray] = None  # alignment-head scores of each sampled token
     ts_logprobs: Optional[np.ndarray] = None
@@ -214,14 +218,13 @@ class DecodeEngine:
         options: DecodingOptions,
         prompt_tokens: Sequence[int] = (),
         temperature: float = 0.0,
-        generator: Optional[torch.Generator] = None,
+        rng_seed: int = 0,
         fetch_alignment: bool = True,
+        capture_attention: bool = True,
     ) -> List[WindowDecodeResult]:
-        """Greedy decode of a window batch. ``generator`` is the random
-        source that sampling (temperature > 0, not yet ported) will draw
-        from; the greedy path draws nothing."""
-        if temperature > 0:
-            raise not_ported("temperature > 0 (sampling)")
+        """Decode of a window batch: greedy at temperature 0, else sampled
+        with noise seeded by ``rng_seed`` (one (B, V) draw per step, so the
+        rows sample independently)."""
         tok = self.tokenizer
         mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
         if mel.ndim == 2:
@@ -247,9 +250,13 @@ class DecodeEngine:
             max_new=options.sample_len or MAX_NEW_TOKENS,
             suppress_blank=options.suppress_blank,
             without_timestamps=options.without_timestamps,
+            temperature=float(temperature),
+            rng_seed=rng_seed,
+            capture_attention=capture_attention,
             **self.kv_options,
         )
-        return self.unpack_window_outputs(out, temperature, fetch_alignment=fetch_alignment)
+        return self.unpack_window_outputs(out, temperature,
+                                          fetch_alignment=fetch_alignment and capture_attention)
 
     def unpack_window_outputs(self, out, temperature,
                               fetch_alignment: bool = True) -> List[WindowDecodeResult]:
@@ -298,6 +305,7 @@ class DecodeEngine:
                     temperature=float(temperature),
                     compression_ratio=compression_ratio(text),
                     token_logprobs=logprobs_all[b, :n_text],
+                    sum_logprob=float(sum_lp[b]),
                     hit_limit=hit_limit,
                     attn=attn_all[b, :n_text] if fetch_alignment else None,
                     ts_logprobs=ts_lp_all[b, :n_text] if fetch_alignment else None,
@@ -310,6 +318,31 @@ class DecodeEngine:
             )
         return results
 
+    def decode_window_best_of(
+        self,
+        mel: torch.Tensor,
+        options: DecodingOptions,
+        prompt_tokens: Sequence[int],
+        temperature: float,
+        rng_seed: int,
+        fetch_alignment: bool = True,
+        capture_attention: bool = True,
+    ) -> WindowDecodeResult:
+        """best_of sampling (``engine.py:645``): the window repeated
+        ``best_of`` times as one batch, so each row draws its own sample;
+        the best ``sequence_score`` wins (whisper's GreedyDecoder and
+        MaximumLikelihoodRanker)."""
+        n = options.best_of or 1
+        mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
+        if mel.ndim == 2:
+            mel = mel[None]
+        results = self.decode_window(
+            mel.repeat_interleave(n, dim=0), options, prompt_tokens, temperature=temperature,
+            rng_seed=rng_seed, fetch_alignment=fetch_alignment,
+            capture_attention=capture_attention,
+        )
+        return max(results, key=lambda r: sequence_score(r, options.length_penalty))
+
     def decode_with_fallback(
         self,
         mel: torch.Tensor,
@@ -319,18 +352,43 @@ class DecodeEngine:
         compression_ratio_threshold: Optional[float],
         logprob_threshold: Optional[float],
         no_speech_threshold: Optional[float],
-        generator: Optional[torch.Generator] = None,
+        rng_seed: int = 0,
         fetch_alignment: bool = True,
+        capture_attention: bool = True,
     ) -> WindowDecodeResult:
-        """whisper's decode_with_fallback at a single temperature of 0: the
-        escalation schedule samples, which is not yet ported."""
-        temperatures = list(temperatures)
-        if len(temperatures) != 1 or temperatures[0] != 0:
-            raise not_ported(f"temperature schedule {temperatures} (sampling fallback)")
+        """whisper's decode_with_fallback (``engine.py:671``): each
+        temperature in turn until the result passes the thresholds; above 0
+        with ``best_of`` > 1 the best of that many samples. Every
+        temperature samples with the same ``rng_seed``."""
         if options.beam_size:
             raise not_ported("beam_size")
-        return self.decode_window(mel, options, prompt_tokens, temperature=0.0,
-                                  generator=generator, fetch_alignment=fetch_alignment)[0]
+        result = None
+        for t in temperatures:
+            if t > 0 and (options.best_of or 0) > 1:
+                result = self.decode_window_best_of(
+                    mel, options, prompt_tokens, float(t), rng_seed,
+                    fetch_alignment=fetch_alignment, capture_attention=capture_attention,
+                )
+                result.temperature = float(t)
+            else:
+                result = self.decode_window(
+                    mel, options, prompt_tokens, temperature=float(t), rng_seed=rng_seed,
+                    fetch_alignment=fetch_alignment, capture_attention=capture_attention,
+                )[0]
+            if not needs_fallback(result, compression_ratio_threshold, logprob_threshold,
+                                  no_speech_threshold):
+                break
+        return result
+
+
+def sequence_score(result: WindowDecodeResult, length_penalty: Optional[float]) -> float:
+    """whisper's MaximumLikelihoodRanker (``engine.py:714``): the sum
+    log-prob over the length, or over the GNMT length penalty when one is
+    set. The serial and batched best_of both rank by it."""
+    length = len(result.tokens)
+    if length_penalty is None:
+        return result.sum_logprob / max(length, 1)
+    return result.sum_logprob / (((5.0 + length) / 6.0) ** length_penalty)
 
 
 def needs_fallback(
@@ -339,10 +397,9 @@ def needs_fallback(
     logprob_threshold: Optional[float],
     no_speech_threshold: Optional[float],
 ) -> bool:
-    """whisper's retry predicate (``engine.py:724``): too repetitive or too
-    unsure retries at the next temperature, unless the window is silence.
-    The port has no retry yet; the batch pipeline uses this to refuse a
-    schedule that would need one."""
+    """whisper's retry predicate (``engine.py:724``, shared by the serial
+    and batched pipelines): too repetitive or too unsure retries at the
+    next temperature, unless the window is silence."""
     nf = False
     if (compression_ratio_threshold is not None
             and result.compression_ratio > compression_ratio_threshold):
@@ -373,7 +430,7 @@ def transcribe_windows(
     *,
     language: Optional[str] = None,
     task: str = "transcribe",
-    temperature: Sequence[float] = (0.0,),
+    temperature: Sequence[float] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
     compression_ratio_threshold: Optional[float] = 2.4,
     logprob_threshold: Optional[float] = -1.0,
     no_speech_threshold: Optional[float] = 0.6,
@@ -382,8 +439,9 @@ def transcribe_windows(
     decode_options: Optional[DecodingOptions] = None,
     return_language_probs: bool = False,
     verbose_callback=None,
-    generator: Optional[torch.Generator] = None,
+    rng_seed: int = 0,
     fetch_alignment: bool = True,
+    capture_attention: bool = True,
 ) -> TranscribeResult:
     """whisper-semantics long-form loop, emitting alignment-ready segments."""
     tok = engine.tokenizer
@@ -439,7 +497,8 @@ def transcribe_windows(
             result = engine.decode_with_fallback(
                 window(seek), base_opts, all_tokens[prompt_reset_since:], temperature,
                 compression_ratio_threshold, logprob_threshold, no_speech_threshold,
-                generator=generator, fetch_alignment=fetch_alignment,
+                rng_seed=rng_seed + seek, fetch_alignment=fetch_alignment,
+                capture_attention=capture_attention,
             )
         window_segments, seek = extract_window_segments(
             result, seek, segment_size, tok, no_speech_threshold, logprob_threshold

@@ -330,6 +330,18 @@ def _load_safetensors(path: str) -> Dict[str, Any]:
     return load_file(path)
 
 
+def _load_sharded_hf(dirname: str, index_file: str) -> Dict[str, Any]:
+    """Every shard that a HuggingFace index (``*.index.json``) lists, merged
+    into one state dict (``load.py:355`` of the JAX package)."""
+    with open(os.path.join(dirname, index_file)) as f:
+        index = json.load(f)
+    sd: Dict[str, Any] = {}
+    for shard in sorted(set(index["weight_map"].values())):
+        p = os.path.join(dirname, shard)
+        sd.update(_load_safetensors(p) if shard.endswith(".safetensors") else _torch_load(p))
+    return sd
+
+
 def _load_hf_dir(dirname: str):
     config = None
     cfg_path = os.path.join(dirname, "config.json")
@@ -339,15 +351,17 @@ def _load_hf_dir(dirname: str):
     sd = None
     for fname, loader in (("model.safetensors", _load_safetensors),
                           ("pytorch_model.bin", _torch_load),
-                          ("whisper.ckpt", _torch_load)):
+                          ("whisper.ckpt", _torch_load),
+                          ("model.safetensors.index.json", None),
+                          ("pytorch_model.bin.index.json", None)):
         p = os.path.join(dirname, fname)
         if os.path.exists(p):
-            sd = loader(p)
+            sd = _load_sharded_hf(dirname, fname) if loader is None else loader(p)
             break
     if sd is None:
         raise FileNotFoundError(
             f"No model weights found in {dirname} (expected model.safetensors, "
-            "pytorch_model.bin or whisper.ckpt)."
+            "pytorch_model.bin, or a sharded index)."
         )
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]

@@ -313,9 +313,14 @@ def decode_full(
     xa: torch.Tensor,
     pos_offset: int = 0,
     return_cross_attn: bool = False,
+    align_heads: Optional[Sequence[Tuple[int, int]]] = None,
 ):
     """Teacher-forced decoder forward. tokens (B, S) int; xa (B, T, D).
-    Returns (logits (B, S, V), cross_attn (L, B, H, S, T) f32 or None)."""
+    Returns (logits (B, S, V), cross-attention scores or None): with
+    ``return_cross_attn`` every layer's and head's pre-softmax scores,
+    (L, B, H, S, T) f32; with ``align_heads`` a list of (layer, head) only
+    those heads' rows, kept layer by layer as each layer runs,
+    (B, K, S, T) f32 (the same rows, without the whole stack)."""
     dec = model.decoder
     dims = model.dims
     H = dims.n_text_head
@@ -323,6 +328,10 @@ def decode_full(
     x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_offset : pos_offset + S]
     causal = torch.triu(torch.full((S, S), float("-inf"), device=x.device, dtype=x.dtype), 1)
     ws = []
+    rows = None
+    if align_heads:
+        rows = torch.empty((B, len(align_heads), S, xa.shape[1]), dtype=torch.float32,
+                           device=x.device)
     for l in range(dims.n_text_layer):
         xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
         a, _ = _attention(
@@ -333,17 +342,22 @@ def decode_full(
         )
         x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
+        hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
         c, w = _attention(
             _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l]),
             _linear(xa, dec["cross_k_w"][l]),
             _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]),
-            H, return_scores=return_cross_attn,
+            H, return_scores=return_cross_attn or bool(hits),
         )
         x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
         x = _mlp(x, dec, l)
         if return_cross_attn:
             ws.append(w)
+        for k in hits:
+            rows[:, k] = w[:, align_heads[k][1]]
     logits = _logits(_ln(x, dec["ln_g"], dec["ln_b"]), dec)
+    if rows is not None:
+        return logits, rows
     return logits, (torch.stack(ws) if return_cross_attn else None)
 
 

@@ -1,7 +1,6 @@
 """Batched multi-stream transcription pipeline and serving loop.
 
-Port of ``whisper_timestamped_tpu/parallel/batch.py`` for the greedy path.
-The reference transcribes one file at a time; here
+Port of ``whisper_timestamped_tpu/parallel/batch.py``. The reference transcribes one file at a time; here
 many audio streams are in flight: every window iteration gathers one
 pending 30-s window from each active stream and decodes them as ONE
 batched ``decode_window`` call on the model's device, then advances each
@@ -15,7 +14,13 @@ window is a gather out of that mel stack. By default the window loop is
 the device flow (``deviceflow.py``): the next window's seek and prompt are
 computed on the device from the previous window's tokens, and the host
 drains each window with one read. ``WTT_DEVICE_FLOW=0`` forces the host
-loop. With device alignment (at most ``MAX_K`` alignment heads) each
+loop, and so does anything that needs a host decision between windows: a
+temperature schedule (the failing windows of an iteration are gathered on
+the device, padded to the batch and decoded again at the next
+temperature), sampling, or ``best_of`` (each row decoded ``best_of`` times
+by row replication, the best ``sequence_score`` kept). Iteration ``n``
+samples with ``rng_seed + 104729 * n`` (``+ c0`` for a best_of chunk,
+``+ ti`` for the ``ti``-th fallback temperature), as in the JAX package. With device alignment (at most ``MAX_K`` alignment heads) each
 window's alignment is queued after the window (``window_hook``) and read at
 assembly time; otherwise each window's attention comes to the host and the
 segments align in numpy at assembly, as in the JAX package.
@@ -25,8 +30,7 @@ the previous batch's assembly (a second worker) with the current batch's
 decode.
 
 Not yet ported, and refused with ``NotImplementedError``: a mesh,
-``tail_batch``, sampling (temperature > 0), best_of, beam search, the
-temperature fallback re-decode and vad.
+``tail_batch``, beam search and vad.
 """
 
 from __future__ import annotations
@@ -60,9 +64,10 @@ from ..engine import (
     WindowDecodeResult,
     extract_window_segments,
     needs_fallback,
+    sequence_score,
 )
 from ..tokenizer import Tokenizer
-from ..utils import host_copy, not_ported, stage_timer
+from ..utils import add_count, host_copy, not_ported, stage_timer
 from .deviceflow import (
     advance_window_state,
     build_prompt_batch,
@@ -184,7 +189,17 @@ class BatchTranscriber:
         self._mel_stack: Optional[torch.Tensor] = None
 
     # --------------------------------------------------------------
+    def _decode_batch(self, mels, prompts: List[Sequence[int]], options: DecodingOptions,
+                      temperature: float, rng_seed: int,
+                      languages: Optional[List[Optional[str]]] = None) -> List[WindowDecodeResult]:
+        """Decode one window batch and unpack its results."""
+        out = self._dispatch_batch(mels, prompts, options, temperature, rng_seed, languages)
+        with stage_timer("decode_fetch_unpack"):
+            return self.engine.unpack_window_outputs(out, temperature,
+                                                     fetch_alignment=self.fetch_alignment)
+
     def _dispatch_batch(self, mels, prompts: List[Sequence[int]], options: DecodingOptions,
+                        temperature: float = 0.0, rng_seed: int = 0,
                         languages: Optional[List[Optional[str]]] = None):
         """Decode one window batch from host-built prompts: each row's
         prompt is right-aligned in one shared region with its own length,
@@ -210,10 +225,11 @@ class BatchTranscriber:
                 bufs = [engine.build_prompt(p, row_opts(i), region=PROMPT_REGION)[0]
                         for i, p in enumerate(prompts)]
         return self._dispatch_arrays(mels, np.stack(bufs), np.asarray(lens, np.int32), options,
-                                     sot_index_from_end=sot_from_end)
+                                     sot_index_from_end=sot_from_end, temperature=temperature,
+                                     rng_seed=rng_seed)
 
     def _dispatch_arrays(self, mels, prompt, prompt_len, options: DecodingOptions, *,
-                         sot_index_from_end: int):
+                         sot_index_from_end: int, temperature: float = 0.0, rng_seed: int = 0):
         """Decode one window batch on prebuilt prompt buffers (host arrays or
         tensors already on the device, as the device flow passes them)."""
         engine = self.engine
@@ -241,6 +257,8 @@ class BatchTranscriber:
                 max_new=options.sample_len or MAX_NEW_TOKENS,
                 suppress_blank=options.suppress_blank,
                 without_timestamps=options.without_timestamps,
+                temperature=float(temperature),
+                rng_seed=rng_seed,
                 **engine.kv_options,
             )
 
@@ -267,6 +285,36 @@ class BatchTranscriber:
             for s, code, p in zip(chunk, codes, probs):
                 s.language = code
                 s.language_probs = p
+
+    def _decode_batch_best_of(self, mels: torch.Tensor, prompts: List[Sequence[int]],
+                              options: DecodingOptions, temperature: float, rng_seed: int,
+                              languages: Optional[List[Optional[str]]]
+                              ) -> List[WindowDecodeResult]:
+        """best_of at t > 0 by row replication (``batch.py:357``): each row
+        decoded ``best_of`` times, as independent samples, in chunks of the
+        batch's size (the last padded with row 0; chunk ``c0`` samples with
+        ``rng_seed + c0``); each row keeps its best ``sequence_score``, as
+        the serial ``decode_window_best_of`` does."""
+        n = options.best_of or 1
+        if temperature <= 0 or n <= 1:
+            return self._decode_batch(mels, prompts, options, temperature, rng_seed, languages)
+        B = len(prompts)
+        rep_idx = [i for i in range(B) for _ in range(n)]
+        best: List[Optional[WindowDecodeResult]] = [None] * B
+        for c0 in range(0, len(rep_idx), B):
+            chunk = rep_idx[c0 : c0 + B]
+            pad = B - len(chunk)
+            idx = torch.as_tensor(chunk + [0] * pad, device=mels.device)
+            rs = self._decode_batch(
+                mels.index_select(0, idx), [prompts[i] for i in chunk] + [[]] * pad, options,
+                temperature, rng_seed + c0,
+                [languages[i] for i in chunk] + [None] * pad if languages else None,
+            )
+            for k, i in enumerate(chunk):
+                if best[i] is None or sequence_score(rs[k], options.length_penalty) > \
+                        sequence_score(best[i], options.length_penalty):
+                    best[i] = rs[k]
+        return best
 
     def _apply_window_results(self, batch: List[_Stream], results: List[WindowDecodeResult],
                               sizes: List[int], no_speech_threshold: Optional[float],
@@ -295,13 +343,15 @@ class BatchTranscriber:
     # --------------------------------------------------------------
     def _device_flow_ok(self, streams, opts: DecodingOptions, temperature) -> bool:
         """The device flow engages when the host makes no data-dependent
-        decision between windows: one temperature of 0, no prefix, timestamps
-        on, at most ``batch_size`` streams. The no-speech skip is computed on
-        the device. ``WTT_DEVICE_FLOW=0`` forces the host loop."""
+        decision between windows: one temperature of 0 (no fallback
+        re-decode), no best_of, no prefix, timestamps on, at most
+        ``batch_size`` streams. The no-speech skip is computed on the
+        device. ``WTT_DEVICE_FLOW=0`` forces the host loop."""
         return (
             os.environ.get("WTT_DEVICE_FLOW", "1") != "0"
             and len(temperature) == 1
             and float(temperature[0]) == 0.0
+            and (opts.best_of or 1) <= 1
             and not opts.without_timestamps
             and not opts.prefix
             and len(streams) <= self.batch_size
@@ -398,7 +448,7 @@ class BatchTranscriber:
         langs0 = [s.language for s in streams] + [None] * (B - n_streams)
         mels0 = self._gather_windows([s.row for s in streams], [s.seek for s in streams])
         with stage_timer("devflow_dispatch"):
-            out = self._dispatch_batch(mels0, prompts0, opts, langs0)
+            out = self._dispatch_batch(mels0, prompts0, opts, languages=langs0)
             state, packed = advance_and_pack(out, state)
         M = int(out["tokens"].shape[1])
 
@@ -452,15 +502,16 @@ class BatchTranscriber:
         condition_on_previous_text: bool = True,
         initial_prompt: Optional[str] = None,
         decode_options: Optional[DecodingOptions] = None,
+        rng_seed: int = 0,
         window_hook=None,
         prepared: Optional[PreparedAudio] = None,
     ) -> Dict[str, List[Segment]]:
         """Decode all streams; returns name -> alignment-ready segments
         (``batch.py:670``). ``window_hook(segments)`` runs after every window
         iteration with that iteration's new segments (device alignment uses
-        it to consume and release each window's attention buffer). A
-        temperature schedule is accepted as long as no window needs its
-        fallback: the re-decode is not yet ported."""
+        it to consume and release each window's attention buffer).
+        ``rng_seed`` seeds the sampler: iteration ``n`` (from 1) samples
+        with ``rng_seed + 104729 * n``."""
         engine = self.engine
         tok = engine.tokenizer
         if isinstance(temperature, (int, float)):
@@ -470,10 +521,6 @@ class BatchTranscriber:
             language = "en"
         opts = DecodingOptions(**{**(decode_options or DecodingOptions()).__dict__,
                                   "task": task, "language": language})
-        if temperature[0] > 0:
-            raise not_ported("temperature > 0 (sampling)")
-        if (opts.best_of or 1) > 1:
-            raise not_ported("best_of")
         if opts.beam_size:
             raise not_ported("beam_size")
 
@@ -520,6 +567,7 @@ class BatchTranscriber:
             )
 
         B = self.batch_size
+        n_iter = 0
         # the hook runs one iteration late, so its device work queues behind
         # the next window's decode; its prepare phase (which reads from the
         # device) runs at extraction time
@@ -544,19 +592,43 @@ class BatchTranscriber:
             languages = [s.language for s in batch] + [None] * (B - n_real)
             sizes = [min(N_FRAMES, s.content_frames - s.seek) for s in batch]
             mels = self._gather_windows([s.row for s in batch], [s.seek for s in batch])
+            n_iter += 1
+            # a seed per iteration (the serial loop varies it per window):
+            # one seed for every iteration would correlate the windows' noise
+            it_seed = rng_seed + 104729 * n_iter
             with stage_timer(f"batch_decode_b{B}_a{n_real}"):
-                out = self._dispatch_batch(mels, prompts, opts, languages)
-                if window_hook is not None:
-                    flush_hook()
-                with stage_timer("decode_fetch_unpack"):
-                    results = engine.unpack_window_outputs(out, temperature[0],
-                                                           fetch_alignment=self.fetch_alignment)
-            if len(temperature) > 1 and any(
-                needs_fallback(r, compression_ratio_threshold, logprob_threshold,
-                               no_speech_threshold)
-                for r in results[:n_real]
-            ):
-                raise not_ported(f"the temperature fallback re-decode (schedule {temperature})")
+                if temperature[0] <= 0 or (opts.best_of or 1) <= 1:
+                    out = self._dispatch_batch(mels, prompts, opts, temperature[0], it_seed,
+                                               languages)
+                    if window_hook is not None:
+                        flush_hook()
+                    with stage_timer("decode_fetch_unpack"):
+                        results = engine.unpack_window_outputs(
+                            out, temperature[0], fetch_alignment=self.fetch_alignment)
+                else:
+                    if window_hook is not None:
+                        flush_hook()
+                    results = self._decode_batch_best_of(mels, prompts, opts, temperature[0],
+                                                         it_seed, languages)
+            # the temperature fallback: the failing rows, gathered on the
+            # device and padded to the batch with row 0, decoded again
+            for ti, t in enumerate(temperature[1:], start=1):
+                failing = [i for i in range(n_real)
+                           if needs_fallback(results[i], compression_ratio_threshold,
+                                             logprob_threshold, no_speech_threshold)]
+                if not failing:
+                    break
+                n_pad = B - len(failing)
+                with stage_timer("batch_fallback"):
+                    sub_mels = mels.index_select(
+                        0, torch.as_tensor(failing + [0] * n_pad, device=mels.device))
+                    retry = self._decode_batch_best_of(
+                        sub_mels, [prompts[i] for i in failing] + [[]] * n_pad, opts, t,
+                        it_seed + ti, [languages[i] for i in failing] + [None] * n_pad,
+                    )
+                add_count("fallback_redecodes", len(failing))
+                for k, i in enumerate(failing):
+                    results[i] = retry[k]
             new_segments = self._apply_window_results(
                 batch, results[:n_real], sizes,
                 no_speech_threshold, logprob_threshold, condition_on_previous_text,
