@@ -71,7 +71,14 @@ phases have run, so their lines are printed too):
       ``transcribe_batch`` of 8 streams at B=8 with the fallback re-decode
       and with ``best_of=2`` (``align_cost``/``dtw_codes`` launched); the
       two-pass engine with ``best_of=2`` on a 35 s request (``log10_mel``
-      and ``flash_attention`` launched in its second pass).
+      and ``flash_attention`` launched in its second pass);
+  (l) beam search: a serial 30 s request with the ``--accurate`` options
+      (beam 5) and no thresholds, then ``transcribe_batch`` with beam 5 on
+      eight 5-30 s streams at B=8 (40 beam rows over 8 cross-KV rows) with
+      a bf16 and a ``kv_int8`` engine: the launches (the cross-attention
+      kernel 32 times a decode step), the cross K/V untiled (seen at every
+      decode step), s/request, s/batch, ms/step, peak memory; the self-KV
+      reorder timed alone; a ``beam_size=1`` decode equal to greedy.
 
 (c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
 lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
@@ -89,7 +96,10 @@ against its plain version and a float64 FFT of the same frames (the
 witness), beside the same function as several library calls (cuFFT's
 STFT, power, mel product, log10), with the peak memory of the front end
 through the kernel and through its plain version, and ``stacked_matmul``
-at decode shapes beside ``F.linear``, and (e) the decode step
+at decode shapes beside ``F.linear``, ``xattn_decode`` and
+``xattn_decode_int8`` as beam search runs them (B=40 over 8 K/V rows,
+``beam_group=5``, no scores) beside the same kernel over 40 rows, with the
+shared-read bound, and (e) the decode step
 with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
 record takes each kernel's launches from the phase that runs it: the bf16
 path's from (f), ``xattn_decode_int8`` from (g), the int4 and int8-self
@@ -788,6 +798,62 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
           f"f32 (limit 2^-8 of it + {SELF_Q_ATOL}), written rows equal the plain quantizer's; no "
           f"single PyTorch call computes it")
     return rec
+
+
+def phase_beam_kernels(torch, K, device):
+    """(c): the cross-attention kernels as beam search runs them, B=40
+    query rows over B_kv=8 K/V rows (``beam_group=5``: the K=5 beams of 8
+    windows), without scores, against their plain versions at the limits
+    above, and timed beside the same kernel at B=40 over 40 rows
+    (``beam_group=1``). The shared-read bound reads one layer of the 8
+    rows' K and V once (the queries and outputs besides), the unshared one
+    40 rows'. Returns extra fields for the kernels' records."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device=device).manual_seed(5)
+    L, T, D, H, B, G = 32, 1500, 1280, 20, 40, 5
+    out = {}
+    for name, tol in (("xattn_decode", 2e-2), ("xattn_decode_int8", XATTN_Q_ATOL)):
+        kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+
+        def kv(rows):
+            if name == "xattn_decode":
+                return tuple(torch.randn((L, rows, T, D), generator=g, device=device).bfloat16()
+                             for _ in range(2))
+            k8, ks = zip(*(quantize_rows(torch.randn((rows, T, D), generator=g, device=device))
+                           for _ in range(L)))
+            v8, vs = zip(*(quantize_rows(torch.randn((rows, T, D), generator=g, device=device))
+                           for _ in range(L)))
+            return torch.stack(k8), torch.stack(ks), torch.stack(v8), torch.stack(vs)
+
+        q = torch.randn((B, 1, D), generator=g, device=device).bfloat16()
+        shared, full = kv(B // G), kv(B)
+        err = 0.0
+        for layer in (0, L // 2, L - 1):
+            o_k, s_k = kernel(q, *shared, layer, H, beam_group=G)
+            torch.cuda.synchronize()
+            o_p, _ = plain(q, *shared, layer, H, beam_group=G)
+            if s_k is not None:
+                fail(f"{name} at beam_group={G} wrote scores it was not asked for")
+            err = max(err, (o_k.float() - o_p.float()).abs().max().item())
+        if not err <= tol:
+            fail(f"{name} at B={B} beam_group={G} disagrees: out {err:.3g} (atol {tol})")
+        ms = cuda_time_ms(lambda it=0: kernel(q, *shared, it % L, H, beam_group=G))
+        ms_full = cuda_time_ms(lambda it=0: kernel(q, *full, it % L, H))
+        plain_ms = cuda_time_ms(lambda it=0: plain(q, *shared, it % L, H, beam_group=G), iters=5)
+        per_row = sum(t[0, 0].numel() * t.element_size() for t in shared)  # K, V (+ scales)
+        io = 2 * B * D * 2  # q read, the output written
+        b_ms, b_by = bound(io + (B // G) * per_row, 4 * B * T * D, F32_FLOPS)
+        bf_ms, _ = bound(io + B * per_row, 4 * B * T * D, F32_FLOPS)
+        print(f"[c] {name} B={B} over B_kv={B // G} (beam_group={G}), no scores: {ms:.4f} ms "
+              f"(shared-read bound {b_ms:.4f} ms, {b_by}, {(io + (B // G) * per_row) / 1e6:.1f} "
+              f"MB), plain {plain_ms:.4f} ms; the same kernel over {B} rows (beam_group=1) "
+              f"{ms_full:.4f} ms (bound {bf_ms:.4f} ms); out err {err:.3g} (atol {tol})")
+        out[name] = dict(ms_beam_group5=ms, bound_ms_beam_group5=b_ms,
+                         ms_b40_beam_group1=ms_full, max_abs_err_beam_group5=err)
+        del q, shared, full
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_segment_kernels(torch, K, device):
@@ -2061,6 +2127,148 @@ def phase_sampling(torch, K, model, tok):
           f"{ {k: v for k, v in pass2.items() if v} }")
 
 
+def phase_beam(torch, K, model, tok):
+    """(l): beam search at large-v3 width, EOT suppressed (no beam finishes;
+    every window runs its 224 steps, or to the text context's end):
+
+    1. serial: ``transcribe_timestamped`` on a 30 s request with the
+       ``--accurate`` options (beam 5, best_of 5, the schedule 0.0-1.0 by
+       0.2) and no thresholds, so each window is one beam decode, then the
+       two-pass engine's pass 2;
+    2. batched: ``transcribe_batch`` with beam 5 on eight 5-30 s streams
+       at B=8 (40 beam rows), with a bf16 engine and with ``kv_int8``;
+       the self-KV reorder timed alone at that shape (CUDA events);
+    3. a ``beam_size=1`` decode equals the greedy decode of the same window
+       (a 20-token prompt, so both prefill the 232-slot region, and no
+       alignment rows).
+
+    Fails unless every result is well formed, ``log10_mel``,
+    ``flash_attention`` and ``self_attn_decode`` launch, the cross-attention
+    kernel of the cache's type launches 32 times a decode step (the other
+    never), every decode step's cross K/V has B rows while its queries have
+    B·K (the cross-KV is not tiled), and the K=1 tokens equal greedy's.
+    Prints s/request, s/batch, decode steps, ms/step, peak memory and the
+    launches."""
+    import whisper_timestamped_tpu_torch.decoding_beam as beam
+    from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_timestamped
+    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    eot_off = f"-1,{tok.eot}"
+    L = model.dims.n_text_layer
+    rows_seen = set()  # (query rows, cross-KV rows) of every beam decode step
+    step = beam.decode_step
+
+    def spy_step(mod, tokens, cache, *a, **kw):
+        rows_seen.add((tokens.shape[0], cache.xk.shape[1], kw.get("beam_group")))
+        return step(mod, tokens, cache, *a, **kw)
+
+    def begin():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_timings()
+        K.reset_launches()
+        rows_seen.clear()
+        return time.perf_counter()
+
+    def end(t0, label, cross, other):
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, timings, launches = get_counts(), get_stage_timings(), dict(K.LAUNCHES)
+        steps = counts.get("decode_steps", 0)
+        ms_step = 1e3 * timings.get("decode_loop", {}).get("total_s", 0.0) / max(steps, 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for k in ("log10_mel", "flash_attention", "self_attn_decode"):
+            if not launches[k]:
+                fail(f"[l] {label}: {k} was not launched: {launches}")
+        if launches[cross] != L * steps or launches[other]:
+            fail(f"[l] {label}: {cross} launched {launches[cross]} times for {steps} decode steps "
+                 f"(expected {L} a step), {other} {launches[other]} (expected 0)")
+        return secs, steps, ms_step, peak, launches, timings
+
+    beam.decode_step = spy_step
+    try:
+        # 1. serial, the --accurate options
+        t0 = begin()
+        res = transcribe_timestamped(model, make_audio(60, 30), tokenizer=tok,
+                                     suppress_tokens=eot_off, beam_size=5, best_of=5,
+                                     temperature=(0.0, 0.2, 0.4, 0.6, 0.8, 1.0), **SMOKE_OPTIONS)
+        secs, steps, ms_step, peak, launches, timings = end(t0, "serial", "xattn_decode",
+                                                            "xattn_decode_int8")
+        words = check_result(res)
+        if rows_seen != {(5, 1, 5)} or not words or {s["temperature"] for s in res["segments"]} != {0.0}:
+            fail(f"[l] serial: step rows {rows_seen} (expected 5 beam rows over 1 cross-KV row), "
+                 f"{words} words, temperatures {({s['temperature'] for s in res['segments']})}")
+        print(f"[l] serial transcribe_timestamped, 30 s, beam 5 best_of 5 (--accurate), no "
+              f"thresholds: {secs:.2f} s a request ({len({s['seek'] for s in res['segments']})} "
+              f"window(s); pass 1 {stage_line(timings, 'naive_pass1')}, pass 2 "
+              f"{stage_line(timings, 'naive_pass2')}), {steps} decode steps at {ms_step:.2f} ms/step, "
+              f"beam_reorder (host) {stage_line(timings, 'beam_reorder')}, {words} words, peak "
+              f"memory {peak:.2f} GB; launches {launches}")
+
+        # 2. batched, B=8 x K=5, bf16 and kv_int8
+        streams = {f"l{j}": make_audio(4000 + j, sec)
+                   for j, sec in enumerate([30, 5, 12, 20, 8, 27, 15, 25])}
+        for label, engine, cross, other in (
+                ("bf16", DecodeEngine(model, tok), "xattn_decode", "xattn_decode_int8"),
+                ("kv_int8", DecodeEngine(model, tok, kv_int8=True), "xattn_decode_int8",
+                 "xattn_decode")):
+            t0 = begin()
+            res = transcribe_batch(model, streams, tok, batch_size=8, engine=engine,
+                                   temperature=[0.0], **SMOKE_OPTIONS,
+                                   decode_options=DecodingOptions(beam_size=5,
+                                                                  suppress_tokens=eot_off))
+            secs, steps, ms_step, peak, launches, timings = end(t0, f"batched {label}", cross,
+                                                                other)
+            words = sum(check_result(r) for r in res.values())
+            if rows_seen != {(40, 8, 5)} or not words:
+                fail(f"[l] batched {label}: step rows {rows_seen} (expected 40 beam rows over 8 "
+                     f"cross-KV rows), {words} words")
+            iters = sum(v for k, v in get_counts().items() if k.startswith("batch_decode_b"))
+            print(f"[l] transcribe_batch, beam 5, B=8 x 5 = 40 rows over 8 cross-KV rows, {label}, "
+                  f"8 streams (142 s of audio): {secs:.2f} s, {iters} window iteration(s), "
+                  f"{steps} decode steps at {ms_step:.2f} ms/step, pass 2 "
+                  f"{stage_line(timings, 'batch_naive_align')}, beam_reorder (host) "
+                  f"{stage_line(timings, 'beam_reorder')}, {words} words, peak memory {peak:.2f} GB; "
+                  f"launches {launches}")
+    finally:
+        beam.decode_step = step
+
+    # the self-KV reorder alone at B=8 x K=5, the slots written so far
+    ctx, R, D = 456, 40, model.dims.n_text_state
+    cur = torch.randn((L, R, ctx, D), device=model.device).bfloat16()
+    spare = torch.empty_like(cur)
+    rows = (torch.arange(8, device=model.device)[:, None] * 5
+            + torch.randint(0, 5, (8, 5), device=model.device)).reshape(-1)
+    parts = []
+    for n_slots in (233, 344, 455):
+        ms = cuda_time_ms(lambda it=0: beam.reorder_rows(cur, spare, rows, n_slots))
+        b_ms, _ = bound(2 * L * R * n_slots * D * 2, 0, BF16_FLOPS)
+        parts.append(f"{n_slots} slots {2 * ms:.4f} ms (bound {2 * b_ms:.4f})")
+    if not torch.equal(beam.reorder_rows(cur, spare, rows, 300)[:, :, :300], cur[:, rows, :300]):
+        fail("[l] reorder_rows on the card differs from the plain gather")
+    print(f"[l] self-KV reorder a step, K and V (L=32, 40 rows, D=1280, bf16, read + write of "
+          f"the written slots): " + "; ".join(parts))
+    del cur, spare
+    torch.cuda.empty_cache()
+
+    # 3. beam_size=1 against greedy on one window
+    engine = DecodeEngine(model, tok)
+    mel = log_mel_spectrogram(make_audio(61, 30), n_mels=model.dims.n_mels, device=model.device)
+    mel = mel[:, :3000]
+    prompt = list(range(1000, 1020))
+    opts = dict(language="en", sample_len=64, suppress_tokens=eot_off)
+    greedy = engine.decode_window(mel, DecodingOptions(**opts), prompt, capture_attention=False)[0]
+    one = engine.decode_window_beam(mel, DecodingOptions(beam_size=1, **opts), prompt)
+    if one.tokens != greedy.tokens:
+        fail(f"[l] beam_size=1 differs from greedy: {one.tokens[:12]} vs {greedy.tokens[:12]}")
+    print(f"[l] beam_size=1 equals greedy on the card: {len(one.tokens)} tokens, sum log-prob "
+          f"{one.sum_logprob:.4f} vs {greedy.sum_logprob:.4f}")
+
+
 def phase_profile(torch, model, tok, B: int, **levers):
     """(--profile): device time against wall time for one decoded window of
     B rows, with the engine's ``levers``."""
@@ -2134,6 +2342,8 @@ def main() -> int:
     rec.update(phase_quant_kernels(torch, K, device, bf16_ms))
     rec.update(phase_segment_kernels(torch, K, device))
     rec.update(phase_frontend_kernels(torch, K, device))
+    for name, fields in phase_beam_kernels(torch, K, device).items():
+        rec[name].update(fields)
     if "--kernels-only" in sys.argv[1:]:
         print("[c] --kernels-only: stopping after the kernel checks")
         return 0
@@ -2171,6 +2381,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_sampler(torch, device)
     phase_sampling(torch, K, model, tok)
+    torch.cuda.empty_cache()
+    phase_beam(torch, K, model, tok)
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):
             phase_profile(torch, model, tok, B, **levers)

@@ -29,7 +29,6 @@ from whisper_timestamped_tpu.models.load import WhisperModel as JaxModel  # noqa
 from whisper_timestamped_tpu.parallel import batch as JB  # noqa: E402
 from whisper_timestamped_tpu.parallel import deviceflow as JF  # noqa: E402
 from whisper_timestamped_tpu_torch import transcribe_timestamped  # noqa: E402
-from whisper_timestamped_tpu_torch.decoding import DecodingOptions  # noqa: E402
 from whisper_timestamped_tpu_torch.engine import DecodeEngine  # noqa: E402
 from whisper_timestamped_tpu_torch.models import WhisperDims, WhisperModel, params_from_jax_tree  # noqa: E402
 from whisper_timestamped_tpu_torch.parallel import batch as B  # noqa: E402
@@ -379,7 +378,6 @@ def test_stage_timers_lose_no_update_across_threads():
 NOT_PORTED = {
     "mesh": dict(mesh=object()),
     "vad": dict(vad="auditok"),
-    "beam_size": dict(decode_options=DecodingOptions(beam_size=2)),
 }
 
 

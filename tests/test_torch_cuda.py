@@ -1013,3 +1013,89 @@ def test_decode_full_align_heads_on_card_matches_cpu(cuda):
     scale_r, scale_l = rp.abs().max().item(), lp.abs().max().item()
     torch.testing.assert_close(rc.cpu(), rp, rtol=0, atol=2e-2 * scale_r)
     torch.testing.assert_close(lc.float().cpu(), lp, rtol=0, atol=2e-2 * scale_l)
+
+
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("name", ["xattn_decode", "xattn_decode_int8", "xattn_decode_int4"])
+def test_cross_kernels_at_beam_group_5_match_plain(cuda, name, emit):
+    """Beam search's reads: B=10 query rows over 2 K/V rows (``beam_group=5``,
+    row b reads K/V row b // 5), against the plain versions at the limits
+    above (bf16 output atol 2e-2, quantized 4e-3; scores atol 1e-3)."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, quantize_rows_int4
+
+    g = torch.Generator(device=cuda).manual_seed(len(name) + emit)
+    L, T, D, H, B, G = 2, 1500, 1280, 20, 10, 5
+    q = _randn(g, B, 1, D)
+    if name == "xattn_decode":
+        kv, atol = (_randn(g, L, B // G, T, D), _randn(g, L, B // G, T, D)), 2e-2
+    else:
+        quant = quantize_rows if name == "xattn_decode_int8" else quantize_rows_int4
+        kv = (*quant(_randn(g, L, B // G, T, D, dtype=torch.float32)),
+              *quant(_randn(g, L, B // G, T, D, dtype=torch.float32, scale=1 / 16)))
+        atol = XATTN_Q_ATOL
+    before = K.LAUNCHES[name]
+    o_k, s_k = getattr(K, name)(q, *kv, 1, H, emit_scores=emit, beam_group=G)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[name] == before + 1
+    o_p, s_p = getattr(K, name + "_plain")(q, *kv, 1, H, emit_scores=emit, beam_group=G)
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=atol)
+    if emit:
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-3)
+    else:
+        assert s_k is None
+    # each group of 5 rows reads its own K/V row: the same queries give the same outputs
+    o_same, _ = getattr(K, name)(q[:5].repeat(2, 1, 1).contiguous(), *kv, 1, H, beam_group=G)
+    assert not torch.equal(o_same[:5], o_same[5:])
+
+
+def test_beam_size_one_equals_greedy_on_card(cuda):
+    """A K=1 beam decode on the card gives the greedy decode's tokens (a
+    20-token prompt, so both prefill the 232-slot region; no alignment
+    rows): the beam step is the greedy step plus the identity reorder."""
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+
+    model, _, tok = _small_models()
+    engine = DecodeEngine(model, tok)
+    for seed in (2, 3):
+        mel = torch.randn((80, 3000), generator=torch.Generator(device=cuda).manual_seed(seed),
+                          device=cuda) * 0.5
+        prompt = list(range(300, 320))
+        opts = dict(language="en", sample_len=48)
+        greedy = engine.decode_window(mel, DecodingOptions(**opts), prompt,
+                                      capture_attention=False)[0]
+        one = engine.decode_window_beam(mel, DecodingOptions(beam_size=1, **opts), prompt)
+        assert one.tokens == greedy.tokens and len(one.tokens) > 2
+        assert one.sum_logprob == pytest.approx(greedy.sum_logprob, abs=1e-3)
+
+
+def test_beam_k3_on_card_is_well_formed(cuda):
+    """K=3 on the card through the kernels: the cross-attention kernel
+    launched once a layer a step (the cross K/V one row for the 3 beams),
+    the tokens whisper's timestamp rules allow, and the self-cache reorder
+    equal to a plain gather."""
+    import whisper_timestamped_tpu_torch.decoding_beam as beam
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.utils import get_counts
+
+    model, _, tok = _small_models()
+    mel = torch.randn((80, 3000), generator=torch.Generator(device=cuda).manual_seed(4),
+                      device=cuda) * 0.5
+    before, steps0 = dict(K.LAUNCHES), get_counts().get("decode_steps", 0)
+    res = DecodeEngine(model, tok).decode_window_beam(
+        mel, DecodingOptions(language="en", beam_size=3, sample_len=40))
+    torch.cuda.synchronize()
+    steps = get_counts()["decode_steps"] - steps0
+    assert K.LAUNCHES["xattn_decode"] - before["xattn_decode"] == 2 * steps
+    assert K.LAUNCHES["self_attn_decode"] - before["self_attn_decode"] == 2 * steps
+    assert K.LAUNCHES["flash_attention"] > before["flash_attention"]
+    assert res.tokens and all(0 <= t < tok.n_vocab for t in res.tokens)
+    assert tok.timestamp_begin <= res.tokens[0] <= tok.timestamp_begin + 50
+    stamps = [t for t in res.tokens if t >= tok.timestamp_begin]
+    assert stamps == sorted(stamps) and np.isfinite(res.sum_logprob)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    cur = _randn(g, 2, 12, 64, 256)
+    rows = torch.tensor([2, 2, 0, 3, 5, 4, 8, 6, 6, 11, 9, 9], device=cuda)
+    got = beam.reorder_rows(cur, torch.zeros_like(cur), rows, 40)
+    assert torch.equal(got[:, :, :40], cur[:, rows, :40]) and not got[:, :, 40:].any()

@@ -4,7 +4,7 @@ against the JAX package's, in f32 on the CPU.
 The model is the golden model of test_golden.py, its weights converted by
 ``params_from_jax_tree``; sampled configurations draw JAX's noise
 (test_torch_sampling.py's ``jax_noise``). End to end: the goldens
-``naive``, ``best_of2`` and ``recompute_all`` and ``use_backend_timestamps``,
+``naive``, ``best_of2``, ``recompute_all`` and ``beam3`` and ``use_backend_timestamps``,
 each also against the JAX package's same call. Below that: the
 teacher-forced forward, its batched driver, ``decode_full``'s
 alignment-head rows and the backend-timestamp functions.
@@ -77,14 +77,15 @@ def _words(res):
     return [w for s in res["segments"] for w in s.get("words", [])]
 
 
-@pytest.mark.parametrize("name", ["naive", "best_of2", "recompute_all"])
+@pytest.mark.parametrize("name", ["naive", "best_of2", "recompute_all", "beam3"])
 @pytest.mark.parametrize("route", ["device", "host"])
 def test_two_pass_goldens_match_jax(models, jax_noise, name, route):  # noqa: F811
     """The golden under ``loose``, and the JAX package's same call: segment
     tokens identical, results equal under ``loose``. ``device_alignment``
     is passed to both packages on the device route; the two-pass engine
     aligns on the host either way, as in JAX. (``recompute_all`` pins 0
-    words: the synthetic tokenizer's random decode has no word to give.)"""
+    words: the synthetic tokenizer's random decode has no word to give.)
+    ``beam3`` is beam search (K=3), which takes the two-pass engine."""
     jax_model, model = models
     audio, kw = _kwargs(name)
     if route == "device":
@@ -99,20 +100,22 @@ def test_two_pass_goldens_match_jax(models, jax_noise, name, route):  # noqa: F8
         assert _words(port)
 
 
-@pytest.mark.parametrize("option", ["naive_approach", "best_of", "use_backend_timestamps"])
+@pytest.mark.parametrize("option", ["naive_approach", "best_of", "use_backend_timestamps",
+                                    "beam_size"])
 def test_two_pass_options_match_jax(models, jax_noise, option, capsys):  # noqa: F811
     """What ``test_unported_options_raise`` refused before, on a 35-s
     stream (two windows) with ``verbose``: each option's result equal to
     the JAX package's (tokens exactly, the rest under ``loose``), and the
     same stdout (the two-pass engine prints each word as it aligns it).
     ``use_backend_timestamps`` (``tests/test_api.py:291``) gives words
-    without confidence."""
+    without confidence. ``beam_size`` runs beam search in the first pass."""
     jax_model, model = models
     kw = dict(language=None, no_speech_threshold=None, logprob_threshold=None,
               compression_ratio_threshold=None, verbose=True, seed=5,
               **{"naive_approach": dict(naive_approach=True),
                  "best_of": dict(best_of=2, temperature=0.5),
-                 "use_backend_timestamps": dict(use_backend_timestamps=True)}[option])
+                 "use_backend_timestamps": dict(use_backend_timestamps=True),
+                 "beam_size": dict(beam_size=2, sample_len=32)}[option])
     audio = _audio(8, 35)
     port = transcribe_timestamped(model, audio, tokenizer=get_tokenizer(
         ranks=synthetic_ranks(), multilingual=True, num_languages=N_LANGS), **kw)

@@ -230,7 +230,6 @@ def test_align_words_whole_windows_matches_jax(detect_disfluencies):
 
 
 NOT_PORTED = {
-    "beam_size": dict(beam_size=3),
     "vad": dict(vad="auditok"),
     "plot_word_alignment": dict(plot_word_alignment=True),
 }
@@ -264,7 +263,9 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import whisper_timestamped_tpu_torch.api, whisper_timestamped_tpu_torch.ops.kernels\n"
         "import whisper_timestamped_tpu_torch.engine_naive, whisper_timestamped_tpu_torch.backend_timestamps\n"
-        "import whisper_timestamped_tpu_torch.ops.peaks\n"
+        "import whisper_timestamped_tpu_torch.ops.peaks, whisper_timestamped_tpu_torch.decoding_beam\n"
+        "import whisper_timestamped_tpu_torch.normalizers, whisper_timestamped_tpu_torch as wtt\n"
+        "wtt.decode, wtt.model, wtt.utils.get_writer, wtt.normalizers, wtt._download\n"
         "import whisper_timestamped_tpu_torch.parallel.batch, whisper_timestamped_tpu_torch.parallel.deviceflow\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'whisper_timestamped_tpu' or m.startswith(('whisper_timestamped_tpu.', 'jax')))]\n"

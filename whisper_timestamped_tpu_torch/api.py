@@ -1,8 +1,9 @@
 """Public API: ``transcribe_timestamped``, the orchestrator.
 
 Port of ``whisper_timestamped_tpu/api.py``. It routes as the JAX package
-does: ``best_of`` > 1, ``use_backend_timestamps`` or ``naive_approach``
-take the two-pass engine (``engine_naive.transcribe_naive``), everything
+does: ``beam_size``, ``best_of`` > 1, ``use_backend_timestamps`` or
+``naive_approach`` take the two-pass engine
+(``engine_naive.transcribe_naive``, beam search in its first pass), everything
 else the single-pass engine (``_transcribe_efficient``), greedy or sampled,
 with the temperature fallback. The single-pass engine has three alignment
 routes: the batched device aligner (``full_device``: device alignment on,
@@ -13,8 +14,8 @@ per-segment kernels (device alignment on, outside those gates) and the host
 alignment). On the card the kernels run, on the CPU their plain versions.
 The per-segment helpers are shared with the batch pipeline
 (``prefetch_ts_repair_rows``, ``prepare_segment_tokens``,
-``device_align_segments``, ``align_and_score_segment``). ``beam_size``,
-``vad`` and ``plot_word_alignment`` are not yet ported and raise
+``device_align_segments``, ``align_and_score_segment``). ``vad`` and
+``plot_word_alignment`` are not yet ported and raise
 ``NotImplementedError`` naming the option.
 """
 
@@ -86,9 +87,8 @@ def _resolve_tokenizer(model: WhisperModel, tokenizer, language, task) -> Tokeni
     )
 
 
-def _check_ported(beam_size, vad, plot_word_alignment):
+def _check_ported(vad, plot_word_alignment):
     refused = [
-        (beam_size is not None, "beam_size"),
         (vad is not False and vad is not None, "vad"),
         (bool(plot_word_alignment), "plot_word_alignment"),
     ]
@@ -147,8 +147,9 @@ def transcribe_timestamped(
     decide where and in what precision it runs (``fp16`` is accepted and,
     as in the JAX package, not read). ``seed`` seeds the sampler: the
     window at frame ``seek`` samples with ``(seed or 0) + seek`` (greedy
-    decoding draws nothing). ``best_of`` > 1, ``use_backend_timestamps``
-    and ``naive_approach`` run the two-pass engine.
+    decoding draws nothing). ``beam_size``, ``best_of`` > 1,
+    ``use_backend_timestamps`` and ``naive_approach`` run the two-pass
+    engine.
 
     ``device_alignment`` runs the alignment cost and DTW on the model's
     device: the batched aligner where its gates hold, else the per-segment
@@ -169,8 +170,8 @@ def transcribe_timestamped(
     ), "word_alignment_most_top_layers must be a strictly positive number"
     if isinstance(temperature, (list, tuple)) and len(temperature) == 1:
         temperature = temperature[0]
-    _check_ported(beam_size, vad, plot_word_alignment)
-    if (best_of or 0) > 1 or use_backend_timestamps:
+    _check_ported(vad, plot_word_alignment)
+    if beam_size is not None or (best_of or 0) > 1 or use_backend_timestamps:
         naive_approach = True  # as the JAX package routes (api.py:172-175)
 
     if isinstance(model, str):

@@ -9,9 +9,11 @@ the hardware does: ``--device`` is ``cuda`` (the default; no fallback to the
 CPU when there is no card) or ``cpu``, ``--dtype`` names a torch dtype,
 ``--threads`` sets torch's CPU threads and ``--backend`` only logs.
 Sampling (``--temperature`` above 0), ``--best_of``, a fallback step
-(``--temperature_increment_on_fallback``) and the two-pass ``--naive`` run.
-Options whose engines are not yet ported (``--accurate``, which sets beam
-5, ``--beam_size``, ``--vad``, ``--plot``) raise the entry points'
+(``--temperature_increment_on_fallback``), the two-pass ``--naive``, beam
+search (``--beam_size``, ``--patience``, ``--length_penalty``) and the
+``--accurate`` preset (beam 5, best_of 5, fallback step 0.2) run, one file
+at a time and with ``--batch_size``. Options whose engines are not yet
+ported (``--vad``, ``--plot``) raise the entry points'
 ``NotImplementedError``, naming the option.
 
     python -m whisper_timestamped_tpu_torch.cli audio.wav --model large-v3.pt -o out

@@ -17,13 +17,17 @@ one place the loop gets its noise from; the greedy loop draws nothing).
 
 The loop checks ``finished.all()`` on the host once per step (one device
 sync per step, where the JAX loop tests its condition on the device).
+
+``decode`` and ``DecodingResult`` are the public single-window surface
+(``whisper.decode``), routing to the engine's greedy, best_of and beam
+decodes.
 """
 
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +78,24 @@ class DecodingOptions:
     suppress_blank: bool = True
     without_timestamps: bool = False
     max_initial_timestamp: Optional[float] = 1.0
+
+
+@dataclass
+class DecodingResult:
+    """Mirror of the JAX package's ``DecodingResult`` (``decoding.py:81``),
+    what ``decode`` returns."""
+
+    tokens: List[int]
+    text: str
+    avg_logprob: float
+    no_speech_prob: float
+    temperature: float
+    compression_ratio: float
+    language: Optional[str] = None
+    language_probs: Optional[dict] = None
+    token_logprobs: Optional[np.ndarray] = None  # (n_sampled,)
+    cross_attention: Optional[np.ndarray] = None  # (n_sampled, K, T_audio)
+    audio_features: Optional[Any] = None
 
 
 def compression_ratio(text: str) -> float:
@@ -475,3 +497,53 @@ def detect_language(model: WhisperTorch, mel: torch.Tensor, tokenizer: Tokenizer
         codes.append(max(d, key=d.get))
         prob_dicts.append(d)
     return codes, prob_dicts
+
+
+def decode(model, mel, options: Optional[DecodingOptions] = None, tokenizer=None) -> DecodingResult:
+    """Single-window decode, the counterpart of ``whisper.decode`` and of
+    the JAX package's ``decode`` (``decoding.py:625``).
+
+    ``model`` a ``WhisperModel``; ``mel`` (n_mels, 3000) or (B, n_mels,
+    3000), moved to the model's device. Without a language the
+    multilingual model detects it first; ``beam_size`` runs beam search,
+    ``temperature`` > 0 with ``best_of`` > 1 the best of that many
+    samples, anything else ``decode_window``. Returns the first row's
+    ``DecodingResult``, with its per-token log-probs and alignment-head
+    cross-attention."""
+    from .api import _resolve_tokenizer
+    from .engine import DecodeEngine
+
+    options = options or DecodingOptions()
+    tok = _resolve_tokenizer(model, tokenizer, options.language, options.task)
+    engine = DecodeEngine(model, tok)
+    mel = torch.as_tensor(mel, dtype=torch.float32, device=model.device)
+    language = options.language
+    language_probs = None
+    if language is None and tok.is_multilingual:
+        codes, probs = detect_language(model.module, mel, tok)
+        language, language_probs = codes[0], probs[0]
+        options = DecodingOptions(**{**options.__dict__, "language": language})
+    elif language is None:
+        language = "en"
+
+    if options.beam_size:
+        res = engine.decode_window_beam(mel, options, prompt_tokens=options.prompt or ())
+    elif options.temperature and (options.best_of or 0) > 1:
+        res = engine.decode_window_best_of(mel, options, options.prompt or (),
+                                           float(options.temperature), 0)
+        res.temperature = float(options.temperature)
+    else:
+        res = engine.decode_window(mel, options, prompt_tokens=options.prompt or (),
+                                   temperature=options.temperature)[0]
+    return DecodingResult(
+        tokens=res.tokens,
+        text=res.text,
+        avg_logprob=res.avg_logprob,
+        no_speech_prob=res.no_speech_prob,
+        temperature=res.temperature,
+        compression_ratio=res.compression_ratio,
+        language=language,
+        language_probs=language_probs,
+        token_logprobs=res.token_logprobs,
+        cross_attention=res.attn,
+    )

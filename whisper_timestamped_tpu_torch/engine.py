@@ -12,9 +12,11 @@ the JAX package) brings each window's alignment buffers to the host for the
 host and per-segment aligners; ``fetch_alignment=False`` leaves them on the
 device for the batched device aligner; ``capture_attention=False`` keeps
 none (the two-pass engine's first pass). The engine takes the KV-cache
-quantization levers (``kv_int8``, ``kv_int4``, ``self_kv_int8``). Beam
-search, a mesh and the weight levers ``w_int8``/``enc_int8`` raise
-``NotImplementedError``.
+quantization levers (``kv_int8``, ``kv_int4``, ``self_kv_int8``).
+``decode_window_beam`` and ``decode_window_beam_batch`` run beam search
+(``decoding_beam.py``), and ``decode_with_fallback`` takes it at
+temperature 0 when ``beam_size`` is set. A mesh and the weight levers
+``w_int8``/``enc_int8`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .decoding import (
     decode_window,
     detect_language,
 )
+from .decoding_beam import decode_window_beam, decode_window_beam_batch, rank_beam_results
 from .models.load import WhisperModel
 from .tokenizer import Tokenizer
 from .utils import host_copy, not_ported, stage_timer
@@ -318,6 +321,101 @@ class DecodeEngine:
             )
         return results
 
+    def _beam_kwargs(self, options: DecodingOptions, sot_from_end: int) -> Dict[str, Any]:
+        """The static arguments of a beam decode (``engine.py:497-545``):
+        ``max_candidates`` = round(K * patience), at least 1, and the
+        cross K/V in int8 only for ``kv_int8`` without ``kv_int4``."""
+        tok = self.tokenizer
+        K = options.beam_size
+        patience = options.patience if options.patience is not None else 1.0
+        return dict(
+            beam_size=K,
+            max_candidates=max(1, round(K * patience)),
+            max_new=options.sample_len or MAX_NEW_TOKENS,
+            eot=tok.eot,
+            ts_begin=tok.timestamp_begin,
+            no_timestamps=tok.no_timestamps,
+            sot_index_from_end=sot_from_end,
+            max_initial_timestamp_index=(
+                round(options.max_initial_timestamp / TIME_PER_POSITION)
+                if options.max_initial_timestamp is not None else None),
+            suppress_blank=options.suppress_blank,
+            without_timestamps=options.without_timestamps,
+            kv_int8=self.kv_int8 and not self.kv_int4,
+        )
+
+    def _beam_result(self, row: Dict[str, np.ndarray], options: DecodingOptions,
+                     batch_index: int = 0) -> WindowDecodeResult:
+        """One window's ranked beam result: no per-token log-probs and no
+        attention (the two-pass engine's second pass aligns), temperature
+        0, ``hit_limit`` when the budget ran out with nothing finished."""
+        tok = self.tokenizer
+        tokens, sum_lp = rank_beam_results(row, tok.eot, options.length_penalty)
+        text = tok.decode(tokens)
+        return WindowDecodeResult(
+            tokens=tokens,
+            text=text,
+            avg_logprob=float(sum_lp) / (len(tokens) + 1),
+            no_speech_prob=float(row["no_speech_prob"]),
+            temperature=0.0,
+            compression_ratio=compression_ratio(text),
+            token_logprobs=np.zeros(len(tokens), np.float32),
+            attn=np.zeros((0,)),
+            sum_logprob=float(sum_lp),
+            hit_limit=int(row["n_steps"]) >= (options.sample_len or MAX_NEW_TOKENS)
+            and int(row["n_finished"]) == 0,
+            batch_index=batch_index,
+            n_text=len(tokens),
+        )
+
+    def decode_window_beam(
+        self,
+        mel: torch.Tensor,  # (n_mels, 3000)
+        options: DecodingOptions,
+        prompt_tokens: Sequence[int] = (),
+    ) -> WindowDecodeResult:
+        """Beam-search decode of one window (``engine.py:482``), in the full
+        prompt region, with no attention capture."""
+        mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
+        if mel.ndim == 2:
+            mel = mel[None]
+        assert mel.shape[0] == 1, "beam decode is per-window (B=1)"
+        buf, plen, sot_from_end = self.build_prompt(prompt_tokens, options, region=PROMPT_REGION)
+        sm, bm = self._masks(options)
+        out = decode_window_beam(
+            self.model.module, mel, torch.as_tensor(buf, device=self.device),
+            torch.tensor(plen, dtype=torch.int32, device=self.device), sm, bm,
+            **self._beam_kwargs(options, sot_from_end))
+        return self._beam_result({k: v.cpu().numpy() for k, v in out.items()}, options)
+
+    def decode_window_beam_batch(
+        self,
+        mels: torch.Tensor,  # (B, n_mels, 3000)
+        options: DecodingOptions,
+        prompts: Sequence[Sequence[int]],
+        languages: Optional[Sequence[Optional[str]]] = None,
+    ) -> List[WindowDecodeResult]:
+        """Beam-search decode of B windows in one loop (``engine.py:555``),
+        the batch pipeline's first pass for ``beam_size``. Rows may differ
+        in prompt and language; all share the full prompt region."""
+        mels = torch.as_tensor(mels, dtype=torch.float32, device=self.device)
+        B = mels.shape[0]
+        bufs, lens, sot_from_end = [], [], None
+        for i in range(B):
+            buf, plen, sot_from_end = self.build_prompt(
+                list(prompts[i]) if i < len(prompts) else [], row_options(options, languages, i),
+                region=PROMPT_REGION)
+            bufs.append(buf)
+            lens.append(plen)
+        sm, bm = self._masks(options)
+        out = decode_window_beam_batch(
+            self.model.module, mels, torch.as_tensor(np.stack(bufs), device=self.device),
+            torch.as_tensor(np.asarray(lens, np.int32), device=self.device), sm, bm,
+            **self._beam_kwargs(options, sot_from_end))
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        return [self._beam_result({k: v[b] for k, v in host.items()}, options, batch_index=b)
+                for b in range(B)]
+
     def decode_window_best_of(
         self,
         mel: torch.Tensor,
@@ -360,11 +458,11 @@ class DecodeEngine:
         temperature in turn until the result passes the thresholds; above 0
         with ``best_of`` > 1 the best of that many samples. Every
         temperature samples with the same ``rng_seed``."""
-        if options.beam_size:
-            raise not_ported("beam_size")
         result = None
         for t in temperatures:
-            if t > 0 and (options.best_of or 0) > 1:
+            if t == 0 and options.beam_size:
+                result = self.decode_window_beam(mel, options, prompt_tokens)
+            elif t > 0 and (options.best_of or 0) > 1:
                 result = self.decode_window_best_of(
                     mel, options, prompt_tokens, float(t), rng_seed,
                     fetch_alignment=fetch_alignment, capture_attention=capture_attention,
@@ -379,6 +477,16 @@ class DecodeEngine:
                                   no_speech_threshold):
                 break
         return result
+
+
+def row_options(options: DecodingOptions, languages: Optional[Sequence[Optional[str]]],
+                i: int) -> DecodingOptions:
+    """Row ``i``'s options in a batch: its own language where ``languages``
+    gives one that differs."""
+    lang = languages[i] if languages else None
+    if lang is None or lang == options.language:
+        return options
+    return DecodingOptions(**{**options.__dict__, "language": lang})
 
 
 def sequence_score(result: WindowDecodeResult, length_penalty: Optional[float]) -> float:

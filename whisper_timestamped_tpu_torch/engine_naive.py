@@ -2,15 +2,17 @@
 
 Port of ``whisper_timestamped_tpu/engine_naive.py`` (the reference's
 ``_transcribe_timestamped_naive``, reference ``transcribe.py:1004-1338``).
-Pass 1 is the long-form decode of ``engine.transcribe_windows`` (greedy, or
-best_of sampling, with the temperature fallback) without alignment rows.
+Pass 1 is the long-form decode of ``engine.transcribe_windows`` (beam
+search at temperature 0 when ``beam_size`` is set, greedy, or best_of
+sampling, with the temperature fallback) without alignment rows.
 Pass 2 runs each segment's audio again through a teacher-forced forward:
 its log-mel on the model's device (``log10_mel``), the encoder (its
 attention through ``flash_attention``) and ``decode_full``, which keeps
 only the alignment heads' pre-softmax rows. Words are aligned on the host,
 as in the JAX package. ``use_backend_timestamps`` instead times the words
 from pass 1's own attention with HuggingFace's algorithm
-(``backend_timestamps``).
+(``backend_timestamps``); when a window of pass 1 has no attention (a beam
+window), it warns and aligns by pass 2, as the JAX package does.
 
 Reference quirks kept, as the goldens pin them:
   * attention rows are taken from position ``i_start-1`` on: the row that
@@ -148,7 +150,17 @@ def transcribe_naive(
     for i, s in enumerate(whisper_segments):
         s["id"] = i
 
-    if use_backend_timestamps:
+    # beam windows carry no attention (``engine_naive.py:157-167``)
+    have_attention = all(
+        seg.window is not None and seg.window.attn is not None and seg.window.attn.size
+        for seg in result.segments
+    )
+    if use_backend_timestamps and not have_attention:
+        logger.warning(
+            "use_backend_timestamps unavailable for beam-decoded windows "
+            "(no on-the-fly attention); using teacher-forced alignment"
+        )
+    if use_backend_timestamps and have_attention:
         # HF generate(return_token_timestamps)'s algorithm over pass 1's own
         # attention (reference transcribe.py:2667-2806), then the naive
         # engine's early return (transcribe.py:1079-1091)

@@ -33,6 +33,30 @@ def available_models() -> Tuple[str, ...]:
     return OFFICIAL_MODELS
 
 
+# ``_MODELS`` and ``_download`` are copied from ``models/load.py:36-60`` of
+# the JAX package: drop-in analogs of ``whisper._MODELS`` and
+# ``whisper._download`` that name the checkpoint file expected in the local
+# cache and resolve against it; nothing is downloaded.
+_MODELS = {name: f"{name}.pt" for name in OFFICIAL_MODELS}
+
+
+def _download(url: str, root: str, in_memory: bool = False):
+    """Cache-resolving analog of ``whisper._download``. Returns the cached
+    checkpoint path (or its bytes when ``in_memory``); never touches the
+    network."""
+    path = os.path.join(root, os.path.basename(url))
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{os.path.basename(url)} not found under {root!r}. This framework "
+            "does not download weights; place the checkpoint there or pass a "
+            "local path to load_model()."
+        )
+    if in_memory:
+        with open(path, "rb") as f:
+            return f.read()
+    return path
+
+
 @dataclass
 class WhisperModel:
     """A loaded model: the ``WhisperTorch`` module plus alignment metadata."""

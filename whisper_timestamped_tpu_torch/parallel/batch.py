@@ -17,8 +17,11 @@ drains each window with one read. ``WTT_DEVICE_FLOW=0`` forces the host
 loop, and so does anything that needs a host decision between windows: a
 temperature schedule (the failing windows of an iteration are gathered on
 the device, padded to the batch and decoded again at the next
-temperature), sampling, or ``best_of`` (each row decoded ``best_of`` times
-by row replication, the best ``sequence_score`` kept). Iteration ``n``
+temperature), sampling, ``best_of`` (each row decoded ``best_of`` times
+by row replication, the best ``sequence_score`` kept), or beam search (at
+a first temperature of 0 the batch's windows are one
+``decode_window_beam_batch``; the words come from a batched teacher-forced
+second pass, ``_assemble_naive_batch``). Iteration ``n``
 samples with ``rng_seed + 104729 * n`` (``+ c0`` for a best_of chunk,
 ``+ ti`` for the ``ti``-th fallback temperature), as in the JAX package. With device alignment (at most ``MAX_K`` alignment heads) each
 window's alignment is queued after the window (``window_hook``) and read at
@@ -30,7 +33,7 @@ the previous batch's assembly (a second worker) with the current batch's
 decode.
 
 Not yet ported, and refused with ``NotImplementedError``: a mesh,
-``tail_batch``, beam search and vad.
+``tail_batch`` and vad.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from ..engine import (
     WindowDecodeResult,
     extract_window_segments,
     needs_fallback,
+    row_options,
     sequence_score,
 )
 from ..tokenizer import Tokenizer
@@ -157,11 +161,10 @@ def slice_windows(mel_stack: torch.Tensor, rows: torch.Tensor, seeks: torch.Tens
                      cols[:, None, :]]
 
 
-def _refuse_unported(mesh=None, vad=False, decode_options=None) -> None:
+def _refuse_unported(mesh=None, vad=False) -> None:
     refused = [
         (mesh is not None, "mesh"),
         (vad is not False and vad is not None, "vad"),
-        (decode_options is not None and bool(decode_options.beam_size), "beam_size"),
     ]
     for cond, option in refused:
         if cond:
@@ -206,23 +209,17 @@ class BatchTranscriber:
         and its sot sequence carries its own language. Returns the
         ``decode_window`` buffers, still on the device."""
         engine = self.engine
-
-        def row_opts(i: int) -> DecodingOptions:
-            lang = languages[i] if languages else None
-            if lang is None or lang == options.language:
-                return options
-            return DecodingOptions(**{**options.__dict__, "language": lang})
-
         with stage_timer("decode_prompt_build"):
             bufs, lens, sot_from_end = [], [], None
             for i, p in enumerate(prompts):
-                buf, plen, sfe = engine.build_prompt(p, row_opts(i))
+                buf, plen, sfe = engine.build_prompt(p, row_options(options, languages, i))
                 bufs.append(buf)
                 lens.append(plen)
                 sot_from_end = sfe
             if len({len(b) for b in bufs}) > 1:
                 # mixed small and full prompt regions: all rows at full size
-                bufs = [engine.build_prompt(p, row_opts(i), region=PROMPT_REGION)[0]
+                bufs = [engine.build_prompt(p, row_options(options, languages, i),
+                                            region=PROMPT_REGION)[0]
                         for i, p in enumerate(prompts)]
         return self._dispatch_arrays(mels, np.stack(bufs), np.asarray(lens, np.int32), options,
                                      sot_index_from_end=sot_from_end, temperature=temperature,
@@ -344,7 +341,7 @@ class BatchTranscriber:
     def _device_flow_ok(self, streams, opts: DecodingOptions, temperature) -> bool:
         """The device flow engages when the host makes no data-dependent
         decision between windows: one temperature of 0 (no fallback
-        re-decode), no best_of, no prefix, timestamps on, at most
+        re-decode), no best_of, no beam search, no prefix, timestamps on, at most
         ``batch_size`` streams. The no-speech skip is computed on the
         device. ``WTT_DEVICE_FLOW=0`` forces the host loop."""
         return (
@@ -352,6 +349,7 @@ class BatchTranscriber:
             and len(temperature) == 1
             and float(temperature[0]) == 0.0
             and (opts.best_of or 1) <= 1
+            and not opts.beam_size
             and not opts.without_timestamps
             and not opts.prefix
             and len(streams) <= self.batch_size
@@ -521,8 +519,6 @@ class BatchTranscriber:
             language = "en"
         opts = DecodingOptions(**{**(decode_options or DecodingOptions()).__dict__,
                                   "task": task, "language": language})
-        if opts.beam_size:
-            raise not_ported("beam_size")
 
         # the mel front end, or a PreparedAudio that a serving loop uploaded
         # while the previous batch decoded
@@ -597,7 +593,13 @@ class BatchTranscriber:
             # one seed for every iteration would correlate the windows' noise
             it_seed = rng_seed + 104729 * n_iter
             with stage_timer(f"batch_decode_b{B}_a{n_real}"):
-                if temperature[0] <= 0 or (opts.best_of or 1) <= 1:
+                if opts.beam_size and temperature[0] <= 0:
+                    # beam search at temperature 0 only; the fallback
+                    # temperatures sample (``batch.py:813-825``)
+                    if window_hook is not None:
+                        flush_hook()
+                    results = engine.decode_window_beam_batch(mels, opts, prompts, languages)
+                elif temperature[0] <= 0 or (opts.best_of or 1) <= 1:
                     out = self._dispatch_batch(mels, prompts, opts, temperature[0], it_seed,
                                                languages)
                     if window_hook is not None:
@@ -670,7 +672,11 @@ def transcribe_batch(
     ``MAX_K`` alignment heads queues each window's alignment on the device
     as the window lands and reads it at assembly time; otherwise the
     attention comes to the host and each segment aligns in numpy at
-    assembly. ``engine`` overrides the default ``DecodeEngine``.
+    assembly. ``engine`` overrides the default ``DecodeEngine``. With
+    ``decode_options.beam_size`` the windows are beam-decoded and the words
+    come from the two-pass engine's teacher-forced pass, batched across the
+    streams (``_assemble_naive_batch``), on the host audio; device
+    alignment does not apply (asked for explicitly, it warns).
     ``_deferred_assembly`` (used by ``transcribe_batch_stream``) returns a
     zero-argument ``finish()`` that reads the alignment and assembles the
     results, instead of the results, once the decode is done."""
@@ -682,14 +688,25 @@ def transcribe_batch(
         prepare_segment_tokens,
         should_use_space,
     )
-    _refuse_unported(mesh, vad, window_options.get("decode_options"))
+    _refuse_unported(mesh, vad)
     if engine is None:
         engine = DecodeEngine(model, tokenizer)
     device_alignment_explicit = device_alignment is not None
     if device_alignment is None:
         device_alignment = default_device_alignment(engine.device)
-    full_device = device_alignment and len(engine.align_heads) <= MAX_K
-    if device_alignment and not full_device:
+    decode_opts = window_options.get("decode_options")
+    beam_mode = bool(decode_opts is not None and decode_opts.beam_size)
+    if beam_mode:
+        # beam windows carry no attention: the words come from a batched
+        # teacher-forced pass over each stream's host audio (``batch.py:957-975``)
+        if device_alignment and device_alignment_explicit:
+            logger.warning(
+                "beam_size uses teacher-forced (naive-engine) alignment; "
+                "device_alignment does not apply to the beam pipeline"
+            )
+        audios = {name: load_audio(a) for name, a in audios.items()}
+    full_device = device_alignment and not beam_mode and len(engine.align_heads) <= MAX_K
+    if device_alignment and not full_device and not beam_mode:
         # an explicit request that cannot be met warns; the auto-resolved
         # default degrades with an info line only
         (logger.warning if device_alignment_explicit else logger.info)(
@@ -737,6 +754,22 @@ def transcribe_batch(
         audios, language=language, prepared=_prepared,
         window_hook=_align_step if full_device else None, **window_options,
     )
+    if beam_mode:
+        results = _assemble_naive_batch(
+            engine, bt, audios, all_segments,
+            language=language,
+            task=window_options.get("task", "transcribe"),
+            batch_size=batch_size,
+            refine_nframes=refine_nframes,
+            refine_whisper_precision=refine_whisper_precision,
+            remove_punctuation_from_words=remove_punctuation_from_words,
+            compute_word_confidence=compute_word_confidence,
+            detect_disfluencies=detect_disfluencies,
+            remove_empty_words=remove_empty_words,
+            min_word_duration=min_word_duration,
+        )
+        return (lambda: results) if _deferred_assembly else results
+
     # everything past here reads the queued alignment and assembles on the
     # host; the fields it needs are captured now (the transcriber's
     # stream_meta is replaced, never mutated, by the next batch)
@@ -802,6 +835,87 @@ def transcribe_batch(
     return finish if _deferred_assembly else finish()
 
 
+def _assemble_naive_batch(
+    engine: DecodeEngine,
+    bt: BatchTranscriber,
+    audios: Dict[str, np.ndarray],
+    all_segments: Dict[str, List[Segment]],
+    *,
+    language: Optional[str],
+    task: str,
+    batch_size: int,
+    refine_nframes: int,
+    refine_whisper_precision: float,
+    remove_punctuation_from_words: bool,
+    compute_word_confidence: bool,
+    detect_disfluencies: bool,
+    remove_empty_words: bool,
+    min_word_duration: float,
+) -> Dict[str, dict]:
+    """The beam pipeline's second pass (``batch.py:1141``): every stream
+    gets the two-pass engine's ``naive_word_requests`` generator, and
+    ``drive_teacher_forced_batch`` runs their segments' teacher-forced
+    forwards in batches across the streams."""
+    from ..api import finalize_transcription, should_use_space
+    from ..engine import TranscribeResult
+    from ..engine_naive import drive_teacher_forced_batch, naive_word_requests
+
+    def stream_language(name: str) -> str:
+        return bt.stream_meta.get(name, {}).get("language") or language or "en"
+
+    gens = {}
+    seg_dicts_map: Dict[str, List[dict]] = {}
+    for name, segments in all_segments.items():
+        meta = bt.stream_meta.get(name, {})
+        whisper_segments = [seg.to_dict() for seg in segments]
+        for i, s in enumerate(whisper_segments):
+            s["id"] = i
+        seg_dicts_map[name] = whisper_segments
+        result = TranscribeResult(
+            text="".join(s["text"] for s in whisper_segments),
+            segments=segments,
+            language=stream_language(name),
+            language_probs=meta.get("language_probs"),
+        )
+        gens[name] = naive_word_requests(
+            engine, audios[name], result, whisper_segments,
+            language=stream_language(name),
+            use_space=should_use_space(stream_language(name)),
+            task=task,
+            trust_whisper_timestamps=True,
+            refine_whisper_precision_nframes=refine_nframes,
+            remove_punctuation_from_words=remove_punctuation_from_words,
+            compute_word_confidence=compute_word_confidence,
+            include_punctuation_in_confidence=False,
+            detect_disfluencies=detect_disfluencies,
+            verbose=False,
+            min_word_duration=min_word_duration,
+        )
+
+    with stage_timer("batch_naive_align"):
+        words_map = drive_teacher_forced_batch(engine, gens, batch_size=batch_size)
+
+    results = {}
+    with stage_timer("batch_assemble"):
+        for name, whisper_segments in seg_dicts_map.items():
+            meta = bt.stream_meta.get(name, {})
+            transcription = {
+                "text": "".join(s["text"] for s in whisper_segments),
+                "segments": whisper_segments,
+                "language": stream_language(name),
+            }
+            if meta.get("language_probs") is not None:
+                transcription["language_probs"] = meta["language_probs"]
+            results[name] = finalize_transcription(
+                transcription, words_map.get(name, []),
+                remove_empty_words=remove_empty_words,
+                min_word_duration=min_word_duration,
+                trust_whisper_timestamps=True,
+                refine_whisper_precision=refine_whisper_precision,
+            )
+    return results
+
+
 def transcribe_batch_stream(
     model,
     batches,  # iterable of {name: path/array} dicts
@@ -823,10 +937,17 @@ def transcribe_batch_stream(
     thread is a daemon, so an idle source never holds the consumer or the
     process. An exception of the source is raised in the consumer after the
     batches before it are yielded; closing the generator early stops both
-    workers."""
-    _refuse_unported(mesh, options.get("vad", False), options.get("decode_options"))
+    workers. Beam search runs each batch through ``transcribe_batch``
+    in turn, without the prefetch (``batch.py:1270-1279``): its second
+    pass re-reads each stream's host audio."""
+    _refuse_unported(mesh, options.get("vad", False))
     if engine is None:
         engine = DecodeEngine(model, tokenizer)
+    decode_opts = options.get("decode_options")
+    if decode_opts is not None and decode_opts.beam_size:
+        for audios in batches:
+            yield transcribe_batch(model, audios, tokenizer, engine=engine, **options)
+        return
     device = engine.device
     n_mels = engine.dims.n_mels
     it = iter(batches)

@@ -36,3 +36,26 @@ def host_copy(tensor: torch.Tensor):
         return host.numpy()
 
     return wait
+
+
+# whisper.utils' names (``utils/__init__.py:8-24`` of the JAX package), on
+# the port's own modules: ``whisper.utils.get_writer(...)`` keeps working.
+# Lazy: the engine imports this package, and eager imports of the CLI and
+# the decoding module would cycle back through it.
+_WHISPER_UTILS = {
+    "format_timestamp": ("whisper_timestamped_tpu_torch.writers", "format_timestamp"),
+    "get_writer": ("whisper_timestamped_tpu_torch.writers", "get_writer"),
+    "compression_ratio": ("whisper_timestamped_tpu_torch.decoding", "compression_ratio"),
+    "str2bool": ("whisper_timestamped_tpu_torch.cli", "str2bool"),
+    "optional_int": ("whisper_timestamped_tpu_torch.cli", "optional_int"),
+    "optional_float": ("whisper_timestamped_tpu_torch.cli", "optional_float"),
+}
+
+
+def __getattr__(name):
+    if name in _WHISPER_UTILS:
+        import importlib
+
+        module, attr = _WHISPER_UTILS[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
