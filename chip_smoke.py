@@ -78,7 +78,15 @@ phases have run, so their lines are printed too):
       a bf16 and a ``kv_int8`` engine: the launches (the cross-attention
       kernel 32 times a decode step), the cross K/V untiled (seen at every
       decode step), s/request, s/batch, ms/step, peak memory; the self-KV
-      reorder timed alone; a ``beam_size=1`` decode equal to greedy.
+      reorder timed alone; a ``beam_size=1`` decode equal to greedy;
+  (m) fine-tuning at large-v3 width: ``training.make_train_step`` (AdamW,
+      optax's ``adamw(1e-5)``) on seeded f32 weights and one fixed batch
+      (two 30 s windows, 224 tokens a row): one step's loss and gradients
+      through the training flash kernels against the plain versions, then
+      a warm step and five timed steps: the losses finite and falling, each
+      training kernel launched once a layer a step and the inference flash
+      kernel never; ms/step and peak memory, and the step with each layer
+      read as ``w[l]`` instead of ``unbind``.
 
 (c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
 lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
@@ -99,13 +107,16 @@ through the kernel and through its plain version, and ``stacked_matmul``
 at decode shapes beside ``F.linear``, ``xattn_decode`` and
 ``xattn_decode_int8`` as beam search runs them (B=40 over 8 K/V rows,
 ``beam_group=5``, no scores) beside the same kernel over 40 rows, with the
-shared-read bound, and (e) the decode step
+shared-read bound, the training flash kernels (the forward with lse, dQ
+and dK/dV) in f32 and bf16 at the encoder's shape (B=2, T=1500) and at
+ragged T, beside their plain versions and SDPA's forward and backward, and
+(e) the decode step
 with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
 record takes each kernel's launches from the phase that runs it: the bf16
 path's from (f), ``xattn_decode_int8`` from (g), the int4 and int8-self
-kernels from (h), ``attention_to_cost`` from (i), ``log10_mel`` from (j);
-``median9`` and ``stacked_matmul``, which no path runs, from their checks
-in (c).
+kernels from (h), ``attention_to_cost`` from (i), ``log10_mel`` from (j),
+the training kernels from (m)'s timed steps; ``median9`` and
+``stacked_matmul``, which no path runs, from their checks in (c).
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
 at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
@@ -119,7 +130,8 @@ prints no result line).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and makes any
-import of it fail.
+import of it (or of optax and orbax, its optimizer and checkpoint
+libraries) fail.
 """
 
 import contextlib
@@ -139,7 +151,7 @@ class _RefuseJax(importlib.abc.MetaPathFinder):
     not ``sys.modules["jax"] = None``, which scipy's resampler trips on.)"""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "optax", "orbax"):
             raise ImportError(f"chip_smoke: the port imported {name}")
         return None
 
@@ -175,7 +187,17 @@ SOURCES = {
                   "whisper_timestamped_tpu/ops/pallas_kernels.py:528"),
     "stacked_matmul": ("whisper_timestamped_tpu_torch/csrc/stacked_matmul.cu",
                        "whisper_timestamped_tpu/ops/pallas_kernels.py:2427"),
+    # the library flash kernel's training path (training.py:52 differentiates
+    # encode through it): the forward with residuals and the two backward kernels
+    "flash_attention_fwd": ("whisper_timestamped_tpu_torch/csrc/flash_attn_fwd_lse.cu",
+                            "jax/experimental/pallas/ops/tpu/flash_attention.py:234"),
+    "flash_attention_bwd_dkv": ("whisper_timestamped_tpu_torch/csrc/flash_attn_bwd.cu",
+                                "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "flash_attention_bwd_dq": ("whisper_timestamped_tpu_torch/csrc/flash_attn_bwd.cu",
+                               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
 }
+# the training path's kernels ([m])
+TRAIN_PATH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 # the kernels of the bf16 path ([d], [f]); the other three read quantized caches
 BF16_PATH = ("xattn_decode", "self_attn_decode", "align_cost", "dtw_codes", "flash_attention")
 QUANT_PATH = ("xattn_decode_int8", "xattn_decode_int4", "self_attn_decode_int8")
@@ -854,6 +876,111 @@ def phase_beam_kernels(torch, K, device):
         del q, shared, full
         torch.cuda.empty_cache()
     return out
+
+
+# the training kernels against their plain versions, a share of each
+# output's max abs: f32 1e-4 (f32 FMAs in another order), bf16 1e-2 (both
+# round the f32 result to bf16, 2^-8 of a value); the bf16 forward's output
+# at the inference kernel's atol 2e-2
+TRAIN_TOL = {"f32": 1e-4, "bf16": 1e-2}
+
+
+def phase_train_kernels(torch, K, device):
+    """(c): the training flash kernels (forward with lse, dQ, dK/dV) against
+    their plain versions at the large-v3 encoder's shape (B=2, T=1500,
+    D=1280, H=20; 23 64-row tiles and a 28-row tail) and at ragged T = 1,
+    65, 200, in f32 (the training path's dtype) and bf16; each timed
+    beside its plain version and SDPA (forward; backward alone), with its
+    bound. Returns the f32 records."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=device).manual_seed(13)
+    B, D, H = 2, 1280, 20
+    rec, errs, t_phase = {}, {}, time.perf_counter()
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tol, e_fwd, e_bwd, a_bwd = TRAIN_TOL[label], 0.0, 0.0, 0.0
+        for T in (1, 65, 200, 1500):
+            q, k, v, dout = (torch.randn((B, T, D), generator=g, device=device).to(dtype)
+                             for _ in range(4))
+            out, lse = K.flash_attention_fwd(q, k, v, H)
+            torch.cuda.synchronize()
+            out_p, lse_p = K.flash_attention_fwd_plain(q, k, v, H)
+            e_out = (out.float() - out_p.float()).abs().max().item()
+            e_lse = ((lse - lse_p).abs().max() / lse_p.abs().max()).item()
+            if not (e_out <= (2e-2 if label == "bf16" else tol * out_p.float().abs().max().item())
+                    and e_lse <= 1e-4):
+                fail(f"flash_attention_fwd {label} T={T} disagrees: out {e_out:.3g}, lse "
+                     f"{e_lse:.3g} of its max")
+            e_fwd = max(e_fwd, e_out)
+            grads = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
+            torch.cuda.synchronize()
+            want = K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H)
+            # at one key dq and dk are zero in exact arithmetic: dv's scale
+            scales = [w.float().abs().max().item() for w in want]
+            for name, a, w, sc in zip(("dq", "dk", "dv"), grads, want,
+                                      [scales[2]] * 3 if T == 1 else scales):
+                e = (a.float() - w.float()).abs().max().item()
+                if not (torch.isfinite(a.float()).all() and e <= tol * sc):
+                    fail(f"flash_attention_bwd {label} T={T} {name} disagrees: {e:.3g} "
+                         f"(limit {tol} of {sc:.3g})")
+                e_bwd, a_bwd = max(e_bwd, e / sc), max(a_bwd, e)
+            if T != 1500:
+                continue
+            elt = q.element_size()
+            peak = F32_FLOPS if label == "f32" else BF16_FLOPS
+            pairs = B * H * T * T * 64  # one T x T x 64 product, all heads
+            io, rows = B * T * D * elt, B * H * T * 4
+            f_ms, f_by = bound(4 * io + rows, 4 * pairs, peak)
+            dq_b, dq_by = bound(6 * io + 2 * rows, 6 * pairs, peak)  # 3 products
+            dkv_b, dkv_by = bound(6 * io + 2 * rows, 8 * pairs, peak)  # 4 products
+            all_b, _ = bound(8 * io + rows, 10 * pairs, peak)  # the 5 products at least
+            ms_f = cuda_time_ms(lambda it=0: K.flash_attention_fwd(q, k, v, H), iters=10)
+            plain_f = cuda_time_ms(lambda it=0: K.flash_attention_fwd_plain(q, k, v, H), iters=5)
+            _, delta = K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H)
+            ms_dq = cuda_time_ms(lambda it=0: K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H),
+                                 iters=10)
+            ms_dkv = cuda_time_ms(lambda it=0: K._flash_bwd_dkv(q, k, v, dout, lse_p, delta, H),
+                                  iters=10)
+            plain_b = cuda_time_ms(lambda it=0: K.flash_attention_bwd_plain(
+                q, k, v, out_p, lse_p, dout, H), iters=5)
+            qh, kh, vh = (heads_view(x, H).detach().requires_grad_() for x in (q, k, v))
+            lib_f = cuda_time_ms(lambda it=0: sdpa(qh.detach(), kh.detach(), vh.detach()), iters=10)
+            o_lib = sdpa(qh, kh, vh)
+            lib_b = cuda_time_ms(lambda it=0: torch.autograd.grad(
+                o_lib, (qh, kh, vh), heads_view(dout, H), retain_graph=True), iters=10)
+            print(f"[c] flash_attention_fwd {label} B={B} T={T} D={D} H={H}: {ms_f:.4f} ms vs "
+                  f"plain {plain_f:.4f} ms, sdpa {lib_f:.4f} ms, bound {f_ms:.4f} ms ({f_by})")
+            print(f"[c] flash_attention_bwd {label} B={B} T={T}: dq {ms_dq:.4f} ms (bound "
+                  f"{dq_b:.4f}, 3 products), dkv {ms_dkv:.4f} ms (bound {dkv_b:.4f}, 4 products), "
+                  f"together {ms_dq + ms_dkv:.4f} ms against the backward's bound {all_b:.4f} ms "
+                  f"(5 products); plain {plain_b:.4f} ms, sdpa backward alone {lib_b:.4f} ms")
+            if label == "f32":  # the training path's dtype
+                rec["flash_attention_fwd"] = dict(ms=ms_f, plain_ms=plain_f, bound_ms=f_ms,
+                                                  bound_by=f_by, library_ms=lib_f)
+                common = dict(plain_ms=plain_b, library_ms=lib_b, bwd_bound_ms=all_b,
+                              plain_function="flash_attention_bwd_plain (dq, dk, dv)",
+                              library_function="sdpa backward (dq, dk, dv)")
+                rec["flash_attention_bwd_dq"] = dict(ms=ms_dq, bound_ms=dq_b, bound_by=dq_by,
+                                                     **common)
+                rec["flash_attention_bwd_dkv"] = dict(ms=ms_dkv, bound_ms=dkv_b, bound_by=dkv_by,
+                                                      **common)
+            else:
+                for name, ms in (("flash_attention_fwd", ms_f), ("flash_attention_bwd_dq", ms_dq),
+                                 ("flash_attention_bwd_dkv", ms_dkv)):
+                    rec[name]["ms_bf16"] = ms
+            del qh, kh, vh, o_lib, delta
+        errs[label] = (e_fwd, a_bwd)
+        print(f"[c] flash training kernels {label} (T = 1, 65, 200, 1500): forward out err "
+              f"{e_fwd:.3g}, lse within 1e-4 of its max; backward err {a_bwd:.3g}, at most "
+              f"{e_bwd:.3g} of a gradient's max abs (limit {tol})")
+        del q, k, v, dout, out, lse, out_p, lse_p, grads, want
+        torch.cuda.empty_cache()
+    rec["flash_attention_fwd"]["max_abs_err"] = errs["f32"][0]
+    rec["flash_attention_bwd_dq"]["max_abs_err"] = rec["flash_attention_bwd_dkv"]["max_abs_err"] = \
+        errs["f32"][1]
+    for name in TRAIN_PATH:
+        rec[name]["max_abs_err_bf16"] = errs["bf16"][0 if name == "flash_attention_fwd" else 1]
+    print(f"[c] the training kernels' checks and times: {time.perf_counter() - t_phase:.1f} s")
+    return rec
 
 
 def phase_segment_kernels(torch, K, device):
@@ -2269,6 +2396,121 @@ def phase_beam(torch, K, model, tok):
           f"{one.sum_logprob:.4f} vs {greedy.sum_logprob:.4f}")
 
 
+def phase_train(torch, K, device):
+    """(m): fine-tuning at large-v3 width: ``make_train_step``'s AdamW steps
+    (optax's ``adamw(1e-5)``) on f32 seeded weights, one fixed batch of two
+    30 s windows of seeded audio (mel through ``log10_mel``) and 224 seeded
+    tokens a row. First the loss and gradients through the kernels against
+    the same with the plain versions in ``FlashAttentionFn`` (one step's
+    worth, on the initial weights), then a warm step and five timed steps:
+    fails unless the losses are finite, the last is below the first, and
+    every step launched the three training kernels once a layer and the
+    inference kernel never. Prints ms/step, peak memory and the launches,
+    and two steps with each layer read as ``w[l]`` (not ``unbind``) for
+    the step time of that form. Returns the launches of the timed steps."""
+    import whisper_timestamped_tpu_torch.models.whisper_torch as wt
+    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
+    from whisper_timestamped_tpu_torch.models import WhisperDims, init_params
+    from whisper_timestamped_tpu_torch.training import (make_train_step, teacher_forced_loss,
+                                                        trainable_parameters)
+
+    dims = WhisperDims(**LARGE_V3)
+    t0 = t_phase = time.perf_counter()
+    model = init_params(dims, seed=0, dtype=torch.float32, device=device)
+    audio = torch.stack([torch.from_numpy(make_audio(70 + i, 30)) for i in range(2)])
+    mel = log_mel_spectrogram(audio, n_mels=dims.n_mels, device=device)[:, :, :3000].contiguous()
+    g = torch.Generator(device=device).manual_seed(11)
+    tokens = torch.randint(0, dims.n_vocab, (2, 224), generator=g, device=device)
+    mask = torch.ones((2, 224), device=device)
+    mask[1, 200:] = 0.0
+    init_state, train_step = make_train_step(dims)
+    state = init_state(model)
+    params = trainable_parameters(model)
+    print(f"[m] large-v3 geometry, seeded f32 weights ({sum(p.numel() for p in params) / 1e9:.3f} "
+          f"B trainable; encoder pos_emb fixed), mel {tuple(mel.shape)}, tokens "
+          f"{tuple(tokens.shape)}: {time.perf_counter() - t0:.1f} s")
+
+    # the kernels against the plain versions: one loss and its gradients
+    def loss_and_grads():
+        for p in params:
+            p.grad = None
+        loss = teacher_forced_loss(model, mel, tokens, mask)
+        loss.backward()
+        return loss.item(), [p.grad for p in params]
+
+    saved = K.flash_attention_fwd, K.flash_attention_bwd
+    K.flash_attention_fwd, K.flash_attention_bwd = K.flash_attention_fwd_plain, K.flash_attention_bwd_plain
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        K.flash_attention_fwd, K.flash_attention_bwd = saved
+    loss_k, grads_k = loss_and_grads()
+    rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+              for a, b in zip(grads_k, grads_p))
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and rel <= 1e-3):
+        fail(f"[m] the train step's loss/gradients through the kernels disagree with the plain "
+             f"versions: loss {loss_k} vs {loss_p}, gradients {rel:.3g} of a leaf's max (limit 1e-3)")
+    print(f"[m] one step's loss through the kernels {loss_k:.6f} vs the plain versions "
+          f"{loss_p:.6f} (rtol 1e-5); gradients at most {rel:.3g} of a leaf's max abs (limit 1e-3)")
+    del grads_k, grads_p
+    for p in params:
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    def steps(n):
+        nonlocal state
+        out = []
+        for _ in range(n):
+            state, loss = train_step(state, mel, tokens, mask)
+            out.append(loss)
+        return out
+
+    losses = steps(1)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses += steps(5)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 5
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    L = dims.n_audio_layer
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"[m] the losses are not finite and falling: {losses}")
+    if any(launches[k] != 5 * L for k in TRAIN_PATH) or launches["flash_attention"]:
+        fail(f"[m] expected {L} launches a step of each training kernel and none of "
+             f"flash_attention: {launches}")
+    print(f"[m] train steps (B=2, 224 tokens, AdamW lr 1e-5, f32): losses "
+          f"{[round(x, 5) for x in losses]}; {ms:.1f} ms/step over 5 steps after a warm one; "
+          f"peak memory {peak:.2f} GB; launches a step: "
+          + ", ".join(f"{k} {launches[k] // 5}" for k in (*TRAIN_PATH, "flash_attention")))
+
+    def stacked_layers(pd, n_layer):  # each layer as w[l], the form before unbind
+        return [{n: t[l] for n, t in pd.items() if n.startswith(wt._LAYER_PREFIXES)}
+                for l in range(n_layer)]
+
+    layers = wt._layers
+    wt._layers = stacked_layers
+    try:
+        steps(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps(2)
+        torch.cuda.synchronize()
+    finally:
+        wt._layers = layers
+    print(f"[m] the same step with each layer read as w[l]: "
+          f"{1e3 * (time.perf_counter() - t0) / 2:.1f} ms/step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, model, params
+    torch.cuda.empty_cache()
+    print(f"[m] phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_profile(torch, model, tok, B: int, **levers):
     """(--profile): device time against wall time for one decoded window of
     B rows, with the engine's ``levers``."""
@@ -2344,6 +2586,7 @@ def main() -> int:
     rec.update(phase_frontend_kernels(torch, K, device))
     for name, fields in phase_beam_kernels(torch, K, device).items():
         rec[name].update(fields)
+    rec.update(phase_train_kernels(torch, K, device))
     if "--kernels-only" in sys.argv[1:]:
         print("[c] --kernels-only: stopping after the kernel checks")
         return 0
@@ -2383,6 +2626,10 @@ def main() -> int:
     phase_sampling(torch, K, model, tok)
     torch.cuda.empty_cache()
     phase_beam(torch, K, model, tok)
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, K, device)
+    for name in TRAIN_PATH:
+        launches[name] = train_launches[name]
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):
             phase_profile(torch, model, tok, B, **levers)

@@ -741,6 +741,107 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
         K.flash_attention(z, z, z, 2)
 
 
+# the training flash kernels (forward with lse, dQ, dK/dV) against their
+# plain versions on the same inputs, each output to a share of its max abs:
+# f32 1e-4 (f32 FMAs in another order); bf16 1e-2 (both round the f32
+# result to bf16: one bf16 step is 2^-8 of a value), and the bf16 forward's
+# output at the inference kernel's atol 2e-2
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _close_to_max(got, want, share, what):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), what
+    torch.testing.assert_close(got, want, rtol=0, atol=share * float(want.abs().max()), msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [1, 65, 200, 1500])
+def test_flash_train_kernels_match_plain(cuda, T, dtype):
+    """The encoder's shape (B=2, T=1500, D=1280, H=20: 23 full 64-row tiles
+    and a 28-row tail) and short ragged sequences."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    B, D, H = 2, 1280, 20
+    q, k, v, dout = (_randn(g, B, T, D, dtype=dtype) for _ in range(4))
+    tol = TRAIN_TOL[dtype]
+    before = dict(K.LAUNCHES)
+    out, lse = K.flash_attention_fwd(q, k, v, H)
+    torch.cuda.synchronize()
+    out_p, lse_p = K.flash_attention_fwd_plain(q, k, v, H)
+    assert out.dtype == dtype and lse.shape == (B, H, T) and lse.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), out_p.float(), rtol=0, atol=2e-2)
+    else:
+        _close_to_max(out, out_p, tol, "out")
+    _close_to_max(lse, lse_p, 1e-4, "lse")
+    # the backward kernels on the plain forward's out and lse
+    grads = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
+    again = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
+    torch.cuda.synchronize()
+    want = K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H)
+    # at one key dq and dk are zero in exact arithmetic (dS = dP - D, D = dP
+    # there) and both sides give rounding (~1e-8): they take dv's scale
+    scales = [float(w.float().abs().max()) for w in want]
+    if T == 1:
+        scales = [scales[2]] * 3
+    for name, got, w, a, scale in zip(("dq", "dk", "dv"), grads, want, again, scales):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), w.float(), rtol=0, atol=tol * scale, msg=name)
+        assert torch.equal(got, a), f"{name} differs from run to run"
+    assert K.LAUNCHES["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert K.LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 2
+    assert K.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 2
+    assert K.LAUNCHES["flash_attention"] == before["flash_attention"]
+
+
+def test_flash_attention_function_on_the_card(cuda):
+    """Under autograd ``flash_attention`` takes the training kernels (f32),
+    and its gradients equal autograd of the plain version; without grad it
+    takes the inference kernel."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, T, D, H = 2, 300, 256, 4
+    leaves = [_randn(g, B, T, D, dtype=torch.float32).requires_grad_() for _ in range(3)]
+    dout = _randn(g, B, T, D, dtype=torch.float32)
+    before = dict(K.LAUNCHES)
+    out = K.flash_attention(*leaves, H)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert K.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    assert K.LAUNCHES["flash_attention"] == before["flash_attention"]
+    ref_leaves = [x.detach().clone().requires_grad_() for x in leaves]
+    ref = K.flash_attention_plain(*ref_leaves, H)
+    want = torch.autograd.grad(ref, ref_leaves, dout)
+    _close_to_max(out.detach(), ref.detach(), 1e-4, "out")
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_to_max(a, b, 1e-4, name)
+    with torch.no_grad():
+        K.flash_attention(*(x.detach().bfloat16() for x in leaves), H)
+    assert K.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+
+
+def test_flash_train_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((1, 130, 64), dtype=torch.float32, device=cuda)  # head width 32
+    lse = torch.zeros((1, 2, 130), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        K.flash_attention_fwd(x, x, x, 2)
+    with pytest.raises(ValueError, match="head width"):
+        K.flash_attention_bwd(x, x, x, x, lse, x, 2)
+    y = torch.zeros((1, 130, 128), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="f32 or all bf16"):
+        K.flash_attention_fwd(y, y, y, 2)
+    z = torch.zeros((1, 130, 128), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="f32 or all bf16"):
+        K.flash_attention_fwd(z, z, z.bfloat16(), 2)
+    strided = torch.zeros((1, 128, 130), dtype=torch.float32, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention_fwd(z, strided, z, 2)
+    with pytest.raises(ValueError, match="lse"):
+        K.flash_attention_bwd(z, z, z, z, lse[:, :1], z, 2)
+    with pytest.raises(ValueError, match="no backward for causal"):
+        K.flash_attention(z.requires_grad_(), z, z, 2, causal=True)
+
+
 @pytest.mark.parametrize("rows,seconds,n_mels", [(3, 35, 128), (2, 7.3, 80)])
 def test_log10_mel_kernel_matches_plain(cuda, rows, seconds, n_mels):
     """The fused log-mel kernel against its plain version (TF32 off) on

@@ -258,10 +258,11 @@ def test_unported_engine_levers_raise(models, lever):
 
 def test_port_imports_without_jax():
     """A GPU host may have no JAX: the port must not import it, nor
-    the JAX package (whose __init__ imports JAX)."""
+    the JAX package (whose __init__ imports JAX), nor optax or orbax."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = sys.modules['optax'] = sys.modules['orbax'] = None\n"
         "import whisper_timestamped_tpu_torch.api, whisper_timestamped_tpu_torch.ops.kernels\n"
+        "import whisper_timestamped_tpu_torch.training\n"
         "import whisper_timestamped_tpu_torch.engine_naive, whisper_timestamped_tpu_torch.backend_timestamps\n"
         "import whisper_timestamped_tpu_torch.ops.peaks, whisper_timestamped_tpu_torch.decoding_beam\n"
         "import whisper_timestamped_tpu_torch.normalizers, whisper_timestamped_tpu_torch as wtt\n"

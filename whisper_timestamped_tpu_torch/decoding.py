@@ -40,6 +40,7 @@ from .models.whisper_torch import (
     _ln,
     _logits,
     _mlp,
+    _mlp_params,
     _prefill_flash_attention,
     cross_attention_rows,
     decode_full,
@@ -314,7 +315,7 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
             for k in hits:
                 rows[:, k] = w[:, align_heads[k][1], -1]
         x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
-        x = _mlp(x, dec, l)
+        x = _mlp(x, _mlp_params(dec, l))
     return x, rows
 
 

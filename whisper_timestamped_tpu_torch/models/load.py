@@ -101,7 +101,9 @@ def params_from_jax_tree(tree: Dict[str, Any], dims: WhisperDims, device=None,
     any array-like) leaves: linear ``w`` (L, in, out) becomes (L, out, in),
     conv ``w`` (k, in, out) becomes (out, in, k). Floating leaves are cast to
     ``dtype`` and placed on ``device``, None meaning the CUDA card
-    (``default_device``, which raises without one)."""
+    (``default_device``, which raises without one). A tree without an
+    encoder ``pos_emb`` (``init_params``') gets the fixed sinusoids, marked
+    ``fixed_pos_emb`` so that training leaves them alone, as JAX does."""
     device = default_device(device)
     enc, dec = tree["encoder"], tree["decoder"]
     a = lambda x: np.asarray(x, np.float32)  # noqa: E731
@@ -146,6 +148,7 @@ def params_from_jax_tree(tree: Dict[str, Any], dims: WhisperDims, device=None,
                 torch.tensor(flat[k]).to(device=device, dtype=dtype),
                 requires_grad=False,
             )
+    model.fixed_pos_emb = "pos_emb" not in enc
     return model
 
 

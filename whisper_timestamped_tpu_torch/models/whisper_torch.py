@@ -3,8 +3,8 @@
 Port of ``whisper_timestamped_tpu/models/whisper_jax.py``. The parameters
 stay layer-stacked, as in the JAX tree, but in PyTorch's layouts: a linear
 weight is ``(out, in)`` (applied with ``F.linear``) and a conv weight is
-``(out, in, k)``. A layer's weight is a view (``w[l]``), so the Python loop
-over layers reads each one in place.
+``(out, in, k)``. A layer's weight is a view (``w[l]``, or one of
+``unbind(0)``'s), so the Python loop over layers reads each one in place.
 
 The single-token decode step sends its two attentions through the
 hand-written kernels of ``ops.kernels`` (the plain PyTorch versions run for
@@ -120,7 +120,11 @@ def param_shapes(dims: WhisperDims, untied_proj: bool = False,
 class WhisperTorch(nn.Module):
     """Parameter container: ``encoder`` and ``decoder`` are ParameterDicts of
     layer-stacked tensors (names from ``param_shapes``). The forward math is
-    the module-level functions below (``encode``, ``decode_step``, ...)."""
+    the module-level functions below (``encode``, ``decode_step``, ...).
+
+    ``fixed_pos_emb``: the encoder's ``pos_emb`` holds the fixed sinusoids
+    (the JAX tree has no such leaf and ``encode`` adds sinusoids), so
+    training leaves it alone; a checkpoint's positions are trained."""
 
     def __init__(self, dims: WhisperDims, dtype=torch.float32, device=None,
                  untied_proj: bool = False, n_mlp: Optional[Tuple[int, int]] = None):
@@ -136,6 +140,7 @@ class WhisperTorch(nn.Module):
 
         self.encoder = make(enc)
         self.decoder = make(dec)
+        self.fixed_pos_emb = False
 
     @property
     def device(self) -> torch.device:
@@ -181,6 +186,7 @@ def init_params(dims: WhisperDims, seed: int = 0, dtype=torch.float32, device=No
         model.encoder["pos_emb"].copy_(
             torch.from_numpy(sinusoids(dims.n_audio_ctx, dims.n_audio_state))
         )
+    model.fixed_pos_emb = True
     return model
 
 
@@ -256,6 +262,18 @@ def _prefill_flash_attention(q, k, v, n_head, pad_len=None, causal=False):
     return flash_attention(q, k, v, n_head, causal=causal, pad_len=pad_len)
 
 
+_LAYER_PREFIXES = ("attn_", "cross_", "mlp_", "fc1_", "fc2_")  # the layer-stacked names
+
+
+def _layers(pd: nn.ParameterDict, n_layer: int):
+    """Each layer's parameters, name -> that layer's view, from one
+    ``unbind(0)`` of every stack. Under autograd the backward of ``w[l]``
+    writes a zero tensor the size of the whole stack for each layer and adds
+    them; ``unbind``'s stacks the layers' gradients once."""
+    views = {n: t.unbind(0) for n, t in pd.items() if n.startswith(_LAYER_PREFIXES)}
+    return [{n: v[l] for n, v in views.items()} for l in range(n_layer)]
+
+
 def _conv1d(x, w, b, stride):
     """(B, C_in, T) conv, kernel 3, padding 1."""
     return F.conv1d(x, w, b, stride=stride, padding=1)
@@ -276,18 +294,16 @@ def encode(model: WhisperTorch, mel: torch.Tensor) -> torch.Tensor:
     x = x.transpose(1, 2)  # (B, T//2, D)
     x = x + enc["pos_emb"][: x.shape[1]].to(x.dtype)
     H = dims.n_audio_head
-    for l in range(dims.n_audio_layer):
-        xn = _ln(x, enc["attn_ln_g"][l], enc["attn_ln_b"][l])
+    for p in _layers(enc, dims.n_audio_layer):
+        xn = _ln(x, p["attn_ln_g"], p["attn_ln_b"])
         a = _encoder_attention(
-            _linear(xn, enc["attn_q_w"][l], enc["attn_q_b"][l]),
-            _linear(xn, enc["attn_k_w"][l]),
-            _linear(xn, enc["attn_v_w"][l], enc["attn_v_b"][l]),
+            _linear(xn, p["attn_q_w"], p["attn_q_b"]),
+            _linear(xn, p["attn_k_w"]),
+            _linear(xn, p["attn_v_w"], p["attn_v_b"]),
             H,
         )
-        x = x + _linear(a, enc["attn_o_w"][l], enc["attn_o_b"][l])
-        h = F.gelu(_linear(_ln(x, enc["mlp_ln_g"][l], enc["mlp_ln_b"][l]),
-                           enc["fc1_w"][l], enc["fc1_b"][l]))
-        x = x + _linear(h, enc["fc2_w"][l], enc["fc2_b"][l])
+        x = x + _linear(a, p["attn_o_w"], p["attn_o_b"])
+        x = _mlp(x, p)
     return _ln(x, enc["ln_post_g"], enc["ln_post_b"])
 
 
@@ -301,10 +317,16 @@ def _logits(x, dec):
     return F.linear(x, w)
 
 
-def _mlp(x, dec, l):
-    h = F.gelu(_linear(_ln(x, dec["mlp_ln_g"][l], dec["mlp_ln_b"][l]),
-                       dec["fc1_w"][l], dec["fc1_b"][l]))
-    return x + _linear(h, dec["fc2_w"][l], dec["fc2_b"][l])
+def _mlp(x, p):
+    """The residual MLP of one layer; ``p`` maps the parameter names to that
+    layer's tensors (``_layers``, or ``_mlp_params``)."""
+    h = F.gelu(_linear(_ln(x, p["mlp_ln_g"], p["mlp_ln_b"]), p["fc1_w"], p["fc1_b"]))
+    return x + _linear(h, p["fc2_w"], p["fc2_b"])
+
+
+def _mlp_params(pd: nn.ParameterDict, l: int) -> dict:
+    """Layer ``l``'s MLP parameters, as ``w[l]`` views."""
+    return {n: pd[n][l] for n in ("mlp_ln_g", "mlp_ln_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")}
 
 
 def decode_full(
@@ -332,25 +354,25 @@ def decode_full(
     if align_heads:
         rows = torch.empty((B, len(align_heads), S, xa.shape[1]), dtype=torch.float32,
                            device=x.device)
-    for l in range(dims.n_text_layer):
-        xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
+    for l, p in enumerate(_layers(dec, dims.n_text_layer)):
+        xn = _ln(x, p["attn_ln_g"], p["attn_ln_b"])
         a, _ = _attention(
-            _linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l]),
-            _linear(xn, dec["attn_k_w"][l]),
-            _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l]),
+            _linear(xn, p["attn_q_w"], p["attn_q_b"]),
+            _linear(xn, p["attn_k_w"]),
+            _linear(xn, p["attn_v_w"], p["attn_v_b"]),
             H, mask=causal,
         )
-        x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
-        xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
+        x = x + _linear(a, p["attn_o_w"], p["attn_o_b"])
+        xc = _ln(x, p["cross_ln_g"], p["cross_ln_b"])
         hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
         c, w = _attention(
-            _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l]),
-            _linear(xa, dec["cross_k_w"][l]),
-            _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]),
+            _linear(xc, p["cross_q_w"], p["cross_q_b"]),
+            _linear(xa, p["cross_k_w"]),
+            _linear(xa, p["cross_v_w"], p["cross_v_b"]),
             H, return_scores=return_cross_attn or bool(hits),
         )
-        x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
-        x = _mlp(x, dec, l)
+        x = x + _linear(c, p["cross_o_w"], p["cross_o_b"])
+        x = _mlp(x, p)
         if return_cross_attn:
             ws.append(w)
         for k in hits:
@@ -521,7 +543,7 @@ def decode_step(
         hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
         c, w = cross_attention_rows(qc, cache, l, H, bool(hits), beam_group)
         x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
-        x = _mlp(x, dec, l)
+        x = _mlp(x, _mlp_params(dec, l))
         for k in hits:
             rows[:, k] = w[:, align_heads[k][1]]
     logits = _logits(_ln(x, dec["ln_g"], dec["ln_b"]), dec)

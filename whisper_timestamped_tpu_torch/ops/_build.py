@@ -68,6 +68,12 @@ SIGNATURES = {
     "wtt_log10_mel": [_P] * 9 + [_I] * 7 + [_F, _P],
     # x, w_all, out, layer, L, B, N, K, cols, groups, n_split, stream
     "wtt_stacked_matmul": [_P, _P, _P] + [_I] * 8 + [_P],
+    # q, k, v, out, lse, B, Sq, Sk, D, H, bf16, scale, stream
+    "wtt_flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k, v, out, dout, lse, delta (written), dq, B, Sq, Sk, D, H, bf16, scale, stream
+    "wtt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, D, H, bf16, scale, stream
+    "wtt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 RETURNS = {"wtt_dtw_scratch_bytes": _L}
 

@@ -18,7 +18,12 @@ wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.p
                         ``dtw_path_pallas`` (:291) with its backtrace
 ``flash_attention``     the library Pallas ``flash_attention`` at
                         ``models/whisper_jax.py:246`` (encoder) and ``:299``
-                        (prompt prefill)
+                        (prompt prefill); under autograd ``FlashAttentionFn``
+``flash_attention_fwd``  the library's ``_flash_attention_fwd``
+                        (``jax/experimental/pallas/ops/tpu/flash_attention.py:234``):
+                        the forward that keeps its residual, here the lse
+``flash_attention_bwd``  the library's ``_flash_attention_bwd_dkv`` (:941) and
+                        ``_flash_attention_bwd_dq`` (:1287): two launches
 ``xattn_decode_int8``   ``cross_attention_stacked_int8_pallas`` v1 (:687), v2
                         (:1051), v3 (:1249), v4 (:1471);
                         ``cross_attention_int8_pallas`` (:2572) and
@@ -56,11 +61,13 @@ from .quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
 # one per kernel call (align_cost's and align_cost_gather's one call is two
 # launches on one stream, rows then columns, as is attention_to_cost's;
 # dtw_starts and dtw_path launch dtw_codes.cu's kernel and count under
-# dtw_codes)
+# dtw_codes; flash_attention_bwd's one call is two launches, counted under
+# flash_attention_bwd_dq and flash_attention_bwd_dkv)
 LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_codes": 0,
             "flash_attention": 0, "xattn_decode_int8": 0, "xattn_decode_int4": 0,
             "self_attn_decode_int8": 0, "attention_to_cost": 0, "median9": 0, "log10_mel": 0,
-            "stacked_matmul": 0}
+            "stacked_matmul": 0, "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq": 0}
 
 DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
 DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
@@ -329,6 +336,22 @@ def dtw_codes_plain(cost, dims):
     return codes
 
 
+def _heads(x, n_head: int):  # (B, S, D) -> f32 (B, H, S, dh)
+    B, S, D = x.shape
+    return x.float().reshape(B, S, n_head, D // n_head).transpose(1, 2)
+
+
+def _flash_heads(q, k, v, n_head: int):
+    """f32 heads of q, k, v and the scores q·kᵀ·dh^-0.5 (B, H, Sq, Sk)."""
+    qh, kh, vh = _heads(q, n_head), _heads(k, n_head), _heads(v, n_head)
+    return qh, kh, vh, (qh @ kh.transpose(-1, -2)) * (q.shape[-1] // n_head) ** -0.5
+
+
+def _merge(x, dtype):  # f32 (B, H, S, dh) -> (B, S, D) in ``dtype``
+    B, H, S, dh = x.shape
+    return x.transpose(1, 2).reshape(B, S, H * dh).to(dtype)
+
+
 def flash_attention_plain(q, k, v, n_head: int, *, causal: bool = False, pad_len=None):
     """Multi-head attention over (B, S, D) projections, head h in columns
     h*dh .. h*dh+dh-1: softmax(q·kᵀ·dh^-0.5 + mask)·v, all in f32.
@@ -339,13 +362,9 @@ def flash_attention_plain(q, k, v, n_head: int, *, causal: bool = False, pad_len
     0 and needs ``causal``. Without it every key is live. Returns
     (B, Sq, D) in q's dtype."""
     _check_flash_masks(q, k, causal, pad_len)
-    B, Sq, D = q.shape
+    B, Sq, _ = q.shape
     Sk = k.shape[1]
-    dh = D // n_head
-    qh = q.float().reshape(B, Sq, n_head, dh).transpose(1, 2)
-    kh = k.float().reshape(B, Sk, n_head, dh).transpose(1, 2)
-    vh = v.float().reshape(B, Sk, n_head, dh).transpose(1, 2)
-    s = (qh @ kh.transpose(-1, -2)) * dh**-0.5
+    _, _, vh, s = _flash_heads(q, k, v, n_head)
     if causal:
         q_ids = torch.arange(Sq, device=q.device)[:, None]
         k_ids = torch.arange(Sk, device=q.device)[None, :]
@@ -353,8 +372,34 @@ def flash_attention_plain(q, k, v, n_head: int, *, causal: bool = False, pad_len
               else torch.zeros((B,), dtype=torch.long, device=q.device))
         live = ((k_ids[None] >= lo[:, None, None]) & (k_ids <= q_ids)[None]) | (k_ids == q_ids)[None]
         s = s.masked_fill(~live[:, None], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return (p @ vh).transpose(1, 2).reshape(B, Sq, D).to(q.dtype)
+    return _merge(torch.softmax(s, dim=-1) @ vh, q.dtype)
+
+
+def flash_attention_fwd_plain(q, k, v, n_head: int):
+    """The training forward: ``flash_attention_plain`` without a mask (the
+    encoder's case) and the log-sum-exp of each row's scores, lse =
+    m + log(l) of the library kernel's residuals (``flash_attention.py:
+    234-252``). q (B, Sq, D), k/v (B, Sk, D), f32 or bf16, worked in f32.
+    Returns (out (B, Sq, D) in q's dtype, lse (B, H, Sq) f32)."""
+    _, _, vh, s = _flash_heads(q, k, v, n_head)
+    return _merge(torch.softmax(s, dim=-1) @ vh, q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, n_head: int):
+    """The gradient of ``flash_attention_fwd_plain``'s out, from the saved
+    lse: P = exp(S·dh^-0.5 - lse), dV = Pᵀ·dO, dP = dO·Vᵀ, D = rowsum(dO∘O)
+    (the library's ``di``, ``flash_attention.py:273-275``), dS = P∘(dP - D),
+    dQ = dS·K·dh^-0.5, dK = dSᵀ·Q·dh^-0.5. Inputs of either dtype, worked
+    in f32. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    dh = q.shape[-1] // n_head
+    qh, kh, vh, s = _flash_heads(q, k, v, n_head)
+    oh, doh = _heads(out, n_head), _heads(dout, n_head)
+    p = torch.exp(s - lse[..., None])
+    dv = p.transpose(-1, -2) @ doh
+    ds = p * (doh @ vh.transpose(-1, -2) - (doh * oh).sum(-1, keepdim=True))
+    dq = (ds @ kh) * dh**-0.5
+    dk = (ds.transpose(-1, -2) @ qh) * dh**-0.5
+    return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
 
 
 def log10_mel_plain(x, cos_b, sin_b, mel_w, hop: int):
@@ -840,8 +885,17 @@ def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None)
     """Multi-head attention that never materialises the scores (see
     ``flash_attention_plain`` for the function and its masks). On CUDA:
     bf16 q/k/v, head width 64, contiguous, 16-byte aligned; ``pad_len``
-    int32 (B,) on the same device. Returns (B, Sq, D) bf16."""
+    int32 (B,) on the same device. Returns (B, Sq, D) bf16.
+
+    Where autograd will need its gradient (grad mode on and an input that
+    requires grad) it runs ``FlashAttentionFn`` instead: the training
+    forward and backward kernels, f32 or bf16, no mask (a causal or padded
+    call raises ``ValueError``: the prefill is never differentiated)."""
     name = "flash_attention"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if causal or pad_len is not None:
+            raise ValueError(f"{name}: no backward for causal or pad_len (the encoder's case only)")
+        return FlashAttentionFn.apply(q, k, v, n_head)
     tensors = (q, k, v) if pad_len is None else (q, k, v, pad_len)
     if not _on_cuda(name, *tensors):
         return flash_attention_plain(q, k, v, n_head, causal=causal, pad_len=pad_len)
@@ -861,6 +915,102 @@ def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None)
             pad_len.data_ptr() if pad_len is not None else None,
             B, Sq, Sk, D, n_head, int(causal), HEAD_DIM**-0.5, _stream(q))
     return out
+
+
+def _check_train_flash(name: str, q, k, v, n_head: int, *more) -> None:
+    """What the training kernels take: (B, Sq, D) q and (B, Sk, D) k/v (and
+    ``more`` of q's shape), all f32 or all bf16, head width 64, contiguous."""
+    B, Sq, D = q.shape
+    Bk, Sk, Dk = k.shape
+    _expect(name, Bk == B and Dk == D and v.shape == k.shape
+            and all(t.shape == q.shape for t in more), "shape mismatch")
+    _expect(name, D == n_head * HEAD_DIM, f"head width must be {HEAD_DIM}, got D={D} H={n_head}")
+    _expect(name, q.dtype in (torch.float32, torch.bfloat16)
+            and all(t.dtype == q.dtype for t in (k, v, *more)), "inputs must be all f32 or all bf16")
+    _expect(name, all(t.is_contiguous() for t in (q, k, v, *more)), "inputs must be contiguous")
+    _expect(name, Sq > 0 and Sk > 0 and B <= 65535 and n_head <= 65535,
+            f"unsupported B={B} Sq={Sq} Sk={Sk}")
+
+
+def flash_attention_fwd(q, k, v, n_head: int):
+    """The training forward (see ``flash_attention_fwd_plain``): out and the
+    rows' log-sum-exp, which the backward reads. On CUDA: f32 or bf16
+    q/k/v, head width 64, contiguous. Returns (out (B, Sq, D) in q's dtype,
+    lse (B, H, Sq) f32)."""
+    name = "flash_attention_fwd"
+    if not _on_cuda(name, q, k, v):
+        return flash_attention_fwd_plain(q, k, v, n_head)
+    _check_train_flash(name, q, k, v, n_head)
+    B, Sq, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, n_head, Sq), dtype=torch.float32, device=q.device)
+    _launch(name, "wtt_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, Sq, k.shape[1], D, n_head,
+            int(q.dtype == torch.bfloat16), HEAD_DIM**-0.5, _stream(q))
+    return out, lse
+
+
+def _flash_bwd_dq(q, k, v, out, dout, lse, n_head: int):
+    """dQ, and D = rowsum(dO∘O) (B, H, Sq) f32 for ``_flash_bwd_dkv``: one
+    launch of ``csrc/flash_attn_bwd.cu``'s dQ kernel on checked inputs."""
+    B, Sq, D = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, n_head, Sq), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_bwd_dq", "wtt_flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, Sq, k.shape[1], D, n_head, int(q.dtype == torch.bfloat16),
+            HEAD_DIM**-0.5, _stream(q))
+    return dq, delta
+
+
+def _flash_bwd_dkv(q, k, v, dout, lse, delta, n_head: int):
+    """dK and dV: one launch of ``csrc/flash_attn_bwd.cu``'s dK/dV kernel
+    on checked inputs, reading the dQ launch's D."""
+    B, Sq, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attention_bwd_dkv", "wtt_flash_attention_bwd_dkv", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], D, n_head,
+            int(q.dtype == torch.bfloat16), HEAD_DIM**-0.5, _stream(q))
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, n_head: int):
+    """The training backward (see ``flash_attention_bwd_plain``) from the
+    forward's out and lse. On CUDA (inputs as ``flash_attention_fwd``'s, out
+    and dout of q's shape and dtype, lse f32 (B, H, Sq)): two launches, dQ
+    (which also writes D = rowsum(dO∘O)) then dK/dV, each walking the other
+    side's tiles; no atomics, so the result is the same run to run.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    name = "flash_attention_bwd"
+    if not _on_cuda(name, q, k, v, out, lse, dout):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, n_head)
+    _check_train_flash(name, q, k, v, n_head, out, dout)
+    B, Sq, _ = q.shape
+    _expect(name, lse.dtype == torch.float32 and lse.shape == (B, n_head, Sq)
+            and lse.is_contiguous(), "lse must be contiguous f32 (B, H, Sq)")
+    dq, delta = _flash_bwd_dq(q, k, v, out, dout, lse, n_head)
+    return (dq, *_flash_bwd_dkv(q, k, v, dout, lse, delta, n_head))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` without a mask, with its gradient: the forward
+    saves q, k, v, out and lse (``flash_attention_fwd``), the backward is
+    ``flash_attention_bwd``; the library kernel's ``custom_vjp``
+    (``flash_attention.py:204``, ``:318``). For CPU tensors both directions
+    take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_head: int):
+        out, lse = flash_attention_fwd(q, k, v, n_head)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.n_head = n_head
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.n_head), None)
 
 
 def _quantized_xattn(name, fn_name, frames_per_row, q, xk_all, xk_scale, xv_all, xv_scale,
