@@ -85,8 +85,10 @@ phases have run, so their lines are printed too):
       through the training flash kernels against the plain versions, then
       a warm step and five timed steps: the losses finite and falling, each
       training kernel launched once a layer a step and the inference flash
-      kernel never; ms/step and peak memory, and the step with each layer
-      read as ``w[l]`` instead of ``unbind``.
+      kernel never; ms/step and peak memory; one step traced by
+      torch.profiler (device busy as the union of the kernels' intervals,
+      the flash kernels' share); and the step
+      with each layer read as ``w[l]`` instead of ``unbind``.
 
 (c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
 lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
@@ -109,7 +111,8 @@ at decode shapes beside ``F.linear``, ``xattn_decode`` and
 ``beam_group=5``, no scores) beside the same kernel over 40 rows, with the
 shared-read bound, the training flash kernels (the forward with lse, dQ
 and dK/dV) in f32 and bf16 at the encoder's shape (B=2, T=1500) and at
-ragged T, beside their plain versions and SDPA's forward and backward, and
+ragged T, beside their plain versions and SDPA's forward and backward (the
+backward and its plain version also against a float64 backward), and
 (e) the decode step
 with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
 record takes each kernel's launches from the phase that runs it: the bf16
@@ -208,6 +211,7 @@ SELF_PADS = (0, 5, 224, 300)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -259,6 +263,19 @@ def heads_view(x, H):
     """(B, S, H*64) -> (B, H, S, 64) view, the layout of
     ``scaled_dot_product_attention``."""
     return x.view(x.shape[0], x.shape[1], H, 64).transpose(1, 2)
+
+
+def flash_bwd_float64(torch, q, k, v, dout, H):
+    """(dq, dk, dv) (B, S, H*64) float64 of attention without a mask, worked
+    by its formulas in float64 from the same inputs: the judge of both the
+    backward kernels and their plain version (which works in f32)."""
+    B, _, D = q.shape
+    qh, kh, vh, doh = (heads_view(x, H).double() for x in (q, k, v, dout))
+    p = torch.softmax(qh @ kh.transpose(-1, -2) * 64**-0.5, dim=-1)
+    dv = p.transpose(-1, -2) @ doh
+    ds = p * (doh @ vh.transpose(-1, -2) - (doh * (p @ vh)).sum(-1, keepdim=True))
+    merge = lambda x: x.transpose(1, 2).reshape(B, -1, D)  # noqa: E731
+    return merge(ds @ kh * 64**-0.5), merge(ds.transpose(-1, -2) @ qh * 64**-0.5), merge(dv)
 
 
 def phase_kernels(torch, K, device):
@@ -879,26 +896,33 @@ def phase_beam_kernels(torch, K, device):
 
 
 # the training kernels against their plain versions, a share of each
-# output's max abs: f32 1e-4 (f32 FMAs in another order), bf16 1e-2 (both
-# round the f32 result to bf16, 2^-8 of a value); the bf16 forward's output
-# at the inference kernel's atol 2e-2
+# output's max abs: f32 1e-4 (f32 FMAs in another order; the backward's
+# products 3xTF32, whose f32 sums the tensor cores round toward zero at
+# every k-step: ~3e-5 at T = 1500, emulated by tools/torch_kernel_sweeps.py
+# flash-bwd-accuracy), bf16 1e-2 (both round the f32 result to bf16, 2^-8
+# of a value; the backward also rounds P and dS to bf16 for their products,
+# as the library does); the bf16 forward's output at the inference kernel's
+# atol 2e-2
 TRAIN_TOL = {"f32": 1e-4, "bf16": 1e-2}
 
 
 def phase_train_kernels(torch, K, device):
     """(c): the training flash kernels (forward with lse, dQ, dK/dV) against
     their plain versions at the large-v3 encoder's shape (B=2, T=1500,
-    D=1280, H=20; 23 64-row tiles and a 28-row tail) and at ragged T = 1,
-    65, 200, in f32 (the training path's dtype) and bf16; each timed
-    beside its plain version and SDPA (forward; backward alone), with its
-    bound. Returns the f32 records."""
+    D=1280, H=20; the backward's 11 128-row blocks and a 92-row tail) and
+    at ragged T = 1, 65, 128, 129, 200, in f32 (the training path's dtype)
+    and bf16; each timed beside its plain version and SDPA (forward;
+    backward alone), with its bound (the f32 backward's at 3xTF32's rate on
+    the tensor cores, three tf32 products a product at 495 TFLOP/s, with
+    the CUDA cores' 67 beside it); at T = 1500 the backward and its plain
+    version also against a float64 backward. Returns the f32 records."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=device).manual_seed(13)
     B, D, H = 2, 1280, 20
     rec, errs, t_phase = {}, {}, time.perf_counter()
     for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         tol, e_fwd, e_bwd, a_bwd = TRAIN_TOL[label], 0.0, 0.0, 0.0
-        for T in (1, 65, 200, 1500):
+        for T in (1, 65, 128, 129, 200, 1500):
             q, k, v, dout = (torch.randn((B, T, D), generator=g, device=device).to(dtype)
                              for _ in range(4))
             out, lse = K.flash_attention_fwd(q, k, v, H)
@@ -925,14 +949,27 @@ def phase_train_kernels(torch, K, device):
                 e_bwd, a_bwd = max(e_bwd, e / sc), max(a_bwd, e)
             if T != 1500:
                 continue
+            # the witness: the kernels and the plain version against float64
+            exact = flash_bwd_float64(torch, q, k, v, dout, H)
+            e64 = [max(((a.double() - w).abs().max() / w.abs().max()).item()
+                       for a, w in zip(got, exact)) for got in (grads, want)]
+            print(f"[c] flash_attention_bwd {label} T={T} against a float64 backward: kernels "
+                  f"{e64[0]:.3g}, plain version {e64[1]:.3g} of a gradient's max abs")
+            del exact
             elt = q.element_size()
-            peak = F32_FLOPS if label == "f32" else BF16_FLOPS
             pairs = B * H * T * T * 64  # one T x T x 64 product, all heads
             io, rows = B * T * D * elt, B * H * T * 4
-            f_ms, f_by = bound(4 * io + rows, 4 * pairs, peak)
-            dq_b, dq_by = bound(6 * io + 2 * rows, 6 * pairs, peak)  # 3 products
-            dkv_b, dkv_by = bound(6 * io + 2 * rows, 8 * pairs, peak)  # 4 products
-            all_b, _ = bound(8 * io + rows, 10 * pairs, peak)  # the 5 products at least
+            # the forward's f32 products run on the CUDA cores; the backward's on
+            # the tensor cores, f32 as 3xTF32: three tf32 products a product
+            f_peak = F32_FLOPS if label == "f32" else BF16_FLOPS
+            f_ms, f_by = bound(4 * io + rows, 4 * pairs, f_peak)
+            n_tc, tc_peak = (3, TF32_FLOPS) if label == "f32" else (1, BF16_FLOPS)
+            dq_b, dq_by = bound(6 * io + 2 * rows, n_tc * 6 * pairs, tc_peak)  # 3 products
+            dkv_b, dkv_by = bound(6 * io + 2 * rows, n_tc * 8 * pairs, tc_peak)  # 4 products
+            all_b, _ = bound(8 * io + rows, n_tc * 10 * pairs, tc_peak)  # the 5 products at least
+            # the same f32 work on the CUDA cores (PR 13's design)
+            cc_dq, cc_dkv, cc_all = (bound(by, n * pairs, F32_FLOPS)[0] for by, n in (
+                (6 * io + 2 * rows, 6), (6 * io + 2 * rows, 8), (8 * io + rows, 10)))
             ms_f = cuda_time_ms(lambda it=0: K.flash_attention_fwd(q, k, v, H), iters=10)
             plain_f = cuda_time_ms(lambda it=0: K.flash_attention_fwd_plain(q, k, v, H), iters=5)
             _, delta = K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H)
@@ -954,22 +991,29 @@ def phase_train_kernels(torch, K, device):
                   f"together {ms_dq + ms_dkv:.4f} ms against the backward's bound {all_b:.4f} ms "
                   f"(5 products); plain {plain_b:.4f} ms, sdpa backward alone {lib_b:.4f} ms")
             if label == "f32":  # the training path's dtype
+                print(f"[c] flash_attention_bwd f32: the bounds above are 3xTF32's (3 tf32 "
+                      f"products a product at {TF32_FLOPS / 1e12:.0f} TFLOP/s); on the CUDA cores "
+                      f"at {F32_FLOPS / 1e12:.0f}: dq {cc_dq:.4f} ms, dkv {cc_dkv:.4f} ms, the 5 "
+                      f"products {cc_all:.4f} ms")
                 rec["flash_attention_fwd"] = dict(ms=ms_f, plain_ms=plain_f, bound_ms=f_ms,
                                                   bound_by=f_by, library_ms=lib_f)
                 common = dict(plain_ms=plain_b, library_ms=lib_b, bwd_bound_ms=all_b,
+                              bwd_bound_cuda_core_ms=cc_all,
+                              bound_rate="3xTF32: 3 tf32 products a product at 495 TFLOP/s",
+                              max_err_float64=e64[0], plain_max_err_float64=e64[1],
                               plain_function="flash_attention_bwd_plain (dq, dk, dv)",
                               library_function="sdpa backward (dq, dk, dv)")
                 rec["flash_attention_bwd_dq"] = dict(ms=ms_dq, bound_ms=dq_b, bound_by=dq_by,
-                                                     **common)
+                                                     bound_cuda_core_ms=cc_dq, **common)
                 rec["flash_attention_bwd_dkv"] = dict(ms=ms_dkv, bound_ms=dkv_b, bound_by=dkv_by,
-                                                      **common)
+                                                      bound_cuda_core_ms=cc_dkv, **common)
             else:
                 for name, ms in (("flash_attention_fwd", ms_f), ("flash_attention_bwd_dq", ms_dq),
                                  ("flash_attention_bwd_dkv", ms_dkv)):
                     rec[name]["ms_bf16"] = ms
             del qh, kh, vh, o_lib, delta
         errs[label] = (e_fwd, a_bwd)
-        print(f"[c] flash training kernels {label} (T = 1, 65, 200, 1500): forward out err "
+        print(f"[c] flash training kernels {label} (T = 1, 65, 128, 129, 200, 1500): forward out err "
               f"{e_fwd:.3g}, lse within 1e-4 of its max; backward err {a_bwd:.3g}, at most "
               f"{e_bwd:.3g} of a gradient's max abs (limit {tol})")
         del q, k, v, dout, out, lse, out_p, lse_p, grads, want
@@ -2487,6 +2531,8 @@ def phase_train(torch, K, device):
           f"peak memory {peak:.2f} GB; launches a step: "
           + ", ".join(f"{k} {launches[k] // 5}" for k in (*TRAIN_PATH, "flash_attention")))
 
+    trace_step(torch, lambda: steps(1))
+
     def stacked_layers(pd, n_layer):  # each layer as w[l], the form before unbind
         return [{n: t[l] for n, t in pd.items() if n.startswith(wt._LAYER_PREFIXES)}
                 for l in range(n_layer)]
@@ -2511,12 +2557,66 @@ def phase_train(torch, K, device):
     return launches
 
 
-def phase_profile(torch, model, tok, B: int, **levers):
-    """(--profile): device time against wall time for one decoded window of
-    B rows, with the engine's ``levers``."""
+def device_rows(torch, fn):
+    """``fn()`` once under torch.profiler. Returns (wall ms on the host clock,
+    ending in a synchronize; the device's busy ms; rows (name, ms, count) of
+    the device's activities, largest first). Activities are the kernels,
+    copies and sets: a user annotation's device span (the optimizer's step)
+    covers activities counted on their own, so it is left out, and busy is
+    the union of the activities' intervals, so work that overlaps counts
+    once and busy cannot exceed the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    host = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    acts = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in host
+            and not getattr(e, "is_user_annotation", False)]
+    by_name, busy_us, end = {}, 0.0, float("-inf")
+    for e in acts:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in acts):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
+    return wall_ms, busy_us / 1e3, rows
+
+
+def trace_step(torch, step):
+    """(m): one train step under torch.profiler: its wall and device busy
+    time and the training flash kernels' device time within it (the
+    backward's two kernels by name: the dQ kernel is the template's
+    ``true`` case)."""
+    wall_ms, busy_ms, rows = device_rows(torch, step)
+    if busy_ms <= 0:
+        print(f"[m] traced step: wall {wall_ms:.1f} ms; the profiler saw no device time (not measured)")
+        return
+
+    def kernel_ms(*words):
+        return sum(ms for key, ms, _ in rows if all(w in key for w in words))
+
+    dq, dkv = kernel_ms("flash_bwd_kernel", "true>"), kernel_ms("flash_bwd_kernel", "false>")
+    bwd, fwd = kernel_ms("flash_bwd_kernel"), kernel_ms("flash_fwd_lse_kernel")
+    print(f"[m] one traced step: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%; the activities' own times sum to "
+          f"{sum(r[1] for r in rows):.1f} ms); flash backward {bwd:.2f} ms "
+          f"({100 * bwd / busy_ms:.1f}% of device busy; dQ {dq:.2f}, dK/dV {dkv:.2f}), "
+          f"flash forward {fwd:.2f} ms "
+          f"({100 * fwd / busy_ms:.1f}%)")
+    for key, ms, n in rows[:8]:
+        print(f"[m]   {ms:9.3f} ms {n:6d}x  {key[:90]}")
+
+
+def phase_profile(torch, model, tok, B: int, **levers):
+    """(--profile): device time against wall time for one decoded window of
+    B rows, with the engine's ``levers``."""
     from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
     from whisper_timestamped_tpu_torch.decoding import DecodingOptions
     from whisper_timestamped_tpu_torch.engine import DecodeEngine
@@ -2526,17 +2626,7 @@ def phase_profile(torch, model, tok, B: int, **levers):
     mel = log_mel_spectrogram(make_audio(4, 30), n_mels=128, device=model.device)
     mel = mel[None].expand(B, -1, -1).contiguous()
     engine.decode_window(mel, opts)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.decode_window(mel, opts)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: an aten op's device time repeats its kernels'
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
+    wall_ms, dev_ms, rows = device_rows(torch, lambda: engine.decode_window(mel, opts))
     label = "+".join(k for k, v in levers.items() if v) or "bf16"
     print(f"[p] one window, B={B}, {label} cache, 64 tokens: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
           f"({100 * dev_ms / wall_ms:.1f}%)")

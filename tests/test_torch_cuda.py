@@ -743,9 +743,11 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
 
 # the training flash kernels (forward with lse, dQ, dK/dV) against their
 # plain versions on the same inputs, each output to a share of its max abs:
-# f32 1e-4 (f32 FMAs in another order); bf16 1e-2 (both round the f32
-# result to bf16: one bf16 step is 2^-8 of a value), and the bf16 forward's
-# output at the inference kernel's atol 2e-2
+# f32 1e-4 (f32 FMAs in another order; the backward's products 3xTF32,
+# about f32's accuracy); bf16 1e-2 (both round the f32 result to bf16: one
+# bf16 step is 2^-8 of a value; the backward also rounds P and dS to bf16
+# for their products, as the library does), and the bf16 forward's output
+# at the inference kernel's atol 2e-2
 TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -755,11 +757,33 @@ def _close_to_max(got, want, share, what):
     torch.testing.assert_close(got, want, rtol=0, atol=share * float(want.abs().max()), msg=what)
 
 
+def _check_train_backward(q, k, v, dout, H, tol, one_key=False):
+    """The backward kernels on the plain forward's out and lse against the
+    plain backward, each gradient to ``tol`` of its max abs, twice (the same
+    bits both times: no atomics)."""
+    out_p, lse_p = K.flash_attention_fwd_plain(q, k, v, H)
+    grads = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
+    again = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
+    torch.cuda.synchronize()
+    want = K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H)
+    # at one key dq and dk are zero in exact arithmetic (dS = dP - D, D = dP
+    # there) and both sides give rounding (~1e-8): they take dv's scale
+    scales = [float(w.float().abs().max()) for w in want]
+    if one_key:
+        scales = [scales[2]] * 3
+    for name, got, w, a, scale in zip(("dq", "dk", "dv"), grads, want, again, scales):
+        assert got.dtype == q.dtype and got.shape == w.shape and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), w.float(), rtol=0, atol=tol * scale, msg=name)
+        assert torch.equal(got, a), f"{name} differs from run to run"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("T", [1, 65, 200, 1500])
+@pytest.mark.parametrize("T", [1, 65, 127, 128, 129, 200, 1500])
 def test_flash_train_kernels_match_plain(cuda, T, dtype):
-    """The encoder's shape (B=2, T=1500, D=1280, H=20: 23 full 64-row tiles
-    and a 28-row tail) and short ragged sequences."""
+    """The encoder's shape (B=2, T=1500, D=1280, H=20: the backward's 11
+    full 128-row blocks and a 92-row tail, 46 32-column f32 tiles or 23
+    64-column bf16 tiles and a 28-column tail) and short ragged sequences
+    about one block (127, 128, 129)."""
     g = torch.Generator(device=cuda).manual_seed(T)
     B, D, H = 2, 1280, 20
     q, k, v, dout = (_randn(g, B, T, D, dtype=dtype) for _ in range(4))
@@ -774,24 +798,23 @@ def test_flash_train_kernels_match_plain(cuda, T, dtype):
     else:
         _close_to_max(out, out_p, tol, "out")
     _close_to_max(lse, lse_p, 1e-4, "lse")
-    # the backward kernels on the plain forward's out and lse
-    grads = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
-    again = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
-    torch.cuda.synchronize()
-    want = K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H)
-    # at one key dq and dk are zero in exact arithmetic (dS = dP - D, D = dP
-    # there) and both sides give rounding (~1e-8): they take dv's scale
-    scales = [float(w.float().abs().max()) for w in want]
-    if T == 1:
-        scales = [scales[2]] * 3
-    for name, got, w, a, scale in zip(("dq", "dk", "dv"), grads, want, again, scales):
-        assert got.dtype == dtype and torch.isfinite(got.float()).all()
-        torch.testing.assert_close(got.float(), w.float(), rtol=0, atol=tol * scale, msg=name)
-        assert torch.equal(got, a), f"{name} differs from run to run"
+    _check_train_backward(q, k, v, dout, H, tol, one_key=T == 1)
     assert K.LAUNCHES["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
     assert K.LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 2
     assert K.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 2
     assert K.LAUNCHES["flash_attention"] == before["flash_attention"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Sq,Sk", [(300, 77), (70, 1500)])
+def test_flash_train_backward_with_other_key_count(cuda, Sq, Sk, dtype):
+    """Sq != Sk: each kernel walks a column side of another length than
+    its row side (a one-tile and a long walk, both ragged)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    B, D, H = 2, 256, 4
+    q, dout = (_randn(g, B, Sq, D, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, B, Sk, D, dtype=dtype) for _ in range(2))
+    _check_train_backward(q, k, v, dout, H, TRAIN_TOL[dtype])
 
 
 def test_flash_attention_function_on_the_card(cuda):
@@ -838,6 +861,18 @@ def test_flash_train_kernels_refuse_what_they_do_not_take(cuda):
         K.flash_attention_fwd(z, strided, z, 2)
     with pytest.raises(ValueError, match="lse"):
         K.flash_attention_bwd(z, z, z, z, lse[:, :1], z, 2)
+    # a contiguous view 4 bytes into its storage: TMA's tensor maps refuse it
+    shifted = torch.zeros(130 * 128 + 1, dtype=torch.float32, device=cuda)[1:].view(1, 130, 128)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.flash_attention_bwd(z, shifted, z, z, lse, z, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.flash_attention_bwd(z, z, z, z, lse, shifted, 2)
+    # the two launches check their own TMA inputs: called alone, too
+    with pytest.raises(ValueError, match="flash_attention_bwd_dq: inputs must be 16-byte"):
+        K._flash_bwd_dq(shifted, z, z, z, z, lse, 2)
+    with pytest.raises(ValueError, match="flash_attention_bwd_dkv: inputs must be 16-byte"):
+        K._flash_bwd_dkv(z, z, shifted, z, lse, lse, 2)
     with pytest.raises(ValueError, match="no backward for causal"):
         K.flash_attention(z.requires_grad_(), z, z, 2, causal=True)
 

@@ -4,10 +4,11 @@
     python3 tools/torch_kernel_sweeps.py [xattn] [pipeline] [flash] [matmul-variants]
                                          [matmul-splits] [mel-variants] [mel-refine]
                                          [mel-refine-variants] [align-variants]
-                                         [dtw-variants]
+                                         [dtw-variants] [flash-bwd-variants]
                                          [decode|step|matmul|mel|encoder|align|
-                                          align-launches [DIR ...]]
+                                          align-launches|flash-bwd [DIR ...]]
     python3 tools/torch_kernel_sweeps.py mel-accuracy [ROW ...]
+    python3 tools/torch_kernel_sweeps.py flash-bwd-accuracy [T ...]
 
 ``xattn``: the five kernels of the decode-attention pipeline
 (``csrc/decode_attn.cuh``) at each grid setting of ``XATTN_SETTINGS`` (the
@@ -94,6 +95,26 @@ design choice changed or one part of the work removed at a time
 (``ALIGN_VARIANTS``, ``DTW_VARIANTS``), each timed as ``align`` times the
 tree.
 
+``flash-bwd``: the training backward's two kernels (``_flash_bwd_dq``,
+``_flash_bwd_dkv``) of the checkout at each DIR, in turns (``flash-bwd
+build/parent . . build/parent``), at the encoder's shape (B=2, T=1500,
+D=1280, H=20) in f32 and bf16, beside SDPA's backward alone (dq, dk, dv),
+with each gradient's error against the plain backward and the kernels'
+ptxas registers. ``flash-bwd-variants``: ``csrc/flash_attn_bwd.cu`` with one
+design choice changed or one part of the work removed at a time
+(``FLASH_BWD_VARIANTS``: no exp2, no column-tile loads, no f32 split
+copies, no S and dP products, no register-A products, the products
+alone), each timed as ``flash-bwd`` times a tree.
+``ncu`` does not run on the card's machine: these say what holds the
+design back.
+
+``flash-bwd-accuracy``: on the CPU, no card: the backward kernels'
+arithmetic emulated at B=1, H=2 and each T (default 200 and 1500) in the
+kernels' order of products and k-steps, with each k-step's sum rounded to
+f32 to nearest or toward zero (what the tensor cores do), beside the plain
+version, each gradient's error over its max abs against a float64
+backward and against the plain version (see ``flash_bwd_accuracy``).
+
 ``flash``: ``csrc/flash_attn.cu`` as it is and with one design choice
 changed at a time (each variant a text edit of the source, built into its
 own directory under ``build/kernel_sweeps/``): the encoder shape at B=1 and
@@ -122,6 +143,31 @@ FLASH_VARIANTS = {
     "no exp2": ("exp2 replaced by a multiply (wrong output)", [(SRC, EX2, "y = x * 0.5f;")]),
     "no softmax": ("no mask, max or exp2: P = bf16(S) (wrong output)",
                    [(SRC, MASK, "    al0 = al1 = 1.f;\n    return;\n" + MASK)]),
+}
+BWD = os.path.join("csrc", "flash_attn_bwd.cu")
+BWD_LOADS = ("        mbar_expect_tx(&sm.full[st], 2 * kBN * kHead * sizeof(T));\n"
+             "        tma_load(sm.b1[st], &tb1, &sm.full[st], h * kHead, c0, b);\n"
+             "        tma_load(sm.b2[st], &tb2, &sm.full[st], h * kHead, c0, b);\n")
+# each edit puts ``if (<a loop index> < 0)`` before a call: the call is gone
+BWD_NO_LOADS = [(BWD, BWD_LOADS, "        mbar_arrive(&sm.full[st]);\n")]
+BWD_NO_EXP2 = [(BWD, EX2, "y = x * 0.5f;")]
+BWD_NO_SPLIT = [(BWD, f"{call}(s.{dst}", f"if (st < 0) {call}(s.{dst}")
+                for call, dst in (("split_rows<kBN>", "b1hi"), ("split_rows<kBN>", "b2hi"),
+                                  ("split_cols", "b1thi"), ("split_cols", "b2thi"))]
+BWD_NO_XY = [(BWD, f"{call}({acc},", f"if (kk < 0) {call}({acc},")
+             for call in ("wgmma_ss", "wgmma_ss_tf32") for acc in ("x", "y")]
+BWD_NO_RS = [(BWD, f"{call}(acc,", f"if (kk < 0) {call}(acc,") for call in ("wgmma_rs", "wgmma_rs_tf32")]
+# name -> (what it changes, [(source, old text, new text), ...]); each
+# variant removes work to time what is left (wrong outputs on purpose)
+FLASH_BWD_VARIANTS = {
+    "as built": ("the source as it is", []),
+    "no exp2": ("exp2 replaced by a multiply", BWD_NO_EXP2),
+    "no loads": ("no column-tile loads: the producer only arrives", BWD_NO_LOADS),
+    "no split": ("f32: no split copies of the column tiles", BWD_NO_SPLIT),
+    "no X/Y": ("no S or dP products (X, Y)", BWD_NO_XY),
+    "no register-A products": ("no dV, dK or dQ products", BWD_NO_RS),
+    "products alone": ("no loads, no exp2, no split copies",
+                       BWD_NO_LOADS + BWD_NO_EXP2 + BWD_NO_SPLIT),
 }
 PIPE = os.path.join("csrc", "decode_attn.cuh")
 STAGES = "constexpr int kStages = 2;"
@@ -242,6 +288,54 @@ for B in (1, 8):
     err = (o.float() - K.flash_attention_plain(q, k, v, 20).float()).abs().max().item()
     out.append(f"B={B} {timed(lambda: K.flash_attention(q, k, v, 20)):.4f} ms (err {err:.3g})")
 print(" | ".join(out))
+'''
+
+# ``flash-bwd``: the training backward's kernels at the encoder's shape
+FLASH_BWD_TIMER = r'''
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+_build.library()
+entry, spill = None, ""
+for ln in (_build.build_dir() / "build.log").read_text().splitlines():
+    if "Compiling entry function" in ln:
+        entry = ln.split("'")[1]
+    elif "spill" in ln and entry and "flash_bwd" in entry:
+        spill = ln.strip()
+    elif "Used" in ln and "registers" in ln and entry:
+        if "flash_bwd" in entry:
+            print(f"ptxas {entry[entry.find('flash_bwd'):][:40]}: {ln.split(':', 1)[1].strip()}; "
+                  f"{spill}")
+        entry = None
+g = torch.Generator(device="cuda").manual_seed(14)
+B, T, D, H = 2, 1500, 1280, 20
+def timed(fn, iters=20):
+    for _ in range(3): fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    for _ in range(iters): fn()
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+def heads(x): return x.view(B, T, H, 64).transpose(1, 2)
+for dtype in (torch.float32, torch.bfloat16):
+    q, k, v, dout = (torch.randn((B, T, D), generator=g, device="cuda").to(dtype) for _ in range(4))
+    out, lse = K.flash_attention_fwd_plain(q, k, v, H)
+    dq, delta = K._flash_bwd_dq(q, k, v, out, dout, lse, H)
+    dk, dv = K._flash_bwd_dkv(q, k, v, dout, lse, delta, H)
+    want = K.flash_attention_bwd_plain(q, k, v, out, lse, dout, H)
+    err = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+              for a, w in zip((dq, dk, dv), want))
+    ms_dq = timed(lambda: K._flash_bwd_dq(q, k, v, out, dout, lse, H))
+    ms_dkv = timed(lambda: K._flash_bwd_dkv(q, k, v, dout, lse, delta, H))
+    qh, kh, vh = (heads(x).detach().requires_grad_() for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
+    lib = timed(lambda: torch.autograd.grad(o, (qh, kh, vh), heads(dout), retain_graph=True))
+    print(f"{str(dtype)[6:]} B={B} T={T}: dq {ms_dq:.4f} ms, dkv {ms_dkv:.4f} ms, together "
+          f"{ms_dq + ms_dkv:.4f} ms; sdpa backward {lib:.4f} ms; err {err:.3g} of a gradient's "
+          f"max", flush=True)
+    del q, k, v, dout, out, lse, dq, dk, dv, delta, want, qh, kh, vh, o
+    torch.cuda.empty_cache()
 '''
 
 
@@ -787,6 +881,98 @@ def mel_accuracy(rows) -> None:
               f"aliasing), against float64, loud / above: " + "; ".join(out), flush=True)
 
 
+def flash_bwd_accuracy(ts) -> None:
+    """How ``csrc/flash_attn_bwd.cu``'s arithmetic rounds (on the CPU, no
+    card). f32: 3xTF32, hi = x with its low 13 mantissa bits cleared, lo =
+    the rest read the same way; a warpgroup's product walks the K dimension
+    tile by tile (the head width's 64 for S and dP, 32 column rows for dQ,
+    dK and dV) and in each tile issues hi·hi, then hi·lo, then lo·hi, one
+    k-step (8 of K) a ``wgmma``: the k-step's products are exact and added
+    to the f32 accumulator, rounded to nearest or toward zero (k-steps of 8,
+    or of 4 if the hardware adds half a k-step at a time). bf16: P and dS
+    rounded to bf16, k-steps of 16, the gradients rounded to bf16. Prints
+    the largest of the three gradients' errors over their max abs against a
+    float64 backward and against the plain version."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from whisper_timestamped_tpu_torch.ops.kernels import (flash_attention_bwd_plain,
+                                                           flash_attention_fwd_plain)
+
+    H, log2e = 2, 1.4426950408889634
+    tf32 = lambda x: (x.contiguous().view(torch.int32) & -8192).view(torch.float32)  # noqa: E731
+
+    def nearest(s):
+        return s.float().double()
+
+    def toward_zero(s):
+        f = s.float()
+        return torch.where(f.double().abs() > s.abs(), torch.nextafter(f, torch.zeros_like(f)),
+                           f).double()
+
+    def mm(a, b, tile, rnd, step, split):  # a (M, K) @ b (K, N), the kernel's order
+        parts = [(a, b)]
+        if split:
+            ah, bh = tf32(a), tf32(b)
+            parts = [(ah, bh), (ah, tf32(b - bh)), (tf32(a - ah), bh)]
+        acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+        for t0 in range(0, a.shape[1], tile):
+            for x, y in parts:
+                for k0 in range(t0, min(t0 + tile, a.shape[1]), step):
+                    acc = rnd(acc + x[:, k0:k0 + step].double() @ y[k0:k0 + step].double())
+        return acc.float()
+
+    def emulated(q, k, v, out, lse, dout, rnd, step):
+        f32 = q.dtype == torch.float32
+        rb = (lambda x: x) if f32 else (lambda x: x.bfloat16().float())  # noqa: E731
+        tile = 32 if f32 else 64
+        heads = lambda x: x.float().view(x.shape[0], -1, H, 64).transpose(1, 2)  # noqa: E731
+        qh, kh, vh, oh, doh = (heads(x) for x in (q, k, v, out, dout))
+        grads = [torch.zeros_like(qh) for _ in range(3)]
+        for b in range(q.shape[0]):
+            for h in range(H):
+                qi, ki, vi, oi, di = (x[b, h].contiguous() for x in (qh, kh, vh, oh, doh))
+                s = mm(qi, ki.T.contiguous(), 64, rnd, step, f32)
+                p = torch.exp2(s * (64**-0.5 * log2e) - lse[b, h][:, None] * log2e)
+                ds = p * (mm(di, vi.T.contiguous(), 64, rnd, step, f32)
+                          - (di * oi).sum(-1, keepdim=True))
+                p, ds = rb(p), rb(ds)
+                grads[0][b, h] = mm(ds, ki, tile, rnd, step, f32) * 64**-0.5
+                grads[1][b, h] = mm(ds.T.contiguous(), qi, tile, rnd, step, f32) * 64**-0.5
+                grads[2][b, h] = mm(p.T.contiguous(), di, tile, rnd, step, f32)
+        return [rb(g.transpose(1, 2).reshape(q.shape)) for g in grads]
+
+    def float64(q, k, v, dout):
+        qh, kh, vh, doh = (x.double().view(x.shape[0], -1, H, 64).transpose(1, 2)
+                           for x in (q, k, v, dout))
+        p = torch.softmax(qh @ kh.transpose(-1, -2) * 64**-0.5, dim=-1)
+        ds = p * (doh @ vh.transpose(-1, -2) - (doh * (p @ vh)).sum(-1, keepdim=True))
+        grads = (ds @ kh * 64**-0.5, ds.transpose(-1, -2) @ qh * 64**-0.5,
+                 p.transpose(-1, -2) @ doh)
+        return [g.transpose(1, 2).reshape(q.shape) for g in grads]
+
+    def err(gots, wants):
+        return max(((g.double() - w.double()).abs().max() / w.double().abs().max()).item()
+                   for g, w in zip(gots, wants))
+
+    for T in ts:
+        for dtype, step in ((torch.float32, 8), (torch.bfloat16, 16)):
+            g = torch.Generator().manual_seed(13)
+            q, k, v, dout = (torch.randn((1, T, 64 * H), generator=g).to(dtype) for _ in range(4))
+            out, lse = flash_attention_fwd_plain(q, k, v, H)
+            exact = float64(q, k, v, dout)
+            plain = flash_attention_bwd_plain(q, k, v, out, lse, dout, H)
+            cases = {"plain version": plain}
+            for name, rnd in (("nearest", nearest), ("toward zero", toward_zero)):
+                for st in (step, step // 2) if dtype == torch.float32 else (step,):
+                    cases[f"k-steps of {st} rounded {name}"] = emulated(q, k, v, out, lse, dout,
+                                                                        rnd, st)
+            print(f"flash-bwd-accuracy T={T} {'f32 (3xTF32)' if dtype == torch.float32 else 'bf16'}"
+                  ", of a gradient's max abs against float64 / the plain version: " + "; ".join(
+                      f"{n} {err(c, exact):.3g} / {err(c, plain):.3g}" for n, c in cases.items()),
+                  flush=True)
+
+
 def run_tree(timer, tree, *args):
     """The timer's output on the checkout at ``tree``, in a process of its
     own with its own build directory."""
@@ -830,6 +1016,9 @@ def main() -> int:
     if sys.argv[1:2] == ["mel-accuracy"]:
         mel_accuracy([int(a) for a in sys.argv[2:]] or range(40))
         return 0
+    if sys.argv[1:2] == ["flash-bwd-accuracy"]:
+        flash_bwd_accuracy([int(a) for a in sys.argv[2:]] or (200, 1500))
+        return 0
     if not torch.cuda.is_available():
         print("torch_kernel_sweeps: needs a CUDA device", file=sys.stderr)
         return 1
@@ -837,8 +1026,8 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     what = sys.argv[1:] or ["xattn", "flash"]
-    mode = next((m for m in ("decode", "step", "matmul", "mel", "encoder", "align-launches", "align")
-                 if m in what), None)
+    mode = next((m for m in ("decode", "step", "matmul", "mel", "encoder", "align-launches", "align",
+                             "flash-bwd") if m in what), None)
     trees = what[what.index(mode) + 1:] if mode else []
     if "xattn" in what[:len(what) - len(trees)]:
         for ln in run_tree(DECODE_TIMER, HERE, *XATTN_SETTINGS).splitlines():
@@ -862,6 +1051,8 @@ def main() -> int:
         sweep_variants("align", ALIGN_VARIANTS, ALIGN_TIMER)
     if "dtw-variants" in what[:len(what) - len(trees)]:
         sweep_variants("dtw", DTW_VARIANTS, ALIGN_TIMER)
+    if "flash-bwd-variants" in what[:len(what) - len(trees)]:
+        sweep_variants("flash-bwd", FLASH_BWD_VARIANTS, FLASH_BWD_TIMER)
     if "mel-variants" in what[:len(what) - len(trees)]:
         sweep_variants("mel", MEL_VARIANTS, MEL_TIMER, os.path.join(HERE, "chip_smoke.py"))
     if mode == "decode":
@@ -878,6 +1069,8 @@ def main() -> int:
         time_trees("align-launches", ALIGN_LAUNCHES_TIMER, trees)
     elif mode == "align":
         time_trees("align", ALIGN_TIMER, trees)
+    elif mode == "flash-bwd":
+        time_trees("flash-bwd", FLASH_BWD_TIMER, trees)
     return 0
 
 

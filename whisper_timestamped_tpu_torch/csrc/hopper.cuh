@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels
-// (flash_attn.cu, stacked_matmul.cu), so that the two cannot drift apart:
-// shared-memory addresses, mbarriers, TMA tile loads, the wgmma
-// shared-memory descriptor of a 128-byte-swizzled tile, the wgmma products
-// and their fences, and the host's encoding of a TMA tensor map.
+// (flash_attn.cu, flash_attn_bwd.cu, stacked_matmul.cu), so that they
+// cannot drift apart: shared-memory addresses, mbarriers, TMA tile loads,
+// the wgmma shared-memory descriptor of a 128-byte-swizzled tile, the wgmma
+// products (bf16 and tf32) and their fences, and the host's encoding of a
+// TMA tensor map.
 #pragma once
 
 #include <cuda.h>
@@ -272,6 +273,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 32, f32) (+)= A (64 x 8 tf32, smem, K-major) · B (32 x 8 tf32,
+// smem, K-major)ᵀ: wgmma m64n32k8. PTX takes tf32 operands in shared memory
+// K-major only (no transpose bit). The accumulator layout is wgmma_ss's.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 8 tf32, registers) · B (8 x 64 tf32, smem,
+// K-major): wgmma m64n64k8. Thread t of the warpgroup holds A's row
+// 16 (t / 32) + (t % 32) / 4 at columns t % 4 (a[0]) and t % 4 + 4 (a[2]),
+// and the row eight below in a[1] and a[3].
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // Host: TMA tensor maps
 // ---------------------------------------------------------------------------
@@ -302,16 +341,23 @@ inline EncodeTiledFn encode_tiled() {
 
 // a contiguous (d2, d1, d0) bf16 array as a 3-D map read in (64, box_rows,
 // 1) boxes, 128-byte swizzle, zeros past every edge; false if the driver
-// refuses it (a base or row stride not 16-byte aligned, a box past 256)
-inline bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int box_rows) {
+// refuses it (a base or row stride not 16-byte aligned, a box past 256).
+// With ``f32``, a float array read in the same boxes without a swizzle
+// (a 64-float row is 256 bytes, wider than the 128-byte swizzle): rows of
+// the box land 256 bytes apart.
+inline bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int box_rows,
+                     bool f32 = false) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t elt = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d1 * d0 * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * elt, (cuuint64_t)d1 * d0 * elt};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

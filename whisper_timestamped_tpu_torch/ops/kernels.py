@@ -952,7 +952,9 @@ def flash_attention_fwd(q, k, v, n_head: int):
 
 def _flash_bwd_dq(q, k, v, out, dout, lse, n_head: int):
     """dQ, and D = rowsum(dO∘O) (B, H, Sq) f32 for ``_flash_bwd_dkv``: one
-    launch of ``csrc/flash_attn_bwd.cu``'s dQ kernel on checked inputs."""
+    launch of ``csrc/flash_attn_bwd.cu``'s dQ kernel on checked inputs
+    (q, dout, k and v, which it reads by TMA, 16-byte aligned: checked here)."""
+    _expect("flash_attention_bwd_dq", _aligned(q, dout, k, v), "inputs must be 16-byte aligned")
     B, Sq, D = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((B, n_head, Sq), dtype=torch.float32, device=q.device)
@@ -965,7 +967,9 @@ def _flash_bwd_dq(q, k, v, out, dout, lse, n_head: int):
 
 def _flash_bwd_dkv(q, k, v, dout, lse, delta, n_head: int):
     """dK and dV: one launch of ``csrc/flash_attn_bwd.cu``'s dK/dV kernel
-    on checked inputs, reading the dQ launch's D."""
+    on checked inputs (k, v, q and dout, which it reads by TMA, 16-byte
+    aligned: checked here), reading the dQ launch's D."""
+    _expect("flash_attention_bwd_dkv", _aligned(k, v, q, dout), "inputs must be 16-byte aligned")
     B, Sq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd_dkv", "wtt_flash_attention_bwd_dkv", q.data_ptr(),
@@ -978,9 +982,11 @@ def _flash_bwd_dkv(q, k, v, dout, lse, delta, n_head: int):
 def flash_attention_bwd(q, k, v, out, lse, dout, n_head: int):
     """The training backward (see ``flash_attention_bwd_plain``) from the
     forward's out and lse. On CUDA (inputs as ``flash_attention_fwd``'s, out
-    and dout of q's shape and dtype, lse f32 (B, H, Sq)): two launches, dQ
-    (which also writes D = rowsum(dO∘O)) then dK/dV, each walking the other
-    side's tiles; no atomics, so the result is the same run to run.
+    and dout of q's shape and dtype, lse f32 (B, H, Sq); q, k, v and dout
+    16-byte aligned, as TMA needs): two launches, dQ (which also writes
+    D = rowsum(dO∘O)) then dK/dV, each walking the other side's tiles on
+    wgmma (bf16 products for bf16 inputs, 3xTF32 for f32); no atomics, so
+    the result is the same run to run.
     Returns (dq, dk, dv) in the inputs' dtype."""
     name = "flash_attention_bwd"
     if not _on_cuda(name, q, k, v, out, lse, dout):
