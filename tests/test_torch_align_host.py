@@ -48,7 +48,10 @@ TOK_T = get_tokenizer(ranks=synthetic_ranks(), multilingual=True, num_languages=
                       language="en", task="transcribe")
 
 
-@pytest.mark.parametrize("shape", [(6, 256), (2, 4, 128), (3, 5, 37), (4, 3)])
+MEDIAN_SHAPES = [(6, 256), (2, 4, 128), (3, 5, 37), (4, 3), (4, 1), (4, 5), (3, 9), (2, 1537)]
+
+
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES)
 def test_median9_matches_pallas(shape):
     """Equal (a median is a selection), rows shorter than the window
     included: both reflect as numpy's symmetric padding."""
@@ -58,6 +61,27 @@ def test_median9_matches_pallas(shape):
     assert got.shape == x.shape and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(K.median9_plain(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES)
+def test_median9_kernel_arithmetic_is_the_median(shape):
+    """The card's kernel (``csrc/median9.cu``) shares Paeth's network
+    between neighbouring outputs: each triple of consecutive values sorted
+    once, then an output is the median of (the max of its three blocks'
+    lows, the median of their middles, the min of their highs). That
+    arithmetic, here in numpy on the reflected rows, equals the Pallas
+    kernel's median exactly."""
+    x = np.random.default_rng(7 + sum(shape)).standard_normal(shape).astype(np.float32)
+    M = shape[-1]
+    q = np.remainder(np.arange(-4, M + 4), 2 * M)
+    w = x[..., np.where(q < M, q, 2 * M - 1 - q)]
+    lo, mi, hi = np.moveaxis(np.sort(np.stack([w[..., :-2], w[..., 1:-1], w[..., 2:]], -1), -1),
+                             -1, 0)
+    blocks = lambda t: np.stack([t[..., :M], t[..., 3:M + 3], t[..., 6:M + 6]], -1)  # noqa: E731
+    med3 = lambda t: np.sort(t, -1)[..., 1]  # noqa: E731
+    got = med3(np.stack([blocks(lo).max(-1), med3(blocks(mi)), blocks(hi).min(-1)], -1))
+    want = np.asarray(median9_pallas(jnp.asarray(x), interpret=True))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("Kh,N,M,n_tokens,span", [(3, 32, 256, 27, 201), (40, 16, 128, 11, 97),

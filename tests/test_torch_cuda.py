@@ -868,6 +868,8 @@ def test_flash_train_kernels_refuse_what_they_do_not_take(cuda):
         K.flash_attention_bwd(z, shifted, z, z, lse, z, 2)
     with pytest.raises(ValueError, match="16-byte aligned"):
         K.flash_attention_bwd(z, z, z, z, lse, shifted, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.flash_attention_fwd(z, shifted, z, 2)
     # the two launches check their own TMA inputs: called alone, too
     with pytest.raises(ValueError, match="flash_attention_bwd_dq: inputs must be 16-byte"):
         K._flash_bwd_dq(shifted, z, z, z, z, lse, 2)
@@ -875,6 +877,35 @@ def test_flash_train_kernels_refuse_what_they_do_not_take(cuda):
         K._flash_bwd_dkv(z, z, shifted, z, lse, lse, 2)
     with pytest.raises(ValueError, match="no backward for causal"):
         K.flash_attention(z.requires_grad_(), z, z, 2, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [65, 1500])
+def test_flash_train_forward_repeats(cuda, T, dtype):
+    """The forward twice on the same inputs gives the same bits (every
+    block owns its rows; no atomics), out and lse."""
+    g = torch.Generator(device=cuda).manual_seed(1000 + T)
+    q, k, v = (_randn(g, 2, T, 1280, dtype=dtype) for _ in range(3))
+    out, lse = K.flash_attention_fwd(q, k, v, 20)
+    again = K.flash_attention_fwd(q, k, v, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("shape,offset", [((7, 1), 0), ((7, 5), 0), ((7, 9), 0), ((7, 1537), 0),
+                                          ((26880, 1536), 0), ((4, 1536), 1)])
+def test_median9_kernel_equals_plain(cuda, shape, offset):
+    """Equal (a selection) at rows shorter than the window, widths that are
+    not a multiple of 4, the 120-head segment's (26880, 1536), and a base 4
+    bytes off 16 (no 16-byte reads)."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + offset)
+    n = shape[0] * shape[1]
+    x = (torch.randn(n + offset, generator=g, device=cuda) * 3.0)[offset:].view(shape)
+    before = K.LAUNCHES["median9"]
+    got = K.median9(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["median9"] == before + 1
+    assert torch.equal(got, K.median9_plain(x))
 
 
 @pytest.mark.parametrize("rows,seconds,n_mels", [(3, 35, 128), (2, 7.3, 80)])

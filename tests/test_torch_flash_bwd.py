@@ -173,16 +173,18 @@ def _mm_3xtf32(a, b):  # hi·hi + hi·lo + lo·hi, each lo also read as tf32
     return ah @ bh + ah @ bl + al @ bh
 
 
-def _mm_3xtf32_toward_zero(a, b):
+def _mm_3xtf32_toward_zero(a, b, acc=None):
     """3xTF32 as the kernels' ``wgmma`` sum it: the K dimension walked tile
     by tile (the head width's 64 whole, else 32 rows a tile), each tile's
     hi·hi, then hi·lo, then lo·hi, one k-step of 8 at a time, the k-step's
-    exact sum added to the f32 accumulator rounded toward zero."""
+    exact sum added to the f32 accumulator (zeros, or ``acc``) rounded
+    toward zero."""
     ah, bh = _tf32(a), _tf32(b)
     al, bl = _tf32(a.float() - ah), _tf32(b.float() - bh)
     parts, n = [(ah, bh), (ah, bl), (al, bh)], a.shape[-1]
     tile = n if n == DH else 32
-    acc = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float64)
+    acc = (torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float64) if acc is None
+           else acc.float().double())
     for t0 in range(0, n, tile):
         for x, y in parts:
             for k0 in range(t0, min(t0 + tile, n), 8):

@@ -5,8 +5,10 @@
                                          [matmul-splits] [mel-variants] [mel-refine]
                                          [mel-refine-variants] [align-variants]
                                          [dtw-variants] [flash-bwd-variants]
+                                         [flash-fwd-variants]
                                          [decode|step|matmul|mel|encoder|align|
-                                          align-launches|flash-bwd [DIR ...]]
+                                          align-launches|flash-bwd|flash-fwd|
+                                          median9 [DIR ...]]
     python3 tools/torch_kernel_sweeps.py mel-accuracy [ROW ...]
     python3 tools/torch_kernel_sweeps.py flash-bwd-accuracy [T ...]
 
@@ -108,6 +110,24 @@ alone), each timed as ``flash-bwd`` times a tree.
 ``ncu`` does not run on the card's machine: these say what holds the
 design back.
 
+``flash-fwd``: the training forward (``flash_attention_fwd``: bf16 through
+``flash_attention``'s kernel with its lse, f32 through the split pass and
+the 3xTF32 kernel) of the checkout at each DIR, in turns (``flash-fwd
+build/parent . . build/parent``), at the encoder's shape (B=2, T=1500,
+D=1280, H=20) in f32 and bf16 beside SDPA's forward, with out's and lse's
+errors against the plain version and the forward kernels' ptxas registers;
+then ``flash_attention`` (inference, bf16) at ``chip_smoke.py`` [c]'s four
+shapes (the encoder at B=1 and 8, the 232-slot prefill's self and cross
+attention at B=8), which the bf16 forward's lse output must not slow. ``flash-fwd-variants``:
+``csrc/flash_attn_fwd_lse.cu`` with one design choice changed or one part
+of the work removed at a time (``FLASH_FWD_VARIANTS``: 32-key tiles; no
+exp2; no K or V loads),
+each timed as ``flash-fwd`` times a tree.
+
+``median9``: ``median9`` of the checkout at each DIR, in turns, on the
+120-head segment's (26880, 1536) f32 scores, beside its bytes bound, and
+whether it equals the plain version.
+
 ``flash-bwd-accuracy``: on the CPU, no card: the backward kernels'
 arithmetic emulated at B=1, H=2 and each T (default 200 and 1500) in the
 kernels' order of products and k-steps, with each k-step's sum rounded to
@@ -133,6 +153,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(HERE, "whisper_timestamped_tpu_torch")
 SRC = os.path.join("csrc", "flash_attn.cu")
+HOPPER = os.path.join("csrc", "hopper.cuh")  # ex2 lives here, for every flash kernel
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
 MASK = "    if (causal || k0 + kBN > Sk) {"
 # name -> (what it changes, [(source, old text, new text), ...])
@@ -140,7 +161,7 @@ FLASH_VARIANTS = {
     "as built": ("the source as it is", []),
     "3 stages": ("a three-stage K/V ring", [(SRC, "constexpr int kStages = 2;",
                                              "constexpr int kStages = 3;")]),
-    "no exp2": ("exp2 replaced by a multiply (wrong output)", [(SRC, EX2, "y = x * 0.5f;")]),
+    "no exp2": ("exp2 replaced by a multiply (wrong output)", [(HOPPER, EX2, "y = x * 0.5f;")]),
     "no softmax": ("no mask, max or exp2: P = bf16(S) (wrong output)",
                    [(SRC, MASK, "    al0 = al1 = 1.f;\n    return;\n" + MASK)]),
 }
@@ -150,13 +171,15 @@ BWD_LOADS = ("        mbar_expect_tx(&sm.full[st], 2 * kBN * kHead * sizeof(T));
              "        tma_load(sm.b2[st], &tb2, &sm.full[st], h * kHead, c0, b);\n")
 # each edit puts ``if (<a loop index> < 0)`` before a call: the call is gone
 BWD_NO_LOADS = [(BWD, BWD_LOADS, "        mbar_arrive(&sm.full[st]);\n")]
-BWD_NO_EXP2 = [(BWD, EX2, "y = x * 0.5f;")]
+BWD_NO_EXP2 = [(HOPPER, EX2, "y = x * 0.5f;")]
 BWD_NO_SPLIT = [(BWD, f"{call}(s.{dst}", f"if (st < 0) {call}(s.{dst}")
                 for call, dst in (("split_rows<kBN>", "b1hi"), ("split_rows<kBN>", "b2hi"),
                                   ("split_cols", "b1thi"), ("split_cols", "b2thi"))]
-BWD_NO_XY = [(BWD, f"{call}({acc},", f"if (kk < 0) {call}({acc},")
-             for call in ("wgmma_ss", "wgmma_ss_tf32") for acc in ("x", "y")]
-BWD_NO_RS = [(BWD, f"{call}(acc,", f"if (kk < 0) {call}(acc,") for call in ("wgmma_rs", "wgmma_rs_tf32")]
+BWD_NO_XY = ([(BWD, f"wgmma_ss({acc},", f"if (kk < 0) wgmma_ss({acc},") for acc in ("x", "y")]
+             + [(BWD, f"issue_ss3<kBN>({acc},", f"if (wg < 0) issue_ss3<kBN>({acc},")
+                for acc in ("x", "y")])
+BWD_NO_RS = [(BWD, "wgmma_rs(acc,", "if (kk < 0) wgmma_rs(acc,"),
+             (BWD, "issue_rs3<kBN>(acc,", "if (thi == nullptr) issue_rs3<kBN>(acc,")]
 # name -> (what it changes, [(source, old text, new text), ...]); each
 # variant removes work to time what is left (wrong outputs on purpose)
 FLASH_BWD_VARIANTS = {
@@ -168,6 +191,21 @@ FLASH_BWD_VARIANTS = {
     "no register-A products": ("no dV, dK or dQ products", BWD_NO_RS),
     "products alone": ("no loads, no exp2, no split copies",
                        BWD_NO_LOADS + BWD_NO_EXP2 + BWD_NO_SPLIT),
+}
+FWD = os.path.join("csrc", "flash_attn_fwd_lse.cu")
+FWD_NO_LOADS = [(FWD, "mbar_expect_tx(&sm.k_full[st], kTileBytes);", "mbar_arrive(&sm.k_full[st]);"),
+                (FWD, "mbar_expect_tx(&sm.v_full[st], kTileBytes);", "mbar_arrive(&sm.v_full[st]);"),
+                (FWD, "        tma_load(sl.", "        if (half < 0) tma_load(sl.")]
+# name -> (what it changes, [(source, old text, new text), ...]); the f32
+# forward's design choices, then work removed to time what is left (wrong
+# outputs on purpose)
+FLASH_FWD_VARIANTS = {
+    "as built": ("the source as it is", []),
+    "32-key tiles": ("f32: tiles of 32 keys in a three-stage ring",
+                     [(FWD, "constexpr int kBN = 64;", "constexpr int kBN = 32;"),
+                      (FWD, "constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
+    "no exp2": ("exp2 replaced by a multiply", [(HOPPER, EX2, "y = x * 0.5f;")]),
+    "no loads": ("f32: no K or V tile loads, the producer only arrives", FWD_NO_LOADS),
 }
 PIPE = os.path.join("csrc", "decode_attn.cuh")
 STAGES = "constexpr int kStages = 2;"
@@ -336,6 +374,81 @@ for dtype in (torch.float32, torch.bfloat16):
           f"max", flush=True)
     del q, k, v, dout, out, lse, dq, dk, dv, delta, want, qh, kh, vh, o
     torch.cuda.empty_cache()
+'''
+
+# ``flash-fwd``: the training forward at the encoder's shape, and the
+# inference kernel it shares (bf16) at B=8
+FLASH_FWD_TIMER = r'''
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+_build.library()
+entry, spill = None, ""
+for ln in (_build.build_dir() / "build.log").read_text().splitlines():
+    if "Compiling entry function" in ln:
+        entry = ln.split("'")[1]
+    elif "spill" in ln and entry:
+        spill = ln.strip()
+    elif "Used" in ln and "registers" in ln and entry:
+        if "flash_fwd" in entry or "flash_attention_kernel" in entry or "split_kv" in entry:
+            print(f"ptxas {entry[:90]}: {ln.split(':', 1)[1].strip()}; {spill}")
+        entry, spill = None, ""
+g = torch.Generator(device="cuda").manual_seed(15)
+T, D, H = 1500, 1280, 20
+sdpa = torch.nn.functional.scaled_dot_product_attention
+def timed(fn, iters=20):
+    for _ in range(3): fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    for _ in range(iters): fn()
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+def heads(x): return x.view(x.shape[0], T, H, 64).transpose(1, 2)
+for dtype in (torch.float32, torch.bfloat16):
+    q, k, v = (torch.randn((2, T, D), generator=g, device="cuda").to(dtype) for _ in range(3))
+    out, lse = K.flash_attention_fwd(q, k, v, H)
+    out_p, lse_p = K.flash_attention_fwd_plain(q, k, v, H)
+    err = ((out.float() - out_p.float()).abs().max() / out_p.float().abs().max()).item()
+    lerr = ((lse - lse_p).abs().max() / lse_p.abs().max()).item()
+    ms = timed(lambda: K.flash_attention_fwd(q, k, v, H))
+    lib = timed(lambda: sdpa(heads(q), heads(k), heads(v)))
+    print(f"flash_attention_fwd {str(dtype)[6:]} B=2 T={T}: {ms:.4f} ms; sdpa forward {lib:.4f} ms; "
+          f"err out {err:.3g}, lse {lerr:.3g} of their max", flush=True)
+    del q, k, v, out, lse, out_p, lse_p
+# the inference kernel at chip_smoke.py [c]'s four shapes (its prefill pads)
+pads = torch.tensor([0, 5, 63, 64, 100, 224, 231, 232], dtype=torch.int32, device="cuda")
+for label, Bf, Sq, Sk, causal in (("encoder B=1", 1, T, T, False), ("encoder B=8", 8, T, T, False),
+                                  ("prefill self B=8", 8, 232, 232, True),
+                                  ("prefill cross B=8", 8, 232, T, False)):
+    q = torch.randn((Bf, Sq, D), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((Bf, Sk, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    pad = pads if causal else None
+    ms = timed(lambda: K.flash_attention(q, k, v, H, causal=causal, pad_len=pad))
+    print(f"flash_attention (inference) {label} (Sq={Sq} Sk={Sk}): {ms:.4f} ms", flush=True)
+'''
+
+# ``median9``: the 120-head segment's (26880, 1536) scores
+MEDIAN_TIMER = r'''
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from whisper_timestamped_tpu_torch.ops import kernels as K, _build
+_build.library()
+g = torch.Generator(device="cuda").manual_seed(4)
+def timed(fn, iters=20):
+    for _ in range(3): fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000); e0.record()
+    for _ in range(iters): fn()
+    e1.record(); torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+x = torch.randn((26880, 1536), generator=g, device="cuda") * 3.0
+equal = torch.equal(K.median9(x), K.median9_plain(x))
+ms = timed(lambda: K.median9(x))
+bound = 2 * x.numel() * 4 / 3.35e12 * 1e3
+print(f"median9 (26880, 1536): {ms:.4f} ms, bound {bound:.4f} ms (bytes; {100 * bound / ms:.1f} % of "
+      f"it), equal to the plain version: {equal}", flush=True)
 '''
 
 
@@ -1027,7 +1140,7 @@ def main() -> int:
     print(smi, flush=True)
     what = sys.argv[1:] or ["xattn", "flash"]
     mode = next((m for m in ("decode", "step", "matmul", "mel", "encoder", "align-launches", "align",
-                             "flash-bwd") if m in what), None)
+                             "flash-bwd", "flash-fwd", "median9") if m in what), None)
     trees = what[what.index(mode) + 1:] if mode else []
     if "xattn" in what[:len(what) - len(trees)]:
         for ln in run_tree(DECODE_TIMER, HERE, *XATTN_SETTINGS).splitlines():
@@ -1053,6 +1166,8 @@ def main() -> int:
         sweep_variants("dtw", DTW_VARIANTS, ALIGN_TIMER)
     if "flash-bwd-variants" in what[:len(what) - len(trees)]:
         sweep_variants("flash-bwd", FLASH_BWD_VARIANTS, FLASH_BWD_TIMER)
+    if "flash-fwd-variants" in what[:len(what) - len(trees)]:
+        sweep_variants("flash-fwd", FLASH_FWD_VARIANTS, FLASH_FWD_TIMER)
     if "mel-variants" in what[:len(what) - len(trees)]:
         sweep_variants("mel", MEL_VARIANTS, MEL_TIMER, os.path.join(HERE, "chip_smoke.py"))
     if mode == "decode":
@@ -1071,6 +1186,10 @@ def main() -> int:
         time_trees("align", ALIGN_TIMER, trees)
     elif mode == "flash-bwd":
         time_trees("flash-bwd", FLASH_BWD_TIMER, trees)
+    elif mode == "flash-fwd":
+        time_trees("flash-fwd", FLASH_FWD_TIMER, trees)
+    elif mode == "median9":
+        time_trees("median9", MEDIAN_TIMER, trees)
     return 0
 
 

@@ -1,11 +1,17 @@
 // flash_attention: multi-head softmax(q·kᵀ·dh^-0.5 + mask)·v over (B, S, D)
 // projections, head h in columns h*64 .. h*64+63, for the encoder's
-// self-attention and the prompt prefill's self- and cross-attention.
+// self-attention and the prompt prefill's self- and cross-attention; with
+// an lse pointer, also each row's log-sum-exp lse = m + log(l) (B, H, Sq)
+// f32: the bf16 training forward (ops.kernels.flash_attention_fwd calls
+// this entry point with no mask for bf16 inputs).
 //
 // Replaces: the library Pallas kernel
 //   jax.experimental.pallas.ops.tpu.flash_attention, called at
 //   whisper_timestamped_tpu/models/whisper_jax.py:246 (_encoder_attention)
-//   and :299 (_prefill_flash_attention, gated at decoding.py:309-314).
+//   and :299 (_prefill_flash_attention, gated at decoding.py:309-314);
+//   with lse, its forward with residuals _flash_attention_fwd
+//   (jax/experimental/pallas/ops/tpu/flash_attention.py:234), whose m and l
+//   the lse folds into one number a row.
 //
 // Masks: with ``causal``, key k is live for query q when
 // pad_len[b] <= k <= q, or k == q (the own-slot escape: a left-padding
@@ -36,7 +42,9 @@
 // shared memory in the [key][dim] layout TMA wrote, through the
 // descriptor's MN-major (transpose) bit, so no transposed copy exists. O
 // is divided by the row sum and rounded to bf16 once; the (B, H, Sq, Sk)
-// scores never reach device memory.
+// scores never reach device memory. The lse comes from the running max (in
+// log2 units of the scaled scores) and sum the softmax keeps anyway:
+// m·ln2 + log(l), written by one thread a row.
 //
 // At head width 64 a tile's exp2s take the SFU about as long as its two
 // products take the tensor cores, so a warpgroup issues tile i's S
@@ -80,27 +88,16 @@ struct Smem {  // every tile 1024-byte aligned, as the 128-byte swizzle needs
 };
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + room to align the base
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
+// kLse: write the rows' lse (the training forward); the inference
+// instance carries no lse code (testing a runtime lse pointer instead made
+// inference 4-6 % slower on the H100)
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B, Sq, D)
                        const __grid_constant__ CUtensorMap tk,  // (B, Sk, D)
                        const __grid_constant__ CUtensorMap tv,  // (B, Sk, D)
                        __nv_bfloat16* __restrict__ out,         // (B, Sq, D)
+                       float* __restrict__ lse,                 // (B, H, Sq) with kLse
                        const int* __restrict__ pad_len,         // (B,) or null
                        int Sq, int Sk, int D, int causal, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
@@ -296,6 +293,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B, Sq, D)
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (kLse && t == 0) {  // every row holds a live key: l > 0
+    float* lb = lse + ((long)b * gridDim.y + h) * Sq;
+    if (row0 < Sq) lb[row0] = m0 * 0.6931471805599453f + logf(l0);
+    if (row1 < Sq) lb[row1] = m1 * 0.6931471805599453f + logf(l1);
+  }
   __nv_bfloat16* ob = out + (long)b * Sq * D + h * kHead;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -311,20 +313,22 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,  // (B, Sq, D)
 
 }  // namespace
 
-extern "C" int wtt_flash_attention(const void* q, const void* k, const void* v,
-                                   void* out, const void* pad_len, int B, int Sq,
-                                   int Sk, int D, int H, int causal, float scale,
-                                   void* stream) {
+// lse null: inference (flash_attention); lse set: the bf16 training
+// forward (flash_attention_fwd; no mask, pad_len null, causal 0)
+extern "C" int wtt_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                   void* lse, const void* pad_len, int B, int Sq, int Sk, int D,
+                                   int H, int causal, float scale, void* stream) {
+  auto kernel = lse != nullptr ? flash_attention_kernel<true> : flash_attention_kernel<false>;
   const cudaError_t rc = cudaFuncSetAttribute(  // per device, so on every call
-      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (rc != cudaSuccess) return (int)rc;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, Sq, B, kBM) || !make_map(&tk, k, D, Sk, B, kBN) ||
       !make_map(&tv, v, D, Sk, B, kBN))
     return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + kBM - 1) / kBM, H, B);
-  flash_attention_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, (const int*)pad_len, Sq, Sk, D, causal,
+  kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, (float*)lse, (const int*)pad_len, Sq, Sk, D, causal,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

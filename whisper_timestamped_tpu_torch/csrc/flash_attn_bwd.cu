@@ -1,5 +1,6 @@
-// flash_attention_bwd: the gradient of flash_attn_fwd_lse.cu's attention
-// (no mask) from its saved lse, in two launches without atomics:
+// flash_attention_bwd: the gradient of the training forward's attention
+// (no mask; flash_attn_fwd_lse.cu) from its saved lse, in two launches
+// without atomics:
 //
 //   dQ  kernel: one block per (128-query tile, head, batch row); it walks
 //               the key tiles and also writes D = rowsum(dO∘O) (B, H, Sq)
@@ -54,11 +55,10 @@
 // products, as the library rounds them (flash_attention.py:900, :918,
 // :1258); S, dP, D, lse and the sums stay f32. kBN = 64, three ring slots.
 //
-// f32 inputs: 3xTF32. Each operand x is split into hi = x with its low 13
-// mantissa bits cleared (exactly a tf32) and lo = x - hi (exact in f32), and
-// each product is hi·hi + hi·lo + lo·hi on tf32 wgmma (m64nNk8), summed in
-// f32 at three tf32 products' cost. The tensor cores add each k-step's sum
-// to the accumulator rounded toward zero, so a 1500-row walk (564 k-steps)
+// f32 inputs: 3xTF32 (flash_tf32.cuh, shared with the forward): each
+// product is hi·hi + hi·lo + lo·hi of tf32 parts on tf32 wgmma (m64nNk8),
+// summed in f32. The tensor cores add each k-step's sum to the accumulator
+// rounded toward zero, so a 1500-row walk (564 k-steps)
 // ends ~3e-5 of a gradient's max from float64, where f32 sums rounded to
 // nearest give ~3e-6 (tools/torch_kernel_sweeps.py flash-bwd-accuracy).
 // PTX takes tf32 operands in shared memory K-major only, so the consumers
@@ -89,13 +89,13 @@
 
 #include <type_traits>
 
-#include "hopper.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
 using namespace wtt::hopper;
+using namespace wtt::tf32;
 
-constexpr int kHead = 64;
 constexpr int kWGs = 2;                  // consumer warpgroups, 64 rows each
 constexpr int kBM = 64 * kWGs;           // row-side rows a block owns
 constexpr int kConsumerWarps = 4 * kWGs;
@@ -105,25 +105,9 @@ constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // the consumer warps' own barrier (id 1; 0 is __syncthreads)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// makes the threads' shared-memory writes visible to wgmma (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -193,60 +177,6 @@ struct Bf16 {
 // f32: 3xTF32 from split copies
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-
-// float offset of (r, c) in a K-major [2][R][32] tile: a 64-float K range
-// as two 32-float halves, each 128-byte rows with the 128-byte swizzle
-template <int R>
-__device__ __forceinline__ int kmajor(int r, int c) {
-  return (c >> 5) * R * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2);
-}
-
-// wgmma descriptor of k-step kk (8 floats) of such a tile
-template <int R>
-__device__ __forceinline__ uint64_t kstep(const float* tile, int kk) {
-  return sw128_desc(tile + (kk >> 2) * R * 32) + 2 * (kk & 3);
-}
-
-// rows [0, R) of a row-major (R, 64) f32 tile into K-major hi and lo tiles,
-// one float4 a thread and step
-template <int R>
-__device__ __forceinline__ void split_rows(float* hi, float* lo, const float* src, int tid,
-                                           int nthreads) {
-  for (int i = tid; i < R * 16; i += nthreads) {
-    const int r = i >> 4, c = (i & 15) << 2;
-    const float4 x = *reinterpret_cast<const float4*>(src + r * kHead + c);
-    const float4 h = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
-    *reinterpret_cast<float4*>(hi + kmajor<R>(r, c)) = h;
-    *reinterpret_cast<float4*>(lo + kmajor<R>(r, c)) =
-        make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
-  }
-}
-
-// the transpose of a row-major (32, 64) f32 tile into hi and lo tiles
-// [64][32] (K-major for a B operand whose K is the tile's 32 rows), each 8
-// rows stored in the order 0 2 4 6 1 3 5 7 that the tf32 register A
-// fragments take (F32::frag)
-__device__ __forceinline__ void split_cols(float* hi, float* lo, const float* src, int tid,
-                                           int nthreads) {
-  for (int i = tid; i < kHead * 8; i += nthreads) {
-    const int n = i & 63, c = i >> 6;        // output row n, its 4-float chunk c
-    const int q0 = 8 * (c >> 1) + (c & 1);  // source rows q0, q0 + 2, q0 + 4, q0 + 6
-    float x[4], h[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      x[m] = src[(q0 + 2 * m) * kHead + n];
-      h[m] = tf32_hi(x[m]);
-    }
-    const int off = n * 32 + ((c ^ (n & 7)) << 2);
-    *reinterpret_cast<float4*>(hi + off) = make_float4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<float4*>(lo + off) =
-        make_float4(x[0] - h[0], x[1] - h[1], x[2] - h[2], x[3] - h[3]);
-  }
-}
-
 struct F32 {
   using T = float;
   static constexpr int kBN = 32;
@@ -267,70 +197,27 @@ struct F32 {
     float vec[kStages][2][kBN];
     uint64_t res_full, full[kStages], empty[kStages];
   };
-  struct Frag {  // a 64 x kBN operand as tf32 hi and lo A fragments, 8 columns a k-step
-    uint32_t hi[kBN / 8][4], lo[kBN / 8][4];
-  };
+  using Frag = wtt::tf32::Frag<kBN>;
 
   __device__ static void issue_xy(Smem& sm, int, int wg, float (&x)[kBN / 2],
                                   float (&y)[kBN / 2]) {
     const Split& b = sm.w.b;
-    const float *a1h = sm.a1hi + wg * 64 * kHead, *a1l = sm.a1lo + wg * 64 * kHead;
-    const float *a2h = sm.a2hi + wg * 64 * kHead, *a2l = sm.a2lo + wg * 64 * kHead;
-#pragma unroll
-    for (int kk = 0; kk < kHead / 8; ++kk)
-      wgmma_ss_tf32(x, kstep<64>(a1h, kk), kstep<kBN>(b.b1hi, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < kHead / 8; ++kk)
-      wgmma_ss_tf32(x, kstep<64>(a1h, kk), kstep<kBN>(b.b1lo, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < kHead / 8; ++kk)
-      wgmma_ss_tf32(x, kstep<64>(a1l, kk), kstep<kBN>(b.b1hi, kk), 1);
+    const int a = wg * 64 * kHead;
+    issue_ss3<kBN>(x, sm.a1hi + a, sm.a1lo + a, b.b1hi, b.b1lo);
     wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < kHead / 8; ++kk)
-      wgmma_ss_tf32(y, kstep<64>(a2h, kk), kstep<kBN>(b.b2hi, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < kHead / 8; ++kk)
-      wgmma_ss_tf32(y, kstep<64>(a2h, kk), kstep<kBN>(b.b2lo, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < kHead / 8; ++kk)
-      wgmma_ss_tf32(y, kstep<64>(a2l, kk), kstep<kBN>(b.b2hi, kk), 1);
+    issue_ss3<kBN>(y, sm.a2hi + a, sm.a2lo + a, b.b2hi, b.b2lo);
     wgmma_commit();
   }
-  // column group j (8 columns) is k-step j: a[0] / a[2] take the
-  // accumulator's columns 2t / 2t + 1 of row g, a[1] / a[3] those of g + 8
-  // (the transposed copies' column order makes that the product's order)
-  __device__ static void frag(const float (&v)[kBN / 2], Frag& f) {
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const float x[4] = {v[4 * j], v[4 * j + 2], v[4 * j + 1], v[4 * j + 3]};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float h = tf32_hi(x[r]);
-        f.hi[j][r] = __float_as_uint(h);
-        f.lo[j][r] = __float_as_uint(x[r] - h);
-      }
-    }
-  }
+  __device__ static void frag(const float (&v)[kBN / 2], Frag& f) { to_frag<kBN>(v, f); }
   // acc += F · B, B's transpose split into thi / tlo ([64][kBN], K-major)
   __device__ static void issue_rs(float (&acc)[32], const Frag& f, const float* thi,
                                   const float* tlo) {
-    const uint64_t dh = sw128_desc(thi), dl = sw128_desc(tlo);
-#pragma unroll
-    for (int kk = 0; kk < kBN / 8; ++kk) wgmma_rs_tf32(acc, f.hi[kk], dh + 2 * kk, 1);
-#pragma unroll
-    for (int kk = 0; kk < kBN / 8; ++kk) wgmma_rs_tf32(acc, f.hi[kk], dl + 2 * kk, 1);
-#pragma unroll
-    for (int kk = 0; kk < kBN / 8; ++kk) wgmma_rs_tf32(acc, f.lo[kk], dh + 2 * kk, 1);
+    issue_rs3<kBN>(acc, f, thi, tlo);
   }
   __device__ static float a2_at(const Smem& sm, int r, int c) { return sm.w.raw[1][r * kHead + c]; }
 };
 
 __device__ __forceinline__ void fence_frag(Bf16::Frag& f) { fence_regs(f.v); }
-__device__ __forceinline__ void fence_frag(F32::Frag& f) {
-  fence_regs(f.hi);
-  fence_regs(f.lo);
-}
 
 // X and Y of column tile i (for f32 after its split copies), issued as two
 // commit groups

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels
-// (flash_attn.cu, flash_attn_bwd.cu, stacked_matmul.cu), so that they
-// cannot drift apart: shared-memory addresses, mbarriers, TMA tile loads,
-// the wgmma shared-memory descriptor of a 128-byte-swizzled tile, the wgmma
-// products (bf16 and tf32) and their fences, and the host's encoding of a
-// TMA tensor map.
+// (flash_attn.cu, flash_attn_fwd_lse.cu, flash_attn_bwd.cu,
+// stacked_matmul.cu), so that they cannot drift apart: shared-memory
+// addresses, mbarriers, TMA tile loads, the wgmma shared-memory descriptor
+// of a 128-byte-swizzled tile, the wgmma products (bf16 and tf32) and their
+// fences, the online softmax's exp2 and quad reductions, and the host's
+// encoding of a TMA tensor map.
 #pragma once
 
 #include <cuda.h>
@@ -100,6 +101,28 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>  // until at most N committed groups are in flight
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// makes the threads' shared-memory writes visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// max and sum over the four threads (t % 4) that hold a wgmma accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // keep the compiler from moving reads or writes of r across a wgmma wait
@@ -273,9 +296,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x 32, f32) (+)= A (64 x 8 tf32, smem, K-major) · B (32 x 8 tf32,
-// smem, K-major)ᵀ: wgmma m64n32k8. PTX takes tf32 operands in shared memory
-// K-major only (no transpose bit). The accumulator layout is wgmma_ss's.
+// d (64 x 2R, f32) (+)= A (64 x 8 tf32, smem, K-major) · B (2R x 8 tf32,
+// smem, K-major)ᵀ: wgmma m64nNk8 with N = 32 (R = 16) or 64 (R = 32). PTX
+// takes tf32 operands in shared memory K-major only (no transpose bit).
+// The accumulator layout is wgmma_ss's.
 __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
                                               int scale_d) {
   asm volatile(
@@ -287,6 +311,24 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t desc_a, u
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -339,27 +381,42 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a contiguous (d2, d1, d0) bf16 array as a 3-D map read in (64, box_rows,
-// 1) boxes, 128-byte swizzle, zeros past every edge; false if the driver
-// refuses it (a base or row stride not 16-byte aligned, a box past 256).
-// With ``f32``, a float array read in the same boxes without a swizzle
-// (a 64-float row is 256 bytes, wider than the 128-byte swizzle): rows of
-// the box land 256 bytes apart.
-inline bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int box_rows,
-                     bool f32 = false) {
+// a contiguous (d2, d1, d0) array of ``elt``-byte values as a 3-D map read
+// in (box0, box_rows, 1) boxes, zeros past every edge; false if the driver
+// refuses it (a base or row stride not 16-byte aligned, a box past 256)
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, cuuint64_t elt,
+                       const void* base, int d0, int d1, int d2, int box0, int box_rows,
+                       CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t elt = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
   const cuuint64_t strides[2] = {(cuuint64_t)d0 * elt, (cuuint64_t)d1 * d0 * elt};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 array read in (64, box_rows, 1) boxes with the 128-byte swizzle.
+// With ``f32``, a float array read in the same boxes without a swizzle (a
+// 64-float row is 256 bytes, wider than the 128-byte swizzle): rows of the
+// box land 256 bytes apart.
+inline bool make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int box_rows,
+                     bool f32 = false) {
+  return f32 ? encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, d0, d1, d2, 64, box_rows,
+                          CU_TENSOR_MAP_SWIZZLE_NONE)
+             : encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1, d2, 64, box_rows,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a float array read in (32, box_rows, 1) boxes with the 128-byte swizzle:
+// each box lands as one 32-float half of a K-major tf32 operand tile
+// (flash_tf32.cuh's kmajor layout), ready for wgmma
+inline bool make_map_tf32(CUtensorMap* map, const void* base, int d0, int d1, int d2,
+                          int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, d0, d1, d2, 32, box_rows,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

@@ -52,8 +52,9 @@ SIGNATURES = {
     "wtt_dtw_scratch_bytes": [_I] * 5,
     # out, steps, stream (the DP's chain floor, timed by chip_smoke.py)
     "wtt_dtw_chain": [_P, _I, _P],
-    # q, k, v, out, pad_len, B, Sq, Sk, D, H, causal, scale, stream
-    "wtt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, lse (null but for the bf16 training forward), pad_len, B, Sq, Sk, D, H,
+    # causal, scale, stream
+    "wtt_flash_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group,
     # n_split, frames_per_split, warps, scale, stream
     "wtt_xattn_decode_int8": [_P] * 7 + [_I] * 10 + [_F, _P],
@@ -68,8 +69,9 @@ SIGNATURES = {
     "wtt_log10_mel": [_P] * 9 + [_I] * 7 + [_F, _P],
     # x, w_all, out, layer, L, B, N, K, cols, groups, n_split, stream
     "wtt_stacked_matmul": [_P, _P, _P] + [_I] * 8 + [_P],
-    # q, k, v, out, lse, B, Sq, Sk, D, H, bf16, scale, stream
-    "wtt_flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k, v, out, lse, split (K's and V's transpose's tf32 hi and lo), B, Sq, Sk, D, H,
+    # scale, stream (f32; bf16 runs wtt_flash_attention with lse)
+    "wtt_flash_attention_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     # q, k, v, out, dout, lse, delta (written), dq, B, Sq, Sk, D, H, bf16, scale, stream
     "wtt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
     # q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, D, H, bf16, scale, stream

@@ -22,6 +22,7 @@ wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.p
 ``flash_attention_fwd``  the library's ``_flash_attention_fwd``
                         (``jax/experimental/pallas/ops/tpu/flash_attention.py:234``):
                         the forward that keeps its residual, here the lse
+                        (bf16: ``flash_attention``'s kernel; f32: 3xTF32)
 ``flash_attention_bwd``  the library's ``_flash_attention_bwd_dkv`` (:941) and
                         ``_flash_attention_bwd_dq`` (:1287): two launches
 ``xattn_decode_int8``   ``cross_attention_stacked_int8_pallas`` v1 (:687), v2
@@ -912,7 +913,7 @@ def flash_attention(q, k, v, n_head: int, *, causal: bool = False, pad_len=None)
         _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
     out = torch.empty_like(q)
     _launch(name, "wtt_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            pad_len.data_ptr() if pad_len is not None else None,
+            None, pad_len.data_ptr() if pad_len is not None else None,
             B, Sq, Sk, D, n_head, int(causal), HEAD_DIM**-0.5, _stream(q))
     return out
 
@@ -935,18 +936,39 @@ def _check_train_flash(name: str, q, k, v, n_head: int, *more) -> None:
 def flash_attention_fwd(q, k, v, n_head: int):
     """The training forward (see ``flash_attention_fwd_plain``): out and the
     rows' log-sum-exp, which the backward reads. On CUDA: f32 or bf16
-    q/k/v, head width 64, contiguous. Returns (out (B, Sq, D) in q's dtype,
-    lse (B, H, Sq) f32)."""
+    q/k/v, head width 64, contiguous, 16-byte aligned (TMA reads them): one
+    launch of ``flash_attention``'s kernel with its lse output for bf16, or
+    for f32 a split pass and the 3xTF32 kernel (``csrc/flash_attn_fwd_lse.cu``).
+    Returns (out (B, Sq, D) in q's dtype, lse (B, H, Sq) f32)."""
     name = "flash_attention_fwd"
     if not _on_cuda(name, q, k, v):
         return flash_attention_fwd_plain(q, k, v, n_head)
     _check_train_flash(name, q, k, v, n_head)
+    return _flash_fwd(q, k, v, n_head)
+
+
+def _flash_fwd(q, k, v, n_head: int):
+    """One launch of the training forward on checked inputs (q, k and v,
+    which it reads by TMA, 16-byte aligned: checked here): bf16 through
+    ``flash_attention``'s entry point with an lse pointer and no mask; f32
+    through ``wtt_flash_attention_fwd``, with the split pass's scratch (the
+    tf32 hi and lo of K (B, Sk, D) and of V's transpose (B, D, Sk rounded up
+    to 8))."""
+    name = "flash_attention_fwd"
+    _expect(name, _aligned(q, k, v), "inputs must be 16-byte aligned")
     B, Sq, D = q.shape
+    Sk = k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((B, n_head, Sq), dtype=torch.float32, device=q.device)
-    _launch(name, "wtt_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, Sq, k.shape[1], D, n_head,
-            int(q.dtype == torch.bfloat16), HEAD_DIM**-0.5, _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if q.dtype == torch.bfloat16:
+        _launch(name, "wtt_flash_attention", *args, None, B, Sq, Sk, D, n_head, 0,
+                HEAD_DIM**-0.5, _stream(q))
+    else:
+        Skp = -(-Sk // 8) * 8  # V's transpose's keys, padded as the C entry pads them
+        split = torch.empty(2 * B * D * (Sk + Skp), dtype=torch.float32, device=q.device)
+        _launch(name, "wtt_flash_attention_fwd", *args, split.data_ptr(), B, Sq, Sk, D, n_head,
+                HEAD_DIM**-0.5, _stream(q))
     return out, lse
 
 
