@@ -89,7 +89,23 @@ phases have run, so their lines are printed too):
       torch.profiler (device busy as the union of the kernels' intervals,
       the flash kernels' share, the forward's split pass and kernel
       apart); and the step
-      with each layer read as ``w[l]`` instead of ``unbind``.
+      with each layer read as ``w[l]`` instead of ``unbind``;
+  (n) voice activity detection: a seeded silero v5 ``.jit`` written to a
+      temporary directory and named by ``SILERO_VAD_PATH``; the silero
+      module on the card (its tensors there) against the torchscript model
+      on the CPU on 2,000 seeded chunks with TF32 allowed in cuBLAS and
+      cuDNN around the call (1e-4), and its time on one hour of audio;
+      ``transcribe_timestamped`` on 60 s of speech blocks and silences with
+      explicit pairs, ``auditok`` and ``silero``, ``transcribe_batch`` of 8
+      such streams and ``transcribe_batch_stream`` over two batches of 4
+      with ``silero``: ``speech_activity``, every word inside a span or past
+      the last one, the kernels launched, the batch's spans and words equal
+      to each stream's alone, the stream's equal to the batch's;
+  (o) the weight levers on one B=8 batch of (f)'s streams: bf16,
+      ``w_int8``, ``enc_int8``, and both with ``kv_int8``: words, the decode
+      kernels launched, ms/step, the encoder's ms at B=8, peak memory; the
+      engines' int8 codes equal to a CPU quantization of the same weights,
+      ``model.module`` unchanged; one linear of each kind timed alone.
 
 (c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
 lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
@@ -2696,6 +2712,491 @@ def phase_profile(torch, model, tok, B: int, **levers):
         print(f"[p]   {ms:9.3f} ms {n:6d}x  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# (n) voice activity detection, (o) the weight levers
+# ---------------------------------------------------------------------------
+
+
+def write_silero_jit(torch, path: str, seed: int = 5) -> str:
+    """A seeded torchscript model with the published silero-vad v5 ``.jit``'s
+    state_dict schema and forward (a 576-sample frame with the previous
+    chunk's last 64 samples, the STFT as a (258, 1, 256) conv at stride 128,
+    four reparam convs, an ``LSTMCell(128, 128)`` carried across calls, a
+    (1, 128, 1) conv head and a sigmoid), its weights set so that it answers
+    loudness: the STFT basis random, the encoder convs non-negative without
+    biases (features proportional to the amplitude), the LSTM's cell gate
+    reading the features' mean (input and output gates open, forget gate
+    shut, small random recurrent weights), the head's bias -4. Silence then
+    scores ~0.02 and the speech blocks of ``speech_blocks`` near 1."""
+    import numpy as np
+    import torch.nn as nn
+
+    class Stft(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("forward_basis_buffer", torch.zeros(258, 1, 256))
+
+        def forward(self, x):
+            out = nn.functional.conv1d(x[:, None, :], self.forward_basis_buffer, stride=128)
+            return torch.sqrt(out[:, :129] ** 2 + out[:, 129:] ** 2 + 1e-12)
+
+    class EncBlock(nn.Module):
+        def __init__(self, cin: int, cout: int, stride: int):
+            super().__init__()
+            self.reparam_conv = nn.Conv1d(cin, cout, 3, stride=stride, padding=1)
+
+        def forward(self, x):
+            return torch.relu(self.reparam_conv(x))
+
+    class Decoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.rnn = nn.LSTMCell(128, 128)
+            self.decoder = nn.Sequential(nn.Identity(), nn.ReLU(), nn.Conv1d(128, 1, 1),
+                                         nn.Sigmoid())
+
+    class Inner(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stft = Stft()
+            self.encoder = nn.Sequential(EncBlock(129, 128, 1), EncBlock(128, 64, 2),
+                                         EncBlock(64, 64, 2), EncBlock(64, 128, 1))
+            self.decoder = Decoder()
+
+    class SileroV5(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self._model = Inner()
+            self.register_buffer("_h", torch.zeros(1, 128))
+            self.register_buffer("_c", torch.zeros(1, 128))
+            self.register_buffer("_ctx", torch.zeros(64))
+
+        @torch.jit.export
+        def reset_states(self):
+            self._h.zero_()
+            self._c.zero_()
+            self._ctx.zero_()
+
+        def forward(self, x, sr: int):
+            frame = torch.cat([self._ctx, x])[None]
+            feat = self._model.encoder(self._model.stft(frame)).mean(dim=-1)
+            h, c = self._model.decoder.rnn(feat, (self._h, self._c))
+            self._h.copy_(h)
+            self._c.copy_(c)
+            self._ctx.copy_(x[-64:])
+            return self._model.decoder.decoder(h[:, :, None]).reshape(())
+
+    g = torch.Generator().manual_seed(seed)
+    model = SileroV5().eval()
+    inner, H = model._model, 128
+    with torch.no_grad():
+        inner.stft.forward_basis_buffer.copy_(torch.randn(258, 1, 256, generator=g) * 0.1)
+        for block in inner.encoder:
+            block.reparam_conv.weight.copy_(
+                torch.randn(block.reparam_conv.weight.shape, generator=g).abs()
+                * block.reparam_conv.weight.shape[1] ** -0.5)
+            block.reparam_conv.bias.zero_()
+        # the mean feature of one normalized speech block calibrates the cell gate
+        audio, spans = speech_blocks(seed)
+        start = int(spans[0][0] * 16000)
+        a = audio[start: start + 64 * 512] / np.abs(audio).max()
+        x = torch.cat([torch.zeros(64), torch.from_numpy(a)])
+        mean = inner.encoder(inner.stft(x.unfold(0, 576, 512))).mean()
+        rnn = inner.decoder.rnn
+        rnn.weight_ih.zero_()
+        rnn.weight_ih[2 * H:3 * H] = 3.0 / (H * float(mean))
+        rnn.weight_hh.copy_(torch.randn(4 * H, H, generator=g) * 0.02)
+        rnn.bias_ih.zero_()
+        rnn.bias_ih[:H], rnn.bias_ih[H:2 * H], rnn.bias_ih[3 * H:] = 8.0, -8.0, 8.0
+        rnn.bias_hh.zero_()
+        inner.decoder.decoder[2].weight.fill_(10.0 / H)
+        inner.decoder.decoder[2].bias.fill_(-4.0)
+    torch.jit.script(model).save(path)
+    return path
+
+
+def speech_blocks(seed: int, seconds: int = 60, rate: int = 16000):
+    """``seconds`` of seeded audio: speech-like blocks (``make_audio``'s
+    tone and noise) of 4-9 s with silences of 1.5-3.5 s between them (a
+    1e-3 noise floor). Returns (audio, [(start, end) seconds of each
+    block])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    audio = (1e-3 * rng.standard_normal(rate * seconds)).astype(np.float32)
+    spans, t = [], float(rng.uniform(0.5, 2.0))
+    while t < seconds - 2:
+        dur = min(float(rng.uniform(4, 9)), seconds - t)
+        block = make_audio(seed * 7 + len(spans), int(np.ceil(dur)))[: int(dur * rate)]
+        audio[int(t * rate): int(t * rate) + len(block)] = block
+        spans.append((round(t, 3), round(t + len(block) / rate, 3)))
+        t += dur + float(rng.uniform(1.5, 3.5))
+    return audio, spans
+
+
+def words_in_speech(res: dict):
+    """(words inside a ``speech_activity`` span, words past the last span,
+    words elsewhere). A time past the speech audio's end maps past the last
+    span, unclamped, as the reference maps it (``vad.do_convert_timestamps``):
+    random weights put timestamps anywhere in a window."""
+    spans = res["speech_activity"]
+    inside = past = other = 0
+    for seg in res["segments"]:
+        for w in seg.get("words", []):
+            if any(sp["start"] - 0.01 <= w["start"] <= w["end"] <= sp["end"] + 0.01 for sp in spans):
+                inside += 1
+            elif w["start"] >= spans[-1]["end"] - 0.01:
+                past += 1
+            else:
+                other += 1
+    return inside, past, other
+
+
+VAD_KERNELS = ("log10_mel", "flash_attention", "xattn_decode", "self_attn_decode")
+
+
+def phase_vad(torch, K, model, tok):
+    """(n): voice activity detection on the large-v3 model. A seeded silero
+    v5 ``.jit`` (``write_silero_jit``) under ``SILERO_VAD_PATH``, 60 s
+    streams of speech blocks and silences (``speech_blocks``), 64-token
+    windows. ``transcribe_timestamped`` with explicit pairs (the blocks),
+    ``"auditok"`` and ``"silero"``; ``transcribe_batch`` of 8 streams with
+    ``"silero"`` against each stream alone through ``transcribe_batch`` (the
+    same speech spans, which are ``remove_non_speech``'s, and words) and
+    against ``transcribe_timestamped`` (the same speech spans; the tokens,
+    decoded at B=1 where the batch decodes at B=8, are compared and
+    printed, not held: bf16 products of the two batch sizes round
+    differently, so random weights' tokens and word times part ways,
+    without VAD too, which the phase prints for one stream);
+    ``transcribe_batch_stream`` over two batches of 4 against
+    ``transcribe_batch``. Each run: ``speech_activity`` present, every word
+    inside a span or past the last one, ``log10_mel``, ``flash_attention``,
+    ``xattn_decode`` and ``self_attn_decode`` launched (counters reset just
+    before, read just after). The silero module: its parameters on the card,
+    its probabilities on 2,000 seeded chunks within 1e-4 of the torchscript
+    model's on the CPU with TF32 allowed in cuBLAS and cuDNN around the call,
+    and its time on one hour of audio (112,500 chunks)."""
+    import numpy as np
+
+    from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_batch_stream, transcribe_timestamped
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.models import silero as S
+    from whisper_timestamped_tpu_torch.vad import remove_non_speech
+
+    device = model.device
+    work = tempfile.mkdtemp(prefix="wtt_vad_")
+    saved_env = os.environ.get("SILERO_VAD_PATH")
+    try:
+        path = write_silero_jit(torch, os.path.join(work, "silero_vad.jit"))
+        os.environ["SILERO_VAD_PATH"] = path
+        t0 = time.perf_counter()
+        fn = S._cached_prob_model(path, device)
+        load_s = time.perf_counter() - t0
+        if not getattr(fn, "is_module", False):
+            fail("[n] the silero .jit did not load into the module")
+        module = fn.module
+        places = {t.device.type for t in list(module.parameters()) + list(module.buffers())}
+        if places != {"cuda"}:
+            fail(f"[n] the silero module's tensors are on {places}, not the card")
+
+        # the f32 guard: TF32 allowed globally around the module's call
+        rng = np.random.default_rng(21)
+        chunks = (rng.standard_normal((2000, 512))
+                  * np.exp(rng.uniform(-7, 0, (2000, 1)))).astype(np.float32)
+        want = S.load_torchscript_prob_model(path)(chunks, 16000)
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        try:
+            got = fn(chunks, 16000)
+            flags_after = (cudnn.allow_tf32, matmul.allow_tf32)
+        finally:
+            cudnn.allow_tf32 = matmul.allow_tf32 = False
+        err = float(np.abs(got - want).max())
+        spread = np.histogram(want, bins=4, range=(0, 1))[0].tolist()
+        if not err <= 1e-4 or flags_after != (True, True):
+            fail(f"[n] silero module on the card vs torchscript on the CPU, TF32 allowed: max abs "
+                 f"err {err:.3g} (limit 1e-4), flags after the call {flags_after}")
+        print(f"[n] silero module loaded and checked against torchscript in {load_s:.2f} s; on "
+              f"the card with TF32 allowed around it, 2000 chunks: max abs err {err:.3g} vs the "
+              f"torchscript model on the CPU (limit 1e-4; probabilities by quarter {spread})")
+
+        # one hour of audio
+        hour = torch.randn((112_500, 512), generator=torch.Generator(device=device).manual_seed(3),
+                           device=device) * 0.1
+        module(hour[:1000])
+        torch.cuda.synchronize()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        with torch.no_grad(), S._strict_f32():
+            module.features(hour)
+        e[1].record()
+        probs = module(hour)
+        e[2].record()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(probs).all()):
+            fail("[n] silero probabilities over an hour are not finite")
+        print(f"[n] silero on one hour of audio (112500 chunks of 512 samples) on the card: "
+              f"{e[1].elapsed_time(e[2]):.1f} ms (its STFT and encoder alone "
+              f"{e[0].elapsed_time(e[1]):.1f} ms; the rest is the LSTM's 112500 steps)")
+        del hour, probs
+
+        kw = dict(tokenizer=tok, suppress_tokens=f"-1,{tok.eot}", sample_len=64, **SMOKE_OPTIONS)
+        audio, blocks = speech_blocks(0)
+
+        def checked(label, res, launches, wall=None):
+            """Checks one result; prints its line when given its wall time,
+            else returns (words, inside a span, past the last)."""
+            if "speech_activity" not in res or not res["speech_activity"]:
+                fail(f"[n] {label}: no speech_activity")
+            n = check_result(res)
+            inside, past, other = words_in_speech(res)
+            if not n or other:
+                fail(f"[n] {label}: {n} words, {other} outside the speech spans "
+                     f"(spans {res['speech_activity']})")
+            missing = [k for k in VAD_KERNELS if not launches[k]]
+            if missing:
+                fail(f"[n] {label}: {missing} not launched: {launches}")
+            if wall is None:
+                return n, inside, past
+            print(f"[n] {label}: {wall:.2f} s, {len(res['speech_activity'])} speech spans, {n} "
+                  f"words ({inside} inside a span, {past} past the last); launches "
+                  + ", ".join(f"{k} {launches[k]}" for k in VAD_KERNELS))
+
+        transcribe_timestamped(model, make_audio(0, 3), vad="silero", **{**kw, "sample_len": 4})
+        serial = {}
+        for label, vad in (("explicit pairs", blocks), ("auditok", "auditok"), ("silero", "silero")):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            res = transcribe_timestamped(model, audio, vad=vad, **kw)
+            torch.cuda.synchronize()
+            checked(f"transcribe_timestamped, 60 s, vad={label}", res, dict(K.LAUNCHES),
+                    time.perf_counter() - t0)
+            serial[label] = res
+        if len(serial["explicit pairs"]["speech_activity"]) != len(blocks):
+            fail(f"[n] explicit pairs: speech_activity {serial['explicit pairs']['speech_activity']} "
+                 f"for the blocks {blocks}")
+
+        streams = {f"n{j}": speech_blocks(j)[0] for j in range(8)}
+        bkw = dict(batch_size=8, temperature=[0.0], vad="silero", **SMOKE_OPTIONS,
+                   decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}", sample_len=64))
+        engine = DecodeEngine(model, tok)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        batch = transcribe_batch(model, streams, tok, engine=engine, **bkw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        tally = [checked(f"transcribe_batch stream {name}", batch[name], launches)
+                 for name in streams]
+
+        def words(res):
+            return [(w["text"], w["start"], w["end"]) for s in res["segments"]
+                    for w in s.get("words", [])]
+
+        # each stream alone through transcribe_batch (the same B=8 products):
+        # the same speech spans and words; the spans also equal
+        # remove_non_speech's on the stream
+        t0 = time.perf_counter()
+        for name, a in streams.items():
+            alone = transcribe_batch(model, {name: a}, tok, engine=engine, **bkw)[name]
+            spans = remove_non_speech(a, method="silero", avoid_empty_speech=True,
+                                      device=device)[1]
+            if (alone["speech_activity"] != batch[name]["speech_activity"]
+                    or [(sp["start"], sp["end"]) for sp in alone["speech_activity"]] != spans):
+                fail(f"[n] {name}: speech_activity differs between the batch, the stream alone "
+                     f"and remove_non_speech")
+            if words(alone) != words(batch[name]):
+                fail(f"[n] {name}: the batch's words differ from the stream's alone")
+        alone_s = time.perf_counter() - t0
+        # transcribe_timestamped decodes at B=1: its bf16 products round
+        # otherwise than B=8's, so random weights' tokens and word times part
+        # ways (as they do without VAD); its speech spans must be the batch's
+        one = serial["silero"]
+        if one["speech_activity"] != batch["n0"]["speech_activity"]:
+            fail("[n] n0: the batch's speech_activity differs from transcribe_timestamped's")
+
+        def tokens(res):
+            return [t for s in res["segments"] for t in s["tokens"]]
+
+        def agree(x, y):
+            return (next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y))),
+                    len(x), len(y))
+
+        # the same comparison without VAD: B=1 against B=8 alone
+        a0 = streams["n0"]
+        plain = agree(tokens(transcribe_timestamped(model, a0, **kw)),
+                      tokens(transcribe_batch(model, {"n0": a0}, tok, engine=engine,
+                                              **{**bkw, "vad": False})["n0"]))
+        with_vad = agree(tokens(one), tokens(batch["n0"]))
+        print(f"[n] transcribe_batch, 8 streams of 60 s, vad=silero, B=8: {wall:.2f} s, "
+              f"{sum(t[0] for t in tally)} words ({sum(t[1] for t in tally)} inside a span, "
+              f"{sum(t[2] for t in tally)} past the last); launches "
+              + ", ".join(f"{k} {launches[k]}" for k in VAD_KERNELS)
+              + f"; each stream alone through transcribe_batch gives the same speech spans "
+              f"and words, the spans remove_non_speech's ({alone_s:.2f} s); n0 against "
+              f"transcribe_timestamped (B=1): the same speech spans, the first {with_vad[0]} "
+              f"of {with_vad[1]} / {with_vad[2]} tokens equal (without VAD: {plain[0]} of "
+              f"{plain[1]} / {plain[2]})")
+
+        halves = [dict(list(streams.items())[:4]), dict(list(streams.items())[4:])]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = list(transcribe_batch_stream(model, iter(halves), tok, engine=engine, **bkw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        if [list(r) for r in got] != [list(h) for h in halves]:
+            fail("[n] the stream's results are not the batches' streams, in order")
+        for res in got:
+            for name, r in res.items():
+                checked(f"transcribe_batch_stream {name}", r, launches)
+                if words(r) != words(batch[name]):
+                    fail(f"[n] {name}: the stream's words differ from transcribe_batch's")
+        print(f"[n] transcribe_batch_stream, 2 batches x 4 streams, vad=silero: {wall:.2f} s; "
+              f"launches " + ", ".join(f"{k} {launches[k]}" for k in VAD_KERNELS)
+              + "; the words equal transcribe_batch's")
+    finally:
+        if saved_env is None:
+            os.environ.pop("SILERO_VAD_PATH", None)
+        else:
+            os.environ["SILERO_VAD_PATH"] = saved_env
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def int8_bytes(view) -> int:
+    """Bytes of the int8 copies (codes and scales) an engine built."""
+    from whisper_timestamped_tpu_torch.models.whisper_torch import Int8Weight
+
+    qs = [v for v in view.encoder.values() if isinstance(v, Int8Weight)]
+    qs += list(view.decoder.get("blocks_w8", {}).values())
+    qs += [view.decoder["logits_w8"]] if "logits_w8" in view.decoder else []
+    return sum(q.w8.numel() + 4 * q.s.numel() for q in qs)
+
+
+def phase_weight_levers(torch, K, model, tok):
+    """(o): the weight levers on one B=8 batch of (f)'s first streams (5-35
+    s, EOT suppressed): a bf16 engine, ``w_int8``, ``enc_int8``, and both
+    with ``kv_int8``. Each run: words, the decode kernels launched at least
+    32 times a step (``xattn_decode_int8`` in place of ``xattn_decode``
+    under ``kv_int8``), ``flash_attention`` in the encoder; its ms/step, the
+    encoder's ms at B=8 (CUDA events, the engine's parameters), the peak
+    memory with the engine's copies and the copies' bytes. The engines' int8
+    codes and scales equal a CPU quantization of the same weights, bit for
+    bit, and ``model.module``'s tensors are unchanged after all runs."""
+    from whisper_timestamped_tpu_torch import transcribe_batch
+    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.models.whisper_torch import encode, quantize_linear
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    module, n_layer = model.module, model.dims.n_text_layer
+    before = {(side, k): v.clone() for side, pd in (("enc", module.encoder), ("dec", module.decoder))
+              for k, v in pd.items()}
+    secs = [35, 5, 12, 20, 8, 27, 15, 30]
+    batch = {f"o{j}": make_audio(j, sec) for j, sec in enumerate(secs)}
+    kw = dict(batch_size=8, temperature=[0.0], **SMOKE_OPTIONS,
+              decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}"))
+    mels = torch.stack([log_mel_spectrogram(torch.from_numpy(make_audio(50 + j, 30)),
+                                            n_mels=model.dims.n_mels, device=model.device)[:, :3000]
+                        for j in range(8)])
+    runs = (("bf16", {}), ("w_int8", dict(w_int8=True)), ("enc_int8", dict(enc_int8=True)),
+            ("w_int8+enc_int8+kv_int8", dict(w_int8=True, enc_int8=True, kv_int8=True)))
+    tokens = {}
+    for label, levers in runs:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = DecodeEngine(model, tok, **levers)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        view = engine.model.module
+        copies_gb = int8_bytes(view) / 1e9 if levers else 0.0
+        if levers.get("w_int8") or levers.get("enc_int8"):
+            checks = []
+            if levers.get("w_int8"):
+                checks += [(view.decoder["blocks_w8"][n][l], module.decoder[n][l])
+                           for n, l in (("fc1_w", 0), ("attn_q_w", n_layer - 1),
+                                        ("cross_o_w", n_layer // 2))]
+                checks.append((view.decoder["logits_w8"], module.decoder["tok_emb"]))
+            if levers.get("enc_int8"):
+                checks += [(view.encoder[n][l], module.encoder[n][l])
+                           for n, l in (("fc2_w", 0), ("attn_k_w", model.dims.n_audio_layer - 1))]
+            for q, w in checks:
+                ref = quantize_linear(w.cpu())
+                if not (torch.equal(q.w8.cpu(), ref.w8) and torch.equal(q.s.cpu(), ref.s)):
+                    fail(f"[o] {label}: the engine's int8 codes or scales differ from a CPU "
+                         f"quantization of the same weights")
+        enc_ms = cuda_time_ms(lambda it=0: encode(view, mels), iters=5)
+        transcribe_batch(model, {f"w{j}": make_audio(90 + j, 3) for j in range(8)}, tok,
+                         engine=engine, **{**kw, "decode_options": DecodingOptions(
+                             suppress_tokens=f"-1,{tok.eot}", sample_len=4)})
+        torch.cuda.synchronize()
+        reset_stage_timings()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = transcribe_batch(model, batch, tok, engine=engine, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        steps = get_counts().get("decode_steps", 0)
+        ms_step = 1e3 * get_stage_timings()["decode_loop"]["total_s"] / max(steps, 1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_words = sum(check_result(r) for r in res.values())
+        cross = "xattn_decode_int8" if levers.get("kv_int8") else "xattn_decode"
+        other = "xattn_decode" if levers.get("kv_int8") else "xattn_decode_int8"
+        if not n_words:
+            fail(f"[o] {label}: no words")
+        if (launches[cross] < n_layer * steps or launches["self_attn_decode"] < n_layer * steps
+                or launches[other] or not launches["flash_attention"]):
+            fail(f"[o] {label}: launches for {steps} steps: {launches}")
+        tokens[label] = [s["tokens"] for r in res.values() for s in r["segments"]]
+        same = "" if label == "bf16" else (
+            f"; tokens {'equal to' if tokens[label] == tokens['bf16'] else 'differ from'} bf16's")
+        print(f"[o] {label}: engine built in {build_s:.2f} s (int8 copies {copies_gb:.3f} GB), "
+              f"transcribe_batch of 8 streams ({sum(secs)} s), B=8: {wall:.2f} s, {steps} steps, "
+              f"decode loop {ms_step:.2f} ms/step, encoder at B=8 {enc_ms:.2f} ms, peak memory "
+              f"{peak_gb:.2f} GB, {n_words} words{same}; launches {cross} {launches[cross]}, "
+              f"self_attn_decode {launches['self_attn_decode']}, flash_attention "
+              f"{launches['flash_attention']}")
+        del engine, view, res
+    # one linear of each kind alone: the encoder's fc1 at B=8 (12000 tokens),
+    # the decode step's fc1 at B=8 (8 rows)
+    import whisper_timestamped_tpu_torch.models.whisper_torch as wt
+
+    g = torch.Generator(device=model.device).manual_seed(8)
+    w, bias = module.encoder["fc1_w"][0], module.encoder["fc1_b"][0]
+    q = quantize_linear(w, act_int8=True)
+    x = torch.randn((8 * 1500, w.shape[1]), generator=g, device=model.device).to(w.dtype)
+    x8 = torch.round(x.float() * 10).clamp(-127, 127).to(torch.int8)
+    t_enc = (cuda_time_ms(lambda it=0: torch.nn.functional.linear(x, w, bias)),
+             cuda_time_ms(lambda it=0: wt._linear_w8a8(x, q, bias)),
+             cuda_time_ms(lambda it=0: torch._int_mm(x8, q.w8.t())))
+    wd, bd = module.decoder["fc1_w"][0], module.decoder["fc1_b"][0]
+    qd = quantize_linear(wd)
+    xd = torch.randn((8, 1, wd.shape[1]), generator=g, device=model.device).to(wd.dtype)
+    t_dec = (cuda_time_ms(lambda it=0: torch.nn.functional.linear(xd, wd, bd)),
+             cuda_time_ms(lambda it=0: wt._linear_w8(xd, qd, bd)))
+    print(f"[o] one linear alone (CUDA events): the encoder's fc1 on 12000 x {w.shape[1]} -> "
+          f"{w.shape[0]}: bf16 F.linear {t_enc[0]:.4f} ms, W8A8 {t_enc[1]:.4f} ms (its "
+          f"torch._int_mm alone {t_enc[2]:.4f} ms); the decode step's fc1 on 8 rows: bf16 "
+          f"{t_dec[0]:.4f} ms, weight-only int8 {t_dec[1]:.4f} ms")
+    del x, x8, xd, q, qd
+
+    after = {(side, k): v for side, pd in (("enc", module.encoder), ("dec", module.decoder))
+             for k, v in pd.items()}
+    if list(after) != list(before) or not all(
+            after[k].dtype == before[k].dtype and torch.equal(after[k], before[k]) for k in before):
+        fail("[o] model.module's tensors changed")
+    print(f"[o] model.module unchanged ({len(before)} tensors equal to their copies from before "
+          f"the runs); the int8 codes and scales equal a CPU quantization of the same weights")
+    del before, after, mels
+
+
 def main() -> int:
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2782,6 +3283,11 @@ def main() -> int:
     train_launches = phase_train(torch, K, device)
     for name in TRAIN_PATH:
         launches[name] = train_launches[name]
+    torch.cuda.empty_cache()
+    phase_vad(torch, K, model, tok)
+    torch.cuda.empty_cache()
+    phase_weight_levers(torch, K, model, tok)
+    torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):
             phase_profile(torch, model, tok, B, **levers)

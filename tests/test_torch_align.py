@@ -6,6 +6,8 @@ plain versions + backtrace) must give the words of the JAX host path, as
 test_device_align.py holds the JAX device aligner to it (timestamps within
 one 20 ms frame)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -113,8 +115,17 @@ def test_device_aligner_words_match_jax_host(name):
         assert a["end"] == pytest.approx(b["end"], abs=0.021)
 
 
-def test_empty_plan_and_unported_options():
+def test_empty_plan_and_unported_options(tmp_path):
+    """An empty plan gives no task. ``plot``, once refused, now draws: the
+    words equal JAX's and both write the same figure (a path prefix)."""
+    from whisper_timestamped_tpu import plotting as jax_plotting
+    from whisper_timestamped_tpu_torch import plotting
+
     assert make_task([TS + 5, TS + 5], 0, [0, 1], TOK_T) is None
-    tokens, attn, _ = _case("plain")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TA.perform_word_alignment(tokens, attn, TOK_T, plot=True)
+    tokens, attn, kw = _case("plain")
+    plotting.reset_plot_counter()  # figures are numbered per process until a reset
+    jax_plotting.reset_plot_counter()
+    wt = TA.perform_word_alignment(tokens, attn, TOK_T, plot=str(tmp_path / "ours"), **kw)
+    wj = JA.perform_word_alignment(tokens, attn, TOK_J, plot=str(tmp_path / "jax"), **kw)
+    assert wt == wj and wt
+    assert sorted(os.listdir(tmp_path)) == ["jax.alignment001.jpg", "ours.alignment001.jpg"]

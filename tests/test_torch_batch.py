@@ -383,10 +383,23 @@ NOT_PORTED = {
 
 @pytest.mark.parametrize("option", sorted(NOT_PORTED))
 def test_unported_options_raise(models, option):
-    _, model = models
+    """A mesh is refused. ``vad``, once refused, now runs: the batch's
+    results equal JAX's ``transcribe_batch`` with the same VAD, with each
+    stream's ``speech_activity`` (test_torch_vad.py holds more cases)."""
+    jax_model, model = models
     kw = {**KW, **NOT_PORTED[option]}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        B.transcribe_batch(model, {"a": _audio(5, 2)}, _tok(), **kw)
+    if option == "mesh":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            B.transcribe_batch(model, {"a": _audio(5, 2)}, _tok(), **kw)
+        return
+    audios = {"a": _audio(5, 2), "b": _audio(1, 5)}
+    got = B.transcribe_batch(model, audios, _tok(), device_alignment=True, **kw)
+    want = JB.transcribe_batch(jax_model, audios, make_tokenizer(language="en", task="transcribe"),
+                               device_alignment=True, **kw)
+    assert list(got) == list(want)
+    for name in audios:
+        assert got[name]["speech_activity"] == want[name]["speech_activity"], name
+        assert loose(got[name]) == loose(want[name]), name
 
 
 def test_unported_transcriber_options_and_fallback_raise(models, monkeypatch):

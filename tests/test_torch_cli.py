@@ -173,12 +173,42 @@ def test_cli_batch_size_matches_serial(ckpt, tmp_path):
     (["--vad", "True"], "vad"),
     (["--plot"], "plot"),
 ])
-def test_cli_refuses_unported_options(ckpt, tmp_path, flags, option):
-    """Options whose engines are not ported raise, naming the option."""
+def test_cli_refuses_unported_options(ckpt, tmp_path, monkeypatch, flags, option):
+    """``--vad`` and ``--plot``, once refused, now run and match JAX's CLI:
+    ``--vad True`` (silero, the fake v5 weights of test_vad.py through
+    ``SILERO_VAD_PATH``) gives the same words JSON under ``loose``, with
+    ``speech_activity``; bare ``--plot`` with ``-o`` saves the same figure
+    files next to the outputs."""
+    from test_vad import _make_fake_silero_jit
+
     path, wavs = ckpt
-    with pytest.raises(NotImplementedError, match=f"({option}).* not yet ported"):
-        cli.main([*wavs[:2], "--model", path, "--device", "cpu", "-o", str(tmp_path), *QUIET,
-                  *flags])
+    monkeypatch.setenv("SILERO_VAD_PATH", _make_fake_silero_jit(tmp_path))
+    for name, main in (("ours", cli.main), ("jax", jax_cli.main)):
+        main([*wavs[:2], "--model", path, "--device", "cpu", "-o", str(tmp_path / name), *QUIET,
+              *flags])
+    ours, theirs = _outputs(tmp_path / "ours"), _outputs(tmp_path / "jax")
+    assert sorted(ours) == sorted(theirs)
+    for wav in wavs[:2]:
+        name = os.path.basename(wav) + ".words.json"
+        a, b = (json.loads(d[name].decode("utf-8")) for d in (ours, theirs))
+        assert loose(a) == loose(b)
+        assert ("speech_activity" in a) == (option == "vad")
+    figures = [n for n in ours if n.endswith(".jpg")]
+    assert (len(figures) > 0) == (option == "plot")
+
+
+def test_cli_plot_dir_matches_jax(ckpt, tmp_path):
+    """``--plot DIR`` saves each file's figures under DIR, named after the
+    audio (the alignments and, with ``--vad``, the VAD overlay): the same
+    files as JAX's CLI."""
+    path, wavs = ckpt
+    for name, main in (("ours", cli.main), ("jax", jax_cli.main)):
+        main([wavs[0], "--model", path, "--device", "cpu", "-o", str(tmp_path / (name + "_out")),
+              *QUIET, "--vad", "auditok", "--plot", str(tmp_path / name)])
+    ours = sorted(os.listdir(tmp_path / "ours"))
+    assert ours == sorted(os.listdir(tmp_path / "jax"))
+    base = os.path.basename(wavs[0])
+    assert base + ".VAD.jpg" in ours and base + ".alignment001.jpg" in ours
 
 
 SAMPLING_FLAGS = {

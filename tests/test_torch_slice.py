@@ -230,30 +230,61 @@ def test_align_words_whole_windows_matches_jax(detect_disfluencies):
 
 
 NOT_PORTED = {
-    "vad": dict(vad="auditok"),
-    "plot_word_alignment": dict(plot_word_alignment=True),
+    "vad": dict(vad="auditok", verbose=True),
+    "plot_word_alignment": dict(detect_disfluencies=True, trust_whisper_timestamps=False),
 }
 
 
 @pytest.mark.parametrize("option", sorted(NOT_PORTED))
-def test_unported_options_raise(models, option):
-    _, model = models
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        transcribe_timestamped(model, np.zeros(16000, np.float32), language="en",
-                               tokenizer=_tok(), **NOT_PORTED[option])
+def test_unported_options_raise(models, option, tmp_path, capsys):
+    """``vad`` and ``plot_word_alignment``, once refused, now run: the
+    port's result and stdout equal JAX's (result under ``loose``), with
+    ``speech_activity`` under ``vad``; ``plot_word_alignment`` given a path
+    prefix writes the same figure files as JAX's (the per-segment route
+    and the whole-window route, with disfluency peaks)."""
+    jax_model, model = models
+    audio = _audio(7, 7)
+    kw = dict(language="en", no_speech_threshold=None, logprob_threshold=None,
+              compression_ratio_threshold=None, **NOT_PORTED[option])
+    outs = []
+    for name, fn, m, tok in (("ours", transcribe_timestamped, model, _tok()),
+                             ("jax", jax_transcribe, jax_model, make_tokenizer())):
+        if option == "plot_word_alignment":
+            kw["plot_word_alignment"] = str(tmp_path / name)
+        outs.append((fn(m, audio, tokenizer=tok, device_alignment=True, **kw),
+                     capsys.readouterr().out))
+        if option == "plot_word_alignment":  # the per-segment route too
+            kw_seg = {**kw, "trust_whisper_timestamps": True,
+                      "plot_word_alignment": str(tmp_path / (name + "_seg"))}
+            fn(m, audio, tokenizer=tok, device_alignment=True, **kw_seg)
+    (ours, out_t), (theirs, out_j) = outs
+    assert loose(_norm(ours)) == loose(_norm(theirs)) and out_t == out_j
+    if option == "vad":
+        assert ours["speech_activity"] == theirs["speech_activity"] and out_t
+    else:
+        files = sorted(os.listdir(tmp_path))
+        figs = [f for f in files if f.startswith("ours")]
+        assert len(figs) > 2
+        assert files == sorted(figs + [f.replace("ours", "jax", 1) for f in figs])
 
 
 @pytest.mark.parametrize("lever", ["kv_int8", "kv_int4", "self_kv_int8", "w_int8", "enc_int8", "mesh"])
 def test_unported_engine_levers_raise(models, lever):
-    """The engine options not yet ported raise. The KV-cache levers are
-    ported now: the engine takes them (their decode is held to the JAX
-    package in test_torch_quant.py)."""
+    """The engine takes the KV-cache and weight levers (their decodes are
+    held to the JAX package in test_torch_quant.py); the weight levers
+    give the engine int8 copies beside the caller's module. A mesh is not
+    ported and raises."""
     _, model = models
-    if lever in ("kv_int8", "kv_int4", "self_kv_int8"):
-        assert getattr(DecodeEngine(model, _tok(), **{lever: True}), lever)
+    if lever == "mesh":
+        with pytest.raises(NotImplementedError, match="mesh"):
+            DecodeEngine(model, _tok(), mesh=object())
         return
-    with pytest.raises(NotImplementedError, match=lever):
-        DecodeEngine(model, _tok(), **{lever: True if lever != "mesh" else object()})
+    engine = DecodeEngine(model, _tok(), **{lever: True})
+    assert getattr(engine, lever)
+    if lever in ("w_int8", "enc_int8"):
+        assert engine.model.module is not model.module
+        assert ("blocks_w8" in engine.model.module.decoder) == (lever == "w_int8")
+        assert "blocks_w8" not in model.module.decoder
 
 
 def test_port_imports_without_jax():
@@ -268,6 +299,9 @@ def test_port_imports_without_jax():
         "import whisper_timestamped_tpu_torch.normalizers, whisper_timestamped_tpu_torch as wtt\n"
         "wtt.decode, wtt.model, wtt.utils.get_writer, wtt.normalizers, wtt._download\n"
         "import whisper_timestamped_tpu_torch.parallel.batch, whisper_timestamped_tpu_torch.parallel.deviceflow\n"
+        "import whisper_timestamped_tpu_torch.vad, whisper_timestamped_tpu_torch.models.silero\n"
+        "import whisper_timestamped_tpu_torch.models.onnx_weights, whisper_timestamped_tpu_torch.plotting\n"
+        "wtt.remove_non_speech\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'whisper_timestamped_tpu' or m.startswith(('whisper_timestamped_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

@@ -18,8 +18,8 @@ as the JAX package does (``whisper_timestamped_tpu/__init__.py:25-74``):
 ``perform_word_alignment``, ``available_models``, ``Whisper``,
 ``ModelDimensions``, ``_MODELS``, ``_download`` and the modules
 ``normalizers``, ``audio``, ``decoding``, ``tokenizer``, ``utils`` and
-``model`` resolve, lazily, to the port's own. ``remove_non_speech`` comes
-with voice activity detection, which is not ported yet.
+``model`` resolve, lazily, to the port's own, and so does voice activity
+detection's ``remove_non_speech``.
 """
 
 __version__ = "0.1.0"
@@ -54,6 +54,7 @@ _LAZY = {
     "ModelDimensions": ("whisper_timestamped_tpu_torch.models.whisper_torch", "WhisperDims"),
     "_MODELS": ("whisper_timestamped_tpu_torch.models.load", "_MODELS"),
     "_download": ("whisper_timestamped_tpu_torch.models.load", "_download"),
+    "remove_non_speech": ("whisper_timestamped_tpu_torch.vad", "remove_non_speech"),
 }
 
 _LAZY_MODULES = {

@@ -31,7 +31,7 @@ from .ops import kernels
 from .ops.dtw import dtw_path_numpy_wavefront
 from .ops.median import median_filter_numpy
 from .ops.peaks import find_peaks
-from .utils import not_ported, stage_timer
+from .utils import stage_timer
 
 DISFLUENCY_MARK = "[*]"
 
@@ -278,6 +278,7 @@ def perform_word_alignment(
     detect_disfluencies: bool = True,
     subwords_can_be_empty: bool = True,
     plot=False,
+    plot_mfcc: Optional[np.ndarray] = None,  # (n_mels, n_frames) window mel
     use_device_kernels: bool = False,
     precomputed_jumps: Optional[np.ndarray] = None,
     precomputed_cost: Optional[np.ndarray] = None,
@@ -293,9 +294,10 @@ def perform_word_alignment(
     the ``attention_to_cost`` and ``dtw_codes`` kernels on ``device`` (None:
     the card) with ``use_device_kernels``, where their gates hold
     (medfilt_width 9 and qk_scale 1 for the cost, subwords_can_be_empty for
-    the DTW), else in numpy. ``plot`` is not yet ported."""
-    if plot:
-        raise not_ported("plot_word_alignment")
+    the DTW), else in numpy. ``plot`` (True, or a path prefix) draws the
+    cost, the path and the words (``plotting.plot_alignment``), with the
+    window's mel (``plot_mfcc``) and, with disfluencies, each token's
+    peaks; it needs the cost and the path, so not the precomputed jumps."""
     plan = plan_alignment(
         tokens, tokenizer, refine_whisper_precision_nframes, unfinished_decoding
     )
@@ -321,6 +323,7 @@ def perform_word_alignment(
         num_punctuations_per_tokens[:-2] = [0] * (len(num_punctuations_per_tokens) - 2)
 
     if precomputed_jumps is not None:
+        assert not plot
         assert not detect_disfluencies or precomputed_cost is not None
         jumps = np.asarray(precomputed_jumps, np.int64)
         assert len(jumps) == len(tokens) + 1, (
@@ -361,13 +364,17 @@ def perform_word_alignment(
 
     jumps_start = jumps
     disfluences = {}
+    peak_traces = [] if (plot and detect_disfluencies) else None
     if detect_disfluencies:
         # a token whose cost row has several attention peaks starts at the
         # last one; the span before it becomes a disfluency mark
         # (reference ``transcribe.py:1656-1736``)
         jumps_start = jumps.copy()
         for i_token, (tok_id, begin, end) in enumerate(zip(tokens, jumps[:-1], jumps[1:])):
-            peaks, properties = find_peaks(-weights[i_token, begin:end], width=3, prominence=0.02)
+            attention_row = -weights[i_token, begin:end]
+            peaks, properties = find_peaks(attention_row, width=3, prominence=0.02)
+            if peak_traces is not None:
+                peak_traces.append((int(begin), int(end), attention_row, peaks, properties))
             if len(peaks) > 1:
                 if "left_ips" in properties:
                     left = [round(x) for x in properties["left_ips"]]
@@ -426,7 +433,7 @@ def perform_word_alignment(
         begin_times = begin_times[1:-1]
         end_times = end_times[1:-1]
 
-    return [
+    out = [
         dict(
             text=word,
             start=round_timestamp(begin + start_time),
@@ -439,3 +446,12 @@ def perform_word_alignment(
         )
         if not word.startswith("<|")
     ]
+    if plot:
+        from .plotting import plot_alignment
+
+        plot_alignment(
+            weights, index1s, index2s, out, start_time, plot,
+            mfcc=plot_mfcc, mfcc_span=(start_token, end_token),
+            peak_traces=peak_traces,
+        )
+    return out

@@ -14,9 +14,11 @@ per-segment kernels (device alignment on, outside those gates) and the host
 alignment). On the card the kernels run, on the CPU their plain versions.
 The per-segment helpers are shared with the batch pipeline
 (``prefetch_ts_repair_rows``, ``prepare_segment_tokens``,
-``device_align_segments``, ``align_and_score_segment``). ``vad`` and
-``plot_word_alignment`` are not yet ported and raise
-``NotImplementedError`` naming the option.
+``device_align_segments``, ``align_and_score_segment``). ``vad`` runs
+before the engines as the JAX package runs it (``vad.py``; silero on the
+model's device) and maps the word times back to the original audio
+(``finalize_transcription``); ``plot_word_alignment`` draws the alignment
+figures (``plotting.py``) on the host route.
 """
 
 from __future__ import annotations
@@ -29,7 +31,14 @@ import numpy as np
 import torch
 
 from .alignment import _punctuation, perform_word_alignment, round_confidence, round_timestamp
-from .audio import AUDIO_TIME_PER_TOKEN, HOP_LENGTH, N_FRAMES, SAMPLE_RATE, load_audio
+from .audio import (
+    AUDIO_TIME_PER_TOKEN,
+    HOP_LENGTH,
+    N_FRAMES,
+    SAMPLE_RATE,
+    load_audio,
+    log_mel_spectrogram,
+)
 from .decoding import DecodingOptions
 from .device_align import MAX_K, compute_jumps_batch, default_device_alignment, make_task
 from .engine import DecodeEngine, Segment, transcribe_windows
@@ -37,7 +46,8 @@ from .languages import LANGUAGES, LANGUAGES_WITHOUT_SPACES, normalize_language
 from .models.load import WhisperModel, load_model
 from .postprocess import ensure_increasing_positions, remove_last_null_duration_words
 from .tokenizer import Tokenizer, get_tokenizer
-from .utils import not_ported, stage_timer
+from .utils import stage_timer
+from .vad import check_vad_method, remove_non_speech
 from .writers import format_timestamp
 
 logger = logging.getLogger("whisper_timestamped_tpu_torch")
@@ -87,16 +97,6 @@ def _resolve_tokenizer(model: WhisperModel, tokenizer, language, task) -> Tokeni
     )
 
 
-def _check_ported(vad, plot_word_alignment):
-    refused = [
-        (vad is not False and vad is not None, "vad"),
-        (bool(plot_word_alignment), "plot_word_alignment"),
-    ]
-    for cond, option in refused:
-        if cond:
-            raise not_ported(option)
-
-
 def transcribe_timestamped(
     # Main options
     model: Union[WhisperModel, str],
@@ -143,7 +143,8 @@ def transcribe_timestamped(
     Same option surface and result schema as the JAX package's
     ``transcribe_timestamped``: a dict with ``text``, ``segments`` (each with
     ``words`` carrying text/start/end/confidence), ``language``, plus
-    ``language_probs`` on auto-detection. The model's device and dtype
+    ``language_probs`` on auto-detection and ``speech_activity`` when
+    ``vad`` runs. The model's device and dtype
     decide where and in what precision it runs (``fp16`` is accepted and,
     as in the JAX package, not read). ``seed`` seeds the sampler: the
     window at frame ``seek`` samples with ``(seed or 0) + seek`` (greedy
@@ -154,9 +155,14 @@ def transcribe_timestamped(
     ``device_alignment`` runs the alignment cost and DTW on the model's
     device: the batched aligner where its gates hold, else the per-segment
     kernels. None (the default) means on when the model is on CUDA, off on
-    the CPU; the WTT_DEVICE_ALIGN env var ("1"/"0") overrides it. The
-    options listed in ``_check_ported`` are not yet ported and raise
-    ``NotImplementedError``.
+    the CPU; the WTT_DEVICE_ALIGN env var ("1"/"0") overrides it.
+
+    ``vad`` (True, "silero", "silero:vX.Y", "auditok"/"energy", or explicit
+    (start, end) second pairs) cuts the non-speech out before decoding, the
+    silero network on the model's device; the words are mapped back to the
+    original audio's time. ``plot_word_alignment`` (True, or a path prefix
+    for the saved figures) draws each segment's alignment, and the VAD
+    overlay; it needs matplotlib and the host cost matrix.
     """
     assert (
         refine_whisper_precision >= 0
@@ -170,10 +176,15 @@ def transcribe_timestamped(
     ), "word_alignment_most_top_layers must be a strictly positive number"
     if isinstance(temperature, (list, tuple)) and len(temperature) == 1:
         temperature = temperature[0]
-    _check_ported(vad, plot_word_alignment)
     if beam_size is not None or (best_of or 0) > 1 or use_backend_timestamps:
         naive_approach = True  # as the JAX package routes (api.py:172-175)
 
+    if plot_word_alignment:
+        from .plotting import reset_plot_counter
+
+        reset_plot_counter()  # figure numbering restarts per call
+
+    vad = check_vad_method(vad)
     if isinstance(model, str):
         model = load_model(model)
     device_alignment_explicit = device_alignment is not None
@@ -195,6 +206,16 @@ def transcribe_timestamped(
     )
 
     audio = load_audio(audio)
+    speech_convert = None
+    vad_segments = None
+    if vad is not None:
+        audio, vad_segments, speech_convert = remove_non_speech(
+            audio, method=vad, sample_rate=SAMPLE_RATE, avoid_empty_speech=True,
+            plot=plot_word_alignment, device=engine.device,
+        )
+    # with VAD, live printing would show speech-time timestamps: the word
+    # lines are printed after the back-conversion instead
+    live_verbose = verbose if (vad is None or verbose is not True) else False
     temperatures = (
         [float(t) for t in temperature] if isinstance(temperature, (list, tuple))
         else [float(temperature)]
@@ -217,7 +238,8 @@ def transcribe_timestamped(
         compute_word_confidence=compute_word_confidence,
         include_punctuation_in_confidence=include_punctuation_in_confidence,
         detect_disfluencies=detect_disfluencies,
-        verbose=verbose,
+        verbose=live_verbose,
+        plot_word_alignment=plot_word_alignment,
     )
     if naive_approach:
         from .engine_naive import transcribe_naive
@@ -232,16 +254,21 @@ def transcribe_timestamped(
             engine, audio, device_alignment=device_alignment,
             device_alignment_explicit=device_alignment_explicit, **common,
         )
-    return finalize_transcription(
+    transcription = finalize_transcription(
         transcription,
         words,
         remove_empty_words=remove_empty_words,
         min_word_duration=min_word_duration,
         trust_whisper_timestamps=trust_whisper_timestamps,
         refine_whisper_precision=refine_whisper_precision,
+        vad_convert=speech_convert,
         # the two-pass engine prints each word as it is aligned
-        print_words=bool(verbose and not naive_approach),
+        print_words=bool(verbose and not naive_approach and vad is None),
+        print_words_postvad=bool(verbose and vad is not None),
     )
+    if vad_segments is not None:
+        transcription["speech_activity"] = [{"start": s, "end": e} for (s, e) in vad_segments]
+    return transcription
 
 
 def finalize_transcription(
@@ -252,11 +279,16 @@ def finalize_transcription(
     min_word_duration: float,
     trust_whisper_timestamps: bool,
     refine_whisper_precision: float,
+    vad_convert=None,
     print_words: bool = False,
+    print_words_postvad: bool = False,
 ) -> dict:
-    """Hallucination pruning, monotonicity repair and the word->segment
-    merge (reference ``transcribe.py:313-339``). Without trusted whisper
-    timestamps the repair keeps no minimal word duration (``api.py:331-333``)."""
+    """Hallucination pruning, monotonicity repair, the word->segment merge
+    (reference ``transcribe.py:313-339``) and the VAD back-conversion of
+    word and segment times (``vad_convert``, ``api.py:354-366``). Without
+    trusted whisper timestamps the repair keeps no minimal word duration
+    (``api.py:331-333``). ``print_words`` prints each word before the
+    merge, ``print_words_postvad`` after its back-conversion."""
     if remove_empty_words:
         transcription, words = remove_last_null_duration_words(
             transcription, words, recompute_text=True
@@ -283,6 +315,18 @@ def finalize_transcription(
                 segment["start"] = word["start"]
         if refine_whisper_precision:
             segment["end"] = word["end"]
+
+    if vad_convert is not None:
+        for segment in whisper_segments:
+            for word in segment.get("words", []):
+                word["start"], word["end"] = vad_convert(word["start"], word["end"])
+                if print_words_postvad:
+                    print_timestamped(word)
+            if refine_whisper_precision and len(segment.get("words", [])):
+                segment["start"] = segment["words"][0]["start"]
+                segment["end"] = segment["words"][-1]["end"]
+            else:
+                segment["start"], segment["end"] = vad_convert(segment["start"], segment["end"])
     return transcription
 
 
@@ -307,6 +351,7 @@ def _transcribe_efficient(
     include_punctuation_in_confidence,
     detect_disfluencies,
     verbose,
+    plot_word_alignment=False,
     device_alignment=False,
     device_alignment_explicit=True,
     trust_whisper_timestamps=True,
@@ -315,7 +360,10 @@ def _transcribe_efficient(
     alignment the attention buffers never leave the device; only tokens,
     log-probs and jumps (and, for disfluencies, the cost rows) do. Otherwise
     each window's attention comes to the host and each segment aligns
-    through the per-segment kernels (``device_alignment``) or in numpy."""
+    through the per-segment kernels (``device_alignment``) or in numpy.
+    ``plot_word_alignment`` keeps the attention on the host route (the
+    figure needs the cost matrix) and draws each alignment with the
+    window's mel."""
     tok = engine.tokenizer
 
     def verbose_cb(seg: Segment):
@@ -324,6 +372,7 @@ def _transcribe_efficient(
 
     full_device = (
         device_alignment
+        and not plot_word_alignment
         and trust_whisper_timestamps
         and len(engine.align_heads) <= MAX_K
     )
@@ -332,6 +381,7 @@ def _transcribe_efficient(
         # default degrades with an info line only
         reasons = [
             r for cond, r in (
+                (plot_word_alignment, "plot_word_alignment needs the host cost matrix"),
                 (not trust_whisper_timestamps,
                  "trust_whisper_timestamps=False aligns whole windows on the host"),
                 (len(engine.align_heads) > MAX_K,
@@ -367,6 +417,11 @@ def _transcribe_efficient(
         print(f"Detected language: {LANGUAGE_NAMES.get(result.language, result.language)}")
 
     use_space = should_use_space(result.language)
+    # the figures' mel pane: the whole audio's mel, on the host
+    plot_mel = (
+        log_mel_spectrogram(audio, n_mels=engine.dims.n_mels, device=engine.device).cpu().numpy()
+        if plot_word_alignment else None
+    )
 
     if not trust_whisper_timestamps:
         words, segment_dicts = _align_words_whole_windows(
@@ -378,6 +433,8 @@ def _transcribe_efficient(
             compute_word_confidence=compute_word_confidence,
             include_punctuation_in_confidence=include_punctuation_in_confidence,
             detect_disfluencies=detect_disfluencies,
+            plot_word_alignment=plot_word_alignment,
+            plot_mel=plot_mel,
         )
     else:
         if full_device:
@@ -409,6 +466,9 @@ def _transcribe_efficient(
                     compute_word_confidence=compute_word_confidence,
                     include_punctuation_in_confidence=include_punctuation_in_confidence,
                     detect_disfluencies=detect_disfluencies,
+                    plot=plot_word_alignment,
+                    plot_mfcc=(plot_mel[:, seg.seek : seg.seek + N_FRAMES]
+                               if plot_mel is not None else None),
                     device_alignment=device_alignment,
                     device=engine.device,
                     precomputed_jumps=jumps,
@@ -444,6 +504,8 @@ def _align_words_whole_windows(
     compute_word_confidence: bool,
     include_punctuation_in_confidence: bool,
     detect_disfluencies: bool,
+    plot_word_alignment=False,
+    plot_mel=None,
 ):
     """``trust_whisper_timestamps=False`` in the single-pass engine
     (``api.py:569``, reference ``transcribe.py:585-707``): each 30-s
@@ -451,7 +513,9 @@ def _align_words_whole_windows(
     attention captured during decode, its first timestamp pinned to
     <|0.00|> and its last to <|30.00|>, and the words go back to whisper's
     segments by walking token counts. Returns ``(words, segment_dicts)``;
-    every segment of the stream is emitted, with or without words."""
+    every segment of the stream is emitted, with or without words.
+    ``plot_word_alignment`` draws each window's alignment over ``plot_mel``
+    (the whole audio's mel)."""
     ts_begin = tok.timestamp_begin
     words: List[dict] = []
     segment_dicts: List[dict] = []
@@ -522,6 +586,9 @@ def _align_words_whole_windows(
                 remove_punctuation_from_words=remove_punctuation_from_words,
                 detect_disfluencies=detect_disfluencies,
                 unfinished_decoding=unfinished,
+                plot=plot_word_alignment,
+                plot_mfcc=(plot_mel[:, segs[0].seek : segs[0].seek + N_FRAMES]
+                           if plot_mel is not None else None),
             )
         if not ws:
             continue
@@ -711,6 +778,8 @@ def align_and_score_segment(
     compute_word_confidence: bool,
     include_punctuation_in_confidence: bool,
     detect_disfluencies: bool,
+    plot=False,
+    plot_mfcc: Optional[np.ndarray] = None,
     device_alignment: bool = False,
     device=None,
     precomputed_jumps: Optional[np.ndarray] = None,
@@ -724,7 +793,8 @@ def align_and_score_segment(
     ``precomputed_jumps`` (with ``prepared`` from ``prepare_segment_tokens``)
     takes the batched device aligner's output; otherwise the segment aligns
     from the window's host attention, through the per-segment kernels on
-    ``device`` with ``device_alignment``, else in numpy."""
+    ``device`` with ``device_alignment``, else in numpy; on that route
+    ``plot`` draws the alignment (with ``plot_mfcc``, the window's mel)."""
     window = seg.window
     a, _ = seg.token_span
     prep = prepared if prepared is not None else prepare_segment_tokens(seg, tok)
@@ -749,8 +819,9 @@ def align_and_score_segment(
         if local_rows and local_rows[-1] >= len(full_attn):
             # the early-EOT row lives past the text rows, in eot_attn
             full_attn = np.concatenate([full_attn, window.eot_attn[None]], axis=0)
-        ws = perform_word_alignment(tokens, full_attn[local_rows], tok,
-                                    use_device_kernels=device_alignment, device=device, **kw)
+        ws = perform_word_alignment(tokens, full_attn[local_rows], tok, plot=plot,
+                                    plot_mfcc=plot_mfcc, use_device_kernels=device_alignment,
+                                    device=device, **kw)
     if len(ws) == 0:
         return None, None
 

@@ -12,9 +12,9 @@ Sampling (``--temperature`` above 0), ``--best_of``, a fallback step
 (``--temperature_increment_on_fallback``), the two-pass ``--naive``, beam
 search (``--beam_size``, ``--patience``, ``--length_penalty``) and the
 ``--accurate`` preset (beam 5, best_of 5, fallback step 0.2) run, one file
-at a time and with ``--batch_size``. Options whose engines are not yet
-ported (``--vad``, ``--plot``) raise the entry points'
-``NotImplementedError``, naming the option.
+at a time and with ``--batch_size``, and so does ``--vad`` (silero on the
+``--device``). ``--plot [DIR]`` draws the alignment figures (matplotlib),
+saved under DIR, or next to the outputs with ``-o``, one file at a time.
 
     python -m whisper_timestamped_tpu_torch.cli audio.wav --model large-v3.pt -o out
 """
@@ -162,7 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--vad", default=False,
                         help="VAD before transcription: True, False, auditok, energy, silero, "
-                        "silero:3.1, or explicit '[(start, end), ...]' pairs (not yet ported)")
+                        "silero:3.1, or explicit '[(start, end), ...]' pairs")
     parser.add_argument("--detect_disfluencies", default=False, type=str2bool,
                         help="detect disfluencies, marked as [*]")
     parser.add_argument("--recompute_all_timestamps", default=False, type=str2bool,
@@ -196,7 +196,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compute_confidence", default=True, type=str2bool)
     parser.add_argument("--verbose", type=str2bool, default=False)
     parser.add_argument("--plot", default=False, nargs="?", const=True, metavar="DIR",
-                        help="plot word alignments (not yet ported)")
+                        help="plot word alignments (requires matplotlib); with a "
+                             "directory argument, save figures there instead of "
+                             "showing them")
     parser.add_argument("--debug", default=False, action="store_true")
     parser.add_argument("--accurate", action=_ActionSetAccurate,
                         help="shortcut for best_of=5, beam_size=5, fallback step 0.2")
@@ -341,12 +343,25 @@ def main(argv=None):
             return
 
     for audio_path in audio_files:
+        outname = (
+            os.path.join(output_dir, os.path.basename(audio_path)) if output_dir else None
+        )
+        # --plot DIR saves the figures under DIR; with an output directory,
+        # bare --plot saves them next to the outputs; else they are shown
+        if isinstance(plot_word_alignment, str):
+            if not os.path.isdir(plot_word_alignment):
+                os.makedirs(plot_word_alignment)
+            args["plot_word_alignment"] = os.path.join(
+                plot_word_alignment, os.path.basename(audio_path)
+            )
+        else:
+            args["plot_word_alignment"] = (
+                outname if (outname and plot_word_alignment) else plot_word_alignment
+            )
         result = transcribe_timestamped(
-            model, audio_path, temperature=temperature, tokenizer=tokenizer,
-            plot_word_alignment=plot_word_alignment, **args
+            model, audio_path, temperature=temperature, tokenizer=tokenizer, **args
         )
         if output_dir:
-            outname = os.path.join(output_dir, os.path.basename(audio_path))
             write_all_formats(result, outname, output_format, subtitle_options)
         elif not args["verbose"]:
             json.dump(filtered_keys(result), sys.stdout, indent=2, ensure_ascii=False)

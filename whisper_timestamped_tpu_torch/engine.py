@@ -15,8 +15,10 @@ none (the two-pass engine's first pass). The engine takes the KV-cache
 quantization levers (``kv_int8``, ``kv_int4``, ``self_kv_int8``).
 ``decode_window_beam`` and ``decode_window_beam_batch`` run beam search
 (``decoding_beam.py``), and ``decode_with_fallback`` takes it at
-temperature 0 when ``beam_size`` is set. A mesh and the weight levers
-``w_int8``/``enc_int8`` raise ``NotImplementedError``.
+temperature 0 when ``beam_size`` is set. The weight levers ``w_int8`` and
+``enc_int8`` give the engine int8 copies of the weights
+(``models.whisper_torch.QuantizedWhisper``); a mesh raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from .decoding import (
 )
 from .decoding_beam import decode_window_beam, decode_window_beam_batch, rank_beam_results
 from .models.load import WhisperModel
+from .models.whisper_torch import QuantizedWhisper
 from .tokenizer import Tokenizer
 from .utils import host_copy, not_ported, stage_timer
 
@@ -128,23 +131,34 @@ class DecodeEngine:
     the JAX engine: ``kv_int8`` (``WTT_KV_INT8=1``) stores the encoder's
     cross K/V as int8 with per-frame scales, ``kv_int4`` (``WTT_KV_INT4``)
     as nibble-packed int4, winning over ``kv_int8``, and ``self_kv_int8``
-    (``WTT_SELF_KV_INT8``) the self-attention cache as int8. ``mesh``,
-    ``w_int8`` and ``enc_int8`` are options of the JAX engine not yet
-    ported: setting one raises."""
+    (``WTT_SELF_KV_INT8``) the self-attention cache as int8. The weight
+    levers, each also defaulting to its variable: ``w_int8``
+    (``WTT_W_INT8``) gives the decode step weight-only int8 copies of the
+    decoder's linears and every logits projection an int8 vocabulary
+    matrix, ``enc_int8`` (``WTT_ENC_INT8``) runs the encoder's linears
+    W8A8. The engine builds the copies beside the caller's model
+    (``self.model`` then holds a ``QuantizedWhisper``), whose module is not
+    changed. ``mesh`` is an option of the JAX engine not yet ported:
+    setting it raises."""
 
     def __init__(self, model: WhisperModel, tokenizer: Tokenizer, mesh=None,
                  kv_int8: Optional[bool] = None, kv_int4: Optional[bool] = None,
                  self_kv_int8: Optional[bool] = None, w_int8: Optional[bool] = None,
                  enc_int8: Optional[bool] = None):
-        for name, value, env in (("w_int8", w_int8, "WTT_W_INT8"),
-                                 ("enc_int8", enc_int8, "WTT_ENC_INT8")):
-            if _lever(value, env):
-                raise not_ported(name if value else f"{name} ({env}=1)")
         if mesh is not None:
             raise not_ported("mesh")
         self.kv_int8 = _lever(kv_int8, "WTT_KV_INT8")
         self.kv_int4 = _lever(kv_int4, "WTT_KV_INT4")
         self.self_kv_int8 = _lever(self_kv_int8, "WTT_SELF_KV_INT8")
+        self.w_int8 = _lever(w_int8, "WTT_W_INT8")
+        self.enc_int8 = _lever(enc_int8, "WTT_ENC_INT8")
+        if self.w_int8 or self.enc_int8:
+            model = WhisperModel(
+                module=QuantizedWhisper(model.module, w_int8=self.w_int8, enc_int8=self.enc_int8),
+                alignment_heads=model.alignment_heads, model_name=model.model_name,
+                tokenizer_ranks=model.tokenizer_ranks,
+                tokenizer_multilingual=model.tokenizer_multilingual,
+            )
         self.model = model
         self.tokenizer = tokenizer
         self.dims = model.dims

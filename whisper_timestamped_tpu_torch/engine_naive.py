@@ -100,9 +100,11 @@ def transcribe_naive(
     detect_disfluencies: bool,
     verbose,
     min_word_duration: float = 0.0,
+    plot_word_alignment=False,
 ):
     """The two-pass engine (``engine_naive.py:73``). Returns
-    ``(transcription, words)`` for ``api.finalize_transcription``."""
+    ``(transcription, words)`` for ``api.finalize_transcription``.
+    ``plot_word_alignment`` draws pass 2's alignments."""
     tok = engine.tokenizer
     audio = np.asarray(audio, np.float32)
 
@@ -202,6 +204,7 @@ def transcribe_naive(
         detect_disfluencies=detect_disfluencies,
         verbose=verbose,
         min_word_duration=min_word_duration,
+        plot_word_alignment=plot_word_alignment,
     )
     with stage_timer("naive_pass2"):
         words = drive_teacher_forced_serial(gen, engine)
@@ -286,6 +289,7 @@ def naive_word_requests(
     verbose,
     min_word_duration: float = 0.0,
     task: str = "transcribe",
+    plot_word_alignment=False,
 ):
     """Per-stream word generator, pass 2 (``engine_naive.py:315``).
 
@@ -422,6 +426,9 @@ def naive_word_requests(
             refine_whisper_precision_nframes=refine_whisper_precision_nframes,
             remove_punctuation_from_words=remove_punctuation_from_words,
             detect_disfluencies=detect_disfluencies,
+            # the teacher-forced pass plots too (reference transcribe.py:1251)
+            plot=plot_word_alignment,
+            plot_mfcc=mel.cpu().numpy() if plot_word_alignment else None,
         )
 
         segment_logprobs: List[np.ndarray] = []

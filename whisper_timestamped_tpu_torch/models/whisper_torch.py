@@ -17,12 +17,22 @@ whisper's convention, ``q·k·dh^-0.5`` in float32.
 The KV cache may hold the cross-attention K/V as int8 or int4 and the
 self-attention cache as int8 (``init_cache``), each read by its own
 decode kernel; the quantizers are ``ops.quant``'s.
+
+The weight levers (``QuantizedWhisper``, built by the engine beside the
+module, which stays as it is): ``w_int8`` gives the decode step an int8
+copy of the decoder's linears (``decoder["blocks_w8"]``, weight-only:
+``(x @ w8) * s + b``) and every logits projection an int8 copy of the
+vocabulary matrix (``decoder["logits_w8"]``); ``enc_int8`` replaces the
+encoder's linears with int8 copies whose products also quantize the
+activations per token (W8A8, an s8 x s8 -> s32 ``torch._int_mm``). Each copy
+is an ``Int8Weight``: codes ``(..., out, in)`` with per-output-channel f32
+scales, the JAX package's ``quantize_linear_tree`` transposed.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -148,6 +158,39 @@ class WhisperTorch(nn.Module):
 
 
 
+class QuantizedWhisper:
+    """A ``WhisperTorch``'s parameters with an engine's int8 copies beside
+    them (``engine.py:194-230`` of the JAX package). ``encoder`` and
+    ``decoder`` are dicts over the module's own tensors, which are not
+    copied and not changed: ``enc_int8`` replaces the encoder's layer-stacked
+    linears by W8A8 copies (read by every ``encode``), ``w_int8`` adds the
+    decode step's weight-only copies (``decoder["blocks_w8"]``; the prefill,
+    ``decode_full`` and ``init_cache`` keep the originals) and the logits'
+    (``decoder["logits_w8"]``, read by every ``_logits``). The forward
+    functions take it in place of the module."""
+
+    def __init__(self, module: WhisperTorch, w_int8: bool = False, enc_int8: bool = False):
+        self.dims = module.dims
+        self.fixed_pos_emb = module.fixed_pos_emb
+        self.encoder = dict(module.encoder.items())
+        self.decoder = dict(module.decoder.items())
+        linears = lambda pd: [n for n in pd if n.startswith(_LAYER_PREFIXES) and n.endswith("_w")]  # noqa: E731
+        with torch.no_grad():
+            if enc_int8:
+                for n in linears(module.encoder):
+                    self.encoder[n] = quantize_linear(module.encoder[n], act_int8=True)
+            if w_int8:
+                self.decoder["blocks_w8"] = {n: quantize_linear(module.decoder[n])
+                                             for n in linears(module.decoder)}
+                dec = module.decoder
+                self.decoder["logits_w8"] = quantize_linear(
+                    dec["proj_w"] if "proj_w" in dec else dec["tok_emb"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder["tok_emb"].device
+
+
 def init_params(dims: WhisperDims, seed: int = 0, dtype=torch.float32, device=None,
                 untied_proj: bool = False) -> WhisperTorch:
     """Random-weight model with the JAX ``init_params`` scales, drawn from an
@@ -199,7 +242,74 @@ def _ln(x, g, b, eps: float = 1e-5):
     return F.layer_norm(x, (x.shape[-1],), g, b, eps)
 
 
-def _linear(x, w, b=None):
+@dataclass(frozen=True)
+class Int8Weight:
+    """An int8 copy of a linear weight: codes ``w8`` (..., out, in) and
+    per-output-channel f32 scales ``s`` (..., out, 1), w ~ w8 * s.
+    ``act_int8``: the product also quantizes its input per token (W8A8,
+    ``_linear_w8a8``), else it is weight-only (``_linear_w8``). Indexing and
+    ``unbind(0)`` give a layer's copy, as a layer-stacked tensor does."""
+
+    w8: torch.Tensor
+    s: torch.Tensor
+    act_int8: bool = False
+
+    def __getitem__(self, l) -> "Int8Weight":
+        return Int8Weight(self.w8[l], self.s[l], self.act_int8)
+
+    def unbind(self, dim: int = 0):
+        assert dim == 0
+        return [Int8Weight(q, s, self.act_int8) for q, s in zip(self.w8.unbind(0), self.s.unbind(0))]
+
+
+def _per_127(amax: torch.Tensor) -> torch.Tensor:
+    """max|x| / 127 as the JAX package's jitted quantizers compute it: XLA
+    turns the divide by the constant into a product with its f32
+    reciprocal. A tensor factor gives that product on the CPU and the card
+    alike (PyTorch's CPU divides a tensor by a Python scalar exactly, its
+    CUDA multiplies by the reciprocal)."""
+    return amax * torch.full((), 1.0 / 127.0, dtype=torch.float32, device=amax.device)
+
+
+def quantize_linear(w: torch.Tensor, act_int8: bool = False) -> Int8Weight:
+    """Per-output-channel int8 quantization of a (..., out, in) weight
+    (``quantize_linear_tree``, ``whisper_jax.py:207``, on the transposed
+    layout): scale max|w| / 127 over ``in`` in f32 (``_per_127``), codes
+    ``round(w / max(s, 1e-8))`` (an IEEE quotient by a tensor; half to
+    even, as ``jnp.round``)."""
+    wf = w.float()
+    s = _per_127(wf.abs().amax(dim=-1, keepdim=True))
+    w8 = torch.round(wf / s.clamp_min(1e-8)).to(torch.int8)
+    return Int8Weight(w8, s, act_int8)
+
+
+def _linear_w8(x, w: Int8Weight, b=None):
+    """Weight-only int8 (``_linear``'s ``w8`` branch, ``whisper_jax.py:170-181``):
+    ``(x @ w8) * s`` with the codes and the scales in ``x``'s dtype, then
+    the bias."""
+    y = F.linear(x, w.w8.to(x.dtype)) * w.s[..., 0].to(x.dtype)
+    return y if b is None else y + b
+
+
+def _linear_w8a8(x, w: Int8Weight, b=None):
+    """W8A8 (``_linear_w8a8``, ``whisper_jax.py:184``): per-token scales
+    max|x| / 127, int8 codes, an exact s8 x s8 -> s32 product
+    (``torch._int_mm``: 2-D, more than 16 rows, ``in`` and ``out`` multiples
+    of 8 on the card; other shapes raise), then ``y * xs * s + b`` in f32,
+    cast to ``x``'s dtype."""
+    xf = x.float()
+    xs = _per_127(xf.abs().amax(dim=-1, keepdim=True))
+    x8 = torch.round(xf / xs.clamp_min(1e-8)).to(torch.int8)
+    y = torch._int_mm(x8.reshape(-1, x8.shape[-1]), w.w8.t())
+    y = y.reshape(*x.shape[:-1], -1).float() * xs * w.s[..., 0]
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def _linear(x, w: Union[torch.Tensor, Int8Weight], b=None):
+    if isinstance(w, Int8Weight):
+        return _linear_w8a8(x, w, b) if w.act_int8 else _linear_w8(x, w, b)
     return F.linear(x, w, b)
 
 
@@ -313,6 +423,12 @@ def encode(model: WhisperTorch, mel: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(x, dec):
+    """The vocabulary projection; through the int8 copy ``logits_w8``
+    (per-vocabulary-row scales, ``whisper_jax.py:437-446``) when the
+    engine built one."""
+    q = dec.get("logits_w8")
+    if q is not None:
+        return _linear_w8(x, q)
     w = dec["proj_w"] if "proj_w" in dec else dec["tok_emb"]
     return F.linear(x, w)
 
@@ -324,9 +440,12 @@ def _mlp(x, p):
     return x + _linear(h, p["fc2_w"], p["fc2_b"])
 
 
-def _mlp_params(pd: nn.ParameterDict, l: int) -> dict:
-    """Layer ``l``'s MLP parameters, as ``w[l]`` views."""
-    return {n: pd[n][l] for n in ("mlp_ln_g", "mlp_ln_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")}
+def _mlp_params(pd, l: int, w8: Optional[dict] = None) -> dict:
+    """Layer ``l``'s MLP parameters, as ``w[l]`` views; a weight that ``w8``
+    holds (the decode step's int8 copies) comes from there."""
+    w8 = w8 or {}
+    return {n: (w8[n] if n in w8 else pd[n])[l]
+            for n in ("mlp_ln_g", "mlp_ln_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")}
 
 
 def decode_full(
@@ -503,9 +622,16 @@ def decode_step(
     The self-attention kernel writes the step's new K/V row into slot
     ``pos`` of the cache in the same launch: ``self_attn_decode`` for a bf16
     cache, ``self_attn_decode_int8`` (the row quantized) for an int8 one.
-    The cross K/V take the kernel of ``cross_attention_rows``.
+    The cross K/V take the kernel of ``cross_attention_rows``. The step's
+    linears read the int8 copies of ``decoder["blocks_w8"]`` when the
+    engine built them (``w_int8``; ``whisper_jax.py:1114-1117``).
     """
     dec = model.decoder
+    w8 = dec.get("blocks_w8") or {}
+
+    def w(name: str, l: int):
+        return (w8[name] if name in w8 else dec[name])[l]
+
     dims = model.dims
     B, S = tokens.shape
     if S != 1:
@@ -529,22 +655,22 @@ def decode_step(
                            dtype=torch.float32, device=x.device)
     for l in range(dims.n_text_layer):
         xn = _ln(x, dec["attn_ln_g"][l], dec["attn_ln_b"][l])
-        k_new = _linear(xn, dec["attn_k_w"][l])
-        v_new = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])
-        q = _linear(xn, dec["attn_q_w"][l], dec["attn_q_b"][l])
+        k_new = _linear(xn, w("attn_k_w", l))
+        v_new = _linear(xn, w("attn_v_w", l), dec["attn_v_b"][l])
+        q = _linear(xn, w("attn_q_w", l), dec["attn_q_b"][l])
         if self_int8:
             a = self_attn_decode_int8(q, k_new, v_new, cache.k, cache.k_scale, cache.v,
                                       cache.v_scale, l, pos, pad, H)
         else:
             a = self_attn_decode(q, cache.k, cache.v, l, pos, pad, H, k_new=k_new, v_new=v_new)
-        x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
+        x = x + _linear(a, w("attn_o_w", l), dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
-        qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
+        qc = _linear(xc, w("cross_q_w", l), dec["cross_q_b"][l])
         hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
-        c, w = cross_attention_rows(qc, cache, l, H, bool(hits), beam_group)
-        x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
-        x = _mlp(x, _mlp_params(dec, l))
+        c, scores = cross_attention_rows(qc, cache, l, H, bool(hits), beam_group)
+        x = x + _linear(c, w("cross_o_w", l), dec["cross_o_b"][l])
+        x = _mlp(x, _mlp_params(dec, l, w8))
         for k in hits:
-            rows[:, k] = w[:, align_heads[k][1]]
+            rows[:, k] = scores[:, align_heads[k][1]]
     logits = _logits(_ln(x, dec["ln_g"], dec["ln_b"]), dec)
     return logits, rows

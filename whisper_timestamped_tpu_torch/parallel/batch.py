@@ -30,10 +30,11 @@ segments align in numpy at assembly, as in the JAX package.
 ``transcribe_batch_stream`` overlaps the
 next batch's upload and mel (a worker thread on its own CUDA stream) and
 the previous batch's assembly (a second worker) with the current batch's
-decode.
+decode. ``vad`` cuts each stream's non-speech out on the host before the
+batch (silero on the model's device) and maps the word times back.
 
-Not yet ported, and refused with ``NotImplementedError``: a mesh,
-``tail_batch`` and vad.
+Not yet ported, and refused with ``NotImplementedError``: a mesh and
+``tail_batch``.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ from ..engine import (
 )
 from ..tokenizer import Tokenizer
 from ..utils import add_count, host_copy, not_ported, stage_timer
+from ..vad import check_vad_method, remove_non_speech
 from .deviceflow import (
     advance_window_state,
     build_prompt_batch,
@@ -161,14 +163,9 @@ def slice_windows(mel_stack: torch.Tensor, rows: torch.Tensor, seeks: torch.Tens
                      cols[:, None, :]]
 
 
-def _refuse_unported(mesh=None, vad=False) -> None:
-    refused = [
-        (mesh is not None, "mesh"),
-        (vad is not False and vad is not None, "vad"),
-    ]
-    for cond, option in refused:
-        if cond:
-            raise not_ported(option)
+def _refuse_unported(mesh=None) -> None:
+    if mesh is not None:
+        raise not_ported("mesh")
 
 
 class BatchTranscriber:
@@ -672,7 +669,11 @@ def transcribe_batch(
     ``MAX_K`` alignment heads queues each window's alignment on the device
     as the window lands and reads it at assembly time; otherwise the
     attention comes to the host and each segment aligns in numpy at
-    assembly. ``engine`` overrides the default ``DecodeEngine``. With
+    assembly. ``engine`` overrides the default ``DecodeEngine``. ``vad``
+    cuts each stream's non-speech out first (``vad.remove_non_speech``, as
+    ``batch.py:931-949`` does; silero on the engine's device) and maps word
+    and segment times back to the original audio, with each result's
+    ``speech_activity``. With
     ``decode_options.beam_size`` the windows are beam-decoded and the words
     come from the two-pass engine's teacher-forced pass, batched across the
     streams (``_assemble_naive_batch``), on the host audio; device
@@ -688,9 +689,22 @@ def transcribe_batch(
         prepare_segment_tokens,
         should_use_space,
     )
-    _refuse_unported(mesh, vad)
+    _refuse_unported(mesh)
     if engine is None:
         engine = DecodeEngine(model, tokenizer)
+    vad = check_vad_method(vad)
+    converts: Dict[str, Any] = {}
+    speech_activity: Dict[str, Any] = {}
+    if vad is not None:
+        preprocessed = {}
+        for name, audio in audios.items():
+            speech, segs, convert = remove_non_speech(
+                load_audio(audio), method=vad, avoid_empty_speech=True, device=engine.device
+            )
+            preprocessed[name] = speech
+            converts[name] = convert
+            speech_activity[name] = [{"start": s, "end": e} for (s, e) in segs]
+        audios = preprocessed
     device_alignment_explicit = device_alignment is not None
     if device_alignment is None:
         device_alignment = default_device_alignment(engine.device)
@@ -767,6 +781,8 @@ def transcribe_batch(
             detect_disfluencies=detect_disfluencies,
             remove_empty_words=remove_empty_words,
             min_word_duration=min_word_duration,
+            converts=converts,
+            speech_activity=speech_activity,
         )
         return (lambda: results) if _deferred_assembly else results
 
@@ -824,13 +840,17 @@ def transcribe_batch(
         }
         if meta.get("language_probs") is not None:
             transcription["language_probs"] = meta["language_probs"]
-        return finalize_transcription(
+        transcription = finalize_transcription(
             transcription, words,
             remove_empty_words=remove_empty_words,
             min_word_duration=min_word_duration,
             trust_whisper_timestamps=True,
             refine_whisper_precision=refine_whisper_precision,
+            vad_convert=converts.get(name),
         )
+        if name in speech_activity:
+            transcription["speech_activity"] = speech_activity[name]
+        return transcription
 
     return finish if _deferred_assembly else finish()
 
@@ -851,11 +871,15 @@ def _assemble_naive_batch(
     detect_disfluencies: bool,
     remove_empty_words: bool,
     min_word_duration: float,
+    converts: Dict[str, Any],
+    speech_activity: Dict[str, Any],
 ) -> Dict[str, dict]:
     """The beam pipeline's second pass (``batch.py:1141``): every stream
     gets the two-pass engine's ``naive_word_requests`` generator, and
     ``drive_teacher_forced_batch`` runs their segments' teacher-forced
-    forwards in batches across the streams."""
+    forwards in batches across the streams. ``converts`` and
+    ``speech_activity`` (by stream name) carry the VAD's back-conversion
+    and speech spans."""
     from ..api import finalize_transcription, should_use_space
     from ..engine import TranscribeResult
     from ..engine_naive import drive_teacher_forced_batch, naive_word_requests
@@ -906,13 +930,17 @@ def _assemble_naive_batch(
             }
             if meta.get("language_probs") is not None:
                 transcription["language_probs"] = meta["language_probs"]
-            results[name] = finalize_transcription(
+            transcription = finalize_transcription(
                 transcription, words_map.get(name, []),
                 remove_empty_words=remove_empty_words,
                 min_word_duration=min_word_duration,
                 trust_whisper_timestamps=True,
                 refine_whisper_precision=refine_whisper_precision,
+                vad_convert=converts.get(name),
             )
+            if name in speech_activity:
+                transcription["speech_activity"] = speech_activity[name]
+            results[name] = transcription
     return results
 
 
@@ -937,14 +965,15 @@ def transcribe_batch_stream(
     thread is a daemon, so an idle source never holds the consumer or the
     process. An exception of the source is raised in the consumer after the
     batches before it are yielded; closing the generator early stops both
-    workers. Beam search runs each batch through ``transcribe_batch``
-    in turn, without the prefetch (``batch.py:1270-1279``): its second
-    pass re-reads each stream's host audio."""
-    _refuse_unported(mesh, options.get("vad", False))
+    workers. ``vad`` and beam search run each batch through
+    ``transcribe_batch`` in turn, without the prefetch
+    (``batch.py:1270-1279``): both read each stream's host audio."""
+    _refuse_unported(mesh)
     if engine is None:
         engine = DecodeEngine(model, tokenizer)
     decode_opts = options.get("decode_options")
-    if decode_opts is not None and decode_opts.beam_size:
+    if (check_vad_method(options.get("vad", False)) is not None
+            or (decode_opts is not None and decode_opts.beam_size)):
         for audios in batches:
             yield transcribe_batch(model, audios, tokenizer, engine=engine, **options)
         return
