@@ -39,6 +39,8 @@ phases have run, so their lines are printed too):
       time, audio-s per s, ms/step, peak memory and words of each; fails
       unless every stream of the int8 run has words, ``xattn_decode_int8``
       launched at least 32 times per decode step and ``xattn_decode`` never;
+      then one window of each engine (B=40, 64 tokens) traced by
+      torch.profiler: the device's busy share;
   (h) one batch of 8 streams with a ``kv_int4`` + ``self_kv_int8`` engine
       (with its ms/step), and one serial 35 s request with
       ``WTT_KV_INT8=1``: the schema, the levers' kernels launched (the
@@ -105,15 +107,36 @@ phases have run, so their lines are printed too):
       ``w_int8``, ``enc_int8``, and both with ``kv_int8``: words, the decode
       kernels launched, ms/step, the encoder's ms at B=8, peak memory; the
       engines' int8 codes equal to a CPU quantization of the same weights,
-      ``model.module`` unchanged; one linear of each kind timed alone.
+      ``model.module`` unchanged; one linear of each kind timed alone;
+  (p) the captured token loop (each window's steps replayed from CUDA
+      graphs of ``decoding.STOP_CHECK_STEPS`` steps, the engine's): a
+      window of 96 tokens through ``decode_window`` captured and uncaptured
+      on the same inputs at B=1 (prompt regions of 8 and 232 slots), B=8,
+      B=40 ``kv_int8`` and bf16, ``kv_int4`` + ``self_kv_int8``,
+      ``w_int8``, and sampled at T=0.5 then 0.3 (one graph for both): the
+      buffers bit for bit, the steps equal, ms/step both ways, replays
+      (host syncs) a window, steps past the stop, captures equal to the
+      distinct keys; a B=40 ``kv_int8`` stream with ``WTT_TAIL_BATCH=8``
+      against the same without it (the words decoded at B=40 in both
+      equal; 8 windows at B=8 and as rows of B=40 as the control of the
+      tail's own); the host C++ core built and in use by ``dtw_path`` and
+      the tokenizer.
 
-(c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 and pad
-lengths 0, 5, 224 and 300, its fused row write bit for bit, and times it
-with the row write at pos 232 and 455 beside SDPA over the live slots; it
+Every decode path above ([d], [f], [g], [h], [k], [n], [o]) runs its token
+loops through the engine's captured graphs; the launch counts add each
+graph's captured launches at each replay, so "at least 32 launches a
+decode step" keeps its meaning.
+
+(c) holds ``self_attn_decode`` at B=1, 8 and 40 over slots 0-455 (read
+from the device, the grid over the 456-slot extent, as the captured loop
+launches it) and pad lengths 0, 5, 224 and 300, its fused row write bit
+for bit, and times it with the row write at pos 232 and 455, over the
+extent and over pos + 1 slots, beside SDPA over the live slots; it
 times ``xattn_decode_int8`` at B=1, 8 and 40 beside the bf16 kernel,
 ``xattn_decode_int4`` at the same batches beside the int8 kernel, and
 ``self_attn_decode_int8`` with its quantized row write at B=1, 8 and 40
-and pos 232 and 455 beside ``self_attn_decode`` with its write, each with
+and pos 232 and 455 (both grids) beside ``self_attn_decode`` with its
+write, each with
 its grid and bound. It covers the per-segment route's ``attention_to_cost``,
 ``median9`` and ``dtw_path`` (``dtw_codes.cu``'s DP and walk at S=1), the
 whole batched aligner at (g)'s flush shape against the old path (window
@@ -142,7 +165,7 @@ the training kernels from (m)'s timed steps; ``median9`` and
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
 at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
-busy share and the kernels that fill it.
+busy share and the kernels that fill it (lines ``[profile]``).
 ``--compare`` adds (d) with the plain attention math of the encoder and the
 prefill (the path before the flash kernel) in turns with the kernel path:
 plain, kernel, kernel, plain.
@@ -382,6 +405,7 @@ def phase_kernels(torch, K, device):
     # --- self_attn_decode: ctx 456, B 1/8/40, pads 0/5/224/300, six slots ---
     ctx = 456
     err = 0.0
+    slot = torch.zeros((), dtype=torch.int32, device=device)  # the step's slot, on the card
     self_ms = {}  # (B, pos) -> ms with the row write
     for B in (1, 8, 40):
         q, k_new, v_new = randn(B, 1, D), randn(B, 1, D), randn(B, 1, D)
@@ -392,9 +416,12 @@ def phase_kernels(torch, K, device):
                               device=device)] if B > 1 else
                 [torch.tensor([p], dtype=torch.int32, device=device) for p in SELF_PADS])
         for pos in (0, 63, 64, 65, 232, 455):
+            slot.fill_(pos)
             for pad in pads:
                 layer = pos % L
-                o_k = K.self_attn_decode(q, k_all, v_all, layer, pos, pad, H)
+                # the step's slot read from the device, the grid over the
+                # window's extent (456 slots), as the captured loop launches it
+                o_k = K.self_attn_decode(q, k_all, v_all, layer, slot, pad, H, extent=ctx)
                 torch.cuda.synchronize()
                 o_p = K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
                 if not torch.isfinite(o_k.float()).all():
@@ -408,29 +435,38 @@ def phase_kernels(torch, K, device):
                     k_p[layer, :, pos] = k_new[:, 0]
                     v_p[layer, :, pos] = v_new[:, 0]
                     k_f, v_f = k_all.clone(), v_all.clone()
-                    o_f = K.self_attn_decode(q, k_f, v_f, layer, pos, pad, H, k_new=k_new,
-                                             v_new=v_new)
+                    o_f = K.self_attn_decode(q, k_f, v_f, layer, slot, pad, H, k_new=k_new,
+                                             v_new=v_new, extent=ctx)
                     torch.cuda.synchronize()
                     if not (torch.equal(k_f, k_p) and torch.equal(v_f, v_p)):
                         fail(f"self_attn_decode's row write differs from the plain write at "
                              f"B={B} pos={pos}")
-                    if not torch.equal(o_f, K.self_attn_decode(q, k_p, v_p, layer, pos, pad, H)):
+                    if not torch.equal(o_f, K.self_attn_decode(q, k_p, v_p, layer, slot, pad, H,
+                                                               extent=ctx)):
                         fail(f"self_attn_decode with the row write differs from the kernel on "
                              f"the written cache at B={B} pos={pos}")
                     del k_p, v_p, k_f, v_f
         if not err <= 2e-2:
             fail(f"self_attn_decode disagrees: {err:.3g} (atol 2e-2)")
-        # timed with the row write, as decode_step calls it; the library call
-        # attends over the live slots with pad 0 (K/V sliced to pos + 1)
+        # timed with the row write, as decode_step calls it: the slot on the
+        # device and the grid over the extent (the captured loop's launch),
+        # and over pos + 1 slots (the grid an int slot gets); the
+        # library call attends over the live slots with pad 0 (K/V sliced to
+        # pos + 1)
         pad0 = torch.zeros((B,), dtype=torch.int32, device=device)
         for pos in (232, 455):
+            slot.fill_(pos)
+
             def plain_self(it=0):
                 k_all[it % L, :, pos] = k_new[:, 0]
                 v_all[it % L, :, pos] = v_new[:, 0]
                 return K.self_attn_decode_plain(q, k_all, v_all, it % L, pos, pad0, H)
 
-            ms = cuda_time_ms(lambda it=0: K.self_attn_decode(q, k_all, v_all, it % L, pos, pad0, H,
-                                                              k_new=k_new, v_new=v_new))
+            ms = cuda_time_ms(lambda it=0: K.self_attn_decode(q, k_all, v_all, it % L, slot, pad0,
+                                                              H, k_new=k_new, v_new=v_new,
+                                                              extent=ctx))
+            ms_live = cuda_time_ms(lambda it=0: K.self_attn_decode(
+                q, k_all, v_all, it % L, slot, pad0, H, k_new=k_new, v_new=v_new, extent=pos + 1))
             plain_ms = cuda_time_ms(plain_self, iters=10)
             lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q, H),
                                                     heads_view(k_all[it % L, :, :pos + 1], H),
@@ -439,11 +475,13 @@ def phase_kernels(torch, K, device):
             moved = 2 * B * (pos + 1) * D * 2 + 2 * B * D * 2 + 2 * B * D * 2
             b_ms, b_by = bound(moved, 4 * B * (pos + 1) * D, F32_FLOPS)
             self_ms[(B, pos)] = ms
-            n_split = K.xattn_split(B, H, pos + 1, K._sm_count(device))[0]
+            n_split = K.xattn_split(B, H, ctx, K._sm_count(device))[0]
+            n_live = K.xattn_split(B, H, pos + 1, K._sm_count(device))[0]
             warps = K.pipeline_warps(B, H, K._sm_count(device))
-            print(f"[c] self_attn_decode B={B} ctx=456 pos={pos} D=1280 H=20 ({n_split} splits, "
-                  f"{warps} warps a block), "
-                  f"with the row write: {ms:.4f} ms vs plain (write + attention) {plain_ms:.4f} "
+            print(f"[c] self_attn_decode B={B} ctx=456 pos={pos} D=1280 H=20 ({warps} warps a "
+                  f"block), with the row write, the slot on the device: {ms:.4f} ms over the "
+                  f"extent ({n_split} splits), {ms_live:.4f} ms over pos + 1 ({n_live} splits) vs "
+                  f"plain (write + attention) {plain_ms:.4f} "
                   f"ms, sdpa (live slots, pad 0) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                   f"{moved / 1e6:.2f} MB)")
             if (B, pos) == (1, 232):  # the serial path's shape
@@ -452,9 +490,9 @@ def phase_kernels(torch, K, device):
         del q, k_new, v_new, k_all, v_all
         torch.cuda.empty_cache()
     rec["self_attn_decode"]["max_abs_err"] = err
-    print(f"[c] self_attn_decode (B=1, 8, 40; pos 0, 63, 64, 65, 232, 455; pads "
-          f"{'/'.join(map(str, SELF_PADS))}): err {err:.3g} (atol 2e-2); the fused row write equal "
-          f"to the plain write bit for bit")
+    print(f"[c] self_attn_decode (B=1, 8, 40; pos 0, 63, 64, 65, 232, 455 read from the device "
+          f"over a 456-slot grid; pads {'/'.join(map(str, SELF_PADS))}): err {err:.3g} (atol "
+          f"2e-2); the fused row write equal to the plain write bit for bit")
 
     # --- align_cost and dtw_codes: S=8, N in {64, 256}, K=10, M=1536 ---
     S, Kh, M = 8, 10, M_PAD
@@ -795,6 +833,7 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
     # --- self_attn_decode_int8: the fused row write, then the attention ---
     ctx = 456
     err = 0.0
+    slot = torch.zeros((), dtype=torch.int32, device=device)
 
     def compare_self(B, pad, pos, layers):
         """Kernel against the plain quantizer's rows and the plain version in
@@ -802,9 +841,11 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
         nonlocal err
         q, k_new, v_new = (randn(B, 1, D).bfloat16() for _ in range(3))
         cache = (*quantize_rows(randn(L, B, ctx, D)), *quantize_rows(randn(L, B, ctx, D)))
+        slot.fill_(pos)
         for layer in layers:
             ck = [t.clone() for t in cache]
-            o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, layer, pos, pad, H)
+            # the slot on the device, the grid over the 456-slot extent
+            o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, layer, slot, pad, H, extent=ctx)
             torch.cuda.synchronize()
             cp = [t.clone() for t in cache]
             K.write_quantized_row(k_new, v_new, *cp, layer, pos)
@@ -843,8 +884,11 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
                 K.write_quantized_row(k_new, v_new, *cache, it % L, pos)
                 return K.self_attn_decode_int8_plain(q, *cache, it % L, pos, pad0, H)
 
+            slot.fill_(pos)
             ms = cuda_time_ms(lambda it=0: K.self_attn_decode_int8(q, k_new, v_new, *cache, it % L,
-                                                                   pos, pad0, H))
+                                                                   slot, pad0, H, extent=ctx))
+            ms_live = cuda_time_ms(lambda it=0: K.self_attn_decode_int8(
+                q, k_new, v_new, *cache, it % L, slot, pad0, H, extent=pos + 1))
             plain_ms = cuda_time_ms(plain_self, iters=5)
             # q, k_new, v_new and the output; the live slots' codes and scales of
             # K and V; the written row's codes and scales; 4 f32 flops per code pair
@@ -854,10 +898,13 @@ def phase_quant_kernels(torch, K, device, bf16_ms):
             if (Bt, pos) == (8, 232):
                 rec["self_attn_decode_int8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                                     bound_by=b_by, library_ms=None)
-            n_split = K.xattn_split(Bt, H, live, n_sm)[0]
-            print(f"[c] self_attn_decode_int8 B={Bt} ctx=456 pos={pos} D=1280 H=20 ({n_split} "
-                  f"splits, {K.pipeline_warps(Bt, H, n_sm)} warps a block), with its quantized "
-                  f"write: {ms:.4f} ms vs plain (write + attention) {plain_ms:.4f} ms, bound "
+            n_split = K.xattn_split(Bt, H, ctx, n_sm)[0]
+            n_live = K.xattn_split(Bt, H, live, n_sm)[0]
+            print(f"[c] self_attn_decode_int8 B={Bt} ctx=456 pos={pos} D=1280 H=20 "
+                  f"({K.pipeline_warps(Bt, H, n_sm)} warps a block), with its quantized write, "
+                  f"the slot on the device: {ms:.4f} ms over the extent ({n_split} splits), "
+                  f"{ms_live:.4f} ms over pos + 1 ({n_live} splits) vs plain (write + attention) "
+                  f"{plain_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.2f} MB); bf16 self_attn_decode with its "
                   f"write {bf16_ms['self'][(Bt, pos)]:.4f} ms")
             del cache
@@ -1502,14 +1549,15 @@ def phase_reference_step(torch, K, model, label: str = "bf16", **quantize):
     import whisper_timestamped_tpu_torch.models.whisper_torch as wt
 
     def plain_self_int8(q, k_new, v_new, *cache_and_args):
-        k_all, k_scale, v_all, v_scale, layer, pos, pad, H = cache_and_args
+        k_all, k_scale, v_all, v_scale, layer, pos, pad, H, extent = cache_and_args
         K.write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, pos)
-        return K.self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos, pad, H)
+        return K.self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos, pad, H,
+                                             extent)
 
-    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new):
-        k_all[layer, :, pos] = k_new[:, 0]
-        v_all[layer, :, pos] = v_new[:, 0]
-        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
+    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new, extent):
+        K.write_row(k_new, k_all, layer, pos)
+        K.write_row(v_new, v_all, layer, pos)
+        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H, extent)
 
     plain = dict(self_attn_decode=plain_self, xattn_decode=K.xattn_decode_plain,
                  xattn_decode_int8=K.xattn_decode_int8_plain,
@@ -1794,6 +1842,7 @@ def phase_production(torch, K, model, tok, turns: bool = False):
               f"{launches['align_cost']}")
         print(f"[g] {label} launches: {launches}; stages: "
               + ", ".join(f"{k} {v['total_s']:.2f}s/{v['count']}" for k, v in sorted(timings.items())))
+        trace_window(torch, engine, tok, B, f"[g] {label}")
         del got, engine
         torch.cuda.empty_cache()
     return int8_launches
@@ -2692,24 +2741,240 @@ def trace_step(torch, step):
         print(f"[m]   {ms:9.3f} ms {n:6d}x  {key[:90]}")
 
 
-def phase_profile(torch, model, tok, B: int, **levers):
-    """(--profile): device time against wall time for one decoded window of
-    B rows, with the engine's ``levers``."""
+def trace_window(torch, engine, tok, B: int, tag: str):
+    """One window of B rows (the same 30 s clip), 64 tokens, EOT
+    suppressed, decoded once untraced (capturing its graph) and once under
+    torch.profiler: wall, the device's busy share, the kernels that fill
+    it."""
     from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
     from whisper_timestamped_tpu_torch.decoding import DecodingOptions
-    from whisper_timestamped_tpu_torch.engine import DecodeEngine
 
-    engine = DecodeEngine(model, tok, **levers)
     opts = DecodingOptions(language="en", sample_len=64, suppress_tokens=f"-1,{tok.eot}")
-    mel = log_mel_spectrogram(make_audio(4, 30), n_mels=128, device=model.device)
+    mel = log_mel_spectrogram(make_audio(4, 30), n_mels=128, device=engine.device)
     mel = mel[None].expand(B, -1, -1).contiguous()
     engine.decode_window(mel, opts)
     wall_ms, dev_ms, rows = device_rows(torch, lambda: engine.decode_window(mel, opts))
-    label = "+".join(k for k, v in levers.items() if v) or "bf16"
-    print(f"[p] one window, B={B}, {label} cache, 64 tokens: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%)")
+    label = "+".join(k for k, v in engine.kv_options.items() if v) or "bf16"
+    if dev_ms <= 0:
+        print(f"{tag} one window, B={B}, {label} cache, 64 tokens: wall {wall_ms:.1f} ms; the "
+              f"profiler saw no device time (not measured)")
+        return
+    print(f"{tag} one window, B={B}, {label} cache, 64 tokens, traced: wall {wall_ms:.1f} ms, "
+          f"device busy {dev_ms:.1f} ms ({100 * dev_ms / wall_ms:.1f}%)")
     for key, ms, n in rows[:12]:
-        print(f"[p]   {ms:9.3f} ms {n:6d}x  {key[:90]}")
+        print(f"{tag}   {ms:9.3f} ms {n:6d}x  {key[:90]}")
+
+
+def phase_profile(torch, model, tok, B: int, **levers):
+    """(--profile): device time against wall time for one decoded window of
+    B rows, with the engine's ``levers``."""
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+
+    trace_window(torch, DecodeEngine(model, tok, **levers), tok, B, "[profile]")
+
+
+# ---------------------------------------------------------------------------
+# (p) the captured token loop, tail_batch, the host C++ core
+# ---------------------------------------------------------------------------
+
+# (label, B, prompt tokens, engine levers, temperatures); one engine a case
+GRAPH_CASES = (
+    ("B=1, regions of 8 and 232 slots", 1, (0, 120), {}, (0.0,)),
+    ("B=8", 8, (0,), {}, (0.0,)),
+    ("B=40 kv_int8", 40, (0,), dict(kv_int8=True), (0.0,)),
+    ("B=40 bf16", 40, (0,), {}, (0.0,)),
+    ("B=8 kv_int4 + self_kv_int8", 8, (0,), dict(kv_int4=True, self_kv_int8=True), (0.0,)),
+    ("B=8 w_int8", 8, (0,), dict(w_int8=True), (0.0,)),
+    ("B=8 sampled, T=0.5 then 0.3", 8, (0,), {}, (0.5, 0.3)),
+)
+GRAPH_MAX_NEW = 96  # tokens a window in (p); EOT allowed
+TAIL_STREAMS, TAIL_BATCH = 40, 8  # (p)'s tail_batch stream
+
+
+def decode_both_ways(torch, engine, mel, prompt_tokens, temperature):
+    """One window through ``decoding.decode_window`` with the engine's
+    graphs (capturing, unless a graph of its key exists), again (the timed
+    replay), and uncaptured on the same inputs: the three runs' buffers
+    must be equal bit for bit. Returns (the timed captured run's out, its
+    ms/step, the uncaptured run's ms/step), ms/step being the stage
+    ``decode_loop`` over the steps."""
+    from whisper_timestamped_tpu_torch import decoding as dec
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import TIME_PER_POSITION
+
+    tok = engine.tokenizer
+    opts = DecodingOptions(language="en", sample_len=GRAPH_MAX_NEW)
+    buf, plen, sot_from_end = engine.build_prompt(prompt_tokens, opts)
+    B = mel.shape[0]
+    sm, bm = engine._masks(opts)
+    kw = dict(align_heads=engine.align_heads, eot=tok.eot, ts_begin=tok.timestamp_begin,
+              no_timestamps=tok.no_timestamps, sot_index_from_end=sot_from_end,
+              max_initial_timestamp_index=round(1.0 / TIME_PER_POSITION), max_new=GRAPH_MAX_NEW,
+              temperature=temperature, rng_seed=7, **engine.kv_options)
+    prompt = torch.as_tensor(buf, device=mel.device)[None].expand(B, -1).contiguous()
+    plen = torch.full((B,), plen, dtype=torch.int32, device=mel.device)
+
+    def run(**extra):
+        t0 = get_loop_s()
+        out = dec.decode_window(engine.model.module, mel, prompt, plen, sm, bm, **kw, **extra)
+        torch.cuda.synchronize()
+        return out, 1e3 * (get_loop_s() - t0) / max(out["n_steps"], 1)
+
+    first, _ = run(graphs=engine.graphs)
+    cap, cap_ms = run(graphs=engine.graphs)
+    eager, eager_ms = run(uncaptured=True)
+    for name in ("tokens", "n_sampled", "sum_logprobs", "token_logprobs", "ts_logprobs", "attn",
+                 "no_speech_prob"):
+        if not (torch.equal(cap[name], eager[name]) and torch.equal(cap[name], first[name])):
+            fail(f"[p] the captured loop's {name} differs from the uncaptured loop's "
+                 f"(B={B}, {len(prompt_tokens)} prompt tokens, T={temperature})")
+    if not cap["n_steps"] == first["n_steps"] == eager["n_steps"]:
+        fail(f"[p] captured {cap['n_steps']} steps, uncaptured {eager['n_steps']}")
+    return cap, cap_ms, eager_ms
+
+
+def get_loop_s() -> float:
+    from whisper_timestamped_tpu_torch.utils import get_stage_timings
+
+    return get_stage_timings().get("decode_loop", {}).get("total_s", 0.0)
+
+
+def phase_graphs(torch, K, model, tok):
+    """(p): the captured token loop on the large-v3 model. Each case of
+    GRAPH_CASES decodes a window of 30 s of audio (a distinct clip a row)
+    through ``decode_window`` with a new engine's graphs and uncaptured, on
+    the same inputs: the buffers must be equal bit for bit and the steps
+    equal; printed: ms/step both ways, the replays (each one host sync) a
+    window, the steps run past the stop, and the captures, which must
+    equal the engine's distinct keys (the second temperature of the
+    sampled case replays the first one's graph). Then a B=40 ``kv_int8``
+    ``transcribe_batch_stream`` with ``WTT_TAIL_BATCH=8`` against the same
+    without it (words), and the host C++ core: built into ``build/`` and
+    the one the tokenizer and ``alignment.dtw_path`` use. The memory the
+    cases' engines held must be returned when they are freed (at most 0.01
+    GB a capture may stay)."""
+    from whisper_timestamped_tpu_torch import alignment, decoding, native
+    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+
+    k = decoding.STOP_CHECK_STEPS
+    mels = torch.stack([log_mel_spectrogram(make_audio(500 + j, 30), n_mels=128,
+                                            device=model.device)[:, :3000] for j in range(40)])
+    torch.cuda.synchronize()
+    held, captures = torch.cuda.memory_allocated(), 0
+    for label, B, prompts, levers, temps in GRAPH_CASES:
+        engine = DecodeEngine(model, tok, **levers)
+        before = dict(K.LAUNCHES)
+        keys = 0
+        for n_prompt in prompts:
+            for T in temps:
+                cap, cap_ms, eager_ms = decode_both_ways(
+                    torch, engine, mels[:B], list(range(300, 300 + n_prompt)), T)
+                keys = len(engine.graphs.graphs)
+                n, chunks = cap["n_steps"], cap["chunks"]
+                print(f"[p] {label}, {n_prompt} prompt tokens, T={T}: {n} steps, captured "
+                      f"{cap_ms:.2f} ms/step vs uncaptured {eager_ms:.2f} ({eager_ms / cap_ms:.1f}x); "
+                      f"{chunks} replays = host syncs a window ({k} steps each), {chunks * k - n} "
+                      f"steps past the stop; buffers equal bit for bit")
+        launched = {name: K.LAUNCHES[name] - before[name] for name in K.LAUNCHES}
+        if engine.graphs.captures != keys:
+            fail(f"[p] {label}: {engine.graphs.captures} captures for {keys} distinct keys")
+        print(f"[p] {label}: {engine.graphs.captures} captures = {keys} distinct keys; launches "
+              f"{ {n: c for n, c in launched.items() if c} }")
+        captures += engine.graphs.captures
+        del engine
+        torch.cuda.empty_cache()
+    # a capture must keep nothing once its engine is freed (a warm-up on a
+    # stream of its own kept a cuBLAS workspace, ~35 MB, a capture)
+    torch.cuda.synchronize()
+    kept = (torch.cuda.memory_allocated() - held) / 1e9
+    if kept > 0.01 * captures:
+        fail(f"[p] {kept:.3f} GB still allocated after the engines of {captures} captures were "
+             f"freed (limit 0.01 GB a capture)")
+    print(f"[p] after the {len(GRAPH_CASES)} engines ({captures} captures) were freed: "
+          f"{kept:+.3f} GB allocated (limit {0.01 * captures:.2f}: 0.01 a capture)")
+
+    # tail_batch: a B=40 stream whose last windows have at most 8 streams left
+    from whisper_timestamped_tpu_torch import transcribe_batch_stream
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.utils import get_stage_timings, reset_stage_timings
+
+    secs = [5 + (j * 7) % 20 for j in range(TAIL_STREAMS)]
+    for j in range(0, TAIL_STREAMS, 8):
+        secs[j] = 75  # one stream in 8 runs to three windows or more
+    batch = {f"t{j}": make_audio(3000 + j, s) for j, s in enumerate(secs)}
+    kw = dict(batch_size=TAIL_STREAMS, temperature=[0.0], **SMOKE_OPTIONS,
+              decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}"))
+    words, first_window = {}, {}
+    for tail in (str(TAIL_BATCH), None):
+        engine = DecodeEngine(model, tok, kv_int8=True)
+        if tail:
+            os.environ["WTT_TAIL_BATCH"] = tail
+        try:
+            reset_stage_timings()
+            t0 = time.perf_counter()
+            res = next(iter(transcribe_batch_stream(model, iter([batch]), tok, engine=engine, **kw)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("WTT_TAIL_BATCH", None)
+        stages = sorted(k for k in get_stage_timings() if k.startswith("batch_decode_b"))
+        words[tail] = {n: [(w["text"], w["start"], w["end"]) for sg in r["segments"]
+                           for w in sg.get("words", [])] for n, r in res.items()}
+        first_window[tail] = {n: [(w["text"], w["start"], w["end"]) for sg in r["segments"]
+                                  if sg.get("seek") == 0 for w in sg.get("words", [])]
+                              for n, r in res.items()}
+        print(f"[p] B={TAIL_STREAMS} kv_int8 stream, tail_batch={tail}: {wall:.2f} s, windows "
+              f"by batch {stages}, {len(engine.graphs.graphs)} graphs, "
+              f"{engine.graphs.captures} captures")
+        if tail and not any(st.startswith(f"batch_decode_b{tail}_") for st in stages):
+            fail(f"[p] tail_batch={tail} decoded no window at B={tail}")
+        del engine
+        torch.cuda.empty_cache()
+    # the streams done before the tail, and the tail streams' first
+    # windows, were decoded at B=40 in both runs: their words must be equal.
+    # The tail's own windows decode at B=8, whose bf16 products round
+    # otherwise than B=40's; the control below decodes 8 windows both ways.
+    tail_streams = [n for n, sec in zip(batch, secs) if sec == 75]
+    differ = [n for n in batch if n not in tail_streams
+              and words[str(TAIL_BATCH)][n] != words[None][n]]
+    differ += [n for n in tail_streams
+               if first_window[str(TAIL_BATCH)][n] != first_window[None][n]]
+    if differ:
+        fail(f"[p] tail_batch={TAIL_BATCH} changed words decoded at B={TAIL_STREAMS}: {differ[:5]}")
+    same_tail = sum(words[str(TAIL_BATCH)][n] == words[None][n] for n in tail_streams)
+    print(f"[p] tail_batch={TAIL_BATCH}: the words of the {TAIL_STREAMS - len(tail_streams)} "
+          f"streams done before the tail and the {len(tail_streams)} tail streams' first windows "
+          f"equal those without it; the tail streams' later windows (B={TAIL_BATCH} against "
+          f"B={TAIL_STREAMS}) equal in {same_tail} of {len(tail_streams)}")
+    engine = DecodeEngine(model, tok, kv_int8=True)
+    opts = DecodingOptions(language="en", suppress_tokens=f"-1,{tok.eot}")
+    small = engine.decode_window(mels[:TAIL_BATCH], opts, fetch_alignment=False)
+    large = engine.decode_window(mels[:TAIL_STREAMS], opts, fetch_alignment=False)
+    parted = [next((i for i, (a, b) in enumerate(zip(r.tokens, w.tokens)) if a != b), None)
+              for r, w in zip(small, large)]
+    print(f"[p] control: {TAIL_BATCH} windows decoded at B={TAIL_BATCH} and as rows of "
+          f"B={TAIL_STREAMS} ({opts.sample_len or 224} tokens, captured both): tokens equal in "
+          f"{parted.count(None)} of {TAIL_BATCH} rows; the others part at tokens "
+          f"{[i for i in parted if i is not None]}")
+    del engine, small, large
+    torch.cuda.empty_cache()
+
+    # the host C++ core
+    if not native.available():
+        fail("[p] the host C++ core did not build")
+    calls = []
+    real = native.dtw_path_native
+    native.dtw_path_native = lambda *a: calls.append(1) or real(*a)
+    try:
+        alignment.dtw_path(-torch.rand((20, 300)).numpy())
+    finally:
+        native.dtw_path_native = real
+    bpe = tok.bpe._native_core()
+    if calls != [1] or not isinstance(bpe, native.NativeBPE):
+        fail(f"[p] the host C++ core is not in use: dtw_path calls {calls}, tokenizer core {bpe}")
+    print(f"[p] host C++ core built at {native.library_path()}; alignment.dtw_path and the "
+          f"tokenizer's BPE go through it")
 
 
 # ---------------------------------------------------------------------------
@@ -3287,6 +3552,8 @@ def main() -> int:
     phase_vad(torch, K, model, tok)
     torch.cuda.empty_cache()
     phase_weight_levers(torch, K, model, tok)
+    torch.cuda.empty_cache()
+    phase_graphs(torch, K, model, tok)
     torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):

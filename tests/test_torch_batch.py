@@ -403,19 +403,51 @@ def test_unported_options_raise(models, option):
 
 
 def test_unported_transcriber_options_and_fallback_raise(models, monkeypatch):
-    """A mesh and ``tail_batch`` are refused. The fallback re-decode runs:
+    """A mesh is refused. ``tail_batch=2`` runs (``test_batch.py:186``'s
+    case, with one stream long enough for two windows, so that the tail
+    runs): once at most two streams are active the windows decode at B=2, with no
+    device flow, and the segments and words equal the JAX transcriber's
+    with ``tail_batch`` and the port's own without it (``WTT_TAIL_BATCH``
+    for ``transcribe_batch``, as in JAX). The fallback re-decode runs:
     random weights fail the logprob threshold at 0.0, every window is
     decoded again at 0.2 (JAX's noise substituted), and the segments equal
     the JAX transcriber's."""
     from test_torch_sampling import jax_gumbel_source
     from whisper_timestamped_tpu.engine import DecodeEngine as JaxEngine
     from whisper_timestamped_tpu_torch import decoding
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.utils import get_stage_timings, reset_stage_timings
 
     jax_model, model = models
     engine = DecodeEngine(model, _tok())
-    for kw in (dict(mesh=object()), dict(tail_batch=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            B.BatchTranscriber(engine, **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        B.BatchTranscriber(engine, mesh=object())
+
+    audios = {"a": _audio(0, 5), "b": _audio(1, 8), "c": _audio(2, 45)}
+    tail = B.BatchTranscriber(engine, batch_size=4, tail_batch=2)
+    assert not tail._device_flow_ok(list(audios), DecodingOptions(), [0.0])
+    assert B.BatchTranscriber(engine, batch_size=4)._device_flow_ok(list(audios), DecodingOptions(),
+                                                                    [0.0])
+    skw = dict(language="en", temperature=[0.0], no_speech_threshold=None, logprob_threshold=None)
+    reset_stage_timings()
+    got = tail.transcribe_streams(audios, **skw)
+    assert any(k.startswith("batch_decode_b2_") for k in get_stage_timings()), "no tail window"
+    full = B.BatchTranscriber(engine, batch_size=4).transcribe_streams(audios, **skw)
+    want = JB.BatchTranscriber(JaxEngine(jax_model, make_tokenizer(language="en", task="transcribe")),
+                               batch_size=4, tail_batch=2).transcribe_streams(audios, **skw)
+    for name in audios:
+        for other in (full, want):
+            assert [s.tokens for s in got[name]] == [s.tokens for s in other[name]], name
+            assert [(s.start, s.end) for s in got[name]] == [(s.start, s.end) for s in other[name]]
+    monkeypatch.setenv("WTT_TAIL_BATCH", "2")
+    got_w = B.transcribe_batch(model, audios, _tok(), **KW)
+    want_w = JB.transcribe_batch(jax_model, audios, make_tokenizer(language="en", task="transcribe"),
+                                 **KW)
+    monkeypatch.delenv("WTT_TAIL_BATCH")
+    full_w = B.transcribe_batch(model, audios, _tok(), **KW)
+    for name in audios:
+        assert loose(got_w[name]) == loose(want_w[name]) == loose(full_w[name]), name
+
     monkeypatch.setattr(decoding, "make_gumbel_source", jax_gumbel_source)
     kw = dict(language="en", temperature=(0.0, 0.2), logprob_threshold=0.0,
               no_speech_threshold=None)

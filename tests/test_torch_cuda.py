@@ -166,6 +166,113 @@ def test_self_attn_fused_write_bit_for_bit(cuda, B, pos):
     torch.testing.assert_close(o_f.float(), o_p.float(), rtol=0, atol=2e-2)
 
 
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_self_attn_kernels_read_the_slot_from_the_device(cuda, B):
+    """Both self-attention kernels with the step's slot an int32 on the
+    device, at several slots within one fixed grid (the window's extent of
+    456 slots, as the captured loop launches them): outputs against the
+    plain versions (bf16 atol 2e-2; int8 half a bf16 step + 1e-4), the
+    written rows against the plain writes bit for bit, no other slot
+    touched, and one launch each call."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+
+    g = torch.Generator(device=cuda).manual_seed(B + 77)
+    L, ctx, D, H = 2, 456, 1280, 20
+    pad = _self_pads(B, cuda)
+    k_all, v_all = _randn(g, L, B, ctx, D), _randn(g, L, B, ctx, D)
+    cache8 = (*quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32)),
+              *quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32)))
+    slot = torch.zeros((), dtype=torch.int32, device=cuda)
+    for pos in (0, 7, 63, 64, 231, 232, 300, 455):
+        slot.fill_(pos)
+        q, k_new, v_new = _randn(g, B, 1, D), _randn(g, B, 1, D), _randn(g, B, 1, D)
+        k_f, v_f = k_all.clone(), v_all.clone()
+        before = dict(K.LAUNCHES)
+        o_k = K.self_attn_decode(q, k_f, v_f, 1, slot, pad, H, k_new=k_new, v_new=v_new,
+                                 extent=ctx)
+        c_k = [t.clone() for t in cache8]
+        o_8 = K.self_attn_decode_int8(q, k_new, v_new, *c_k, 1, slot, pad, H, extent=ctx)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["self_attn_decode"] == before["self_attn_decode"] + 1
+        assert K.LAUNCHES["self_attn_decode_int8"] == before["self_attn_decode_int8"] + 1
+        k_p, v_p = k_all.clone(), v_all.clone()
+        K.write_row(k_new, k_p, 1, pos)
+        K.write_row(v_new, v_p, 1, pos)
+        assert torch.equal(k_f, k_p) and torch.equal(v_f, v_p)
+        o_p = K.self_attn_decode_plain(q, k_p, v_p, 1, slot, pad, H, extent=ctx)
+        torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+        c_p = [t.clone() for t in cache8]
+        K.write_quantized_row(k_new, v_new, *c_p, 1, slot)
+        assert all(torch.equal(a, b) for a, b in zip(c_k, c_p))
+        o_8p = K.self_attn_decode_int8_plain(q.float(), *c_p, 1, slot, pad, H, extent=ctx)
+        torch.testing.assert_close(o_8.float(), o_8p, rtol=SELF_Q_RTOL, atol=SELF_Q_ATOL)
+
+
+def test_two_captured_steps_equal_two_uncaptured(cuda):
+    """Two steps of the token loop captured in one CUDA graph and replayed
+    against the same two steps run eagerly from the same state: every
+    buffer and the cache bit for bit, and the graph's launches counted at
+    each replay."""
+    import whisper_timestamped_tpu_torch.decoding as dec
+    from whisper_timestamped_tpu_torch.models.whisper_torch import encode, init_cache
+
+    model, _, tok = _small_models()
+    module = model.module
+    B, P, max_new = 3, 8, 24
+    g = torch.Generator(device=cuda).manual_seed(12)
+    with torch.no_grad():
+        xa = encode(module, torch.randn((B, 80, 3000), generator=g, device=cuda) * 0.5)
+        cache = init_cache(module, xa, ctx_len=dec._cache_slots(module, P, max_new))
+        V = module.dims.n_vocab
+        cfg = dec._LoopConfig(P=P, max_new=max_new, extent=P + max_new,
+                              n_ctx=module.dims.n_text_ctx, eot=tok.eot,
+                              ts_begin=tok.timestamp_begin, no_timestamps=tok.no_timestamps,
+                              max_initial_timestamp_index=50, suppress_blank=True,
+                              without_timestamps=False, align_heads=((0, 1), (1, 0)),
+                              sampled=False, steps=2)
+        st = dec._alloc_loop_state(B, V, 2, tok.timestamp_begin, 2, xa.shape[1], True,
+                                   torch.bfloat16, cuda)
+        st.last_logits.copy_(torch.randn((B, V), generator=g, device=cuda))
+        st.last_token.fill_(tok.sot)
+        st.penult_token.fill_(tok.sot)
+        st.max_timestamp.fill_(tok.timestamp_begin - 1)
+        st.pad_len.copy_(torch.tensor([0, 2, 5], dtype=torch.int32))
+        cache.k[:, :, :P].copy_(torch.randn(cache.k[:, :, :P].shape, generator=g, device=cuda))
+        cache.v[:, :, :P].copy_(torch.randn(cache.v[:, :, :P].shape, generator=g, device=cuda))
+
+        def tensors():
+            return (*cache[:2], st.i, st.last_logits, st.last_token, st.penult_token,
+                    st.max_timestamp, st.finished, st.sum_logprobs, st.tok_rows, st.lp_rows,
+                    st.ts_rows, st.attn_rows, st.status)
+
+        def snapshot():
+            return [t.clone() for t in tensors()]
+
+        def restore(saved):
+            for t, v in zip(tensors(), saved):
+                t.copy_(v)
+
+        start = snapshot()
+        dec._loop_chunk(module, cache, st, cfg, None, 2)  # warm-up, then the eager answer
+        restore(start)
+        dec._loop_chunk(module, cache, st, cfg, None, 2)
+        want = snapshot()
+        restore(start)
+        graph, record = torch.cuda.CUDAGraph(), {}
+        with K.counting_into(record), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            dec._loop_chunk(module, cache, st, cfg, None, 2)
+        assert record["self_attn_decode"] == 2 * 2 and record["xattn_decode"] == 2 * 2
+        before = dict(K.LAUNCHES)
+        graph.replay()
+        K.add_launches(record)
+        torch.cuda.synchronize()
+        got = snapshot()
+    assert K.LAUNCHES["self_attn_decode"] - before["self_attn_decode"] == 4
+    assert int(got[2]) == 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_split_merge_on_two_streams(cuda):
     """The five pipeline kernels, each split, on the default stream and on
     a second one at once: each launch merges its own splits, so the outputs
@@ -1143,15 +1250,16 @@ def test_sampled_decode_window_on_card_matches_plain(cuda, monkeypatch):
     assert all(K.LAUNCHES[k] > before[k] for k in ("xattn_decode", "self_attn_decode",
                                                    "flash_attention"))
 
-    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new):
-        k_all[layer, :, pos] = k_new[:, 0]
-        v_all[layer, :, pos] = v_new[:, 0]
-        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H)
+    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new, extent=None):
+        K.write_row(k_new, k_all, layer, pos)
+        K.write_row(v_new, v_all, layer, pos)
+        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H, extent)
 
     monkeypatch.setattr(wt, "self_attn_decode", plain_self)
     monkeypatch.setattr(wt, "xattn_decode", K.xattn_decode_plain)
     monkeypatch.setattr(wt, "flash_attention", K.flash_attention_plain)
-    want = engine.decode_window(mel, opts, temperature=0.7, rng_seed=4)[0]
+    # a new engine: the first one's graphs hold the kernels' launches
+    want = DecodeEngine(model, tok).decode_window(mel, opts, temperature=0.7, rng_seed=4)[0]
     assert got.tokens == want.tokens and len(got.tokens) > 2
     np.testing.assert_allclose(got.token_logprobs, want.token_logprobs, rtol=0, atol=5e-2)
     greedy = engine.decode_window(mel, opts)[0]

@@ -12,9 +12,9 @@ A segment's jumps come from one of three routes:
 - the host: the cost in numpy (f32) and the DTW in numpy (float64).
 
 The routes keep the JAX package's precisions, so they can break DTW ties
-differently, as the JAX package's routes do. The native C++ DTW core of the
-JAX package (``native.py``) is not ported: the host DTW is the numpy
-wavefront.
+differently, as the JAX package's routes do. The host DTW is the C++ core
+(``native.py``) when it is built, else the numpy wavefront, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -37,8 +37,20 @@ DISFLUENCY_MARK = "[*]"
 
 
 def dtw_path(x, allow_vertical: bool = True):
-    """Host DTW (float64): the numpy wavefront (the JAX package's
-    ``dtw_path`` uses its native C++ core when built; the port has none)."""
+    """Host DTW (float64): the C++ core when built (``native.py``), the
+    numpy wavefront otherwise (``alignment.py:31-47`` of the JAX package).
+
+    Only the import and availability probe is guarded: an error that the
+    native DTW raises on a valid input propagates."""
+    use_native = False
+    try:
+        from .native import available, dtw_path_native
+
+        use_native = available()
+    except Exception:
+        pass
+    if use_native:
+        return dtw_path_native(x, allow_vertical)
     return dtw_path_numpy_wavefront(x, allow_vertical)
 
 # punctuation set (reference ``transcribe.py:1813``)

@@ -437,20 +437,24 @@ constexpr int tile_bytes() {
 // Launches k2 or k4, the kernel built for 2 or 4 warps a block (the
 // wrapper's choice), over the grid (n_split, H, B) with the ring's dynamic
 // shared memory (at most 32 KB with two stages; a deeper ring, past what a
-// block may take unasked, is allowed first), the n_split > 1 blocks of
-// each (row, head) one cluster. An unsplit grid launches without clusters:
-// on an H100 the int8 kernel at B=40 ran 6-9 % slower as clusters of one
-// block. Returns the launch's error.
+// block may take unasked, is allowed at the kernel's first launch, so that
+// a launch captured into a CUDA graph after an eager warm-up makes no
+// attribute call), the n_split > 1 blocks of each (row, head) one cluster.
+// An unsplit grid launches without clusters: on an H100 the int8 kernel at
+// B=40 ran 6-9 % slower as clusters of one block. Returns the launch's
+// error.
 template <class Rows, class Kernel, class... Args>
 cudaError_t launch(int warps, Kernel k2, Kernel k4, dim3 grid, cudaStream_t stream,
                    Args... args) {
   if ((warps != 2 && warps != 4) || grid.x < 1 || grid.x > kMaxSplits)
     return cudaErrorInvalidValue;
   const int smem = warps == 2 ? tile_bytes<2, Rows>() : tile_bytes<4, Rows>();
-  if (smem > 32 * 1024) {
+  static bool smem_allowed[2] = {false, false};  // k2's, k4's
+  if (smem > 32 * 1024 && !smem_allowed[warps == 4]) {
     const cudaError_t e = cudaFuncSetAttribute(warps == 2 ? k2 : k4,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
+    smem_allowed[warps == 4] = true;
   }
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;

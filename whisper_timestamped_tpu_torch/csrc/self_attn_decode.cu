@@ -14,16 +14,19 @@
 // a padding-slot query's own slot, so no row is ever fully masked and no
 // NaN reaches later cache slots). No scores are written.
 //
-// Design: xattn_decode's (decode_attn.cuh, bf16 rows), split over the slots
-// [0, pos]. The grid is (n_split, H, B), sized by the wrapper from pos + 1
-// with xattn_decode's rule (ops.kernels.xattn_split, pipeline_warps):
-// large-v3 B=1, pos=232 -> 4 splits of 64 slots, 80 blocks of 4 warps;
-// B=8 -> 4 splits, 640 blocks of 2; B=40 -> no split, 800 blocks of 2.
-// Block (s, h, b) attends slots [max(lo, s * F), min(pos + 1, (s + 1) * F))
-// with lo = min(pad_len[b], pos) read on the device; a split wholly below
-// lo has no rows, leaves (m = -inf, l = 0, o = 0) and still joins its
-// cluster's merge, which gives it weight 0. Slot pos is always live, so the
-// merged max is finite.
+// Design: xattn_decode's (decode_attn.cuh, bf16 rows), split over the
+// slots [0, extent). The step's slot ``pos`` is an int32 in device memory,
+// read by every block, so that a captured CUDA graph replays the same
+// launch at every step; the grid is (n_split, H, B), sized by the wrapper
+// from the window's static extent (P + max_new slots, not pos + 1) with
+// xattn_decode's rule (ops.kernels.xattn_split, pipeline_warps): large-v3
+// B=1, extent 456 -> 8 splits of 64 slots, 160 blocks of 4 warps; B=8 -> 4
+// splits of 128, 640 blocks of 2; B=40 -> no split, 800 blocks of 2. Block (s,
+// h, b) attends slots [max(lo, s * F), min(pos + 1, (s + 1) * F)) with lo =
+// min(pad_len[b], pos); a split wholly below lo or wholly above pos has no
+// rows, leaves (m = -inf, l = 0, o = 0) and still joins its cluster's
+// merge, which gives it weight 0. Slot pos is always live, so the merged
+// max is finite.
 //
 // The fused write: with k_new/v_new given, the block whose split holds slot
 // pos writes head h's 64 values of each into slot pos of layer ``layer``,
@@ -47,15 +50,17 @@ self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                         __nv_bfloat16* v,
                         __nv_bfloat16* __restrict__ out,          // (B, D)
                         const int* __restrict__ pad_len,          // (B,)
-                        int layer, int pos, int B, int ctx, int D, int H,
+                        const int* __restrict__ pos_slot,         // the step's slot
+                        int layer, int B, int ctx, int D, int H,
                         int slots_per_split, float scale) {
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int pos = *pos_slot;
   const int first = split * slots_per_split;
   const int hi = min(pos + 1, first + slots_per_split);
   const int lo = max(first, max(0, min(pad_len[b], pos)));
   const long slab = ((long)layer * B + b) * (long)ctx * D + h * wtt::kHeadDim;
   const long col = (long)b * D + h * wtt::kHeadDim;
-  const bool own = k_new != nullptr && pos < hi;  // this split holds slot pos
+  const bool own = k_new != nullptr && first <= pos && pos < hi;  // this split holds slot pos
   if (own && threadIdx.x < 16) {  // 8 16-byte pieces of K, then 8 of V
     const int piece = threadIdx.x & 7;
     const __nv_bfloat16* src = (threadIdx.x < 8 ? k_new : v_new) + col + piece * 8;
@@ -70,13 +75,14 @@ self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
 }  // namespace
 
 extern "C" int wtt_self_attn_decode(const void* q, const void* k_new, const void* v_new,
-                                    void* k, void* v, void* out, const void* pad_len, int layer,
-                                    int pos, int B, int ctx, int D, int H, int n_split,
-                                    int slots_per_split, int warps, float scale, void* stream) {
+                                    void* k, void* v, void* out, const void* pad_len,
+                                    const void* pos, int layer, int B, int ctx, int D, int H,
+                                    int n_split, int slots_per_split, int warps, float scale,
+                                    void* stream) {
   return (int)wtt::decode::launch<Rows>(
       warps, self_attn_decode_kernel<2>, self_attn_decode_kernel<4>, dim3(n_split, H, B),
       (cudaStream_t)stream, (const __nv_bfloat16*)q,
       (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (__nv_bfloat16*)k,
-      (__nv_bfloat16*)v, (__nv_bfloat16*)out, (const int*)pad_len, layer, pos, B, ctx, D, H,
-      slots_per_split, scale);
+      (__nv_bfloat16*)v, (__nv_bfloat16*)out, (const int*)pad_len, (const int*)pos, layer, B,
+      ctx, D, H, slots_per_split, scale);
 }

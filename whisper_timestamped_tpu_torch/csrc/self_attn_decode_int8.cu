@@ -20,12 +20,13 @@
 // scales, and the new rows.
 //
 // Design: self_attn_decode's (decode_attn.cuh, split over the slots [0,
-// pos], the same grid (n_split, H, B) from ops.kernels: large-v3 B=1,
-// pos=232 -> 4 splits of 64 slots, blocks of 4 warps; B=8 -> 4 splits,
-// blocks of 2; B=40 -> no split) with int8 rows: block (s, h, b) attends
-// slots [max(lo, s * F), min(pos + 1, (s + 1) * F)) with lo = min(pad_len[b],
-// pos) read on the device; a split wholly below lo leaves (-inf, 0, 0) and
-// weighs 0 in its cluster's merge. Only the blocks whose split holds slot
+// extent), ``pos`` read from device memory, the same grid (n_split, H, B)
+// from ops.kernels over the window's static extent: large-v3 B=1, extent
+// 456 -> 8 splits of 64 slots, blocks of 4 warps; B=8 -> 4 splits of 128,
+// blocks of 2; B=40 -> no split) with int8 rows: block (s, h, b) attends slots
+// [max(lo, s * F), min(pos + 1, (s + 1) * F)) with lo = min(pad_len[b],
+// pos); a split wholly below lo or wholly above pos leaves (-inf, 0, 0)
+// and weighs 0 in its cluster's merge. Only the blocks whose split holds slot
 // pos write: once their first tiles are in flight, each reduces |k_new[b]|
 // and |v_new[b]| over all D columns (2 x 2.5 KB, from L2), stores its
 // head's 64 codes of each into slot pos, and head 0's block stores the two
@@ -49,16 +50,18 @@ self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                              int8_t* v, float* v_scale,
                              __nv_bfloat16* __restrict__ out,          // (B, D)
                              const int* __restrict__ pad_len,          // (B,)
-                             int layer, int pos, int B, int ctx, int D, int H,
+                             const int* __restrict__ pos_slot,         // the step's slot
+                             int layer, int B, int ctx, int D, int H,
                              int slots_per_split, float scale) {
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int pos = *pos_slot;
   const int first = split * slots_per_split;
   const int hi = min(pos + 1, first + slots_per_split);
   const int lo = max(first, max(0, min(pad_len[b], pos)));
   const long row0 = ((long)layer * B + b) * ctx;  // slot 0's row
   const int head = h * wtt::kHeadDim;
   const long col = (long)b * D + head;
-  const bool own = pos < hi;  // this split holds slot pos: it writes the row
+  const bool own = first <= pos && pos < hi;  // this split holds slot pos: it writes the row
   const Rows rows{k + row0 * D + head, v + row0 * D + head, D, k_scale + row0, v_scale + row0,
                   own ? pos : -1, k_new + (long)b * D, v_new + (long)b * D, D, head,
                   k + (row0 + pos) * D + head, v + (row0 + pos) * D + head,
@@ -70,14 +73,14 @@ self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
 
 extern "C" int wtt_self_attn_decode_int8(const void* q, const void* k_new, const void* v_new,
                                          void* k, void* k_scale, void* v, void* v_scale,
-                                         void* out, const void* pad_len, int layer, int pos,
-                                         int B, int ctx, int D, int H, int n_split,
+                                         void* out, const void* pad_len, const void* pos,
+                                         int layer, int B, int ctx, int D, int H, int n_split,
                                          int slots_per_split, int warps, float scale,
                                          void* stream) {
   return (int)wtt::decode::launch<Rows>(
       warps, self_attn_decode_int8_kernel<2>, self_attn_decode_int8_kernel<4>,
       dim3(n_split, H, B), (cudaStream_t)stream, (const __nv_bfloat16*)q,
       (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (int8_t*)k, (float*)k_scale,
-      (int8_t*)v, (float*)v_scale, (__nv_bfloat16*)out, (const int*)pad_len, layer, pos, B, ctx,
-      D, H, slots_per_split, scale);
+      (int8_t*)v, (float*)v_scale, (__nv_bfloat16*)out, (const int*)pad_len, (const int*)pos,
+      layer, B, ctx, D, H, slots_per_split, scale);
 }

@@ -2,21 +2,28 @@
 
 Port of ``whisper_timestamped_tpu/decoding.py``. ``decode_window`` is the
 counterpart of ``decode_window_jit``: it encodes a batch of 30-s windows,
-prefills the right-aligned prompt region, then runs the token loop (a
-Python loop over tokens where JAX has ``lax.while_loop``) into
+prefills the right-aligned prompt region, then runs the token loop into
 preallocated buffers of fixed shape: the chosen tokens, their filtered
 log-probabilities, the timestamp-slice log-probabilities, and the
 alignment heads' cross-attention rows. Row convention as in the reference:
 ``attn[:, k]`` is the attention of the forward that predicted token k.
+
+The token loop is the counterpart of JAX's ``lax.while_loop``: one step
+function (``_loop_step``, JAX's ``body``) over device state, with no host
+read. Its step index is a device tensor, and a step that runs after JAX's
+loop would have stopped (every row finished, or ``max_new`` steps) changes
+nothing, so the host tests for the stop only every ``STOP_CHECK_STEPS``
+steps. On the card, ``STOP_CHECK_STEPS`` steps are one captured CUDA graph
+(``DecodeGraphs``, owned by the engine), replayed until the stop: at most
+ceil(max_new / STOP_CHECK_STEPS) host syncs a window. On the CPU the same
+function runs eagerly, in the same chunks. The encoder and the prefill stay
+eager, once a window.
 
 At temperature 0 the token is the argmax of the filtered logits. Above it
 the token is sampled as ``jax.random.categorical`` samples it, by the
 Gumbel-max rule: ``argmax(logits / T + g)`` with ``g`` a (B, V) draw of
 standard Gumbel noise per executed step, from ``make_gumbel_source`` (the
 one place the loop gets its noise from; the greedy loop draws nothing).
-
-The loop checks ``finished.all()`` on the host once per step (one device
-sync per step, where the JAX loop tests its condition on the device).
 
 ``decode`` and ``DecodingResult`` are the public single-window surface
 (``whisper.decode``), routing to the engine's greedy, best_of and beam
@@ -27,12 +34,13 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .models.whisper_torch import (
+    KVCache,
     WhisperTorch,
     _attention,
     _int8_attention,
@@ -42,12 +50,14 @@ from .models.whisper_torch import (
     _mlp,
     _mlp_params,
     _prefill_flash_attention,
+    alloc_cache,
     cross_attention_rows,
     decode_full,
     decode_step,
     encode,
     init_cache,
 )
+from .ops import kernels
 from .ops.quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
 from .tokenizer import Tokenizer
 from .utils.profiling import add_count, stage_timer
@@ -59,6 +69,9 @@ PROMPT_REGION = 232
 PROMPT_REGION_SMALL = 8
 MAX_NEW_TOKENS = 224  # whisper's sample_len default: n_text_ctx // 2
 PREFILL_FLASH_MIN_SLOTS = 16  # larger prompt regions prefill through flash_attention
+# decode steps between two host reads of the loop's stop flag: one captured
+# CUDA graph on the card, one eager chunk on the CPU
+STOP_CHECK_STEPS = 16
 
 
 @dataclass(frozen=True)
@@ -104,14 +117,16 @@ def compression_ratio(text: str) -> float:
     return len(b) / len(zlib.compress(b)) if b else 0.0
 
 
-def make_gumbel_source(seed: int, device) -> Callable[[int, int], torch.Tensor]:
+def make_gumbel_source(seed: int, device,
+                       generator: Optional[torch.Generator] = None) -> Callable[[int, int], torch.Tensor]:
     """The sampler's noise: a function ``draw(B, V)`` that returns the next
     step's (B, V) f32 tensor of standard Gumbel noise on ``device``, from a
-    ``torch.Generator`` seeded with ``seed``. ``-log(E)`` with ``E`` a unit
-    exponential draw is Gumbel; ``E`` is kept above the smallest normal
-    float so no column gets infinite noise. No host sync, so the draw can
-    be captured in a CUDA graph."""
-    gen = torch.Generator(device=device)
+    ``torch.Generator`` seeded with ``seed`` (``generator``, reseeded, when
+    given: the one a captured loop registered with its graphs). ``-log(E)``
+    with ``E`` a unit exponential draw is Gumbel; ``E`` is kept above the
+    smallest normal float so no column gets infinite noise. No host sync,
+    so the draw can be captured in a CUDA graph."""
+    gen = generator if generator is not None else torch.Generator(device=device)
     gen.manual_seed(int(seed))
     tiny = torch.finfo(torch.float32).tiny
 
@@ -187,7 +202,7 @@ def apply_timestamp_rules(
     last_token: torch.Tensor,  # (B,) y_{i-1}
     penult_token: torch.Tensor,  # (B,)
     max_timestamp: torch.Tensor,  # (B,) highest timestamp sampled so far (or ts_begin-1)
-    n_sampled: int,
+    n_sampled,  # tokens sampled so far: an int, or the loop's () device step index
     *,
     ts_begin: int,
     eot: int,
@@ -217,10 +232,11 @@ def apply_timestamp_rules(
     logits = logits.masked_fill(has_ts[:, None] & is_ts & (vocab_ids < ts_last[:, None]), neg_inf)
 
     # the first sampled position: a timestamp, bounded by max_initial_timestamp
-    if n_sampled == 0:
-        logits = logits.masked_fill(vocab_ids < ts_begin, neg_inf)
-        if max_initial_timestamp_index is not None:
-            logits = logits.masked_fill(vocab_ids > ts_begin + max_initial_timestamp_index, neg_inf)
+    # (a masked select, so that a device step index needs no host read)
+    first = vocab_ids < ts_begin
+    if max_initial_timestamp_index is not None:
+        first = first | (vocab_ids > ts_begin + max_initial_timestamp_index)
+    logits = logits.masked_fill(first & (n_sampled == 0), neg_inf)
 
     # sample a timestamp when its total probability beats the best
     # non-timestamp token (EOT included)
@@ -328,6 +344,255 @@ def _cross_layer_int8(cache, l: int):
     return cache.xk[l], cache.xk_scale[l], cache.xv[l], cache.xv_scale[l]
 
 
+@dataclass(frozen=True)
+class _LoopConfig:
+    """What the token loop's step takes as constants: a captured graph
+    bakes them in, so each is part of its key (``DecodeGraphs``)."""
+
+    P: int  # prompt region
+    max_new: int
+    extent: int  # cache slots the self-attention spans: P + max_new, within the cache
+    n_ctx: int
+    eot: int
+    ts_begin: int
+    no_timestamps: int
+    max_initial_timestamp_index: Optional[int]
+    suppress_blank: bool
+    without_timestamps: bool
+    align_heads: Tuple[Tuple[int, int], ...]  # empty: no alignment rows kept
+    sampled: bool
+    steps: int  # steps a chunk (STOP_CHECK_STEPS)
+
+
+@dataclass
+class _LoopState:
+    """The token loop's state on the device, updated in place by each step
+    (JAX's ``while_loop`` carry, ``decoding.py:453-476``), and the inputs
+    each window fills in (``pad_len``, ``t_div``, the masks): a captured
+    graph reads and writes these very tensors. ``status`` is (running,
+    steps run), what the host reads after each chunk of ``steps`` steps.
+    The per-token outputs (the token, its log-prob, the timestamp
+    log-probs, the alignment rows) go to the ``*_rows`` staging buffers,
+    row ``j`` for step ``j`` of the chunk, which the host copies into the
+    window's own buffers after the chunk (``_drain_rows``): what stays on
+    the card between windows is a chunk's rows, not a window's."""
+
+    i: torch.Tensor  # () long: steps run, JAX's loop counter
+    status: torch.Tensor  # (2,) long
+    last_logits: torch.Tensor  # (B, V), the model's dtype
+    last_token: torch.Tensor  # (B,) long
+    penult_token: torch.Tensor
+    max_timestamp: torch.Tensor
+    finished: torch.Tensor  # (B,) bool
+    sum_logprobs: torch.Tensor  # (B,) f32
+    tok_rows: torch.Tensor  # (B, steps) int32: column j, step j's token
+    lp_rows: torch.Tensor  # (B, steps) f32: its log-prob (0 once finished)
+    ts_rows: Optional[torch.Tensor]  # (B, steps, V - ts_begin) f32
+    attn_rows: Optional[torch.Tensor]  # (B, steps, K, T_audio) f32: step j's forward
+    pad_len: torch.Tensor  # (B,) int32
+    t_div: torch.Tensor  # () f32
+    suppress_mask: torch.Tensor  # (V,) f32
+    blank_mask: torch.Tensor
+
+
+def _alloc_loop_state(B: int, V: int, steps: int, ts_begin: int, K: int, T_audio: int,
+                      capture_attention: bool, logits_dtype, device) -> _LoopState:
+    z = dict(device=device)
+    return _LoopState(
+        i=torch.zeros((), dtype=torch.long, **z),
+        status=torch.zeros((2,), dtype=torch.long, **z),
+        last_logits=torch.zeros((B, V), dtype=logits_dtype, **z),
+        last_token=torch.zeros((B,), dtype=torch.long, **z),
+        penult_token=torch.zeros((B,), dtype=torch.long, **z),
+        max_timestamp=torch.zeros((B,), dtype=torch.long, **z),
+        finished=torch.zeros((B,), dtype=torch.bool, **z),
+        sum_logprobs=torch.zeros((B,), dtype=torch.float32, **z),
+        tok_rows=torch.zeros((B, steps), dtype=torch.int32, **z),
+        lp_rows=torch.zeros((B, steps), dtype=torch.float32, **z),
+        ts_rows=(torch.zeros((B, steps, V - ts_begin), dtype=torch.float32, **z)
+                 if capture_attention else None),
+        attn_rows=(torch.zeros((B, steps, K, T_audio), dtype=torch.float32, **z)
+                   if capture_attention else None),
+        pad_len=torch.zeros((B,), dtype=torch.int32, **z),
+        t_div=torch.ones((), dtype=torch.float32, **z),
+        suppress_mask=torch.zeros((V,), dtype=torch.float32, **z),
+        blank_mask=torch.zeros((V,), dtype=torch.float32, **z),
+    )
+
+
+def _loop_step(model: WhisperTorch, cache: KVCache, st: _LoopState, cfg: _LoopConfig,
+               draw, j: int) -> None:
+    """Step ``j`` of a chunk of the token loop, the counterpart of ``body``
+    at ``whisper_timestamped_tpu/decoding.py:483-560``, in place on ``st``
+    and the cache, with no host read. The step is gated on ``active``, "the
+    JAX loop would run this step" (i < max_new and not every row
+    finished): a step past the stop writes no buffer row, adds nothing to
+    ``sum_logprobs`` and does not count in ``i``; its cache write lands in
+    a slot no later step reads, its staging rows (row ``j``) are never
+    drained."""
+    i = st.i
+    active = (i < cfg.max_new) & ~st.finished.all()
+    logits = st.last_logits.float()
+    # filters in whisper's order: blank, suppress, timestamp rules
+    if cfg.suppress_blank:
+        logits = torch.where(i == 0, logits + st.blank_mask[None], logits)
+    logits = logits + st.suppress_mask[None]
+    if not cfg.without_timestamps:
+        logits = apply_timestamp_rules(
+            logits, st.last_token, st.penult_token, st.max_timestamp, i,
+            ts_begin=cfg.ts_begin, eot=cfg.eot, no_timestamps=cfg.no_timestamps,
+            max_initial_timestamp_index=cfg.max_initial_timestamp_index,
+        )
+    logprobs = torch.log_softmax(logits, dim=-1)
+    tok = sample_tokens(logits, st.t_div, draw) if cfg.sampled else torch.argmax(logits, dim=-1)
+    # sequence-length cap: force EOT when the true position would exceed n_ctx
+    overflow = (cfg.P + i - st.pad_len) >= (cfg.n_ctx - 1)
+    tok = torch.where(st.finished | overflow, cfg.eot, tok)
+
+    tok_logprob = torch.gather(logprobs, 1, tok[:, None])[:, 0]
+    unfinished = ~st.finished
+    newly = unfinished & active
+    st.tok_rows[:, j] = tok
+    st.lp_rows[:, j] = torch.where(unfinished, tok_logprob, 0.0)
+    if st.ts_rows is not None:
+        st.ts_rows[:, j] = logprobs[:, cfg.ts_begin:]
+    st.sum_logprobs.add_(torch.where(newly, tok_logprob, 0.0))
+    st.max_timestamp.copy_(torch.where((tok >= cfg.ts_begin) & newly,
+                                       torch.maximum(st.max_timestamp, tok), st.max_timestamp))
+    st.finished.logical_or_((tok == cfg.eot) & active)
+
+    # feed the chosen token; its forward predicts token i+1 (the slot stays
+    # inside the extent on a step past the stop)
+    slot = (cfg.P + i).clamp(max=cfg.extent - 1).to(torch.int32)
+    logits_new, rows = decode_step(
+        model, tok[:, None], cache, slot, pos_offset=st.pad_len, kv_valid_from=st.pad_len,
+        align_heads=cfg.align_heads, extent=cfg.extent,
+    )
+    if rows is not None:  # the attention row of token i + 1
+        st.attn_rows[:, j] = rows[:, :, 0]
+    st.last_logits.copy_(torch.where(active, logits_new[:, -1], st.last_logits))
+    st.penult_token.copy_(torch.where(active, st.last_token, st.penult_token))
+    st.last_token.copy_(torch.where(active, tok, st.last_token))
+    st.i.add_(active.long())
+
+
+def _loop_chunk(model, cache, st: _LoopState, cfg: _LoopConfig, draw, n: int) -> None:
+    """``n`` steps (at most ``cfg.steps``), then the status the host reads:
+    (running, steps run)."""
+    for j in range(n):
+        _loop_step(model, cache, st, cfg, draw, j)
+    running = (st.i < cfg.max_new) & ~st.finished.all()
+    st.status.copy_(torch.stack([running.long(), st.i]))
+
+
+def _drain_rows(st: _LoopState, out: dict, first: int, last: int, max_new: int) -> None:
+    """Copy the staging rows of the chunk that ran steps [first, last) into
+    the window's buffers ``out``: step i's token, log-prob and timestamp
+    log-probs to column i, its forward's alignment rows to ``attn[:, i +
+    1]`` (dropped at max_new, as JAX's ``mode="drop"``)."""
+    if last <= first:
+        return
+    n = last - first
+    out["tokens"][:, first:last] = st.tok_rows[:, :n]
+    out["token_logprobs"][:, first:last] = st.lp_rows[:, :n]
+    if out["attn"] is not None:
+        out["ts_logprobs"][:, first:last] = st.ts_rows[:, :n]
+        top = min(last + 1, max_new)
+        out["attn"][:, first + 1 : top] = st.attn_rows[:, : top - first - 1]
+
+
+class DecodeGraphs:
+    """The captured token loops of one ``DecodeEngine`` and the persistent
+    buffers they run on (one lever set; freed with the engine).
+
+    A graph is a chunk of ``STOP_CHECK_STEPS`` steps of ``_loop_step``
+    captured on the card, keyed by the batch B, the prompt region P, ``max_new``, the
+    alignment heads, ``capture_attention``, greedy or sampled and the
+    levers (``_LoopConfig`` and the cache's layout); the temperature is a
+    device scalar filled before each window, so one sampled graph serves
+    every temperature of the fallback schedule. A graph bakes in addresses,
+    so what its steps read and write is persistent, filled in place by each
+    window: the cache, one per (B, levers) with the self cache at the
+    larger prompt region's extent, shared by the graphs of both regions,
+    and the loop state (``_LoopState``: the carry and a chunk's staging
+    rows), one per (B, steps, heads, capture_attention). The graphs
+    allocate their temporaries from one shared memory pool. The sampler's
+    generator is one, registered with every sampled graph and reseeded per
+    window, so that a replayed window draws what the uncaptured run of the
+    same seed draws.
+
+    Capture: one eager step first, on the current stream (every library
+    and kernel loaded, each kernel's attributes set), then the capture, with
+    ``capture_error_mode="thread_local"`` (the serving loop's prefetch
+    thread uploads and computes mel on its own stream meanwhile). The
+    kernels' launches during the capture count into the graph's record,
+    added to ``ops.kernels.LAUNCHES`` at each replay. A failed capture
+    raises: nothing falls back to the uncaptured loop."""
+
+    def __init__(self):
+        self.graphs: Dict[Any, Tuple[Any, dict]] = {}
+        self.caches: Dict[Any, KVCache] = {}
+        self.states: Dict[Any, _LoopState] = {}
+        self.captures = 0
+        self._pool = None
+        self._generator = None
+
+    def cache(self, model: WhisperTorch, B: int, T: int, dtype, quantize_cross,
+              quantize_self: bool) -> KVCache:
+        key = (B, T, dtype, quantize_cross, quantize_self)
+        if key not in self.caches:
+            self.caches[key] = alloc_cache(model, B, T, _cache_slots(model, PROMPT_REGION),
+                                           dtype, model.device, quantize_cross, quantize_self)
+        return self.caches[key]
+
+    def state(self, key, make) -> _LoopState:
+        if key not in self.states:
+            self.states[key] = make()
+        return self.states[key]
+
+    def generator(self, device) -> torch.Generator:
+        if self._generator is None:
+            self._generator = torch.Generator(device=device)
+        return self._generator
+
+    def ensure(self, key, chunk: Callable[[int], None], steps: int, sampled: bool) -> None:
+        """Capture the graph of ``key`` unless it exists: ``chunk(n)`` runs
+        n steps on the persistent buffers, the graph ``steps`` of them. The
+        eager warm-up step changes the buffers, so a window fills its state
+        after this."""
+        if key not in self.graphs:
+            with stage_timer("decode_capture"):
+                self.graphs[key] = self._capture(chunk, steps, sampled)
+
+    def replay(self, key) -> None:
+        graph, record = self.graphs[key]
+        graph.replay()
+        kernels.add_launches(record)
+
+    def _capture(self, chunk, steps: int, sampled: bool):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        # the warm-up runs on the current stream: a new stream a capture
+        # would give cuBLAS a new workspace each time, kept for the process
+        chunk(1)
+        graph = torch.cuda.CUDAGraph()
+        if sampled:
+            graph.register_generator_state(self._generator)
+        record: Dict[str, int] = {}
+        with kernels.counting_into(record), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
+            chunk(steps)
+        self.captures += 1
+        return graph, record
+
+
+def _cache_slots(model: WhisperTorch, P: int, max_new: int = MAX_NEW_TOKENS) -> int:
+    """Self-cache slots of a window: the decode extent P + max_new,
+    8-aligned, at most n_text_ctx (8-aligned) + 8."""
+    n_ctx = model.dims.n_text_ctx
+    return min(((P + max_new + 7) // 8) * 8, ((n_ctx + 7) // 8) * 8 + 8)
+
+
 @torch.no_grad()
 def decode_window(
     model: WhisperTorch,
@@ -352,11 +617,16 @@ def decode_window(
     temperature: float = 0.0,
     rng_seed: int = 0,
     capture_attention: bool = True,
+    graphs: Optional[DecodeGraphs] = None,
+    uncaptured: bool = False,
 ):
     """Decode one 30-s window for a batch. Returns a dict of buffers: tokens
-    (B, max_new) int32 (EOT-filled), n_steps, sum_logprobs (B,),
-    token_logprobs (B, max_new), ts_logprobs (B, max_new, V-ts_begin), attn
-    (B, max_new, K, T_audio), no_speech_prob (B,), n_sampled (B,).
+    (B, max_new) int32 (EOT-filled), n_steps (the steps JAX's loop runs),
+    sum_logprobs (B,), token_logprobs (B, max_new), ts_logprobs (B,
+    max_new, V-ts_begin), attn (B, max_new, K, T_audio), no_speech_prob
+    (B,), n_sampled (B,), and ``chunks``, the loop's chunks of
+    ``STOP_CHECK_STEPS`` steps (graph replays on the card, each one host
+    sync).
 
     ``temperature`` > 0 samples each token from the filtered logits scaled
     by 1 / max(T, 1e-6), with noise from ``make_gumbel_source(rng_seed)``;
@@ -367,7 +637,15 @@ def decode_window(
 
     ``kv_int8`` / ``kv_int4`` store the encoder's cross K/V as int8 / int4
     (int4 wins when both are set), ``self_kv_int8`` the self-attention cache
-    as int8 (``init_cache``)."""
+    as int8 (``init_cache``).
+
+    On CUDA the token loop replays the captured graphs of ``graphs`` (the
+    engine's; a new ``DecodeGraphs`` when None) on its persistent buffers;
+    after each chunk the host copies the chunk's staging rows into this
+    window's own buffers, which it returns. ``uncaptured=True`` runs the
+    same step function eagerly on buffers of its own instead, the run a
+    captured one is compared with; no path of the package passes it. On
+    the CPU the loop always runs eagerly."""
     dims = model.dims
     dev = model.device
     B = mel.shape[0]
@@ -375,19 +653,25 @@ def decode_window(
     V = dims.n_vocab
     no_speech = no_timestamps - 1  # layout fact: <|nospeech|> precedes <|notimestamps|>
     mel, prompt, prompt_len = mel.to(dev), prompt.to(dev).long(), prompt_len.to(dev)
+    captured = dev.type == "cuda" and not uncaptured
+    if captured and graphs is None:
+        graphs = DecodeGraphs()
+    quantize_cross = "int4" if kv_int4 else kv_int8
 
     with stage_timer("encode"):
         xa = encode(model, mel)
-    # cache sized to the decode extent (8-aligned)
-    ctx_len = min(((P + max_new + 7) // 8) * 8, ((dims.n_text_ctx + 7) // 8) * 8 + 8)
-    cache = init_cache(model, xa, ctx_len=ctx_len,
-                       quantize_cross="int4" if kv_int4 else kv_int8,
-                       quantize_self=self_kv_int8)
+    if captured:
+        cache = init_cache(model, xa, quantize_cross=quantize_cross, quantize_self=self_kv_int8,
+                           out=graphs.cache(model, B, xa.shape[1], xa.dtype, quantize_cross,
+                                            self_kv_int8))
+    else:
+        cache = init_cache(model, xa, ctx_len=_cache_slots(model, P, max_new),
+                           quantize_cross=quantize_cross, quantize_self=self_kv_int8)
     pad_len = (P - prompt_len).to(torch.int32)
 
-    align_heads = list(align_heads) if capture_attention else []
+    align_heads = tuple(tuple(h) for h in align_heads) if capture_attention else ()
     with stage_timer("prefill"):
-        x, prefill_rows = _prefill(model, cache, prompt, pad_len, align_heads)
+        x, prefill_rows = _prefill(model, cache, prompt, pad_len, list(align_heads))
         sot_slot = P - sot_index_from_end
         x_sel = x[:, [sot_slot, P - 1]]
         sel_logits = _logits(_ln(x_sel, model.decoder["ln_g"], model.decoder["ln_b"]), model.decoder)
@@ -396,79 +680,75 @@ def decode_window(
 
     K = len(align_heads)
     T_audio = xa.shape[1]
-    tokens = torch.full((B, max_new), eot, dtype=torch.int32, device=dev)
-    token_logprobs = torch.zeros((B, max_new), dtype=torch.float32, device=dev)
-    ts_logprobs = attn = None
-    if capture_attention:
-        ts_logprobs = torch.zeros((B, max_new, V - ts_begin), dtype=torch.float32, device=dev)
-        attn = torch.zeros((B, max_new, K, T_audio), dtype=torch.float32, device=dev)
-        attn[:, 0] = prefill_rows
-    if temperature > 0:
-        t_div = temperature_divisor(temperature, dev)
-        gumbel = make_gumbel_source(rng_seed, dev)
-    sum_logprobs = torch.zeros((B,), dtype=torch.float32, device=dev)
-    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
-    last_token = prompt[:, -1]
-    penult_token = prompt[:, -2]
-    max_timestamp = torch.full((B,), ts_begin - 1, dtype=torch.long, device=dev)
-
-    i = 0
-    with stage_timer("decode_loop"):
-        while i < max_new and not bool(finished.all()):
-            logits = last_logits.float()
-            # filters in whisper's order: blank, suppress, timestamp rules
-            if suppress_blank and i == 0:
-                logits = logits + blank_mask[None]
-            logits = logits + suppress_mask[None]
-            if not without_timestamps:
-                logits = apply_timestamp_rules(
-                    logits, last_token, penult_token, max_timestamp, i,
-                    ts_begin=ts_begin, eot=eot, no_timestamps=no_timestamps,
-                    max_initial_timestamp_index=max_initial_timestamp_index,
-                )
-            logprobs = torch.log_softmax(logits, dim=-1)
-            if temperature > 0:
-                tok = sample_tokens(logits, t_div, gumbel)
-            else:
-                tok = torch.argmax(logits, dim=-1)
-            # sequence-length cap: force EOT when the true position would exceed n_ctx
-            overflow = (P + i - pad_len) >= (dims.n_text_ctx - 1)
-            tok = torch.where(finished | overflow, eot, tok)
-
-            tok_logprob = torch.gather(logprobs, 1, tok[:, None])[:, 0]
-            newly = ~finished
-            sum_logprobs += torch.where(newly, tok_logprob, 0.0)
-            tokens[:, i] = tok.to(torch.int32)
-            token_logprobs[:, i] = torch.where(newly, tok_logprob, 0.0)
-            if capture_attention:
-                ts_logprobs[:, i] = logprobs[:, ts_begin:]
-            max_timestamp = torch.where((tok >= ts_begin) & newly,
-                                        torch.maximum(max_timestamp, tok), max_timestamp)
-            finished = finished | (tok == eot)
-
-            # feed the chosen token; its forward predicts token i+1
-            logits_new, rows = decode_step(
-                model, tok[:, None], cache, P + i,
-                pos_offset=pad_len, kv_valid_from=pad_len, align_heads=align_heads,
-            )
-            if i + 1 < max_new and rows is not None:
-                attn[:, i + 1] = rows[:, :, 0]
-            last_logits = logits_new[:, -1]
-            penult_token, last_token = last_token, tok
-            i += 1
-    add_count("decode_steps", i)
-
-    n_sampled = (tokens != eot).sum(dim=-1) + (tokens == eot).any(dim=-1).to(torch.long)
-    return dict(
-        tokens=tokens,
-        n_steps=i,
-        sum_logprobs=sum_logprobs,
-        token_logprobs=token_logprobs,
-        ts_logprobs=ts_logprobs,
-        attn=attn,
-        no_speech_prob=no_speech_prob,
-        n_sampled=n_sampled,
+    k = STOP_CHECK_STEPS
+    cfg = _LoopConfig(
+        P=P, max_new=max_new, extent=min(P + max_new, cache.k.shape[2]), n_ctx=dims.n_text_ctx,
+        eot=eot, ts_begin=ts_begin, no_timestamps=no_timestamps,
+        max_initial_timestamp_index=max_initial_timestamp_index, suppress_blank=suppress_blank,
+        without_timestamps=without_timestamps, align_heads=align_heads,
+        sampled=temperature > 0, steps=k,
     )
+
+    def make_state():
+        return _alloc_loop_state(B, V, k, ts_begin, K, T_audio, capture_attention,
+                                 last_logits.dtype, dev)
+
+    st = graphs.state((B, k, align_heads, capture_attention), make_state) if captured \
+        else make_state()
+    draw = None
+    if cfg.sampled:
+        draw = (make_gumbel_source(rng_seed, dev, generator=graphs.generator(dev)) if captured
+                else make_gumbel_source(rng_seed, dev))
+
+    def chunk(n: int) -> None:
+        _loop_chunk(model, cache, st, cfg, draw, n)
+
+    key = (cfg, B, cache.k.dtype, cache.xk.dtype, cache.cross_int4)
+    if captured:
+        graphs.ensure(key, chunk, k, cfg.sampled)
+    # this window's initial state (JAX's ``init``), in place
+    st.i.zero_()
+    st.last_logits.copy_(last_logits)
+    st.last_token.copy_(prompt[:, -1])
+    st.penult_token.copy_(prompt[:, -2])
+    st.max_timestamp.fill_(ts_begin - 1)
+    st.finished.zero_()
+    st.sum_logprobs.zero_()
+    st.pad_len.copy_(pad_len)
+    st.suppress_mask.copy_(suppress_mask)
+    st.blank_mask.copy_(blank_mask)
+    if cfg.sampled:
+        st.t_div.copy_(temperature_divisor(temperature, dev))
+        if captured:  # the warm-up drew from it
+            graphs.generator(dev).manual_seed(int(rng_seed))
+    # the window's own buffers, filled from the staging rows chunk by chunk
+    out = dict(tokens=torch.full((B, max_new), eot, dtype=torch.int32, device=dev),
+               token_logprobs=torch.zeros((B, max_new), dtype=torch.float32, device=dev),
+               ts_logprobs=None, attn=None)
+    if capture_attention:
+        out["ts_logprobs"] = torch.zeros((B, max_new, V - ts_begin), dtype=torch.float32,
+                                         device=dev)
+        out["attn"] = torch.zeros((B, max_new, K, T_audio), dtype=torch.float32, device=dev)
+        out["attn"][:, 0] = prefill_rows
+    n_steps = chunks = 0
+    with stage_timer("decode_loop"):
+        for chunks in range(1, -(-max_new // k) + 1):
+            if captured:
+                graphs.replay(key)
+            else:
+                chunk(k)
+            first = n_steps
+            running, n_steps = st.status.tolist()  # the chunk's one host sync
+            _drain_rows(st, out, first, n_steps, max_new)
+            if not running:
+                break
+    add_count("decode_steps", n_steps)
+
+    tokens = out["tokens"]
+    n_sampled = (tokens != eot).sum(dim=-1) + (tokens == eot).any(dim=-1).to(torch.long)
+    # the sum stays in the persistent state: the next window resets it
+    return dict(out, sum_logprobs=st.sum_logprobs.clone(), n_steps=n_steps,
+                no_speech_prob=no_speech_prob, n_sampled=n_sampled, chunks=chunks)
 
 
 # ---------------------------------------------------------------------------

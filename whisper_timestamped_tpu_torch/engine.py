@@ -18,7 +18,9 @@ quantization levers (``kv_int8``, ``kv_int4``, ``self_kv_int8``).
 temperature 0 when ``beam_size`` is set. The weight levers ``w_int8`` and
 ``enc_int8`` give the engine int8 copies of the weights
 (``models.whisper_torch.QuantizedWhisper``); a mesh raises
-``NotImplementedError``.
+``NotImplementedError``. Each engine owns the captured token loops of its
+window decodes and their persistent buffers (``graphs``, a
+``decoding.DecodeGraphs``), freed with it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .decoding import (
     MAX_NEW_TOKENS,
     PROMPT_REGION,
     PROMPT_REGION_SMALL,
+    DecodeGraphs,
     DecodingOptions,
     build_blank_mask,
     build_suppress_mask,
@@ -169,6 +172,10 @@ class DecodeEngine:
             heads = [(l, h) for l in range(L // 2, L) for h in range(H)]
         self.align_heads: Tuple[Tuple[int, int], ...] = tuple(tuple(h) for h in heads)
         self._mask_cache: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # the captured token loops and their buffers on the card: every
+        # window decode of this engine (serial, batch, device flow,
+        # fallback re-decode) replays them
+        self.graphs = DecodeGraphs()
 
     @property
     def device(self) -> torch.device:
@@ -270,6 +277,7 @@ class DecodeEngine:
             temperature=float(temperature),
             rng_seed=rng_seed,
             capture_attention=capture_attention,
+            graphs=self.graphs,
             **self.kv_options,
         )
         return self.unpack_window_outputs(out, temperature,

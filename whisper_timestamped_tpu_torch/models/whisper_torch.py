@@ -43,6 +43,7 @@ from ..ops.kernels import (
     flash_attention,
     self_attn_decode,
     self_attn_decode_int8,
+    step_slot,
     xattn_decode,
     xattn_decode_int4,
     xattn_decode_int8,
@@ -540,47 +541,60 @@ class KVCache(NamedTuple):
         return self.xk_scale.shape[2] if self.xk_scale is not None else self.xk.shape[2]
 
 
+def alloc_cache(model: WhisperTorch, B: int, T: int, ctx_len: int, dtype, device,
+                quantize_cross=False, quantize_self: bool = False) -> KVCache:
+    """A cache of ``init_cache``'s layout for B rows of T encoder frames and
+    ``ctx_len`` self-attention slots: the cross K/V uninitialized, the self
+    cache (and its scales) zeroed."""
+    dims = model.dims
+    L, D = dims.n_text_layer, dims.n_text_state
+    scales = {}
+    if quantize_cross:
+        rows = T // 2 if quantize_cross == "int4" else T
+        xk = torch.empty((L, B, rows, D), dtype=torch.int8, device=device)
+        s = torch.empty((L, B, T), dtype=torch.float32, device=device)
+        scales.update(xk_scale=s, xv_scale=torch.empty_like(s))
+    else:
+        xk = torch.empty((L, B, T, D), dtype=dtype, device=device)
+    k = torch.zeros((L, B, ctx_len, D), dtype=torch.int8 if quantize_self else dtype,
+                    device=device)
+    if quantize_self:
+        s = torch.zeros((L, B, ctx_len), dtype=torch.float32, device=device)
+        scales.update(k_scale=s, v_scale=torch.zeros_like(s))
+    return KVCache(k=k, v=torch.zeros_like(k), xk=xk, xv=torch.empty_like(xk), **scales)
+
+
 def init_cache(model: WhisperTorch, xa: torch.Tensor, ctx_len: Optional[int] = None,
-               dtype=None, quantize_cross=False, quantize_self: bool = False) -> KVCache:
+               dtype=None, quantize_cross=False, quantize_self: bool = False,
+               out: Optional[KVCache] = None) -> KVCache:
     """Project the encoder output into every layer's cross-attention K/V and
-    allocate a zeroed self-attention cache of ``ctx_len`` slots.
+    allocate a zeroed self-attention cache of ``ctx_len`` slots
+    (``alloc_cache``).
 
     ``quantize_cross`` (False, True or "int8", "int4") stores the cross K/V
     quantized, one layer at a time, so the full-precision transient is one
     layer's (a whole bf16 cross-KV is 9.8 GB at large-v3 B=40);
     ``quantize_self`` makes the self cache int8 (its rows are quantized as
-    they are written)."""
+    they are written).
+
+    ``out``: a cache of the same layout to fill in place instead (the
+    captured token loop's persistent buffers, whose addresses its CUDA
+    graphs hold): its cross K/V are overwritten and its self cache is left
+    as it is, since the decode writes each slot before it reads it."""
     dec = model.decoder
-    dims = model.dims
-    dtype = dtype or xa.dtype
     B, T, _ = xa.shape
-    L, D = dims.n_text_layer, dims.n_text_state
-    ctx_len = ctx_len or dims.n_text_ctx
-    dev = xa.device
-    scales = {}
-    if quantize_cross:
-        qfn = quantize_rows_int4 if quantize_cross == "int4" else quantize_rows
-        rows = T // 2 if quantize_cross == "int4" else T
-        xk = torch.empty((L, B, rows, D), dtype=torch.int8, device=dev)
-        xv = torch.empty_like(xk)
-        xk_s = torch.empty((L, B, T), dtype=torch.float32, device=dev)
-        xv_s = torch.empty_like(xk_s)
-        for l in range(L):
-            xk[l], xk_s[l] = qfn(_linear(xa, dec["cross_k_w"][l]))
-            xv[l], xv_s[l] = qfn(_linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]))
-        scales.update(xk_scale=xk_s, xv_scale=xv_s)
-    else:
-        xk = torch.empty((L, B, T, D), dtype=dtype, device=dev)
-        xv = torch.empty_like(xk)
-        for l in range(L):
-            xk[l] = _linear(xa, dec["cross_k_w"][l])
-            xv[l] = _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l])
-    self_dtype = torch.int8 if quantize_self else dtype
-    k = torch.zeros((L, B, ctx_len, D), dtype=self_dtype, device=dev)
-    if quantize_self:
-        s = torch.zeros((L, B, ctx_len), dtype=torch.float32, device=dev)
-        scales.update(k_scale=s, v_scale=torch.zeros_like(s))
-    return KVCache(k=k, v=torch.zeros_like(k), xk=xk, xv=xv, **scales)
+    if out is None:
+        out = alloc_cache(model, B, T, ctx_len or model.dims.n_text_ctx, dtype or xa.dtype,
+                          xa.device, quantize_cross, quantize_self)
+    qfn = quantize_rows_int4 if quantize_cross == "int4" else quantize_rows
+    for l in range(model.dims.n_text_layer):
+        if quantize_cross:
+            out.xk[l], out.xk_scale[l] = qfn(_linear(xa, dec["cross_k_w"][l]))
+            out.xv[l], out.xv_scale[l] = qfn(_linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]))
+        else:
+            out.xk[l] = _linear(xa, dec["cross_k_w"][l])
+            out.xv[l] = _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l])
+    return out
 
 
 def cross_attention_rows(q, cache: KVCache, layer: int, n_head: int, emit_scores: bool,
@@ -603,21 +617,26 @@ def decode_step(
     model: WhisperTorch,
     tokens: torch.Tensor,
     cache: KVCache,
-    pos: int,
+    pos,
     pos_offset: Optional[torch.Tensor] = None,
     kv_valid_from: Optional[torch.Tensor] = None,
     align_heads: Optional[Sequence[Tuple[int, int]]] = None,
     beam_group: int = 1,
+    extent: Optional[int] = None,
 ):
     """One decode step for a single new token per row.
 
-    tokens (B, 1); pos: the cache slot written (Python int); pos_offset (B,)
-    is subtracted from ``pos`` for the positional index; kv_valid_from (B,)
-    masks cache slots below it (the query's own slot stays live). Returns
-    (logits (B, 1, V), rows): with ``align_heads`` a list of (layer, head),
-    rows is (B, K, 1, T) f32, the pre-softmax cross-attention scores of
-    those heads, else None. Scores are requested from the cross-attention
-    kernel only for layers that hold an alignment head.
+    tokens (B, 1); pos: the cache slot written, an int or an int32 scalar
+    on the device (the captured token loop computes it there, so that the
+    step makes no host read); pos_offset (B,) is subtracted from ``pos`` for
+    the positional index; kv_valid_from (B,) masks cache slots below it (the
+    query's own slot stays live); ``extent``: the cache slots the
+    self-attention spans (``ops.kernels.self_attn_decode``; default pos + 1
+    for an int ``pos``, the whole cache for a device one). Returns (logits
+    (B, 1, V), rows): with ``align_heads`` a list of (layer, head), rows is
+    (B, K, 1, T) f32, the pre-softmax cross-attention scores of those
+    heads, else None. Scores are requested from the cross-attention kernel
+    only for layers that hold an alignment head.
 
     The self-attention kernel writes the step's new K/V row into slot
     ``pos`` of the cache in the same launch: ``self_attn_decode`` for a bf16
@@ -637,11 +656,13 @@ def decode_step(
     if S != 1:
         raise ValueError(f"decode_step takes one token per row, got {S}")
     H = dims.n_text_head
-    if pos_offset is None:
-        x = dec["tok_emb"][tokens] + dec["pos_emb"][pos]
-    else:
-        pos_ids = torch.clamp(pos - pos_offset, 0, dims.n_text_ctx - 1)
-        x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_ids][:, None]
+    if not isinstance(pos, torch.Tensor):
+        extent = int(pos) + 1 if extent is None else extent
+    slot = step_slot(pos, tokens.device)
+    pos_ids = slot.long().expand(B)
+    if pos_offset is not None:
+        pos_ids = torch.clamp(pos_ids - pos_offset.long(), 0, dims.n_text_ctx - 1)
+    x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_ids][:, None]
     self_int8 = cache.k.dtype == torch.int8
     x = x.to(dec["tok_emb"].dtype if self_int8 else cache.k.dtype)
     pad = (
@@ -660,9 +681,10 @@ def decode_step(
         q = _linear(xn, w("attn_q_w", l), dec["attn_q_b"][l])
         if self_int8:
             a = self_attn_decode_int8(q, k_new, v_new, cache.k, cache.k_scale, cache.v,
-                                      cache.v_scale, l, pos, pad, H)
+                                      cache.v_scale, l, slot, pad, H, extent)
         else:
-            a = self_attn_decode(q, cache.k, cache.v, l, pos, pad, H, k_new=k_new, v_new=v_new)
+            a = self_attn_decode(q, cache.k, cache.v, l, slot, pad, H, k_new=k_new, v_new=v_new,
+                                 extent=extent)
         x = x + _linear(a, w("attn_o_w", l), dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, w("cross_q_w", l), dec["cross_q_b"][l])

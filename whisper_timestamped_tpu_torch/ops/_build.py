@@ -37,9 +37,9 @@ SIGNATURES = {
     # q, xk, xv, out, scores, layer, B, B_kv, T, D, H, beam_group, n_split,
     # frames_per_split, warps, scale, stream
     "wtt_xattn_decode": [_P] * 5 + [_I] * 10 + [_F, _P],
-    # q, k_new, v_new, k, v, out, pad_len, layer, pos, B, ctx, D, H, n_split,
-    # slots_per_split, warps, scale, stream
-    "wtt_self_attn_decode": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # q, k_new, v_new, k, v, out, pad_len, pos (int32 on the device), layer, B, ctx, D, H,
+    # n_split, slots_per_split, warps, scale, stream
+    "wtt_self_attn_decode": [_P] * 8 + [_I] * 8 + [_F, _P],
     # scores, rows (null: pre-sliced), dims, cost, scratch, partial, S, K, N, M, T, G, stream
     "wtt_align_cost": [_P] * 6 + [_I] * 6 + [_P],
     # scores, cost, partial, K, N, M, n_tokens, span, G, stream
@@ -61,9 +61,9 @@ SIGNATURES = {
     # q, xk, xk_scale, xv, xv_scale, out, scores, layer, B, B_kv, T, D, H, beam_group,
     # n_split, rows_per_split, warps, scale, stream
     "wtt_xattn_decode_int4": [_P] * 7 + [_I] * 10 + [_F, _P],
-    # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, layer, pos, B, ctx, D, H,
-    # n_split, slots_per_split, warps, scale, stream
-    "wtt_self_attn_decode_int8": [_P] * 9 + [_I] * 9 + [_F, _P],
+    # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, pos (int32 on the device),
+    # layer, B, ctx, D, H, n_split, slots_per_split, warps, scale, stream
+    "wtt_self_attn_decode_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
     # x, twiddles, window, cos_b, sin_b, bases_t, mel_w, out, radices (host int array),
     # n_stages, B, L, n_fft, n_bins, n_mels, hop, refine_below, stream
     "wtt_log10_mel": [_P] * 9 + [_I] * 7 + [_F, _P],

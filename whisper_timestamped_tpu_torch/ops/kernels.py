@@ -49,8 +49,10 @@ run on the card compares the two.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -79,6 +81,30 @@ MAX_T = 8192  # the longest attention (frames, or cache slots) the decode wrappe
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# A thread that captures a CUDA graph counts its launches into its own
+# record (``counting_into``), since they run only when the graph is
+# replayed; each replay adds the record to LAUNCHES (``add_launches``).
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def counting_into(record: dict):
+    """Within the block, the launches this thread makes count into
+    ``record`` instead of ``LAUNCHES`` (other threads count as before)."""
+    saved = getattr(_capturing, "record", None)
+    _capturing.record = record
+    try:
+        yield record
+    finally:
+        _capturing.record = saved
+
+
+def add_launches(record: dict, times: int = 1) -> None:
+    """Add a captured graph's launches, ``times`` replays of it."""
+    for name, n in record.items():
+        LAUNCHES[name] += n * times
 
 
 # ---------------------------------------------------------------------------
@@ -110,21 +136,45 @@ def xattn_decode_plain(q, xk_all, xv_all, layer: int, n_head: int,
     return out, (s[:, :, None] if emit_scores else None)
 
 
-def self_attn_decode_plain(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int):
+def step_slot(pos, device) -> torch.Tensor:
+    """The step's cache slot as the self-attention kernels read it: an int32
+    scalar in device memory. A tensor is taken as it is (a captured decode
+    loop computes it on the device); an int is filled into a new one."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), int(pos), dtype=torch.int32, device=device)
+
+
+def _extent(pos, extent: Optional[int], ctx: int) -> int:
+    """The cache slots a self-attention call spans: ``extent`` when given,
+    else pos + 1 for an int ``pos`` and the whole cache for a device one."""
+    if extent is not None:
+        return int(extent)
+    return ctx if isinstance(pos, torch.Tensor) else int(pos) + 1
+
+
+def self_attn_decode_plain(q, k_all, v_all, layer: int, pos, pad_len, n_head: int,
+                           extent: Optional[int] = None):
     """Single-query self-attention over layer ``layer`` of the stacked cache.
 
-    q (B, 1, D); k_all/v_all (L, B, ctx, D); slot s of row b is live when
-    pad_len[b] <= s <= pos, or s == pos (a padding-slot query keeps its own
-    slot, so no row is fully masked). Returns (B, 1, D) in q's dtype."""
+    q (B, 1, D); k_all/v_all (L, B, ctx, D); ``pos`` the step's slot, an
+    int or an int32 scalar on q's device. The first ``extent`` slots are
+    read (``_extent``) and masked as JAX's static-shape attention masks its
+    cache: slot s of row b is live when pad_len[b] <= s <= pos, or s == pos
+    (a padding-slot query keeps its own slot, so no row is fully masked).
+    Returns (B, 1, D) in q's dtype."""
     B, _, D = q.shape
     dh = D // n_head
-    k = k_all[layer, :, : pos + 1].float()
-    v = v_all[layer, :, : pos + 1].float()
-    lo = torch.clamp(pad_len.to(q.device).long(), max=pos)
-    live = torch.arange(pos + 1, device=q.device)[None, :] >= lo[:, None]  # (B, pos+1)
+    T = _extent(pos, extent, k_all.shape[2])
+    k = k_all[layer, :, :T].float()
+    v = v_all[layer, :, :T].float()
+    slot = step_slot(pos, q.device).long()
+    lo = torch.minimum(pad_len.to(q.device).long(), slot)
+    ids = torch.arange(T, device=q.device)[None, :]
+    live = (ids >= lo[:, None]) & (ids <= slot)  # (B, T)
     qh = q.float().reshape(B, n_head, dh)
-    kh = k.reshape(B, pos + 1, n_head, dh).transpose(1, 2)
-    vh = v.reshape(B, pos + 1, n_head, dh).transpose(1, 2)
+    kh = k.reshape(B, T, n_head, dh).transpose(1, 2)
+    vh = v.reshape(B, T, n_head, dh).transpose(1, 2)
     s = torch.einsum("bhd,bhtd->bht", qh, kh) * dh**-0.5
     s = s.masked_fill(~live[:, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
@@ -177,27 +227,37 @@ def xattn_decode_int4_plain(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n
         0, n_head, emit_scores, beam_group)
 
 
-def self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer: int, pos: int,
-                                pad_len, n_head: int):
+def self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer: int, pos,
+                                pad_len, n_head: int, extent: Optional[int] = None):
     """``self_attn_decode_plain`` over an int8 cache (L, B, ctx, D) with
-    per-slot f32 scales (L, B, ctx): dequantizes the layer's slots [0, pos]
-    to q's dtype (the JAX package's fallback, ``whisper_jax.py:982-992``)."""
-    sl = (slice(layer, layer + 1), slice(None), slice(0, pos + 1))
+    per-slot f32 scales (L, B, ctx): dequantizes the layer's first
+    ``extent`` slots to q's dtype (the JAX package's fallback,
+    ``whisper_jax.py:982-992``)."""
+    T = _extent(pos, extent, k_all.shape[2])
+    sl = (slice(layer, layer + 1), slice(None), slice(0, T))
     k = k_all[sl].to(q.dtype) * k_scale[sl][..., None].to(q.dtype)
     v = v_all[sl].to(q.dtype) * v_scale[sl][..., None].to(q.dtype)
-    return self_attn_decode_plain(q, k, v, 0, pos, pad_len, n_head)
+    return self_attn_decode_plain(q, k, v, 0, pos, pad_len, n_head, T)
 
 
-def write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int, pos: int) -> None:
+def write_row(new, cache, layer: int, pos) -> None:
+    """Write rows ``new`` (B, 1, ...) into slot ``pos`` (an int or an int32
+    device scalar) of layer ``layer`` of ``cache`` (L, B, ctx, ...), in
+    place, with no host read of ``pos``."""
+    idx = step_slot(pos, cache.device).long().reshape(1)
+    cache[layer].index_copy_(1, idx, new.to(cache.dtype))
+
+
+def write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int, pos) -> None:
     """Quantize a step's new self-attention rows k_new/v_new (B, 1, D) with
-    ``quantize_rows`` into slot ``pos`` of layer ``layer`` of the int8 cache
-    and its scales, in place."""
+    ``quantize_rows`` into slot ``pos`` (an int or an int32 device scalar)
+    of layer ``layer`` of the int8 cache and its scales, in place."""
     kq, ks = quantize_rows(k_new[:, 0])
     vq, vs = quantize_rows(v_new[:, 0])
-    k_all[layer, :, pos] = kq
-    k_scale[layer, :, pos] = ks
-    v_all[layer, :, pos] = vq
-    v_scale[layer, :, pos] = vs
+    write_row(kq[:, None], k_all, layer, pos)
+    write_row(ks[:, None], k_scale, layer, pos)
+    write_row(vq[:, None], v_all, layer, pos)
+    write_row(vs[:, None], v_scale, layer, pos)
 
 
 def median9_plain(x):
@@ -540,7 +600,9 @@ def _launch(name: str, fn_name: str, *args, refused: Optional[str] = None) -> No
         raise ValueError(f"{name}: {refused}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name] += 1
+    record = getattr(_capturing, "record", None)
+    counts = LAUNCHES if record is None else record
+    counts[name] = counts.get(name, 0) + 1
 
 
 def _stream(t: torch.Tensor):
@@ -582,8 +644,8 @@ def xattn_split(B: int, H: int, T: int, n_sm: int, frames_per_row: int = 1) -> T
     """(n_split, rows per split) of the grid of the decode-attention
     pipeline's kernels (``xattn_decode``, ``xattn_decode_int8`` over T
     frames, ``xattn_decode_int4`` over T = frames / 2 packed rows,
-    ``self_attn_decode`` and ``self_attn_decode_int8`` over T = pos + 1
-    slots): about
+    ``self_attn_decode`` and ``self_attn_decode_int8`` over T = the
+    call's extent of slots): about
     XATTN_WARPS_PER_SM warps a multiprocessor over the B * H (row, head)
     pairs in blocks of ``pipeline_warps`` warps (for rows of
     ``frames_per_row`` frames), at most one split per 64 rows and
@@ -639,24 +701,30 @@ def xattn_decode(q, xk_all, xv_all, layer: int, n_head: int,
     return out, scores
 
 
-def self_attn_decode(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int,
-                     k_new=None, v_new=None):
+def self_attn_decode(q, k_all, v_all, layer: int, pos, pad_len, n_head: int,
+                     k_new=None, v_new=None, extent: Optional[int] = None):
     """Self-attention of one decode step over layer ``layer`` of the stacked
-    cache, live slots [min(pad_len[b], pos), pos] (see
-    ``self_attn_decode_plain``). With ``k_new``/``v_new`` (B, 1, D), the
+    cache, live slots [min(pad_len[b], pos), pos] of its first ``extent``
+    (see ``self_attn_decode_plain``). ``pos`` is an int32 scalar on the
+    device (``step_slot``; an int is filled into one), which the kernel
+    reads, so that one launch serves every step of a captured loop; the
+    grid is sized from ``extent`` (default: pos + 1 for an int ``pos``, the
+    whole cache for a device one). With ``k_new``/``v_new`` (B, 1, D), the
     step's new rows, it first writes them into slot ``pos`` of layer
     ``layer`` of k_all/v_all, in place, and attends over the written cache.
     On CUDA one launch does both: bf16 q/K/V and new rows, head width 64,
     contiguous, int32 ``pad_len`` on the same device. For CPU tensors the
-    rows are written by indexing and the plain version attends."""
+    rows are written by ``write_row`` and the plain version attends."""
     name = "self_attn_decode"
     _expect(name, (k_new is None) == (v_new is None), "give both k_new and v_new, or neither")
     new = () if k_new is None else (k_new, v_new)
-    if not _on_cuda(name, q, k_all, v_all, pad_len, *new):
+    slot = step_slot(pos, q.device)
+    T = _extent(pos, extent, k_all.shape[2])
+    if not _on_cuda(name, q, k_all, v_all, pad_len, slot, *new):
         if new:
-            k_all[layer, :, pos] = k_new[:, 0]
-            v_all[layer, :, pos] = v_new[:, 0]
-        return self_attn_decode_plain(q, k_all, v_all, layer, pos, pad_len, n_head)
+            write_row(k_new, k_all, layer, slot)
+            write_row(v_new, v_all, layer, slot)
+        return self_attn_decode_plain(q, k_all, v_all, layer, slot, pad_len, n_head, T)
     B, S, D = q.shape
     L, Bk, ctx, Dk = k_all.shape
     _expect(name, S == 1 and Bk == B and Dk == D and v_all.shape == k_all.shape
@@ -665,16 +733,27 @@ def self_attn_decode(q, k_all, v_all, layer: int, pos: int, pad_len, n_head: int
     _expect(name, all(t.dtype == torch.bfloat16 for t in (q, k_all, v_all, *new)),
             "q/K/V and the new rows must be bf16")
     _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
+    _check_slot(name, pos, slot, T)
     _expect(name, all(t.is_contiguous() for t in (q, k_all, v_all, pad_len, *new)),
             "inputs must be contiguous")
     _expect(name, _aligned(q, k_all, v_all, *new), "inputs must be 16-byte aligned")
-    _expect(name, 0 <= layer < L and 0 <= pos < min(ctx, MAX_T), f"layer {layer} / pos {pos} out of range")
+    _expect(name, 0 <= layer < L and 0 < T <= min(ctx, MAX_T), f"layer {layer} / extent {T} out of range")
     _expect(name, B <= 65535 and n_head <= 65535, f"unsupported B={B} H={n_head}")
     out = torch.empty_like(q)
     _launch(name, "wtt_self_attn_decode", q.data_ptr(), _ptr(k_new), _ptr(v_new),
-            k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(), pad_len.data_ptr(), layer, pos,
-            B, ctx, D, n_head, *_grid(q, B, n_head, pos + 1), HEAD_DIM**-0.5, _stream(q))
+            k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(), pad_len.data_ptr(),
+            slot.data_ptr(), layer, B, ctx, D, n_head, *_grid(q, B, n_head, T), HEAD_DIM**-0.5,
+            _stream(q))
     return out
+
+
+def _check_slot(name: str, pos, slot: torch.Tensor, extent: int) -> None:
+    """The slot a kernel reads is an int32 scalar; an int one is also
+    checked against the extent (a device one is the caller's to keep in
+    range: the decode loop clamps it)."""
+    _expect(name, slot.dtype == torch.int32 and slot.numel() == 1, "pos must be an int32 scalar")
+    if not isinstance(pos, torch.Tensor):
+        _expect(name, 0 <= int(pos) < extent, f"pos {pos} outside the extent {extent}")
 
 
 MAX_COST_FRAMES = 1536  # the frames (M) the cost kernel takes (a lane's registers hold 7 tiles of 8)
@@ -1111,22 +1190,25 @@ def xattn_decode_int4(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head:
 
 
 def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int,
-                          pos: int, pad_len, n_head: int):
+                          pos, pad_len, n_head: int, extent: Optional[int] = None):
     """Write this step's new self-attention rows k_new/v_new (B, 1, D) into
     slot ``pos`` of layer ``layer`` of the int8 cache, quantized as
     ``quantize_rows`` does (codes and scales, in place), then attend over
-    the live slots [min(pad_len[b], pos), pos] (see
-    ``self_attn_decode_int8_plain``). On CUDA one launch does both: bf16
+    the live slots [min(pad_len[b], pos), pos] of the first ``extent`` (see
+    ``self_attn_decode_int8_plain``; ``pos`` and ``extent`` as
+    ``self_attn_decode`` takes them). On CUDA one launch does both: bf16
     q/k_new/v_new, int8 cache (L, B, ctx, D), f32 scales (L, B, ctx), int32
-    ``pad_len``, head width 64, contiguous; the kernel splits the pos + 1
+    ``pad_len``, head width 64, contiguous; the kernel splits the extent's
     slots across blocks as ``self_attn_decode`` does. For CPU tensors the
     plain quantizer writes the rows and the plain version attends."""
     name = "self_attn_decode_int8"
+    slot = step_slot(pos, q.device)
+    T = _extent(pos, extent, k_all.shape[2])
     tensors = (q, k_new, v_new, k_all, k_scale, v_all, v_scale, pad_len)
-    if not _on_cuda(name, *tensors):
-        write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, pos)
-        return self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos,
-                                           pad_len, n_head)
+    if not _on_cuda(name, *tensors, slot):
+        write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, slot)
+        return self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, slot,
+                                           pad_len, n_head, T)
     B, S, D = q.shape
     L, Bk, ctx, Dk = k_all.shape
     _expect(name, S == 1 and Bk == B and Dk == D and v_all.shape == k_all.shape
@@ -1140,16 +1222,17 @@ def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer
     _expect(name, k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
             "scales must be f32")
     _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
+    _check_slot(name, pos, slot, T)
     _expect(name, all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     _expect(name, _aligned(q, k_new, v_new, k_all, k_scale, v_all, v_scale),
             "inputs must be 16-byte aligned")
-    _expect(name, 0 <= layer < L and 0 <= pos < min(ctx, MAX_T), f"layer {layer} / pos {pos} out of range")
+    _expect(name, 0 <= layer < L and 0 < T <= min(ctx, MAX_T), f"layer {layer} / extent {T} out of range")
     _expect(name, B <= 65535 and n_head <= 65535, f"unsupported B={B} H={n_head}")
     out = torch.empty_like(q)
     _launch(name, "wtt_self_attn_decode_int8", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_all.data_ptr(), k_scale.data_ptr(), v_all.data_ptr(), v_scale.data_ptr(),
-            out.data_ptr(), pad_len.data_ptr(), layer, pos, B, ctx, D, n_head,
-            *_grid(q, B, n_head, pos + 1), HEAD_DIM**-0.5, _stream(q))
+            out.data_ptr(), pad_len.data_ptr(), slot.data_ptr(), layer, B, ctx, D, n_head,
+            *_grid(q, B, n_head, T), HEAD_DIM**-0.5, _stream(q))
     return out
 
 

@@ -32,9 +32,11 @@ next batch's upload and mel (a worker thread on its own CUDA stream) and
 the previous batch's assembly (a second worker) with the current batch's
 decode. ``vad`` cuts each stream's non-speech out on the host before the
 batch (silero on the model's device) and maps the word times back.
+``tail_batch`` (``WTT_TAIL_BATCH`` for the entry points) decodes the
+iterations with at most that many active streams at that smaller batch,
+its own captured token loop, on the host loop.
 
-Not yet ported, and refused with ``NotImplementedError``: a mesh and
-``tail_batch``.
+Not yet ported, and refused with ``NotImplementedError``: a mesh.
 """
 
 from __future__ import annotations
@@ -173,16 +175,19 @@ class BatchTranscriber:
     (``batch.py:153``): ``batch_size`` windows per decode call, padded with
     repeated windows when fewer are pending, so every call has one shape.
     ``fetch_alignment`` brings each window's attention to the host (host
-    alignment); False leaves it on the device for the device aligner."""
+    alignment); False leaves it on the device for the device aligner.
+    ``tail_batch`` (``batch.py:180-186``): once at most that many streams
+    are active, the windows decode at B = ``tail_batch`` (a second, smaller
+    captured loop: a step's cost grows with the batch); None keeps
+    ``batch_size`` throughout."""
 
     def __init__(self, engine: DecodeEngine, batch_size: int = 8, mesh=None,
                  fetch_alignment: bool = True, tail_batch: Optional[int] = None):
         if mesh is not None:
             raise not_ported("mesh")
-        if tail_batch is not None:
-            raise not_ported("tail_batch")
         self.engine = engine
         self.batch_size = batch_size
+        self.tail_batch = tail_batch
         self.fetch_alignment = fetch_alignment
         # name -> {"language", "language_probs"} after transcribe_streams
         self.stream_meta: Dict[str, dict] = {}
@@ -253,6 +258,7 @@ class BatchTranscriber:
                 without_timestamps=options.without_timestamps,
                 temperature=float(temperature),
                 rng_seed=rng_seed,
+                graphs=engine.graphs,
                 **engine.kv_options,
             )
 
@@ -339,8 +345,9 @@ class BatchTranscriber:
         """The device flow engages when the host makes no data-dependent
         decision between windows: one temperature of 0 (no fallback
         re-decode), no best_of, no beam search, no prefix, timestamps on, at most
-        ``batch_size`` streams. The no-speech skip is computed on the
-        device. ``WTT_DEVICE_FLOW=0`` forces the host loop."""
+        ``batch_size`` streams, no ``tail_batch`` (``batch.py:453``). The
+        no-speech skip is computed on the device. ``WTT_DEVICE_FLOW=0``
+        forces the host loop."""
         return (
             os.environ.get("WTT_DEVICE_FLOW", "1") != "0"
             and len(temperature) == 1
@@ -350,6 +357,7 @@ class BatchTranscriber:
             and not opts.without_timestamps
             and not opts.prefix
             and len(streams) <= self.batch_size
+            and self.tail_batch is None
         )
 
     def _run_device_flow(self, streams: List[_Stream], opts: DecodingOptions, *,
@@ -576,20 +584,23 @@ class BatchTranscriber:
             active = [s for s in streams if not s.done and s.seek < s.content_frames]
             if not active:
                 break
-            batch = active[:B]
+            B_eff = B
+            if self.tail_batch and len(active) <= self.tail_batch:
+                B_eff = self.tail_batch  # the stragglers: the smaller loop
+            batch = active[:B_eff]
             n_real = len(batch)
             # not gated on condition_on_previous_text: with it off,
             # prompt_reset_since moves after every window, so only window 0
             # sees a prompt (the initial_prompt seed)
-            prompts = [s.all_tokens[s.prompt_reset_since:] for s in batch] + [[]] * (B - n_real)
-            languages = [s.language for s in batch] + [None] * (B - n_real)
+            prompts = [s.all_tokens[s.prompt_reset_since:] for s in batch] + [[]] * (B_eff - n_real)
+            languages = [s.language for s in batch] + [None] * (B_eff - n_real)
             sizes = [min(N_FRAMES, s.content_frames - s.seek) for s in batch]
-            mels = self._gather_windows([s.row for s in batch], [s.seek for s in batch])
+            mels = self._gather_windows([s.row for s in batch], [s.seek for s in batch], batch=B_eff)
             n_iter += 1
             # a seed per iteration (the serial loop varies it per window):
             # one seed for every iteration would correlate the windows' noise
             it_seed = rng_seed + 104729 * n_iter
-            with stage_timer(f"batch_decode_b{B}_a{n_real}"):
+            with stage_timer(f"batch_decode_b{B_eff}_a{n_real}"):
                 if opts.beam_size and temperature[0] <= 0:
                     # beam search at temperature 0 only; the fallback
                     # temperatures sample (``batch.py:813-825``)
@@ -617,7 +628,7 @@ class BatchTranscriber:
                                              logprob_threshold, no_speech_threshold)]
                 if not failing:
                     break
-                n_pad = B - len(failing)
+                n_pad = B_eff - len(failing)
                 with stage_timer("batch_fallback"):
                     sub_mels = mels.index_select(
                         0, torch.as_tensor(failing + [0] * n_pad, device=mels.device))
@@ -729,7 +740,9 @@ def transcribe_batch(
             "requested" if device_alignment_explicit else "auto-enabled",
             len(engine.align_heads), MAX_K,
         )
-    bt = BatchTranscriber(engine, batch_size=batch_size, fetch_alignment=not full_device)
+    tail_batch = os.environ.get("WTT_TAIL_BATCH")
+    bt = BatchTranscriber(engine, batch_size=batch_size, fetch_alignment=not full_device,
+                          tail_batch=int(tail_batch) if tail_batch else None)
     refine_nframes = round(refine_whisper_precision / 0.02)
 
     # each window's segments are aligned as soon as the window lands, and its

@@ -1,8 +1,8 @@
 """Byte-level BPE tokenizer with the Whisper special-token layout.
 
 Copy of ``whisper_timestamped_tpu/tokenizer.py`` (which cannot be imported
-without JAX: that package's ``__init__`` loads its JAX audio module), minus
-the optional C++ BPE core. Framework-free.
+without JAX: that package's ``__init__`` loads its JAX audio module), with
+its C++ BPE core from the port's own ``native.py``. Framework-free.
 
 A self-contained replacement for the tokenizer the reference inherits from
 ``openai-whisper`` (tiktoken-based; re-exported at reference
@@ -68,6 +68,17 @@ class BytePairEncoder:
         self.ranks = ranks
         self.id_to_bytes: Dict[int, bytes] = {v: k for k, v in ranks.items()}
         self.n_vocab = max(ranks.values()) + 1 if ranks else 0
+        self._native = None  # lazily-built C++ core (native.py), or False
+
+    def _native_core(self):
+        if self._native is None:
+            try:
+                from .native import NativeBPE, available
+
+                self._native = NativeBPE(self.ranks) if available() else False
+            except Exception:
+                self._native = False
+        return self._native
 
     def _bpe_merge(self, piece: bytes) -> List[int]:
         ranks = self.ranks
@@ -92,9 +103,11 @@ class BytePairEncoder:
         return out
 
     def encode(self, text: str) -> List[int]:
+        native = self._native_core()
+        merge = native.encode_piece if native else self._bpe_merge
         ids: List[int] = []
         for piece in _compiled_pattern().findall(text):
-            ids.extend(self._bpe_merge(piece.encode("utf-8")))
+            ids.extend(merge(piece.encode("utf-8")))
         return ids
 
     def decode_bytes(self, ids: Sequence[int]) -> bytes:

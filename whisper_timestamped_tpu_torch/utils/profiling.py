@@ -2,14 +2,17 @@
 
 Framework-free counterpart of ``whisper_timestamped_tpu/utils/profiling.py``
 (``stage_timer`` and its accessors). Stages that end in a device
-synchronisation (the decode loop syncs once per step) measure device time;
+synchronisation (the decode loop syncs once per chunk of
+``decoding.STOP_CHECK_STEPS`` steps, and at its end) measure device time;
 others measure host enqueue time only. The timers take a lock: the batch
 serving loop times stages from its assembly thread too.
 
 Stage names in use:
 
 - serial path: ``mel``, ``decode``, ``encode``, ``prefill``,
-  ``decode_loop`` (with the count ``decode_steps``), ``align``;
+  ``decode_capture`` (a CUDA graph's warm-up and capture, once per key of
+  an engine), ``decode_loop`` (with the count ``decode_steps``, the steps
+  run before the stop), ``align``;
 - batch pipeline (``parallel/batch.py``): ``prepare_audio`` (upload and mel
   dispatch), ``batch_mel`` (the same on the critical path, or the wait for a
   prefetched batch), ``decode_prompt_build``, ``decode_dispatch`` (one
