@@ -74,13 +74,18 @@ phases have run, so their lines are printed too):
       and with ``best_of=2`` (``align_cost``/``dtw_codes`` launched); the
       two-pass engine with ``best_of=2`` on a 35 s request (``log10_mel``
       and ``flash_attention`` launched in its second pass);
-  (l) beam search: a serial 30 s request with the ``--accurate`` options
-      (beam 5) and no thresholds, then ``transcribe_batch`` with beam 5 on
-      eight 5-30 s streams at B=8 (40 beam rows over 8 cross-KV rows) with
-      a bf16 and a ``kv_int8`` engine: the launches (the cross-attention
-      kernel 32 times a decode step), the cross K/V untiled (seen at every
-      decode step), s/request, s/batch, ms/step, peak memory; the self-KV
-      reorder timed alone; a ``beam_size=1`` decode equal to greedy;
+  (l) beam search, its token loop replayed from captured graphs and the
+      self-attention reading each beam's slots through a row table: a
+      serial 30 s request with the ``--accurate`` options (beam 5) and no
+      thresholds, then ``transcribe_batch`` with beam 5 on eight 5-30 s
+      streams at B=8 (40 beam rows over 8 cross-KV rows) with a bf16 and a
+      ``kv_int8`` engine: the launches (both attention kernels 32 times a
+      replayed or warm-up step), the cross K/V untiled (seen at the
+      capture), one capture a distinct key, s/request, s/batch, ms/step,
+      replays, peak memory; one B=8 x 5 window batch captured against
+      ``uncaptured=True``, every buffer bit for bit, ms/step and peak both
+      ways, replays and steps past the stop; a ``beam_size=1`` decode equal
+      to greedy;
   (m) fine-tuning at large-v3 width: ``training.make_train_step`` (AdamW,
       optax's ``adamw(1e-5)``) on seeded f32 weights and one fixed batch
       (two 30 s windows, 224 tokens a row): one step's loss and gradients
@@ -122,8 +127,8 @@ phases have run, so their lines are printed too):
       tail's own); the host C++ core built and in use by ``dtw_path`` and
       the tokenizer.
 
-Every decode path above ([d], [f], [g], [h], [k], [n], [o]) runs its token
-loops through the engine's captured graphs; the launch counts add each
+Every decode path above ([d], [f], [g], [h], [k], [l], [n], [o]) runs its
+token loops through the engine's captured graphs; the launch counts add each
 graph's captured launches at each replay, so "at least 32 launches a
 decode step" keeps its meaning.
 
@@ -149,7 +154,10 @@ through the kernel and through its plain version, and ``stacked_matmul``
 at decode shapes beside ``F.linear``, ``xattn_decode`` and
 ``xattn_decode_int8`` as beam search runs them (B=40 over 8 K/V rows,
 ``beam_group=5``, no scores) beside the same kernel over 40 rows, with the
-shared-read bound, the training flash kernels (the forward with lse, run
+shared-read bound, ``self_attn_decode`` through beam search's row table
+at 40 rows, pos 232 and 344 (bit for bit against the launch without a
+table over the gathered cache, atol 2e-2 against the plain version),
+beside the launch without a table, the training flash kernels (the forward with lse, run
 twice for equal bits, dQ and dK/dV) in f32 and bf16 at the encoder's shape
 (B=2, T=1500) and at ragged T, beside their plain versions and SDPA's
 forward and backward (the forward, the backward and their plain versions
@@ -970,7 +978,136 @@ def phase_beam_kernels(torch, K, device):
                          ms_b40_beam_group1=ms_full, max_abs_err_beam_group5=err)
         del q, shared, full
         torch.cuda.empty_cache()
+    out["self_attn_decode"] = phase_beam_table(torch, K, device)
     return out
+
+
+def beam_table(torch, g, B: int, Kb: int, ctx: int, P: int, steps: int, device):
+    """Beam search's row table (B·Kb, ctx) int32 after ``steps`` random
+    steps of ``decoding_beam._beam_step``'s update: the prompt columns at
+    each window's row b*Kb, then each step the rows gathered by random
+    source beams and column P + i set to each row's own index."""
+    R = B * Kb
+    row = torch.arange(R, device=device)
+    table = torch.where(torch.arange(ctx, device=device)[None] < P, (row // Kb * Kb)[:, None],
+                        row[:, None]).to(torch.int32)
+    for i in range(steps):
+        src = torch.randint(0, Kb, (B, Kb), generator=g, device=device)
+        table = table[(torch.arange(B, device=device)[:, None] * Kb + src).reshape(-1)]
+        table[:, P + i] = row.to(torch.int32)
+    return table.contiguous()
+
+
+def phase_beam_table(torch, K, device):
+    """(c): ``self_attn_decode`` through beam search's row table at B=8 x
+    K=5 (40 rows), ctx 456, the prompt region 232, pos 232 and 344, the
+    step's rows written in the launch, the table built by pos - 231 random
+    beam steps: bit for bit against the launch without a table over the
+    cache gathered by the table (JAX's route: the rows reordered in
+    memory), so that any difference from the plain version is the
+    untabled kernel's own; against the plain version through the same
+    table at the self-attention gate of the untabled kernel (atol 2e-2);
+    the written cache against the plain write bit for bit; with an
+    identity table bit-equal to the launch without one. Timed with the
+    write beside the same launch without a
+    table, SDPA over the gathered live slots (pad 0; the gather not
+    timed) and the bound: the distinct (row, slot) pairs of K and V that
+    the table names among the live slots read once (a window's beams share
+    the prompt and their common history), q, the output, the row written,
+    and the table's 4 bytes a row's live slot. Returns the fields for
+    ``self_attn_decode``'s record."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=device).manual_seed(18)
+    L, ctx, D, H, Bw, Kb, P = 32, 456, 1280, 20, 8, 5, 232
+    R = Bw * Kb
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).bfloat16()
+
+    q, k_new, v_new = randn(R, 1, D), randn(R, 1, D), randn(R, 1, D)
+    k_all, v_all = randn(L, R, ctx, D), randn(L, R, ctx, D)
+    pads = torch.tensor([(0, 5, 224)[b % 3] for b in range(Bw)], dtype=torch.int32,
+                        device=device).repeat_interleave(Kb)
+    pad0 = torch.zeros((R,), dtype=torch.int32, device=device)
+    slot = torch.zeros((), dtype=torch.int32, device=device)
+    ident = torch.arange(R, dtype=torch.int32, device=device)[:, None].expand(R, ctx).contiguous()
+    err, fields = 0.0, {}
+    for pos in (232, 344):
+        slot.fill_(pos)
+        table = beam_table(torch, g, Bw, Kb, ctx, P, pos - P + 1, device)
+        for layer in (0, 13, L - 1):
+            k_f, v_f = k_all.clone(), v_all.clone()
+            o_k = K.self_attn_decode(q, k_f, v_f, layer, slot, pads, H, k_new=k_new, v_new=v_new,
+                                     extent=ctx, src_row=table)
+            torch.cuda.synchronize()
+            k_p, v_p = k_all.clone(), v_all.clone()
+            K.write_row(k_new, k_p, layer, pos)
+            K.write_row(v_new, v_p, layer, pos)
+            if not (torch.equal(k_f, k_p) and torch.equal(v_f, v_p)):
+                fail(f"self_attn_decode through the table: its row write differs from the plain "
+                     f"write at pos={pos}")
+            o_p = K.self_attn_decode_plain(q, k_p, v_p, layer, slot, pads, H, ctx, src_row=table)
+            if not torch.isfinite(o_k.float()).all():
+                fail(f"self_attn_decode through the table: non-finite output at pos={pos}")
+            err = max(err, (o_k.float() - o_p.float()).abs().max().item())
+            # JAX's route: the rows gathered in memory, read without a table
+            cols = torch.arange(ctx, device=device)
+            k_g = k_p[layer:layer + 1, table.long(), cols].contiguous()
+            v_g = v_p[layer:layer + 1, table.long(), cols].contiguous()
+            if not torch.equal(o_k, K.self_attn_decode(q, k_g, v_g, 0, slot, pads, H,
+                                                       extent=ctx)):
+                fail(f"self_attn_decode through the table differs from the launch without one "
+                     f"over the gathered cache at pos={pos} layer={layer}")
+            del k_g, v_g
+            same = K.self_attn_decode(q, k_p, v_p, layer, slot, pads, H, extent=ctx,
+                                      src_row=ident)
+            if not torch.equal(same, K.self_attn_decode(q, k_p, v_p, layer, slot, pads, H,
+                                                        extent=ctx)):
+                fail(f"self_attn_decode with an identity table differs from the launch without "
+                     f"one at pos={pos} layer={layer}")
+            del k_f, v_f, k_p, v_p
+        if not err <= 2e-2:
+            fail(f"self_attn_decode through the table disagrees with its plain version: "
+                 f"{err:.3g} (atol 2e-2)")
+        ms = cuda_time_ms(lambda it=0: K.self_attn_decode(
+            q, k_all, v_all, it % L, slot, pad0, H, k_new=k_new, v_new=v_new, extent=ctx,
+            src_row=table))
+        untabled = cuda_time_ms(lambda it=0: K.self_attn_decode(
+            q, k_all, v_all, it % L, slot, pad0, H, k_new=k_new, v_new=v_new, extent=ctx))
+        live = torch.arange(pos + 1, device=device)
+        rows = table[:, :pos + 1].long()
+        gk, gv = k_all[:, rows, live], v_all[:, rows, live]  # (L, R, pos + 1, D)
+        lib_ms = cuda_time_ms(lambda it=0: sdpa(heads_view(q, H), heads_view(gk[it % L], H),
+                                                heads_view(gv[it % L], H)))
+        del gk, gv
+        plain_ms = cuda_time_ms(lambda it=0: K.self_attn_decode_plain(
+            q, k_all, v_all, it % L, slot, pad0, H, ctx, src_row=table), iters=5)
+        distinct = torch.unique(rows * ctx + live).numel()  # (row, slot) pairs named
+        io = 3 * 2 * R * D * 2 + R * (pos + 1) * 4  # q, out, the new rows; the table
+        moved = 2 * distinct * D * 2 + io
+        b_ms, b_by = bound(moved, 4 * R * (pos + 1) * D, F32_FLOPS)
+        b_all_ms, _ = bound(2 * R * (pos + 1) * D * 2 + io, 4 * R * (pos + 1) * D, F32_FLOPS)
+        print(f"[c] self_attn_decode through the row table, B=8 x K=5 = 40 rows, ctx=456 "
+              f"pos={pos} (the table after {pos - P + 1} random beam step(s)), with the row "
+              f"write: "
+              f"{ms:.4f} ms, without a table {untabled:.4f} ms; plain (gather + attention) "
+              f"{plain_ms:.4f} ms, sdpa over the gathered live slots {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.2f} MB with the table: {distinct} distinct "
+              f"(row, slot) pairs of {R * (pos + 1)} live; {b_all_ms:.4f} ms reading every "
+              f"row's own)")
+        fields.update({f"ms_table_b40_pos{pos}": ms, f"ms_untabled_b40_pos{pos}": untabled,
+                       f"plain_ms_table_b40_pos{pos}": plain_ms,
+                       f"library_ms_table_b40_pos{pos}": lib_ms,
+                       f"bound_ms_table_b40_pos{pos}": b_ms,
+                       f"bound_ms_every_row_b40_pos{pos}": b_all_ms})
+    print(f"[c] self_attn_decode through the row table (pads 0/5/224 by window, layers 0, 13, "
+          f"31): err {err:.3g} against the plain version (atol 2e-2); equal to the launch "
+          f"without a table over the gathered cache, the row write equal to the plain write, an "
+          f"identity table equal to no table, bit for bit")
+    fields["max_abs_err_table"] = err
+    del q, k_new, v_new, k_all, v_all
+    torch.cuda.empty_cache()
+    return fields
 
 
 # the training kernels against their plain versions, a share of each
@@ -1554,10 +1691,10 @@ def phase_reference_step(torch, K, model, label: str = "bf16", **quantize):
         return K.self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos, pad, H,
                                              extent)
 
-    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new, extent):
+    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new, extent, src_row=None):
         K.write_row(k_new, k_all, layer, pos)
         K.write_row(v_new, v_all, layer, pos)
-        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H, extent)
+        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H, extent, src_row)
 
     plain = dict(self_attn_decode=plain_self, xattn_decode=K.xattn_decode_plain,
                  xattn_decode_int8=K.xattn_decode_int8_plain,
@@ -2423,9 +2560,15 @@ def phase_sampling(torch, K, model, tok):
           f"{ {k: v for k, v in pass2.items() if v} }")
 
 
+BEAM_MAX_NEW = 100  # tokens a window in (l)'s captured-against-uncaptured run
+
+
 def phase_beam(torch, K, model, tok):
     """(l): beam search at large-v3 width, EOT suppressed (no beam finishes;
-    every window runs its 224 steps, or to the text context's end):
+    every window runs its 224 steps, or to the text context's end), the
+    token loop replayed from the engine's captured graphs
+    (``decoding.STOP_CHECK_STEPS`` steps each), the self-attention reading
+    the beams' slots through the row table:
 
     1. serial: ``transcribe_timestamped`` on a 30 s request with the
        ``--accurate`` options (beam 5, best_of 5, the schedule 0.0-1.0 by
@@ -2433,29 +2576,39 @@ def phase_beam(torch, K, model, tok):
        two-pass engine's pass 2;
     2. batched: ``transcribe_batch`` with beam 5 on eight 5-30 s streams
        at B=8 (40 beam rows), with a bf16 engine and with ``kv_int8``;
-       the self-KV reorder timed alone at that shape (CUDA events);
-    3. a ``beam_size=1`` decode equals the greedy decode of the same window
+    3. captured against ``uncaptured=True``: one window batch at B=8 x K=5
+       (``BEAM_MAX_NEW`` tokens) through ``decode_window_beam_batch`` with
+       an engine's graphs, again (the timed replay), and uncaptured on the
+       same inputs: every returned buffer bit for bit, ms/step both ways,
+       the replays (host syncs) a window and the steps past the stop;
+    4. a ``beam_size=1`` decode equals the greedy decode of the same window
        (a 20-token prompt, so both prefill the 232-slot region, and no
        alignment rows).
 
     Fails unless every result is well formed, ``log10_mel``,
     ``flash_attention`` and ``self_attn_decode`` launch, the cross-attention
-    kernel of the cache's type launches 32 times a decode step (the other
-    never), every decode step's cross K/V has B rows while its queries have
-    B·K (the cross-KV is not tiled), and the K=1 tokens equal greedy's.
-    Prints s/request, s/batch, decode steps, ms/step, peak memory and the
-    launches."""
+    kernel of the cache's type launches 32 times a replayed or warm-up step
+    (the other never), the self-attention kernel as often, every decode
+    step's cross K/V has B rows while its queries have B·K (the cross-KV is
+    not tiled; the spy on ``decode_step`` sees the warm-up and the capture),
+    each engine captured once a distinct key, and the K=1 tokens equal
+    greedy's. Prints s/request, s/batch, decode steps, replays, ms/step,
+    peak memory and the launches. Returns the self-attention kernel's
+    launches in the runs of 1. and 2."""
     import whisper_timestamped_tpu_torch.decoding_beam as beam
     from whisper_timestamped_tpu_torch import transcribe_batch, transcribe_timestamped
     from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
-    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.decoding import (PROMPT_REGION, STOP_CHECK_STEPS,
+                                                        DecodingOptions)
     from whisper_timestamped_tpu_torch.engine import DecodeEngine
     from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
 
     eot_off = f"-1,{tok.eot}"
     L = model.dims.n_text_layer
+    k = STOP_CHECK_STEPS
     rows_seen = set()  # (query rows, cross-KV rows) of every beam decode step
     step = beam.decode_step
+    self_launches = 0
 
     def spy_step(mod, tokens, cache, *a, **kw):
         rows_seen.add((tokens.shape[0], cache.xk.shape[1], kw.get("beam_group")))
@@ -2471,19 +2624,28 @@ def phase_beam(torch, K, model, tok):
         return time.perf_counter()
 
     def end(t0, label, cross, other):
+        nonlocal self_launches
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts, timings, launches = get_counts(), get_stage_timings(), dict(K.LAUNCHES)
-        steps = counts.get("decode_steps", 0)
+        steps, chunks = counts.get("decode_steps", 0), counts.get("beam_chunks", 0)
+        captures = timings.get("decode_capture", {}).get("count", 0)
         ms_step = 1e3 * timings.get("decode_loop", {}).get("total_s", 0.0) / max(steps, 1)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        for k in ("log10_mel", "flash_attention", "self_attn_decode"):
-            if not launches[k]:
-                fail(f"[l] {label}: {k} was not launched: {launches}")
-        if launches[cross] != L * steps or launches[other]:
-            fail(f"[l] {label}: {cross} launched {launches[cross]} times for {steps} decode steps "
-                 f"(expected {L} a step), {other} {launches[other]} (expected 0)")
-        return secs, steps, ms_step, peak, launches, timings
+        for name in ("log10_mel", "flash_attention", "self_attn_decode"):
+            if not launches[name]:
+                fail(f"[l] {label}: {name} was not launched: {launches}")
+        # a replay launches its chunk's k steps, those past the stop too; a
+        # capture's warm-up is one eager step
+        run = k * chunks + captures
+        if (launches[cross] != L * run or launches["self_attn_decode"] != L * run
+                or launches[other] or steps > k * chunks):
+            fail(f"[l] {label}: {cross} launched {launches[cross]} times, self_attn_decode "
+                 f"{launches['self_attn_decode']}, for {chunks} replays of {k} steps and "
+                 f"{captures} warm-up steps (expected {L} a step), {other} {launches[other]} "
+                 f"(expected 0); {steps} true steps")
+        self_launches += launches["self_attn_decode"]
+        return secs, steps, chunks, captures, ms_step, peak, launches, timings
 
     beam.decode_step = spy_step
     try:
@@ -2492,66 +2654,103 @@ def phase_beam(torch, K, model, tok):
         res = transcribe_timestamped(model, make_audio(60, 30), tokenizer=tok,
                                      suppress_tokens=eot_off, beam_size=5, best_of=5,
                                      temperature=(0.0, 0.2, 0.4, 0.6, 0.8, 1.0), **SMOKE_OPTIONS)
-        secs, steps, ms_step, peak, launches, timings = end(t0, "serial", "xattn_decode",
-                                                            "xattn_decode_int8")
+        secs, steps, chunks, captures, ms_step, peak, launches, timings = end(
+            t0, "serial", "xattn_decode", "xattn_decode_int8")
         words = check_result(res)
+        windows = len({s["seek"] for s in res["segments"]})
         if rows_seen != {(5, 1, 5)} or not words or {s["temperature"] for s in res["segments"]} != {0.0}:
             fail(f"[l] serial: step rows {rows_seen} (expected 5 beam rows over 1 cross-KV row), "
                  f"{words} words, temperatures {({s['temperature'] for s in res['segments']})}")
         print(f"[l] serial transcribe_timestamped, 30 s, beam 5 best_of 5 (--accurate), no "
-              f"thresholds: {secs:.2f} s a request ({len({s['seek'] for s in res['segments']})} "
-              f"window(s); pass 1 {stage_line(timings, 'naive_pass1')}, pass 2 "
-              f"{stage_line(timings, 'naive_pass2')}), {steps} decode steps at {ms_step:.2f} ms/step, "
-              f"beam_reorder (host) {stage_line(timings, 'beam_reorder')}, {words} words, peak "
-              f"memory {peak:.2f} GB; launches {launches}")
+              f"thresholds: {secs:.2f} s a request ({windows} window(s); pass 1 "
+              f"{stage_line(timings, 'naive_pass1')}, pass 2 {stage_line(timings, 'naive_pass2')}), "
+              f"{steps} decode steps at {ms_step:.2f} ms/step (captured), {chunks} replays = host "
+              f"syncs ({k} steps each, {k * chunks - steps} past the stop), {captures} capture(s) "
+              f"({stage_line(timings, 'decode_capture')}), {words} words, peak memory "
+              f"{peak:.2f} GB; launches {launches}")
 
         # 2. batched, B=8 x K=5, bf16 and kv_int8
         streams = {f"l{j}": make_audio(4000 + j, sec)
                    for j, sec in enumerate([30, 5, 12, 20, 8, 27, 15, 25])}
-        for label, engine, cross, other in (
-                ("bf16", DecodeEngine(model, tok), "xattn_decode", "xattn_decode_int8"),
-                ("kv_int8", DecodeEngine(model, tok, kv_int8=True), "xattn_decode_int8",
-                 "xattn_decode")):
+        for label, levers, cross, other in (
+                ("bf16", {}, "xattn_decode", "xattn_decode_int8"),
+                ("kv_int8", dict(kv_int8=True), "xattn_decode_int8", "xattn_decode")):
+            engine = DecodeEngine(model, tok, **levers)  # the previous one's cache is freed
             t0 = begin()
             res = transcribe_batch(model, streams, tok, batch_size=8, engine=engine,
                                    temperature=[0.0], **SMOKE_OPTIONS,
                                    decode_options=DecodingOptions(beam_size=5,
                                                                   suppress_tokens=eot_off))
-            secs, steps, ms_step, peak, launches, timings = end(t0, f"batched {label}", cross,
-                                                                other)
+            secs, steps, chunks, captures, ms_step, peak, launches, timings = end(
+                t0, f"batched {label}", cross, other)
             words = sum(check_result(r) for r in res.values())
             if rows_seen != {(40, 8, 5)} or not words:
                 fail(f"[l] batched {label}: step rows {rows_seen} (expected 40 beam rows over 8 "
                      f"cross-KV rows), {words} words")
-            iters = sum(v for k, v in get_counts().items() if k.startswith("batch_decode_b"))
+            if engine.graphs.captures != len(engine.graphs.graphs):
+                fail(f"[l] batched {label}: {engine.graphs.captures} captures for "
+                     f"{len(engine.graphs.graphs)} distinct keys")
+            iters = sum(v for n, v in get_counts().items() if n.startswith("batch_decode_b"))
             print(f"[l] transcribe_batch, beam 5, B=8 x 5 = 40 rows over 8 cross-KV rows, {label}, "
                   f"8 streams (142 s of audio): {secs:.2f} s, {iters} window iteration(s), "
-                  f"{steps} decode steps at {ms_step:.2f} ms/step, pass 2 "
-                  f"{stage_line(timings, 'batch_naive_align')}, beam_reorder (host) "
-                  f"{stage_line(timings, 'beam_reorder')}, {words} words, peak memory {peak:.2f} GB; "
-                  f"launches {launches}")
+                  f"{steps} decode steps at {ms_step:.2f} ms/step (captured), {chunks} replays "
+                  f"({k * chunks - steps} steps past the stop), {engine.graphs.captures} "
+                  f"capture(s) = {len(engine.graphs.graphs)} distinct key(s), pass 2 "
+                  f"{stage_line(timings, 'batch_naive_align')}, {words} words, peak memory "
+                  f"{peak:.2f} GB; launches {launches}")
+            del engine
     finally:
         beam.decode_step = step
-
-    # the self-KV reorder alone at B=8 x K=5, the slots written so far
-    ctx, R, D = 456, 40, model.dims.n_text_state
-    cur = torch.randn((L, R, ctx, D), device=model.device).bfloat16()
-    spare = torch.empty_like(cur)
-    rows = (torch.arange(8, device=model.device)[:, None] * 5
-            + torch.randint(0, 5, (8, 5), device=model.device)).reshape(-1)
-    parts = []
-    for n_slots in (233, 344, 455):
-        ms = cuda_time_ms(lambda it=0: beam.reorder_rows(cur, spare, rows, n_slots))
-        b_ms, _ = bound(2 * L * R * n_slots * D * 2, 0, BF16_FLOPS)
-        parts.append(f"{n_slots} slots {2 * ms:.4f} ms (bound {2 * b_ms:.4f})")
-    if not torch.equal(beam.reorder_rows(cur, spare, rows, 300)[:, :, :300], cur[:, rows, :300]):
-        fail("[l] reorder_rows on the card differs from the plain gather")
-    print(f"[l] self-KV reorder a step, K and V (L=32, 40 rows, D=1280, bf16, read + write of "
-          f"the written slots): " + "; ".join(parts))
-    del cur, spare
     torch.cuda.empty_cache()
 
-    # 3. beam_size=1 against greedy on one window
+    # 3. captured against uncaptured, one window batch at B=8 x K=5
+    engine = DecodeEngine(model, tok)
+    mels = torch.stack([log_mel_spectrogram(make_audio(700 + j, 30), n_mels=model.dims.n_mels,
+                                            device=model.device)[:, :3000] for j in range(8)])
+    opts = DecodingOptions(language="en", beam_size=5, sample_len=BEAM_MAX_NEW,
+                           suppress_tokens=eot_off)
+    bufs, lens, sot_from_end = [], [], None
+    for j in range(8):
+        buf, plen, sot_from_end = engine.build_prompt(list(range(300, 300 + 6 * j)), opts,
+                                                      region=PROMPT_REGION)
+        bufs.append(buf)
+        lens.append(plen)
+    prompts = torch.stack([torch.as_tensor(b) for b in bufs]).to(model.device)
+    lens = torch.tensor(lens, dtype=torch.int32, device=model.device)
+    sm, bm = engine._masks(opts)
+    kw = engine._beam_kwargs(opts, sot_from_end)
+
+    def run(**extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_timings()
+        out = beam.decode_window_beam_batch(model.module, mels, prompts, lens, sm, bm,
+                                            **{**kw, **extra})
+        torch.cuda.synchronize()
+        counts, timings = get_counts(), get_stage_timings()
+        steps = counts["decode_steps"]
+        return (out, steps, counts["beam_chunks"], 1e3 * timings["decode_loop"]["total_s"] / steps,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    # uncaptured first, while the engine holds no persistent buffers
+    eager, e_steps, _, eager_ms, eager_peak = run(graphs=None, uncaptured=True)
+    first = run()
+    cap, steps, chunks, cap_ms, cap_peak = run()
+    for name, t in cap.items():
+        if not (torch.equal(t, eager[name]) and torch.equal(t, first[0][name])):
+            fail(f"[l] the captured beam loop's {name} differs from the uncaptured loop's")
+    if steps != e_steps or chunks != -(-steps // k) or engine.graphs.captures != 1:
+        fail(f"[l] captured {steps} steps in {chunks} replays, uncaptured {e_steps}; "
+             f"{engine.graphs.captures} captures (expected 1)")
+    print(f"[l] decode_window_beam_batch, B=8 x K=5, {BEAM_MAX_NEW} tokens (prompts of 0-42 "
+          f"tokens): captured {cap_ms:.2f} ms/step (peak {cap_peak:.2f} GB) vs uncaptured "
+          f"{eager_ms:.2f} ({eager_ms / cap_ms:.1f}x; peak {eager_peak:.2f} GB); {steps} steps, "
+          f"{chunks} replays = host syncs a window ({k} steps each), {chunks * k - steps} steps "
+          f"past the stop; every returned buffer equal bit for bit; 1 capture")
+    del engine, first, cap, eager, mels
+    torch.cuda.empty_cache()
+
+    # 4. beam_size=1 against greedy on one window
     engine = DecodeEngine(model, tok)
     mel = log_mel_spectrogram(make_audio(61, 30), n_mels=model.dims.n_mels, device=model.device)
     mel = mel[:, :3000]
@@ -2563,6 +2762,7 @@ def phase_beam(torch, K, model, tok):
         fail(f"[l] beam_size=1 differs from greedy: {one.tokens[:12]} vs {greedy.tokens[:12]}")
     print(f"[l] beam_size=1 equals greedy on the card: {len(one.tokens)} tokens, sum log-prob "
           f"{one.sum_logprob:.4f} vs {greedy.sum_logprob:.4f}")
+    return self_launches
 
 
 def phase_train(torch, K, device):
@@ -3543,7 +3743,7 @@ def main() -> int:
     phase_sampler(torch, device)
     phase_sampling(torch, K, model, tok)
     torch.cuda.empty_cache()
-    phase_beam(torch, K, model, tok)
+    rec["self_attn_decode"]["launches_table_l"] = phase_beam(torch, K, model, tok)
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, K, device)
     for name in TRAIN_PATH:

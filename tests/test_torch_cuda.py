@@ -1250,10 +1250,10 @@ def test_sampled_decode_window_on_card_matches_plain(cuda, monkeypatch):
     assert all(K.LAUNCHES[k] > before[k] for k in ("xattn_decode", "self_attn_decode",
                                                    "flash_attention"))
 
-    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new, extent=None):
+    def plain_self(q, k_all, v_all, layer, pos, pad, H, k_new, v_new, extent=None, src_row=None):
         K.write_row(k_new, k_all, layer, pos)
         K.write_row(v_new, v_all, layer, pos)
-        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H, extent)
+        return K.self_attn_decode_plain(q, k_all, v_all, layer, pos, pad, H, extent, src_row)
 
     monkeypatch.setattr(wt, "self_attn_decode", plain_self)
     monkeypatch.setattr(wt, "xattn_decode", K.xattn_decode_plain)
@@ -1345,32 +1345,95 @@ def test_beam_size_one_equals_greedy_on_card(cuda):
 
 
 def test_beam_k3_on_card_is_well_formed(cuda):
-    """K=3 on the card through the kernels: the cross-attention kernel
-    launched once a layer a step (the cross K/V one row for the 3 beams),
-    the tokens whisper's timestamp rules allow, and the self-cache reorder
-    equal to a plain gather."""
-    import whisper_timestamped_tpu_torch.decoding_beam as beam
-    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    """K=3 on the card through the kernels and the captured loop: the
+    cross- and self-attention kernels launched once a layer a replayed or
+    warm-up step (the cross K/V one row for the 3 beams), the tokens
+    whisper's timestamp rules allow, and the self-attention kernel through
+    a beam row table against its plain version."""
+    from whisper_timestamped_tpu_torch.decoding import STOP_CHECK_STEPS, DecodingOptions
     from whisper_timestamped_tpu_torch.engine import DecodeEngine
     from whisper_timestamped_tpu_torch.utils import get_counts
 
     model, _, tok = _small_models()
     mel = torch.randn((80, 3000), generator=torch.Generator(device=cuda).manual_seed(4),
                       device=cuda) * 0.5
-    before, steps0 = dict(K.LAUNCHES), get_counts().get("decode_steps", 0)
-    res = DecodeEngine(model, tok).decode_window_beam(
-        mel, DecodingOptions(language="en", beam_size=3, sample_len=40))
+    before, chunks0 = dict(K.LAUNCHES), get_counts().get("beam_chunks", 0)
+    engine = DecodeEngine(model, tok)
+    res = engine.decode_window_beam(mel, DecodingOptions(language="en", beam_size=3,
+                                                         sample_len=40))
     torch.cuda.synchronize()
-    steps = get_counts()["decode_steps"] - steps0
-    assert K.LAUNCHES["xattn_decode"] - before["xattn_decode"] == 2 * steps
-    assert K.LAUNCHES["self_attn_decode"] - before["self_attn_decode"] == 2 * steps
+    run = STOP_CHECK_STEPS * (get_counts()["beam_chunks"] - chunks0) + engine.graphs.captures
+    assert engine.graphs.captures == 1
+    assert K.LAUNCHES["xattn_decode"] - before["xattn_decode"] == 2 * run
+    assert K.LAUNCHES["self_attn_decode"] - before["self_attn_decode"] == 2 * run
     assert K.LAUNCHES["flash_attention"] > before["flash_attention"]
     assert res.tokens and all(0 <= t < tok.n_vocab for t in res.tokens)
     assert tok.timestamp_begin <= res.tokens[0] <= tok.timestamp_begin + 50
     stamps = [t for t in res.tokens if t >= tok.timestamp_begin]
     assert stamps == sorted(stamps) and np.isfinite(res.sum_logprob)
+    # the table form: 4 windows x 3 beams over a table of 30 random beam steps
     g = torch.Generator(device=cuda).manual_seed(9)
-    cur = _randn(g, 2, 12, 64, 256)
-    rows = torch.tensor([2, 2, 0, 3, 5, 4, 8, 6, 6, 11, 9, 9], device=cuda)
-    got = beam.reorder_rows(cur, torch.zeros_like(cur), rows, 40)
-    assert torch.equal(got[:, :, :40], cur[:, rows, :40]) and not got[:, :, 40:].any()
+    L, Bw, Kb, ctx, P, D, H = 2, 4, 3, 64, 8, 256, 4
+    R = Bw * Kb
+    row = torch.arange(R, device=cuda)
+    table = torch.where(torch.arange(ctx, device=cuda)[None] < P, (row // Kb * Kb)[:, None],
+                        row[:, None]).to(torch.int32)
+    for i in range(30):
+        src = torch.randint(0, Kb, (Bw, Kb), generator=g, device=cuda)
+        table = table[(torch.arange(Bw, device=cuda)[:, None] * Kb + src).reshape(-1)]
+        table[:, P + i] = row.to(torch.int32)
+    q, k_new, v_new = _randn(g, R, 1, D), _randn(g, R, 1, D), _randn(g, R, 1, D)
+    k_all, v_all = _randn(g, L, R, ctx, D), _randn(g, L, R, ctx, D)
+    pad = torch.tensor([0, 3, 5] * 4, dtype=torch.int32, device=cuda)
+    pos = torch.tensor(P + 29, dtype=torch.int32, device=cuda)
+    k_f, v_f = k_all.clone(), v_all.clone()
+    o_k = K.self_attn_decode(q, k_f, v_f, 1, pos, pad, H, k_new=k_new, v_new=v_new, extent=ctx,
+                             src_row=table.contiguous())
+    torch.cuda.synchronize()
+    K.write_row(k_new, k_all, 1, pos)
+    K.write_row(v_new, v_all, 1, pos)
+    assert torch.equal(k_f, k_all) and torch.equal(v_f, v_all)
+    o_p = K.self_attn_decode_plain(q, k_all, v_all, 1, pos, pad, H, ctx, src_row=table)
+    torch.testing.assert_close(o_k.float(), o_p.float(), rtol=0, atol=2e-2)
+    # the launch without a table over the cache gathered by it, bit for bit
+    cols = torch.arange(ctx, device=cuda)
+    gathered = [t[1:2, table.long(), cols].contiguous() for t in (k_all, v_all)]
+    assert torch.equal(o_k, K.self_attn_decode(q, *gathered, 0, pos, pad, H, extent=ctx))
+    ident = row.to(torch.int32)[:, None].expand(R, ctx).contiguous()
+    assert torch.equal(K.self_attn_decode(q, k_all, v_all, 1, pos, pad, H, extent=ctx,
+                                          src_row=ident),
+                       K.self_attn_decode(q, k_all, v_all, 1, pos, pad, H, extent=ctx))
+
+
+def test_captured_beam_loop_equals_uncaptured(cuda):
+    """Three windows' beam searches (K=3) through the engine's captured
+    graphs, twice (the capture, then a replay), and with
+    ``uncaptured=True`` on the same inputs: every returned buffer bit for
+    bit, one capture."""
+    import whisper_timestamped_tpu_torch.decoding_beam as beam
+    from whisper_timestamped_tpu_torch.decoding import PROMPT_REGION, DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+
+    model, _, tok = _small_models()
+    engine = DecodeEngine(model, tok)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    mels = torch.randn((3, 80, 3000), generator=g, device=cuda) * 0.5
+    opts = DecodingOptions(language="en", beam_size=3, sample_len=37)
+    bufs, lens = [], []
+    for j in range(3):
+        buf, plen, sot_from_end = engine.build_prompt(list(range(300, 300 + 5 * j)), opts,
+                                                      region=PROMPT_REGION)
+        bufs.append(torch.as_tensor(buf))
+        lens.append(plen)
+    prompts = torch.stack(bufs).to(cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    sm, bm = engine._masks(opts)
+    kw = engine._beam_kwargs(opts, sot_from_end)
+    runs = [beam.decode_window_beam_batch(model.module, mels, prompts, lens, sm, bm, **kw)
+            for _ in range(2)]
+    runs.append(beam.decode_window_beam_batch(model.module, mels, prompts, lens, sm, bm,
+                                              **{**kw, "graphs": None, "uncaptured": True}))
+    torch.cuda.synchronize()
+    assert engine.graphs.captures == 1
+    for name, t in runs[2].items():
+        assert torch.equal(runs[0][name], t) and torch.equal(runs[1][name], t), name

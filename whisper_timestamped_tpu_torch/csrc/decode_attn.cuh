@@ -30,7 +30,8 @@
 //
 //   Bf16Rows  128-byte bf16 rows; 8 lanes read a row, 8 values each, so a
 //             warp reads 4 rows at once (with kOwnRow, one row may come
-//             from elsewhere than the slab);
+//             from elsewhere than the slab; with kTable, each row comes
+//             from the physical row a row table names);
 //   Int8Rows  64-byte int8 rows and one f32 scale a row; 4 lanes read a
 //             row, 16 codes each, so a warp reads 8 rows at once. A warp's
 //             16 rows are 1 KB of K, 1 KB of V and 2 x 64 B of scales.
@@ -112,8 +113,11 @@ __device__ __forceinline__ uint32_t odd_nibbles(uint32_t w) {
 // bf16 rows. ``k``/``v`` point at the head's first column of row 0. With
 // kOwnRow, row ``own`` (-1 for none) is read from ``k_own``/``v_own``
 // instead: a row the launch writes itself, whose new values the block takes
-// from their source.
-template <bool kOwnRow>
+// from their source. With kTable, row t is read through a row table:
+// ``table[t]`` names the physical cache row that holds it, and it lies at
+// ``table[t] * row_stride + t * stride`` (``k``/``v`` then point at physical
+// row 0); without, at ``t * stride``, and the table costs nothing.
+template <bool kOwnRow, bool kTable = false>
 struct Bf16Rows {
   static constexpr int kLanes = 8, kVals = 8, kFrames = 1;
   template <int kRows>
@@ -127,6 +131,13 @@ struct Bf16Rows {
   int own;
   const __nv_bfloat16* k_own;
   const __nv_bfloat16* v_own;
+  const int* table;  // kTable: the physical row of each row t
+  long row_stride;   // kTable: elements between physical rows
+
+  __device__ __forceinline__ long offset(int t) const {
+    if constexpr (kTable) return (long)__ldg(table + t) * row_stride + t * stride;
+    return t * stride;
+  }
 
   // slab rows [t0, t0 + n) into tile rows r0.. of stage st, by one warp:
   // 128 16-byte pieces each of K and V, 4 a lane
@@ -138,8 +149,9 @@ struct Bf16Rows {
       if (r < n) {
         const int t = t0 + r;
         const bool mine = kOwnRow && t == own;
-        cp_async16(&s.k[st][r0 + r][col], (mine ? k_own : k + t * stride) + col);
-        cp_async16(&s.v[st][r0 + r][col], (mine ? v_own : v + t * stride) + col);
+        const long at = offset(t);
+        cp_async16(&s.k[st][r0 + r][col], (mine ? k_own : k + at) + col);
+        cp_async16(&s.v[st][r0 + r][col], (mine ? v_own : v + at) + col);
       }
     }
   }

@@ -34,14 +34,25 @@
 // the cache, so the launch never reads a row it writes. No other block
 // reads slot pos. One launch a layer replaces the two indexing copies and
 // the attention.
+//
+// The row table (beam search): with ``src_row`` (B, ctx) int32 given, slot t
+// of row b is read from physical row src_row[b, t] of the layer's cache, at
+// ((layer * B + src_row[b, t]) * ctx + t) * D + h * 64, instead of from row
+// b. A beam's history then follows its source beams through the table,
+// which the decode loop updates each step (B x ctx int32), and the cache
+// itself is never reordered. The fused write still goes to row b, slot pos,
+// and the caller keeps src_row[b, pos] = b. Each lane loads the table entry
+// of each row it copies (8 lanes share one, from L1). Without a table the
+// kernel is its own template instance, with no table load.
 
 #include "decode_attn.cuh"
 
 namespace {
 
-using Rows = wtt::decode::Bf16Rows<true>;
+template <bool kTable>
+using Rows = wtt::decode::Bf16Rows<true, kTable>;
 
-template <int kWarps>
+template <int kWarps, bool kTable>
 __global__ void __launch_bounds__(32 * kWarps)
 self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                         const __nv_bfloat16* __restrict__ k_new,  // (B, D) or null
@@ -51,6 +62,7 @@ self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                         __nv_bfloat16* __restrict__ out,          // (B, D)
                         const int* __restrict__ pad_len,          // (B,)
                         const int* __restrict__ pos_slot,         // the step's slot
+                        const int* __restrict__ src_row,          // (B, ctx), kTable only
                         int layer, int B, int ctx, int D, int H,
                         int slots_per_split, float scale) {
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -67,22 +79,38 @@ self_attn_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
     __nv_bfloat16* dst = (threadIdx.x < 8 ? k : v) + slab + (long)pos * D + piece * 8;
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
   }
-  const Rows rows{k + slab, v + slab, D, own ? pos : -1, own ? k_new + col : nullptr,
-                  own ? v_new + col : nullptr};
+  long base = slab;  // where row 0 of the read starts: row b's slab, or physical row 0's
+  const int* table = nullptr;
+  if constexpr (kTable) {
+    base = (long)layer * B * (long)ctx * D + h * wtt::kHeadDim;
+    table = src_row + (long)b * ctx;
+  }
+  const Rows<kTable> rows{k + base, v + base, D, own ? pos : -1, own ? k_new + col : nullptr,
+                          own ? v_new + col : nullptr, table, (long)ctx * D};
   wtt::decode::attend<kWarps>(rows, q + col, lo, hi, scale, nullptr, out + col, gridDim.x);
+}
+
+template <bool kTable>
+cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* k, void* v,
+                   void* out, const void* pad_len, const void* pos, const void* src_row,
+                   int layer, int B, int ctx, int D, int H, int n_split, int slots_per_split,
+                   int warps, float scale, void* stream) {
+  return wtt::decode::launch<Rows<kTable>>(
+      warps, self_attn_decode_kernel<2, kTable>, self_attn_decode_kernel<4, kTable>,
+      dim3(n_split, H, B), (cudaStream_t)stream, (const __nv_bfloat16*)q,
+      (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (__nv_bfloat16*)k,
+      (__nv_bfloat16*)v, (__nv_bfloat16*)out, (const int*)pad_len, (const int*)pos,
+      (const int*)src_row, layer, B, ctx, D, H, slots_per_split, scale);
 }
 
 }  // namespace
 
 extern "C" int wtt_self_attn_decode(const void* q, const void* k_new, const void* v_new,
                                     void* k, void* v, void* out, const void* pad_len,
-                                    const void* pos, int layer, int B, int ctx, int D, int H,
-                                    int n_split, int slots_per_split, int warps, float scale,
-                                    void* stream) {
-  return (int)wtt::decode::launch<Rows>(
-      warps, self_attn_decode_kernel<2>, self_attn_decode_kernel<4>, dim3(n_split, H, B),
-      (cudaStream_t)stream, (const __nv_bfloat16*)q,
-      (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (__nv_bfloat16*)k,
-      (__nv_bfloat16*)v, (__nv_bfloat16*)out, (const int*)pad_len, (const int*)pos, layer, B,
-      ctx, D, H, slots_per_split, scale);
+                                    const void* pos, const void* src_row, int layer, int B,
+                                    int ctx, int D, int H, int n_split, int slots_per_split,
+                                    int warps, float scale, void* stream) {
+  return (int)(src_row == nullptr ? launch<false> : launch<true>)(
+      q, k_new, v_new, k, v, out, pad_len, pos, src_row, layer, B, ctx, D, H, n_split,
+      slots_per_split, warps, scale, stream);
 }

@@ -54,7 +54,7 @@ xattn_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, D)
   const int lo = split * frames_per_split;
   const long slab = ((long)layer * b_kv_rows + b / beam_group) * (long)T * D + h * wtt::kHeadDim;
   const long col = (long)b * D + h * wtt::kHeadDim;
-  const Rows rows{xk + slab, xv + slab, D, -1, nullptr, nullptr};
+  const Rows rows{xk + slab, xv + slab, D, -1, nullptr, nullptr, nullptr, 0};
   wtt::decode::attend<kWarps>(rows, q + col, lo, min(T, lo + frames_per_split), scale,
                               scores ? scores + ((long)b * H + h) * T : nullptr, out + col,
                               gridDim.x);

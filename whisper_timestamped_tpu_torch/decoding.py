@@ -508,7 +508,10 @@ class DecodeGraphs:
     A graph is a chunk of ``STOP_CHECK_STEPS`` steps of ``_loop_step``
     captured on the card, keyed by the batch B, the prompt region P, ``max_new``, the
     alignment heads, ``capture_attention``, greedy or sampled and the
-    levers (``_LoopConfig`` and the cache's layout); the temperature is a
+    levers (``_LoopConfig`` and the cache's layout), or of beam search's
+    ``decoding_beam._beam_step`` (keyed by its ``_BeamConfig``: B, K, the
+    pool, P, ``max_new``, the filters, and the cross lever; its cache has
+    B·K self rows over B cross-KV rows); the temperature is a
     device scalar filled before each window, so one sampled graph serves
     every temperature of the fallback schedule. A graph bakes in addresses,
     so what its steps read and write is persistent, filled in place by each
@@ -538,11 +541,14 @@ class DecodeGraphs:
         self._generator = None
 
     def cache(self, model: WhisperTorch, B: int, T: int, dtype, quantize_cross,
-              quantize_self: bool) -> KVCache:
-        key = (B, T, dtype, quantize_cross, quantize_self)
+              quantize_self: bool, self_rows: Optional[int] = None) -> KVCache:
+        """The persistent cache of B cross-KV rows and ``self_rows`` self
+        rows (B unless given: beam search's B·K)."""
+        key = (B, T, dtype, quantize_cross, quantize_self, self_rows)
         if key not in self.caches:
             self.caches[key] = alloc_cache(model, B, T, _cache_slots(model, PROMPT_REGION),
-                                           dtype, model.device, quantize_cross, quantize_self)
+                                           dtype, model.device, quantize_cross, quantize_self,
+                                           self_rows)
         return self.caches[key]
 
     def state(self, key, make) -> _LoopState:

@@ -364,6 +364,7 @@ class DecodeEngine:
             suppress_blank=options.suppress_blank,
             without_timestamps=options.without_timestamps,
             kv_int8=self.kv_int8 and not self.kv_int4,
+            graphs=self.graphs,
         )
 
     def _beam_result(self, row: Dict[str, np.ndarray], options: DecodingOptions,

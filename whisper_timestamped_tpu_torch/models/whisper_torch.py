@@ -542,10 +542,12 @@ class KVCache(NamedTuple):
 
 
 def alloc_cache(model: WhisperTorch, B: int, T: int, ctx_len: int, dtype, device,
-                quantize_cross=False, quantize_self: bool = False) -> KVCache:
+                quantize_cross=False, quantize_self: bool = False,
+                self_rows: Optional[int] = None) -> KVCache:
     """A cache of ``init_cache``'s layout for B rows of T encoder frames and
     ``ctx_len`` self-attention slots: the cross K/V uninitialized, the self
-    cache (and its scales) zeroed."""
+    cache (and its scales) zeroed. ``self_rows``: the self cache's rows
+    when they are not B (beam search: B·K beam rows over B cross-KV rows)."""
     dims = model.dims
     L, D = dims.n_text_layer, dims.n_text_state
     scales = {}
@@ -556,10 +558,11 @@ def alloc_cache(model: WhisperTorch, B: int, T: int, ctx_len: int, dtype, device
         scales.update(xk_scale=s, xv_scale=torch.empty_like(s))
     else:
         xk = torch.empty((L, B, T, D), dtype=dtype, device=device)
-    k = torch.zeros((L, B, ctx_len, D), dtype=torch.int8 if quantize_self else dtype,
+    R = B if self_rows is None else self_rows
+    k = torch.zeros((L, R, ctx_len, D), dtype=torch.int8 if quantize_self else dtype,
                     device=device)
     if quantize_self:
-        s = torch.zeros((L, B, ctx_len), dtype=torch.float32, device=device)
+        s = torch.zeros((L, R, ctx_len), dtype=torch.float32, device=device)
         scales.update(k_scale=s, v_scale=torch.zeros_like(s))
     return KVCache(k=k, v=torch.zeros_like(k), xk=xk, xv=torch.empty_like(xk), **scales)
 
@@ -623,6 +626,7 @@ def decode_step(
     align_heads: Optional[Sequence[Tuple[int, int]]] = None,
     beam_group: int = 1,
     extent: Optional[int] = None,
+    src_row: Optional[torch.Tensor] = None,
 ):
     """One decode step for a single new token per row.
 
@@ -641,6 +645,9 @@ def decode_step(
     The self-attention kernel writes the step's new K/V row into slot
     ``pos`` of the cache in the same launch: ``self_attn_decode`` for a bf16
     cache, ``self_attn_decode_int8`` (the row quantized) for an int8 one.
+    ``src_row`` (B, ctx) int32, beam search's row table: the bf16 self
+    attention reads slot s of row b from row src_row[b, s] of the cache
+    (``ops.kernels.self_attn_decode``); an int8 self cache takes none.
     The cross K/V take the kernel of ``cross_attention_rows``. The step's
     linears read the int8 copies of ``decoder["blocks_w8"]`` when the
     engine built them (``w_int8``; ``whisper_jax.py:1114-1117``).
@@ -664,6 +671,8 @@ def decode_step(
         pos_ids = torch.clamp(pos_ids - pos_offset.long(), 0, dims.n_text_ctx - 1)
     x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_ids][:, None]
     self_int8 = cache.k.dtype == torch.int8
+    if self_int8 and src_row is not None:
+        raise ValueError("decode_step: an int8 self cache takes no row table")
     x = x.to(dec["tok_emb"].dtype if self_int8 else cache.k.dtype)
     pad = (
         kv_valid_from.to(torch.int32)
@@ -684,7 +693,7 @@ def decode_step(
                                       cache.v_scale, l, slot, pad, H, extent)
         else:
             a = self_attn_decode(q, cache.k, cache.v, l, slot, pad, H, k_new=k_new, v_new=v_new,
-                                 extent=extent)
+                                 extent=extent, src_row=src_row)
         x = x + _linear(a, w("attn_o_w", l), dec["attn_o_b"][l])
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, w("cross_q_w", l), dec["cross_q_b"][l])

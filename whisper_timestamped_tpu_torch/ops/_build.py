@@ -37,9 +37,9 @@ SIGNATURES = {
     # q, xk, xv, out, scores, layer, B, B_kv, T, D, H, beam_group, n_split,
     # frames_per_split, warps, scale, stream
     "wtt_xattn_decode": [_P] * 5 + [_I] * 10 + [_F, _P],
-    # q, k_new, v_new, k, v, out, pad_len, pos (int32 on the device), layer, B, ctx, D, H,
-    # n_split, slots_per_split, warps, scale, stream
-    "wtt_self_attn_decode": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # q, k_new, v_new, k, v, out, pad_len, pos (int32 on the device), src_row (the row
+    # table, or null), layer, B, ctx, D, H, n_split, slots_per_split, warps, scale, stream
+    "wtt_self_attn_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
     # scores, rows (null: pre-sliced), dims, cost, scratch, partial, S, K, N, M, T, G, stream
     "wtt_align_cost": [_P] * 6 + [_I] * 6 + [_P],
     # scores, cost, partial, K, N, M, n_tokens, span, G, stream

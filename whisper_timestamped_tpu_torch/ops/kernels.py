@@ -154,7 +154,7 @@ def _extent(pos, extent: Optional[int], ctx: int) -> int:
 
 
 def self_attn_decode_plain(q, k_all, v_all, layer: int, pos, pad_len, n_head: int,
-                           extent: Optional[int] = None):
+                           extent: Optional[int] = None, src_row=None):
     """Single-query self-attention over layer ``layer`` of the stacked cache.
 
     q (B, 1, D); k_all/v_all (L, B, ctx, D); ``pos`` the step's slot, an
@@ -162,12 +162,20 @@ def self_attn_decode_plain(q, k_all, v_all, layer: int, pos, pad_len, n_head: in
     read (``_extent``) and masked as JAX's static-shape attention masks its
     cache: slot s of row b is live when pad_len[b] <= s <= pos, or s == pos
     (a padding-slot query keeps its own slot, so no row is fully masked).
+    ``src_row`` (B, ctx) int32, the row table: slot s of row b is read from
+    row src_row[b, s] of the cache (the layer's rows gathered slot by slot
+    first), so that beam search never reorders the cache itself.
     Returns (B, 1, D) in q's dtype."""
     B, _, D = q.shape
     dh = D // n_head
     T = _extent(pos, extent, k_all.shape[2])
-    k = k_all[layer, :, :T].float()
-    v = v_all[layer, :, :T].float()
+    if src_row is None:
+        k = k_all[layer, :, :T].float()
+        v = v_all[layer, :, :T].float()
+    else:
+        rows, slots = src_row[:, :T].long(), torch.arange(T, device=q.device)[None, :]
+        k = k_all[layer][rows, slots].float()
+        v = v_all[layer][rows, slots].float()
     slot = step_slot(pos, q.device).long()
     lo = torch.minimum(pad_len.to(q.device).long(), slot)
     ids = torch.arange(T, device=q.device)[None, :]
@@ -702,7 +710,7 @@ def xattn_decode(q, xk_all, xv_all, layer: int, n_head: int,
 
 
 def self_attn_decode(q, k_all, v_all, layer: int, pos, pad_len, n_head: int,
-                     k_new=None, v_new=None, extent: Optional[int] = None):
+                     k_new=None, v_new=None, extent: Optional[int] = None, src_row=None):
     """Self-attention of one decode step over layer ``layer`` of the stacked
     cache, live slots [min(pad_len[b], pos), pos] of its first ``extent``
     (see ``self_attn_decode_plain``). ``pos`` is an int32 scalar on the
@@ -714,17 +722,23 @@ def self_attn_decode(q, k_all, v_all, layer: int, pos, pad_len, n_head: int,
     ``layer`` of k_all/v_all, in place, and attends over the written cache.
     On CUDA one launch does both: bf16 q/K/V and new rows, head width 64,
     contiguous, int32 ``pad_len`` on the same device. For CPU tensors the
-    rows are written by ``write_row`` and the plain version attends."""
+    rows are written by ``write_row`` and the plain version attends.
+
+    ``src_row`` (B, ctx) int32 on the device, the row table of beam search
+    (``self_attn_decode_plain``): slot s of row b is read from physical row
+    src_row[b, s]; the step's rows are still written to row b, and the
+    caller keeps src_row[b, pos] = b. None reads row b's own slots."""
     name = "self_attn_decode"
     _expect(name, (k_new is None) == (v_new is None), "give both k_new and v_new, or neither")
     new = () if k_new is None else (k_new, v_new)
+    table = () if src_row is None else (src_row,)
     slot = step_slot(pos, q.device)
     T = _extent(pos, extent, k_all.shape[2])
-    if not _on_cuda(name, q, k_all, v_all, pad_len, slot, *new):
+    if not _on_cuda(name, q, k_all, v_all, pad_len, slot, *new, *table):
         if new:
             write_row(k_new, k_all, layer, slot)
             write_row(v_new, v_all, layer, slot)
-        return self_attn_decode_plain(q, k_all, v_all, layer, slot, pad_len, n_head, T)
+        return self_attn_decode_plain(q, k_all, v_all, layer, slot, pad_len, n_head, T, src_row)
     B, S, D = q.shape
     L, Bk, ctx, Dk = k_all.shape
     _expect(name, S == 1 and Bk == B and Dk == D and v_all.shape == k_all.shape
@@ -734,7 +748,9 @@ def self_attn_decode(q, k_all, v_all, layer: int, pos, pad_len, n_head: int,
             "q/K/V and the new rows must be bf16")
     _expect(name, pad_len.dtype == torch.int32 and pad_len.shape == (B,), "pad_len must be int32 (B,)")
     _check_slot(name, pos, slot, T)
-    _expect(name, all(t.is_contiguous() for t in (q, k_all, v_all, pad_len, *new)),
+    _expect(name, src_row is None or (src_row.dtype == torch.int32 and src_row.shape == (B, ctx)),
+            f"src_row must be int32 ({B}, {ctx})")
+    _expect(name, all(t.is_contiguous() for t in (q, k_all, v_all, pad_len, *new, *table)),
             "inputs must be contiguous")
     _expect(name, _aligned(q, k_all, v_all, *new), "inputs must be 16-byte aligned")
     _expect(name, 0 <= layer < L and 0 < T <= min(ctx, MAX_T), f"layer {layer} / extent {T} out of range")
@@ -742,8 +758,8 @@ def self_attn_decode(q, k_all, v_all, layer: int, pos, pad_len, n_head: int,
     out = torch.empty_like(q)
     _launch(name, "wtt_self_attn_decode", q.data_ptr(), _ptr(k_new), _ptr(v_new),
             k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(), pad_len.data_ptr(),
-            slot.data_ptr(), layer, B, ctx, D, n_head, *_grid(q, B, n_head, T), HEAD_DIM**-0.5,
-            _stream(q))
+            slot.data_ptr(), _ptr(src_row), layer, B, ctx, D, n_head, *_grid(q, B, n_head, T),
+            HEAD_DIM**-0.5, _stream(q))
     return out
 
 
