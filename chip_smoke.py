@@ -125,7 +125,32 @@ phases have run, so their lines are printed too):
       against the same without it (the words decoded at B=40 in both
       equal; 8 windows at B=8 and as rows of B=40 as the control of the
       tail's own); the host C++ core built and in use by ``dtw_path`` and
-      the tokenizer.
+      the tokenizer;
+  (q) the mesh: first ``self_attn_decode_int8``'s instance that writes with
+      given scales (a tensor-parallel rank's rows, whose scale is the whole
+      row's) against its plain version at a tp=2 rank's shape (B=8, ctx
+      456, pos 232, 10 heads, D=640): codes and scales bit for bit, the
+      output at the int8 self gate, timed beside the instance that reduces
+      the row itself at the same shape; then two ranks spawned
+      (``torch.multiprocessing``, a ``file://`` store under ``build/``), one
+      a card on NCCL with two cards or more, else both on ``cuda:0`` on
+      gloo (NCCL refuses two ranks on one device; gloo reduces CUDA tensors
+      through the host), each building the seeded large-v3 model at full
+      width and depth and sharding it at tp=2 (``parallel.mesh``): one
+      ``encode`` and one ``decode_step`` at B=8 against the one-card model's
+      (max relative difference, limit ``MESH_REL_LIMIT``), ``init_cache``'s
+      int8 cross K/V scales bit-equal to ``quantize_rows`` of the rows
+      gathered over tp (and the rank's K/V against the one-card slice),
+      ``transcribe_batch`` of (f)'s first 8 streams at tp=2 with a bf16 and a
+      ``kv_int8`` + ``self_kv_int8`` engine (the schema; both ranks' results
+      equal bit for bit; every decode kernel launched at least 32 times a
+      decode step and ``flash_attention`` 32 times a window iteration, all
+      at 10 heads; the token loop run eagerly, ``tp_eager_chunks``;
+      s/batch, ms/step, each rank's peak memory and resident weight bytes),
+      then the same streams at dp=2 (4 a rank, captured loops), each rank's
+      streams' results bit-equal to a one-card ``transcribe_batch`` of them
+      at ``batch_size=4`` and both ranks' merged dicts equal. Two ranks on
+      one card share its SMs: (q)'s times describe that layout only.
 
 Every decode path above ([d], [f], [g], [h], [k], [l], [n], [o]) runs its
 token loops through the engine's captured graphs; the launch counts add each
@@ -168,8 +193,10 @@ with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
 record takes each kernel's launches from the phase that runs it: the bf16
 path's from (f), ``xattn_decode_int8`` from (g), the int4 and int8-self
 kernels from (h), ``attention_to_cost`` from (i), ``log10_mel`` from (j),
-the training kernels from (m)'s timed steps; ``median9`` and
-``stacked_matmul``, which no path runs, from their checks in (c).
+the training kernels from (m)'s timed steps, the scales-given int8 self
+instance from (q)'s rank 0 (its ``kv_int8`` + ``self_kv_int8`` batch at
+tp=2); ``median9`` and ``stacked_matmul``, which no path runs, from their
+checks in (c).
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
 at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
@@ -232,6 +259,10 @@ SOURCES = {
                           "whisper_timestamped_tpu/ops/pallas_kernels.py:1876"),
     "self_attn_decode_int8": ("whisper_timestamped_tpu_torch/csrc/self_attn_decode_int8.cu",
                               "whisper_timestamped_tpu/ops/pallas_kernels.py:2205"),
+    # the same kernel's instance for a tensor-parallel rank ([q]): the row
+    # scales given (the JAX step quantizes in XLA, whisper_jax.py:930-932)
+    "self_attn_decode_int8_scaled": ("whisper_timestamped_tpu_torch/csrc/self_attn_decode_int8.cu",
+                                     "whisper_timestamped_tpu/ops/pallas_kernels.py:2205"),
     "attention_to_cost": ("whisper_timestamped_tpu_torch/csrc/align_cost.cu",
                           "whisper_timestamped_tpu/ops/pallas_kernels.py:165"),
     "median9": ("whisper_timestamped_tpu_torch/csrc/median9.cu",
@@ -1685,9 +1716,10 @@ def phase_reference_step(torch, K, model, label: str = "bf16", **quantize):
     int4 cross K/V, or the int8 self cache)."""
     import whisper_timestamped_tpu_torch.models.whisper_torch as wt
 
-    def plain_self_int8(q, k_new, v_new, *cache_and_args):
+    def plain_self_int8(q, k_new, v_new, *cache_and_args, row_scales=None):
         k_all, k_scale, v_all, v_scale, layer, pos, pad, H, extent = cache_and_args
-        K.write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, pos)
+        K.write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, pos,
+                              row_scales)
         return K.self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, pos, pad, H,
                                              extent)
 
@@ -3662,6 +3694,412 @@ def phase_weight_levers(torch, K, model, tok):
     del before, after, mels
 
 
+# ---------------------------------------------------------------------------
+# (q) the mesh
+# ---------------------------------------------------------------------------
+
+# [q]'s limit on the tp=2 model against the one-card model: [e]'s limits
+# for the kernels against their plain versions, the same kind of
+# difference (bf16 products summed in another order): the encoder output
+# norm-wise (|a - b| / |b|; its max difference over its max is printed,
+# not held: 32 bf16 layers of random weights carry any perturbation to a
+# few percent of the largest output, [e]), the decode step's logits by
+# their max difference over their max
+MESH_REL_LIMIT = 2e-2
+MESH_LENGTHS = (35, 5, 12, 20, 8, 27, 15, 30)  # (f)'s first batch
+# tokens a window in (q)'s batches: its tp=2 steps with two ranks on one
+# H100 cost 0.2-0.6 s each over gloo, so (q) decodes 64 steps a batch, 2
+# windows of 32 tokens
+MESH_MAX_NEW = 32
+MESH_DIR = os.path.join("build", "mesh_smoke")
+
+
+def phase_mesh_kernel(torch, K, device):
+    """(q): ``self_attn_decode_int8``'s scales-given instance at a tp=2
+    rank's shape (B=8, ctx 456, pos 232, L=32, 10 heads, D=640; each row's
+    scales those of a 1280-wide row whose first 640 columns the rank holds)
+    against ``write_quantized_row(row_scales=)`` and the plain version in
+    f32, then timed beside the instance that reduces the row itself, at the
+    same shape. Returns the kernel's record."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, row_scales
+
+    g = torch.Generator(device=device).manual_seed(17)
+    L, B, ctx, D, H, pos = 32, 8, 456, 640, 10, 232
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    q = randn(B, 1, D).bfloat16()
+    k_row, v_row = randn(B, 1, 2 * D).bfloat16(), randn(B, 1, 2 * D).bfloat16()
+    k_new, v_new = k_row[..., :D].contiguous(), v_row[..., :D].contiguous()
+    given = row_scales(torch.cat([k_row, v_row], dim=1).transpose(0, 1), 127.0).contiguous()
+    cache = (*quantize_rows(randn(L, B, ctx, D)), *quantize_rows(randn(L, B, ctx, D)))
+    pads = torch.tensor([SELF_PADS[b % 4] for b in range(B)], dtype=torch.int32, device=device)
+    slot = torch.full((), pos, dtype=torch.int32, device=device)
+    err = 0.0
+    for layer in (0, 17, 31):
+        ck = [t.clone() for t in cache]
+        o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, layer, slot, pads, H, extent=ctx,
+                                      row_scales=given)
+        torch.cuda.synchronize()
+        cp = [t.clone() for t in cache]
+        K.write_quantized_row(k_new, v_new, *cp, layer, pos, given)
+        if not all(torch.equal(a, b) for a, b in zip(ck, cp)):
+            fail(f"[q] the scales-given int8 self instance wrote other codes or scales than "
+                 f"write_quantized_row(row_scales=) (layer {layer})")
+        ref = K.self_attn_decode_int8_plain(q.float(), *cp, layer, pos, pads, H)
+        diff = (o_k.float() - ref).abs()
+        if not (torch.isfinite(o_k.float()).all()
+                and bool((diff <= SELF_Q_ATOL + SELF_Q_RTOL * ref.abs()).all())):
+            fail(f"[q] the scales-given int8 self instance disagrees at layer {layer}: max abs "
+                 f"{diff.max().item():.3g} (limit 2^-8 of the f32 plain version + {SELF_Q_ATOL})")
+        err = max(err, diff.max().item())
+    pad0 = torch.zeros((B,), dtype=torch.int32, device=device)
+
+    def given_scales(it=0):
+        return K.self_attn_decode_int8(q, k_new, v_new, *cache, it % L, slot, pad0, H,
+                                       extent=ctx, row_scales=given)
+
+    def own_scales(it=0):
+        return K.self_attn_decode_int8(q, k_new, v_new, *cache, it % L, slot, pad0, H, extent=ctx)
+
+    def plain(it=0):
+        K.write_quantized_row(k_new, v_new, *cache, it % L, pos, given)
+        return K.self_attn_decode_int8_plain(q, *cache, it % L, pos, pad0, H)
+
+    before = dict(K.LAUNCHES)
+    times = {}
+    for turn, fn in (("own", own_scales), ("given", given_scales), ("given2", given_scales),
+                     ("own2", own_scales)):
+        times[turn] = cuda_time_ms(fn)
+    if K.LAUNCHES["self_attn_decode_int8_scaled"] == before["self_attn_decode_int8_scaled"]:
+        fail("[q] row_scales did not launch the scales-given instance")
+    ms = (times["given"] + times["given2"]) / 2
+    own_ms = (times["own"] + times["own2"]) / 2
+    plain_ms = cuda_time_ms(plain, iters=5)
+    live = pos + 1  # as [c]'s int8 self record, plus the given scales read
+    moved = B * (4 * D * 2 + 2 * live * (D + 4) + 2 * (D + 4) + 2 * 4)
+    b_ms, b_by = bound(moved, 4 * B * live * D, F32_FLOPS)
+    n_sm = K._sm_count(device)
+    print(f"[q] self_attn_decode_int8 with given row scales, B=8 ctx=456 pos=232 D=640 H=10 "
+          f"({K.xattn_split(B, H, ctx, n_sm)[0]} splits, {K.pipeline_warps(B, H, n_sm)} warps a "
+          f"block): codes and scales equal write_quantized_row(row_scales=) bit for bit, max abs "
+          f"err {err:.3g} against the plain version in f32 (limit 2^-8 of it + {SELF_Q_ATOL}); "
+          f"{ms:.4f} ms (turns {times['given']:.4f}, {times['given2']:.4f}) vs the instance that "
+          f"reduces the row itself {own_ms:.4f} ms (turns {times['own']:.4f}, "
+          f"{times['own2']:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{moved / 1e6:.2f} MB); no single PyTorch call computes it")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err, own_scales_ms=own_ms)
+
+
+def rel_err(a, b, norm: bool = False) -> float:
+    """max |a - b| over max |b| (with ``norm``: |a - b| / |b|), in f32."""
+    a, b = a.float(), b.float()
+    if norm:
+        return ((a - b).norm() / b.norm()).item()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@contextlib.contextmanager
+def heads_seen(seen: set):
+    """Record the head count each attention kernel is called with (its q's
+    width over 64) while the model's forward calls it."""
+    import whisper_timestamped_tpu_torch.models.whisper_torch as wt
+
+    names = ("flash_attention", "xattn_decode", "xattn_decode_int8", "self_attn_decode",
+             "self_attn_decode_int8")
+    saved = {n: getattr(wt, n) for n in names}
+
+    def wrap(n, fn):
+        def call(q, *a, **kw):
+            seen.add((n, q.shape[-1] // 64))
+            return fn(q, *a, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(wt, n, wrap(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(wt, n, fn)
+
+
+def weight_bytes(module) -> int:
+    """Bytes of the module's parameter storages, each counted once."""
+    seen, total = set(), 0
+    for pd in (module.encoder, module.decoder):
+        for t in pd.values():
+            key = t.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += t.untyped_storage().nbytes()
+    return total
+
+
+def mesh_rank(rank: int, world: int, backend: str, out_dir: str) -> None:
+    """One rank of (q): its device, the process group, the checks; the
+    results go to ``out_dir/rank<r>.json``. An exception fails the spawn."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="file://" + os.path.abspath(
+        os.path.join(out_dir, "store")), world_size=world, rank=rank)
+    try:
+        out = mesh_checks(torch, rank, device)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_checks(torch, rank: int, device):
+    """A rank's work in (q); returns what the parent prints and compares."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import transcribe_batch
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.models import whisper_torch as wt
+    from whisper_timestamped_tpu_torch.ops import _build
+    from whisper_timestamped_tpu_torch.ops import kernels as K
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+    from whisper_timestamped_tpu_torch.parallel.mesh import get_mesh, shard_params
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    t0 = time.perf_counter()
+    _build.library()
+    model, tok = large_v3_model(torch, device)
+    tp_mesh, dp_mesh = get_mesh(dp=1, tp=2), get_mesh(dp=2, tp=1)
+    sharded = shard_params(model, tp_mesh)
+    one, mine = model.module, sharded.module
+    tp = mine.tensor_parallel
+    D = one.dims.n_text_state // tp.size
+    cols = slice(tp.rank * D, (tp.rank + 1) * D)
+    sections = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out = dict(backend=dist.get_backend(), via_host=tp.via_host, device=str(device),
+               weight_bytes=weight_bytes(mine),
+               full_weight_bytes=weight_bytes(one),
+               block_bytes=sum(t.nbytes for pd in (one.encoder, one.decoder)
+                               for n, t in pd.items() if n.startswith(wt._LAYER_PREFIXES)),
+               sharded_block_bytes=sum(t.nbytes for pd in (mine.encoder, mine.decoder)
+                                       for n, t in pd.items()
+                                       if n.startswith(wt._LAYER_PREFIXES)))
+
+    # 1. one encode and one decode step at B=8 against the one-card model
+    g = torch.Generator(device=device).manual_seed(7)
+    heads = [tuple(h) for h in model.alignment_heads]
+    with torch.no_grad():
+        mel = torch.randn((8, 128, 3000), generator=g, device=device)
+        xa1, xa2 = wt.encode(one, mel), wt.encode(mine, mel)
+        c1, c2 = wt.init_cache(one, xa1, ctx_len=240), wt.init_cache(mine, xa2, ctx_len=240)
+        for full, part in ((c1.k, c2.k), (c1.v, c2.v)):  # 16 slots written, as by a prefill
+            full[:, :, :16].copy_(torch.randn(full[:, :, :16].shape, generator=g, device=device))
+            part[:, :, :16].copy_(full[:, :, :16, cols])
+        tokens = torch.randint(0, 50000, (8, 1), generator=g, device=device)
+        pad = torch.full((8,), 3, dtype=torch.int32, device=device)
+        l1, r1 = wt.decode_step(one, tokens, c1, 16, pos_offset=pad, kv_valid_from=pad,
+                                align_heads=heads)
+        l2, r2 = wt.decode_step(mine, tokens, c2, 16, pos_offset=pad, kv_valid_from=pad,
+                                align_heads=heads)
+        out.update(encode_norm_rel=rel_err(xa2, xa1, norm=True), encode_rel=rel_err(xa2, xa1),
+                   logits_rel=rel_err(l2, l1), rows_rel=rel_err(r2, r1))
+        del c1, c2
+
+        # 2. the int8 cross K/V of one given xa: the scales of the whole rows
+        q8 = wt.init_cache(mine, xa1, ctx_len=16, quantize_cross=True)
+        scales_equal = codes_equal = True
+        kv_rel = 0.0
+        for l in (0, one.dims.n_text_layer - 1):
+            dec, dec1 = mine.decoder, one.decoder
+            for name, local, full in (
+                    ("k", wt._linear(xa1, dec["cross_k_w"][l]), wt._linear(xa1, dec1["cross_k_w"][l])),
+                    ("v", wt._linear(xa1, dec["cross_v_w"][l], dec["cross_v_b"][l]),
+                     wt._linear(xa1, dec1["cross_v_w"][l], dec1["cross_v_b"][l]))):
+                codes, scales = (q8.xk, q8.xk_scale) if name == "k" else (q8.xv, q8.xv_scale)
+                q_g, s_g = quantize_rows(tp.gather(local, dim=-1))
+                scales_equal &= torch.equal(scales[l], s_g)
+                codes_equal &= torch.equal(codes[l], q_g[..., cols])
+                kv_rel = max(kv_rel, rel_err(local, full[..., cols]))
+        out.update(cross_scales_equal=bool(scales_equal), cross_codes_equal=bool(codes_equal),
+                   cross_kv_rel=kv_rel)
+        del q8, xa1, xa2, mel
+
+        # the cost of one sum over tp of a decode step's (B, 1, D) bf16 rows
+        x = torch.randn((8, 1, one.dims.n_text_state), generator=g, device=device).bfloat16()
+        tp.sum_(x)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        for _ in range(100):
+            tp.sum_(x)
+        torch.cuda.synchronize()
+        out["sum_ms"] = 10 * (time.perf_counter() - ts)
+    torch.cuda.empty_cache()
+
+    # 4. transcribe_batch at tp=2, bf16 then kv_int8 + self_kv_int8
+    sections["checks"] = time.perf_counter() - t0
+    kw = dict(batch_size=8, temperature=[0.0], **SMOKE_OPTIONS,
+              decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}",
+                                             sample_len=MESH_MAX_NEW))
+    streams = {f"s{j}": make_audio(j, sec) for j, sec in enumerate(MESH_LENGTHS)}
+    warm = {f"w{j}": make_audio(90 + j, 3) for j in range(8)}
+    warm_kw = {**kw, "decode_options": DecodingOptions(suppress_tokens=f"-1,{tok.eot}",
+                                                       sample_len=4)}
+    for label, levers in (("bf16", {}), ("int8", dict(kv_int8=True, self_kv_int8=True))):
+        ts = time.perf_counter()
+        engine = DecodeEngine(model, tok, mesh=tp_mesh, **levers)
+        if label == "bf16":  # the first calls' set-up (cuBLAS, the first collectives)
+            transcribe_batch(model, warm, tok, engine=engine, **warm_kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_timings()
+        K.reset_launches()
+        counts0 = dict(get_counts())
+        seen: set = set()
+        t0 = time.perf_counter()
+        with heads_seen(seen):
+            res = transcribe_batch(model, streams, tok, engine=engine, **kw)
+        torch.cuda.synchronize()
+        counts = {k: v - counts0.get(k, 0) for k, v in get_counts().items()}
+        timings = get_stage_timings()
+        out[label] = dict(
+            wall_s=time.perf_counter() - t0, results=res, launches=dict(K.LAUNCHES),
+            steps=counts.get("decode_steps", 0), iterations=counts.get("decode_dispatch", 0),
+            eager_chunks=counts.get("tp_eager_chunks", 0), graphs=len(engine.graphs.graphs),
+            loop_s=timings.get("decode_loop", {}).get("total_s", 0.0),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, heads=sorted(seen),
+            engine_weight_bytes=weight_bytes(engine.model.module), tp=engine.tp)
+        del engine
+        torch.cuda.empty_cache()
+        sections[label] = time.perf_counter() - ts
+
+    # 5. dp=2: this rank's streams r::2 at batch_size 4, against one card's
+    t1 = time.perf_counter()
+    engine = DecodeEngine(model, tok, mesh=dp_mesh)
+    reset_stage_timings()
+    counts0 = dict(get_counts())
+    t0 = time.perf_counter()
+    merged = transcribe_batch(model, streams, tok, engine=engine, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v - counts0.get(k, 0) for k, v in get_counts().items()}
+    own = list(streams)[rank::2]
+    alone = transcribe_batch(model, {n: streams[n] for n in own}, tok,
+                             engine=DecodeEngine(model, tok), **{**kw, "batch_size": 4})
+    out["dp"] = dict(wall_s=wall, results=merged, own=own,
+                     own_equal=all(merged[n] == alone[n] for n in own),
+                     eager_chunks=counts.get("tp_eager_chunks", 0),
+                     graphs=len(engine.graphs.graphs), steps=counts.get("decode_steps", 0),
+                     loop_s=get_stage_timings().get("decode_loop", {}).get("total_s", 0.0))
+    sections["dp"] = time.perf_counter() - t1
+    out["sections_s"] = sections
+    return out
+
+
+def phase_mesh(torch, here: str) -> int:
+    """(q): two ranks through ``parallel.mesh`` (see the module docstring);
+    returns rank 0's launches of the scales-given int8 self instance in
+    its tp=2 ``kv_int8`` + ``self_kv_int8`` batch."""
+    import torch.multiprocessing as mp
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    why = ("one rank a card" if n_cards >= 2 else
+           "one card: NCCL refuses two ranks on one device, gloo reduces through the host")
+    out_dir = os.path.join(here, MESH_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(2, backend, out_dir), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    print(f"[q] 2 ranks on {[r['device'] for r in ranks]}, backend {r0['backend']} ({why}); "
+          f"{wall:.1f} s for the phase, the ranks' start and model builds included (rank 0's "
+          f"sections: { {k: round(v, 1) for k, v in r0['sections_s'].items()} } s); two ranks on "
+          f"one card share its SMs, so (q)'s times describe that layout only")
+    for r, res in enumerate(ranks):
+        rels = (res["encode_norm_rel"], res["logits_rel"])
+        if not all(x <= MESH_REL_LIMIT for x in rels):
+            fail(f"[q] rank {r}: the tp=2 model disagrees with the one-card model: encoder "
+                 f"norm-wise {rels[0]:.3g}, logits {rels[1]:.3g} (limit {MESH_REL_LIMIT})")
+        if not (res["cross_scales_equal"] and res["cross_codes_equal"]):
+            fail(f"[q] rank {r}: init_cache's int8 scales or codes are not quantize_rows' of the "
+                 f"rows gathered over tp")
+        print(f"[q] rank {r}, tp=2, B=8, against the one-card model: encoder output norm-wise rel "
+              f"diff {res['encode_norm_rel']:.3g} (max {res['encode_rel']:.3g}), decode-step "
+              f"logits max rel diff {res['logits_rel']:.3g} (limits {MESH_REL_LIMIT}, [e]'s), "
+              f"alignment rows {res['rows_rel']:.3g}; one sum over tp of a step's (8, 1, 1280) "
+              f"bf16 rows {res['sum_ms']:.3f} ms (host clock, 100 in a row); int8 cross "
+              f"K/V (first and last layer): scales and codes equal quantize_rows of the rows gathered "
+              f"over tp, the rank's K/V {res['cross_kv_rel']:.3g} from the one-card slice")
+    for label in ("bf16", "int8"):
+        a, b = ranks[0][label], ranks[1][label]
+        if a["results"] != b["results"]:
+            fail(f"[q] tp=2 {label}: the two ranks' results differ")
+        words = [check_result(v) for v in a["results"].values()]
+        if list(a["results"]) != [f"s{j}" for j in range(len(MESH_LENGTHS))] or not any(words):
+            fail(f"[q] tp=2 {label}: the results lack streams or words")
+        kernels = (("xattn_decode", "self_attn_decode") if label == "bf16" else
+                   ("xattn_decode_int8", "self_attn_decode_int8_scaled"))
+        for r, res in enumerate((a, b)):
+            n = res["launches"]
+            if res["tp"] != 2 or res["eager_chunks"] == 0 or res["graphs"]:
+                fail(f"[q] rank {r} {label}: the tp=2 loop was captured or not run eagerly: {res}")
+            L = LARGE_V3["n_text_layer"]
+            short = [k for k in kernels if n[k] < L * res["steps"]]
+            if short or n["flash_attention"] < L * res["iterations"]:
+                fail(f"[q] rank {r} {label}: launches {n} for {res['steps']} steps and "
+                     f"{res['iterations']} window iterations (expected >= {L} a step and a "
+                     f"window)")
+            if label == "int8" and (n["self_attn_decode_int8"] or n["xattn_decode"]):
+                fail(f"[q] rank {r} int8: a kernel of another cache ran: {n}")
+            if {h for _, h in res["heads"]} != {LARGE_V3["n_text_head"] // 2}:
+                fail(f"[q] rank {r} {label}: the kernels ran at heads {res['heads']}, not "
+                     f"{LARGE_V3['n_text_head'] // 2}")
+        ms_step = [1e3 * res["loop_s"] / max(res["steps"], 1) for res in (a, b)]
+        print(f"[q] tp=2 transcribe_batch, {label if label == 'bf16' else 'kv_int8 + self_kv_int8'}"
+              f", 8 streams ({sum(MESH_LENGTHS)} s of audio) at B=8: both ranks' results equal bit "
+              f"for bit, {sum(words)} words; s/batch {[round(r['wall_s'], 2) for r in (a, b)]}, "
+              f"ms/step {[round(x, 2) for x in ms_step]} over {a['steps']} steps, token loop "
+              f"uncaptured ({a['eager_chunks']} eager chunks, 0 graphs), peak memory "
+              f"{[round(r['peak_gb'], 2) for r in (a, b)]} GB; launches (rank 0) "
+              f"{ {k: v for k, v in a['launches'].items() if v} }, every kernel at "
+              f"{sorted({h for _, h in a['heads']})} heads")
+    full = r0["full_weight_bytes"]
+    print(f"[q] resident weight bytes a rank at tp=2: "
+          f"{[round(r['int8']['engine_weight_bytes'] / 1e9, 3) for r in ranks]} GB "
+          f"(the blocks' {r0['sharded_block_bytes'] / 1e9:.3f} GB of {r0['block_bytes'] / 1e9:.3f} + "
+          f"the replicated rest {(full - r0['block_bytes']) / 1e9:.3f}); one card "
+          f"{full / 1e9:.3f} GB")
+    a, b = ranks[0]["dp"], ranks[1]["dp"]
+    if a["results"] != b["results"] or list(a["results"]) != [f"s{j}" for j in range(len(MESH_LENGTHS))]:
+        fail("[q] dp=2: the ranks' merged dicts differ or are not in the streams' order")
+    for r, res in enumerate((a, b)):
+        if not res["own_equal"]:
+            fail(f"[q] dp=2 rank {r}: its streams' results differ from one card's "
+                 f"transcribe_batch of them at batch_size=4")
+        if res["eager_chunks"] or not res["graphs"]:
+            fail(f"[q] dp=2 rank {r}: the token loop was not captured: {res['graphs']} graphs")
+    print(f"[q] dp=2 transcribe_batch, 4 streams a rank at B=4: each rank's streams' results "
+          f"equal one card's transcribe_batch of them at batch_size=4 bit for bit, the merged dicts "
+          f"equal; loops captured ({a['graphs']} graphs a rank); s/batch "
+          f"{[round(r['wall_s'], 2) for r in (a, b)]}, ms/step "
+          f"{[round(1e3 * r['loop_s'] / max(r['steps'], 1), 2) for r in (a, b)]}")
+    return r0["int8"]["launches"]["self_attn_decode_int8_scaled"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3754,6 +4192,9 @@ def main() -> int:
     phase_weight_levers(torch, K, model, tok)
     torch.cuda.empty_cache()
     phase_graphs(torch, K, model, tok)
+    torch.cuda.empty_cache()
+    rec["self_attn_decode_int8_scaled"] = phase_mesh_kernel(torch, K, device)
+    launches["self_attn_decode_int8_scaled"] = phase_mesh(torch, here)
     torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):

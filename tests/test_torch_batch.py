@@ -382,15 +382,28 @@ NOT_PORTED = {
 
 
 @pytest.mark.parametrize("option", sorted(NOT_PORTED))
-def test_unported_options_raise(models, option):
-    """A mesh is refused. ``vad``, once refused, now runs: the batch's
-    results equal JAX's ``transcribe_batch`` with the same VAD, with each
-    stream's ``speech_activity`` (test_torch_vad.py holds more cases)."""
+def test_unported_options_raise(models, option, tmp_path):
+    """Both options, once refused, now run. ``mesh``: on a one-rank gloo
+    mesh (dp=1, tp=1) ``transcribe_batch`` and the serving loop return the
+    results of the port's own calls without a mesh (test_torch_mesh_batch.py
+    holds dp and tp > 1 to JAX); a ``mesh`` that is not a mesh raises
+    ``TypeError``. ``vad``: the batch's results equal JAX's
+    ``transcribe_batch`` with the same VAD, with each stream's
+    ``speech_activity`` (test_torch_vad.py holds more cases)."""
     jax_model, model = models
     kw = {**KW, **NOT_PORTED[option]}
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            B.transcribe_batch(model, {"a": _audio(5, 2)}, _tok(), **kw)
+        from torch_mesh_ranks import one_rank_mesh
+
+        audios = {"a": _audio(5, 2), "b": _audio(1, 5)}
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            B.transcribe_batch(model, audios, _tok(), **kw)
+        want = B.transcribe_batch(model, audios, _tok(), **KW)
+        with one_rank_mesh(str(tmp_path)) as mesh:
+            got = B.transcribe_batch(model, audios, _tok(), **{**kw, "mesh": mesh})
+            served = list(B.transcribe_batch_stream(model, iter([audios]), _tok(),
+                                                    **{**kw, "mesh": mesh}))
+        assert got == want and served == [want]
         return
     audios = {"a": _audio(5, 2), "b": _audio(1, 5)}
     got = B.transcribe_batch(model, audios, _tok(), device_alignment=True, **kw)
@@ -403,7 +416,8 @@ def test_unported_options_raise(models, option):
 
 
 def test_unported_transcriber_options_and_fallback_raise(models, monkeypatch):
-    """A mesh is refused. ``tail_batch=2`` runs (``test_batch.py:186``'s
+    """A ``mesh`` that is not a mesh raises ``TypeError`` (a one-rank mesh
+    runs: test_unported_options_raise). ``tail_batch=2`` runs (``test_batch.py:186``'s
     case, with one stream long enough for two windows, so that the tail
     runs): once at most two streams are active the windows decode at B=2, with no
     device flow, and the segments and words equal the JAX transcriber's
@@ -420,7 +434,7 @@ def test_unported_transcriber_options_and_fallback_raise(models, monkeypatch):
 
     jax_model, model = models
     engine = DecodeEngine(model, _tok())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         B.BatchTranscriber(engine, mesh=object())
 
     audios = {"a": _audio(0, 5), "b": _audio(1, 8), "c": _audio(2, 45)}

@@ -749,6 +749,44 @@ def test_self_attn_int8_split_kernel_matches_plain(cuda, B, pos):
         _check_self_int8(q, k_new, v_new, cache, 1, pos, pad, H)
 
 
+@pytest.mark.parametrize("pos", [0, 232, 455])
+def test_self_attn_int8_given_scales_matches_plain(cuda, pos):
+    """The instance that writes with given scales, as a tensor-parallel rank
+    runs it at large-v3 and tp=2 (B=8, ctx 456, 10 heads, D=640): each
+    row's scales are those of the whole 1280-wide row, of which the rank
+    holds the first 640 columns; the written codes and scales equal
+    ``write_quantized_row(row_scales=)``'s bit for bit, the output the plain
+    version's within SELF_Q_RTOL / SELF_Q_ATOL; one launch, counted as
+    ``self_attn_decode_int8_scaled``."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, row_scales
+
+    g = torch.Generator(device=cuda).manual_seed(7001 + pos)
+    L, B, ctx, D, H = 2, 8, 456, 640, 10
+    q = _randn(g, B, 1, D)
+    k_row, v_row = _randn(g, B, 1, 2 * D), _randn(g, B, 1, 2 * D)
+    k_new, v_new = k_row[..., :D].contiguous(), v_row[..., :D].contiguous()
+    given = row_scales(torch.cat([k_row, v_row], dim=1).transpose(0, 1), 127.0).contiguous()
+    assert given.shape == (2, B)
+    assert not torch.equal(given[0], quantize_rows(k_new[:, 0])[1])  # not the local rows'
+    cache = (*quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32)),
+             *quantize_rows(_randn(g, L, B, ctx, D, dtype=torch.float32)))
+    pad = _self_pads(B, cuda)
+    ck = [t.clone() for t in cache]
+    before = dict(K.LAUNCHES)
+    o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, 1, pos, pad, H, row_scales=given)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["self_attn_decode_int8_scaled"] == before["self_attn_decode_int8_scaled"] + 1
+    assert K.LAUNCHES["self_attn_decode_int8"] == before["self_attn_decode_int8"]
+    cp = [t.clone() for t in cache]
+    K.write_quantized_row(k_new, v_new, *cp, 1, pos, given)
+    for a, b in zip(ck, cp):
+        assert torch.equal(a, b)
+    assert torch.equal(ck[1][1, :, pos], given[0]) and torch.equal(ck[3][1, :, pos], given[1])
+    assert torch.isfinite(o_k.float()).all()
+    o_p = K.self_attn_decode_int8_plain(q.float(), *cp, 1, pos, pad, H)
+    torch.testing.assert_close(o_k.float(), o_p, rtol=SELF_Q_RTOL, atol=SELF_Q_ATOL)
+
+
 def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 1, 128), dtype=torch.bfloat16, device=cuda)
     k8 = torch.zeros((1, 1, 8, 128), dtype=torch.int8, device=cuda)

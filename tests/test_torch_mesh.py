@@ -1,0 +1,225 @@
+"""The port's mesh (``parallel/mesh.py`` on ``torch.distributed``) against the
+JAX package's, in f32 on the CPU.
+
+One spawned gloo world of 4 ranks (``torch_mesh_ranks.world_mesh``) runs
+every check of this module; meanwhile this process computes JAX's side on
+the virtual 8-device mesh of ``conftest.py``: the forward of
+``test_parallel.py``'s geometry at tp=2 and tp=4 against JAX's unsharded and
+dp=2 x tp=4 forwards (atol 2e-4, as ``test_parallel.py:60``), the greedy
+window of ``test_batch.py:84`` on ``DecodeEngine(mesh=)`` at tp=2 and 4
+(tokens equal, log-probs at 2e-4, attention at 2e-3), the ``kv_int8`` and
+``self_kv_int8`` engines and beam 5 at tp=2 (tokens equal to JAX's mesh
+engines), the quantizers' scales of the whole rows, and the refusals.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from model_utils import hf_model_to_jax, make_hf_model, make_tokenizer  # noqa: E402
+from torch_mesh_ranks import run_world  # noqa: E402
+from whisper_timestamped_tpu.audio import N_FRAMES, log_mel_spectrogram, pad_or_trim  # noqa: E402
+from whisper_timestamped_tpu.decoding import DecodingOptions as JaxOptions  # noqa: E402
+from whisper_timestamped_tpu.engine import DecodeEngine as JaxEngine  # noqa: E402
+from whisper_timestamped_tpu.models import whisper_jax as JW  # noqa: E402
+from whisper_timestamped_tpu.models.load import WhisperModel as JaxModel  # noqa: E402
+from whisper_timestamped_tpu.parallel import mesh as JM  # noqa: E402
+from whisper_timestamped_tpu_torch.models import WhisperDims, params_from_jax_tree  # noqa: E402
+from whisper_timestamped_tpu_torch.parallel import mesh as M  # noqa: E402
+
+HEADS = [(0, 1), (1, 0), (1, 2)]
+# tokens a window: every step of a tp mesh holds collectives, whose latency
+# on a busy host is 0.3-4 ms each through gloo
+SAMPLE_LEN = 24
+# test_parallel.py's geometry
+FWD_DIMS = dict(n_mels=80, n_audio_ctx=60, n_audio_state=64, n_audio_head=4, n_audio_layer=2,
+                n_vocab=1928, n_text_ctx=48, n_text_state=64, n_text_head=4, n_text_layer=2)
+
+
+def _audio(seed, seconds):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(16000 * seconds) * 0.1).astype(np.float32)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _jax_side(fwd_params, params, dims, inp):
+    """JAX's forwards and mesh engines on the same inputs."""
+    fdims = JW.WhisperDims(**FWD_DIMS)
+
+    def fwd(p, mel, tokens):
+        return JW.decode_full(p, tokens, JW.encode(p, mel, fdims), fdims)[0]
+
+    mel, tokens = jnp.asarray(inp["fwd_mel"]), jnp.asarray(inp["fwd_tokens"])
+    out = {"fwd_one": np.asarray(jax.jit(fwd)(fwd_params, mel, tokens))}
+    mesh = JM.get_mesh(dp=2, tp=4)
+    with mesh:
+        out["fwd_mesh"] = np.asarray(jax.jit(fwd)(
+            JM.shard_params(fwd_params, mesh), JM.shard_batch(mel, mesh),
+            JM.shard_batch(tokens, mesh)))
+    model = JaxModel(params=jax.tree.map(jnp.asarray, params), dims=dims, alignment_heads=HEADS)
+    tok = make_tokenizer(language="en", task="transcribe")
+    opts = JaxOptions(language="en", sample_len=SAMPLE_LEN)
+    for tp in (2, 4):
+        r = JaxEngine(model, tok, mesh=JM.get_mesh(tp=tp)).decode_window(inp["mel"], opts)[0]
+        out[f"greedy_tp{tp}"] = r
+    for lever in ("kv_int8", "self_kv_int8"):
+        out[lever] = JaxEngine(model, tok, mesh=JM.get_mesh(tp=2),
+                               **{lever: True}).decode_window(inp["mel"], opts)[0]
+    out["beam"] = JaxEngine(model, tok, mesh=JM.get_mesh(tp=2)).decode_window_beam(
+        inp["mel"], JaxOptions(language="en", sample_len=SAMPLE_LEN, beam_size=5))
+    return out
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """(the 4 ranks' results, JAX's results, the port model's JAX tree)."""
+    fwd_params = JW.init_params(JW.WhisperDims(**FWD_DIMS), jax.random.PRNGKey(1))
+    params, dims = hf_model_to_jax(make_hf_model(seed=0))
+    rng = np.random.default_rng(0)
+    inp = dict(
+        fwd_tree=_np_tree(fwd_params), fwd_dims=FWD_DIMS,
+        fwd_mel=(rng.standard_normal((2, 80, 120)) * 0.3).astype(np.float32),
+        fwd_tokens=rng.integers(0, 300, (2, 8)).astype(np.int32),
+        tree=_np_tree(params), dims=dims.__dict__, heads=HEADS, sample_len=SAMPLE_LEN,
+        mel=pad_or_trim(np.asarray(log_mel_spectrogram(_audio(7, 6), n_mels=80)), N_FRAMES,
+                        axis=-1),
+        xa=rng.standard_normal((2, 40, 64)).astype(np.float32),
+        rows=rng.standard_normal((3, 5, 64)).astype(np.float32),
+    )
+    ranks, jax_out = run_world(4, "world_mesh", inp, str(tmp_path_factory.mktemp("mesh")),
+                               overlap=lambda: _jax_side(fwd_params, params, dims, inp))
+    return ranks, jax_out, params, dims
+
+
+def test_param_shard_dims_match_jax_pspecs(world):
+    """Every leaf's axis is JAX's ``param_pspec_tree`` entry in the port's
+    (L, out, in) layout: "tp" at JAX's axis 2 (out) is axis 1, at 1 (in) is 2."""
+    _, _, params, dims = world
+    model = params_from_jax_tree(params, WhisperDims(**dims.__dict__), device="cpu")
+    got = M.param_shard_dims(model)
+    specs = JM.param_pspec_tree(params)
+    want = {}
+    for part in ("encoder", "decoder"):
+        blocks = specs[part]["blocks"]
+        for p in ("attn", "cross") if part == "decoder" else ("attn",):
+            want[f"{part}.{p}_ln_g"] = blocks[f"{p}_ln"]["g"]
+            want[f"{part}.{p}_ln_b"] = blocks[f"{p}_ln"]["b"]
+            for n, leaves in blocks[p].items():
+                for kind, spec in leaves.items():
+                    want[f"{part}.{p}_{n}_{kind}"] = spec
+        for n in ("fc1", "fc2"):
+            for kind, spec in blocks["mlp"][n].items():
+                want[f"{part}.{n}_{kind}"] = spec
+        want[f"{part}.mlp_ln_g"] = blocks["mlp_ln"]["g"]
+        want[f"{part}.mlp_ln_b"] = blocks["mlp_ln"]["b"]
+    layout = {(None, None, "tp"): 1, (None, "tp", None): 2, (None, "tp"): 1}
+    for name, spec in want.items():
+        assert got[name] == layout.get(tuple(spec)), (name, spec, got[name])
+    # everything outside the blocks is replicated, as P() in JAX
+    assert {k for k, v in got.items() if v is not None} <= set(want)
+    assert all(v is None for k, v in got.items() if k not in want)
+    assert sum(v is not None for v in got.values()) == 9 + 15  # encoder, decoder
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_forward_matches_jax(world, tp):
+    """``encode`` + ``decode_full`` on every rank of a tp mesh equal JAX's
+    unsharded and dp=2 x tp=4 forwards; the alignment rows and every head's
+    scores equal the unsharded port's (f32 sums in another order)."""
+    ranks, jax_out, _, _ = world
+    for r in ranks:
+        got = r[f"fwd_tp{tp}"]
+        assert got["heads_local"] == 4 // tp
+        np.testing.assert_allclose(got["logits"], jax_out["fwd_one"], atol=2e-4)
+        np.testing.assert_allclose(got["logits"], jax_out["fwd_mesh"], atol=2e-4)
+        assert got["rows_err"] < 1e-4 and got["scores_err"] < 1e-4
+        np.testing.assert_array_equal(got["logits"], ranks[0][f"fwd_tp{tp}"]["logits"])
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_decode_window_matches_jax_mesh(world, tp):
+    """``test_batch.py:84``'s greedy window on the port's ``DecodeEngine(mesh=)``
+    against JAX's ``DecodeEngine(mesh=get_mesh(tp=tp))``."""
+    ranks, jax_out, _, _ = world
+    want = jax_out[f"greedy_tp{tp}"]
+    for r in ranks:
+        got = r[f"greedy_tp{tp}"]
+        assert got["tp"] == tp
+        assert got["tokens"] == list(want.tokens)
+        np.testing.assert_allclose(got["token_logprobs"], want.token_logprobs, atol=2e-4)
+        np.testing.assert_allclose(got["attn"], want.attn, atol=2e-3)
+
+
+@pytest.mark.parametrize("lever", ["kv_int8", "self_kv_int8"])
+def test_tp_quantized_cache_matches_jax_mesh(world, lever):
+    """The int8 cross K/V and the int8 self cache at tp=2: tokens equal to
+    JAX's mesh engine with the same lever."""
+    ranks, jax_out, _, _ = world
+    for r in ranks:
+        assert r[lever]["tokens"] == list(jax_out[lever].tokens)
+        np.testing.assert_allclose(r[lever]["token_logprobs"], jax_out[lever].token_logprobs,
+                                   atol=2e-3)
+
+
+def test_tp_quantizer_scales_are_the_whole_rows(world):
+    """Under tp=2 the scales are the whole row's (local max|x|, MAX over
+    tp): ``quantize_rows`` of a rank's columns equals the unsharded
+    quantizer's scales and its columns' codes bit for bit, and
+    ``init_cache``'s int8 cross K/V scales equal the unsharded port's."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        s = r["scales"]
+        assert s["rows_scales_equal"] and s["rows_codes_equal"]
+        assert s["cross_equal"], s
+        assert s["cross_codes_flips"] == 0, s
+
+
+def test_tp_beam_matches_jax_mesh(world):
+    """Beam 5 at tp=2 (the port's kernels run on each rank's heads; JAX keeps
+    its XLA path for beam on a mesh): tokens equal."""
+    ranks, jax_out, _, _ = world
+    for r in ranks:
+        assert r["beam"]["tokens"] == list(jax_out["beam"].tokens)
+        assert abs(r["beam"]["avg_logprob"] - jax_out["beam"].avg_logprob) < 1e-3
+
+
+def test_shard_and_place_batch(world):
+    """``shard_batch`` gives dp rank r its block of the leading axis (what
+    ``P("dp")`` places on a device), leaves 0-d leaves whole and refuses an
+    axis dp does not divide; ``place_batch`` replicates such a leaf instead.
+    Ranks 0-1 are dp coordinate 0 of the dp=2 x tp=2 mesh, ranks 2-3
+    coordinate 1."""
+    ranks, _, _, _ = world
+    for r, res in enumerate(ranks):
+        d = r // 2
+        got = res["shard_batch"]
+        np.testing.assert_array_equal(got["x"].numpy(), np.arange(8).reshape(4, 2)[2 * d:2 * d + 2])
+        np.testing.assert_array_equal(got["y"][0], np.arange(6)[3 * d:3 * d + 3])
+        assert float(got["y"][1]) == 3.0
+        placed = res["place_batch"]
+        np.testing.assert_array_equal(placed["x"].numpy(), np.arange(4)[2 * d:2 * d + 2])
+        np.testing.assert_array_equal(placed["odd"], np.arange(3))
+        assert "not divisible by dp=2" in res["shard_odd"]
+
+
+def test_tp_not_dividing_heads_raises(world):
+    """tp=3 over 4 heads: ``ValueError`` naming both head counts (JAX's GSPMD
+    would split a head)."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        assert r["tp3"] is not None and "n_audio_head=4" in r["tp3"] and "n_text_head=4" in r["tp3"]
+
+
+def test_get_mesh_without_process_group_raises():
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="torchrun"):
+        M.get_mesh(tp=1, device_type="cpu")

@@ -269,15 +269,31 @@ def test_unported_options_raise(models, option, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("lever", ["kv_int8", "kv_int4", "self_kv_int8", "w_int8", "enc_int8", "mesh"])
-def test_unported_engine_levers_raise(models, lever):
+def test_unported_engine_levers_raise(models, lever, tmp_path):
     """The engine takes the KV-cache and weight levers (their decodes are
     held to the JAX package in test_torch_quant.py); the weight levers
-    give the engine int8 copies beside the caller's module. A mesh is not
-    ported and raises."""
+    give the engine int8 copies beside the caller's module. A mesh runs:
+    on a one-rank gloo mesh (dp=1, tp=1) the engine's window equals the
+    engine's without a mesh (test_torch_mesh.py holds tp > 1 to JAX); a
+    ``mesh`` that is not a mesh raises ``TypeError``."""
     _, model = models
     if lever == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
+        from torch_mesh_ranks import one_rank_mesh
+        from whisper_timestamped_tpu_torch.audio import N_FRAMES, log_mel_spectrogram, pad_or_trim
+
+        with pytest.raises(TypeError, match="DeviceMesh"):
             DecodeEngine(model, _tok(), mesh=object())
+        mel = pad_or_trim(log_mel_spectrogram(_audio(7, 7), n_mels=80, device="cpu"), N_FRAMES)
+        opts = DecodingOptions(language="en", sample_len=24)
+        want = DecodeEngine(model, _tok()).decode_window(mel, opts)[0]
+        with one_rank_mesh(str(tmp_path)) as mesh:
+            engine = DecodeEngine(model, _tok(), mesh=mesh)
+            got = engine.decode_window(mel, opts)[0]
+        assert engine.mesh is mesh and engine.tp == 1
+        assert engine.model.module.tensor_parallel is None
+        assert got.tokens == want.tokens
+        np.testing.assert_array_equal(got.token_logprobs, want.token_logprobs)
+        np.testing.assert_array_equal(got.attn, want.attn)
         return
     engine = DecodeEngine(model, _tok(), **{lever: True})
     assert getattr(engine, lever)

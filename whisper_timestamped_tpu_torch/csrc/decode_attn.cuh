@@ -194,7 +194,12 @@ struct Bf16Rows {
 // The ring never copies that row: the block reads its codes from its own
 // shared memory and its scales from registers, never from the cache row
 // that this launch writes.
-template <bool kOwnRow>
+//
+// kGivenScales: the row's two scales come from ``ks_in``/``vs_in`` (the
+// caller's, e.g. those of the whole row when the block sees only a tensor-
+// parallel rank's columns) instead of the block's own reduction; the codes
+// are rint(x / max(scale, 1e-8)) with them.
+template <bool kOwnRow, bool kGivenScales = false>
 struct Int8Rows {
   static constexpr int kLanes = 4, kVals = 16, kFrames = 1;
   template <int kRows>
@@ -220,6 +225,8 @@ struct Int8Rows {
   float* ks_dst;  // null: another block stores the scales
   float* vs_dst;
   float own_ks, own_vs;  // set by prepare()
+  const float* ks_in = nullptr;  // kGivenScales: the row's scales
+  const float* vs_in = nullptr;
 
   // the own row's codes, K then V (one copy a block; used only with
   // kOwnRow, so the other instantiations declare no such shared memory)
@@ -262,35 +269,42 @@ struct Int8Rows {
       if (own >= 0) write_own();
   }
   // the fused write, by the whole block (``own`` is the same for all its
-  // threads): both rows' max|x| over all D columns, then the head's codes
+  // threads): both rows' max|x| over all D columns (or the given scales),
+  // then the head's codes
   __device__ __forceinline__ void write_own() {
-    __shared__ float red[2][32];
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-    float km = 0.f, vm = 0.f, f[8];
-    for (int c = tid * 8; c < D; c += blockDim.x * 8) {
-      bf16x8_to_f32(*reinterpret_cast<const uint4*>(k_new + c), f);
+    const int tid = threadIdx.x;
+    if constexpr (kGivenScales) {
+      own_ks = *ks_in;
+      own_vs = *vs_in;
+    } else {
+      __shared__ float red[2][32];
+      const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+      float km = 0.f, vm = 0.f, f[8];
+      for (int c = tid * 8; c < D; c += blockDim.x * 8) {
+        bf16x8_to_f32(*reinterpret_cast<const uint4*>(k_new + c), f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) km = fmaxf(km, fabsf(f[j]));
-      bf16x8_to_f32(*reinterpret_cast<const uint4*>(v_new + c), f);
+        for (int j = 0; j < 8; ++j) km = fmaxf(km, fabsf(f[j]));
+        bf16x8_to_f32(*reinterpret_cast<const uint4*>(v_new + c), f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vm = fmaxf(vm, fabsf(f[j]));
-    }
+        for (int j = 0; j < 8; ++j) vm = fmaxf(vm, fabsf(f[j]));
+      }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      km = fmaxf(km, __shfl_xor_sync(0xffffffffu, km, o));
-      vm = fmaxf(vm, __shfl_xor_sync(0xffffffffu, vm, o));
+      for (int o = 16; o > 0; o >>= 1) {
+        km = fmaxf(km, __shfl_xor_sync(0xffffffffu, km, o));
+        vm = fmaxf(vm, __shfl_xor_sync(0xffffffffu, vm, o));
+      }
+      if (lane == 0) {
+        red[0][warp] = km;
+        red[1][warp] = vm;
+      }
+      __syncthreads();
+      for (int w = 0; w < nwarps; ++w) {
+        km = fmaxf(km, red[0][w]);
+        vm = fmaxf(vm, red[1][w]);
+      }
+      own_ks = km / 127.f;
+      own_vs = vm / 127.f;
     }
-    if (lane == 0) {
-      red[0][warp] = km;
-      red[1][warp] = vm;
-    }
-    __syncthreads();
-    for (int w = 0; w < nwarps; ++w) {
-      km = fmaxf(km, red[0][w]);
-      vm = fmaxf(vm, red[1][w]);
-    }
-    own_ks = km / 127.f;
-    own_vs = vm / 127.f;
     int8_t* codes = own_codes();
     for (int c = tid; c < 2 * kHeadDim; c += blockDim.x) {
       const bool is_v = c >= kHeadDim;

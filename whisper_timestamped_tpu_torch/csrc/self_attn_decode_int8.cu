@@ -34,14 +34,21 @@
 // its scales from registers, never from the cache row being written (its
 // ring skips that row), and no other block reads slot pos. One launch a
 // layer.
+//
+// wtt_self_attn_decode_int8_scaled, the instance for a tensor-parallel
+// rank: the rank holds only its heads' D/tp columns of the row, whose
+// scale is the whole row's (the caller's max|x| over every rank, then
+// / 127, an IEEE quotient: ops/quant.py row_scales). It takes the two
+// scales of each row b from ``row_scales`` (2, B) f32 (K's, then V's) and
+// writes rint(x / max(scale, 1e-8)) with them: the same kernel without the
+// owning blocks' reduction over the row. The instance without it is
+// unchanged.
 
 #include "decode_attn.cuh"
 
 namespace {
 
-using Rows = wtt::decode::Int8Rows<true>;
-
-template <int kWarps>
+template <int kWarps, bool kGivenScales>
 __global__ void __launch_bounds__(32 * kWarps)
 self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                              const __nv_bfloat16* __restrict__ k_new,  // (B, D)
@@ -51,8 +58,10 @@ self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
                              __nv_bfloat16* __restrict__ out,          // (B, D)
                              const int* __restrict__ pad_len,          // (B,)
                              const int* __restrict__ pos_slot,         // the step's slot
+                             const float* __restrict__ row_scales,     // (2, B), kGivenScales
                              int layer, int B, int ctx, int D, int H,
                              int slots_per_split, float scale) {
+  using Rows = wtt::decode::Int8Rows<true, kGivenScales>;
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int pos = *pos_slot;
   const int first = split * slots_per_split;
@@ -62,11 +71,30 @@ self_attn_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,      // (B, D)
   const int head = h * wtt::kHeadDim;
   const long col = (long)b * D + head;
   const bool own = first <= pos && pos < hi;  // this split holds slot pos: it writes the row
-  const Rows rows{k + row0 * D + head, v + row0 * D + head, D, k_scale + row0, v_scale + row0,
-                  own ? pos : -1, k_new + (long)b * D, v_new + (long)b * D, D, head,
-                  k + (row0 + pos) * D + head, v + (row0 + pos) * D + head,
-                  h == 0 ? k_scale + row0 + pos : nullptr, h == 0 ? v_scale + row0 + pos : nullptr};
+  Rows rows{k + row0 * D + head, v + row0 * D + head, D, k_scale + row0, v_scale + row0,
+            own ? pos : -1, k_new + (long)b * D, v_new + (long)b * D, D, head,
+            k + (row0 + pos) * D + head, v + (row0 + pos) * D + head,
+            h == 0 ? k_scale + row0 + pos : nullptr, h == 0 ? v_scale + row0 + pos : nullptr};
+  if constexpr (kGivenScales) {
+    rows.ks_in = row_scales + b;
+    rows.vs_in = row_scales + B + b;
+  }
   wtt::decode::attend<kWarps>(rows, q + col, lo, hi, scale, nullptr, out + col, gridDim.x);
+}
+
+template <bool kGivenScales>
+int launch_self_int8(const void* q, const void* k_new, const void* v_new, void* k,
+                     void* k_scale, void* v, void* v_scale, void* out, const void* pad_len,
+                     const void* pos, const void* row_scales, int layer, int B, int ctx, int D,
+                     int H, int n_split, int slots_per_split, int warps, float scale,
+                     void* stream) {
+  return (int)wtt::decode::launch<wtt::decode::Int8Rows<true, kGivenScales>>(
+      warps, self_attn_decode_int8_kernel<2, kGivenScales>,
+      self_attn_decode_int8_kernel<4, kGivenScales>, dim3(n_split, H, B), (cudaStream_t)stream,
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
+      (int8_t*)k, (float*)k_scale, (int8_t*)v, (float*)v_scale, (__nv_bfloat16*)out,
+      (const int*)pad_len, (const int*)pos, (const float*)row_scales, layer, B, ctx, D, H,
+      slots_per_split, scale);
 }
 
 }  // namespace
@@ -77,10 +105,19 @@ extern "C" int wtt_self_attn_decode_int8(const void* q, const void* k_new, const
                                          int layer, int B, int ctx, int D, int H, int n_split,
                                          int slots_per_split, int warps, float scale,
                                          void* stream) {
-  return (int)wtt::decode::launch<Rows>(
-      warps, self_attn_decode_int8_kernel<2>, self_attn_decode_int8_kernel<4>,
-      dim3(n_split, H, B), (cudaStream_t)stream, (const __nv_bfloat16*)q,
-      (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (int8_t*)k, (float*)k_scale,
-      (int8_t*)v, (float*)v_scale, (__nv_bfloat16*)out, (const int*)pad_len, (const int*)pos,
-      layer, B, ctx, D, H, slots_per_split, scale);
+  return launch_self_int8<false>(q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, pos,
+                                 nullptr, layer, B, ctx, D, H, n_split, slots_per_split, warps,
+                                 scale, stream);
+}
+
+extern "C" int wtt_self_attn_decode_int8_scaled(const void* q, const void* k_new,
+                                                const void* v_new, void* k, void* k_scale,
+                                                void* v, void* v_scale, void* out,
+                                                const void* pad_len, const void* pos,
+                                                const void* row_scales, int layer, int B, int ctx,
+                                                int D, int H, int n_split, int slots_per_split,
+                                                int warps, float scale, void* stream) {
+  return launch_self_int8<true>(q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, pos,
+                                row_scales, layer, B, ctx, D, H, n_split, slots_per_split, warps,
+                                scale, stream);
 }

@@ -45,11 +45,15 @@ from .models.whisper_torch import (
     _attention,
     _int8_attention,
     _linear,
+    _align_hits,
     _ln,
+    _local_heads,
     _logits,
     _mlp,
     _mlp_params,
+    _out_linear,
     _prefill_flash_attention,
+    _tp,
     alloc_cache,
     cross_attention_rows,
     decode_full,
@@ -270,10 +274,13 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
 
     The last row's scores: on the small path, the last row of that pass's
     scores (``decoding.py:372-380``); on the flash path, through the cache's
-    decode kernel (``cross_attention_rows``)."""
+    decode kernel (``cross_attention_rows``). On a tensor-parallel module
+    (``models.whisper_torch``) the pass runs on the rank's heads and the
+    rows are summed over ``tp``."""
     dims = model.dims
     dec = model.decoder
-    H = dims.n_text_head
+    H = _local_heads(model, dims.n_text_head)
+    tp = _tp(model)
     B, P = prompt.shape
     self_int8 = cache.k.dtype == torch.int8
     cross_q = cache.xk.dtype == torch.int8
@@ -296,8 +303,8 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
         k_new = _linear(xn, dec["attn_k_w"][l])
         v_new = _linear(xn, dec["attn_v_w"][l], dec["attn_v_b"][l])
         if self_int8:
-            cache.k[l, :, :P], cache.k_scale[l, :, :P] = quantize_rows(k_new)
-            cache.v[l, :, :P], cache.v_scale[l, :, :P] = quantize_rows(v_new)
+            cache.k[l, :, :P], cache.k_scale[l, :, :P] = quantize_rows(k_new, tp)
+            cache.v[l, :, :P], cache.v_scale[l, :, :P] = quantize_rows(v_new, tp)
         else:
             cache.k[l, :, :P] = k_new
             cache.v[l, :, :P] = v_new
@@ -306,10 +313,10 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
             a = _prefill_flash_attention(q_self, k_new, v_new, H, pad_len=pad_len, causal=True)
         else:
             a, _ = _attention(q_self, k_new, v_new, H, mask=mask)
-        x = x + _linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l])
+        x = x + _out_linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l], tp)
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
-        hits = [k for k, (hl, _) in enumerate(align_heads) if hl == l]
+        hits = _align_hits(model, align_heads, l, H)
         w = None
         if use_flash:
             if cross_q:  # this layer dequantized to the model's type
@@ -328,10 +335,12 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
             # cross-attention kernel (the same single-query function)
             if w is None:
                 _, w = cross_attention_rows(qc[:, -1:].contiguous(), cache, l, H, True)
-            for k in hits:
-                rows[:, k] = w[:, align_heads[k][1], -1]
-        x = x + _linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l])
-        x = _mlp(x, _mlp_params(dec, l))
+            for k, j in hits:
+                rows[:, k] = w[:, j, -1]
+        x = x + _out_linear(c, dec["cross_o_w"][l], dec["cross_o_b"][l], tp)
+        x = _mlp(x, _mlp_params(dec, l), tp)
+    if tp is not None and K:
+        tp.sum_(rows)
     return x, rows
 
 
@@ -651,7 +660,10 @@ def decode_window(
     window's own buffers, which it returns. ``uncaptured=True`` runs the
     same step function eagerly on buffers of its own instead, the run a
     captured one is compared with; no path of the package passes it. On
-    the CPU the loop always runs eagerly."""
+    the CPU the loop always runs eagerly, and so does a tensor-parallel
+    module's (its steps sum over ``tp``: a gloo collective cannot be
+    captured, and NCCL's capture is unverified), counted in
+    ``tp_eager_chunks``."""
     dims = model.dims
     dev = model.device
     B = mel.shape[0]
@@ -659,7 +671,8 @@ def decode_window(
     V = dims.n_vocab
     no_speech = no_timestamps - 1  # layout fact: <|nospeech|> precedes <|notimestamps|>
     mel, prompt, prompt_len = mel.to(dev), prompt.to(dev).long(), prompt_len.to(dev)
-    captured = dev.type == "cuda" and not uncaptured
+    # a tensor-parallel module's steps hold collectives: its loop runs eagerly
+    captured = dev.type == "cuda" and not uncaptured and _tp(model) is None
     if captured and graphs is None:
         graphs = DecodeGraphs()
     quantize_cross = "int4" if kv_int4 else kv_int8
@@ -749,6 +762,8 @@ def decode_window(
             if not running:
                 break
     add_count("decode_steps", n_steps)
+    if _tp(model) is not None:
+        add_count("tp_eager_chunks", chunks)
 
     tokens = out["tokens"]
     n_sampled = (tokens != eot).sum(dim=-1) + (tokens == eot).any(dim=-1).to(torch.long)

@@ -54,7 +54,16 @@ import torch
 
 from . import decoding
 from .decoding import DecodeGraphs, _cache_slots, _prefill, apply_timestamp_rules
-from .models.whisper_torch import WhisperTorch, _ln, _logits, alloc_cache, decode_step, encode, init_cache
+from .models.whisper_torch import (
+    WhisperTorch,
+    _ln,
+    _logits,
+    _tp,
+    alloc_cache,
+    decode_step,
+    encode,
+    init_cache,
+)
 from .utils.profiling import add_count, stage_timer
 
 NEG = -1e30  # the score of a beam that does not exist yet
@@ -346,7 +355,9 @@ def beam_core(
     self rows, and the loop state; the results are copied out of them.
     ``uncaptured=True`` runs the same step function eagerly on buffers of
     its own instead, the run a captured one is compared with; no path of
-    the package passes it. On the CPU the loop always runs eagerly."""
+    the package passes it. On the CPU the loop always runs eagerly, and so
+    does a tensor-parallel module's (``decoding.decode_window``), counted
+    in ``tp_eager_chunks``."""
     dims = model.dims
     dev = xa.device
     B, T = xa.shape[:2]
@@ -357,7 +368,8 @@ def beam_core(
     no_speech = no_timestamps - 1
     prompts = prompts.to(dev).long()
     prompt_lens = prompt_lens.to(dev)
-    captured = dev.type == "cuda" and not uncaptured
+    # a tensor-parallel module's steps hold collectives: its loop runs eagerly
+    captured = dev.type == "cuda" and not uncaptured and _tp(model) is None
     if captured and graphs is None:
         graphs = DecodeGraphs()
 
@@ -436,6 +448,8 @@ def beam_core(
                 break
     add_count("decode_steps", n_steps)
     add_count("beam_chunks", chunks)
+    if _tp(model) is not None:
+        add_count("tp_eager_chunks", chunks)
     # copies: the state is the next window batch's
     return dict(
         finished_seqs=st.fin_seqs[:, :C].clone(),

@@ -17,14 +17,17 @@ quantization levers (``kv_int8``, ``kv_int4``, ``self_kv_int8``).
 (``decoding_beam.py``), and ``decode_with_fallback`` takes it at
 temperature 0 when ``beam_size`` is set. The weight levers ``w_int8`` and
 ``enc_int8`` give the engine int8 copies of the weights
-(``models.whisper_torch.QuantizedWhisper``); a mesh raises
-``NotImplementedError``. Each engine owns the captured token loops of its
-window decodes and their persistent buffers (``graphs``, a
-``decoding.DecodeGraphs``), freed with it.
+(``models.whisper_torch.QuantizedWhisper``). ``mesh`` (a
+``parallel.mesh.get_mesh`` mesh) shards the model over its ``tp`` axis;
+the engine's own decodes treat ``dp`` as replicas (every dp rank computes
+every row; the batch layer splits the streams). Each engine owns the
+captured token loops of its window decodes and their persistent buffers
+(``graphs``, a ``decoding.DecodeGraphs``), freed with it.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -49,7 +52,9 @@ from .decoding_beam import decode_window_beam, decode_window_beam_batch, rank_be
 from .models.load import WhisperModel
 from .models.whisper_torch import QuantizedWhisper
 from .tokenizer import Tokenizer
-from .utils import host_copy, not_ported, stage_timer
+from .utils import host_copy, stage_timer
+
+logger = logging.getLogger(__name__)
 
 INPUT_STRIDE = 2  # mel frames per output token position (conv2 stride)
 TIME_PER_POSITION = INPUT_STRIDE * HOP_LENGTH / SAMPLE_RATE  # 0.02 s
@@ -141,20 +146,30 @@ class DecodeEngine:
     matrix, ``enc_int8`` (``WTT_ENC_INT8``) runs the encoder's linears
     W8A8. The engine builds the copies beside the caller's model
     (``self.model`` then holds a ``QuantizedWhisper``), whose module is not
-    changed. ``mesh`` is an option of the JAX engine not yet ported:
-    setting it raises."""
+    changed.
+
+    ``mesh`` (``engine.py:131-136``, ``:247-272`` of the JAX package): a
+    ("dp", "tp") ``DeviceMesh`` of ``parallel.mesh.get_mesh``; the engine
+    shards the model (``attach_mesh``) and runs on this rank's heads. With
+    a mesh the weight levers are turned off, with a warning, as in JAX. A
+    ``mesh`` that is not such a mesh raises ``TypeError``."""
 
     def __init__(self, model: WhisperModel, tokenizer: Tokenizer, mesh=None,
                  kv_int8: Optional[bool] = None, kv_int4: Optional[bool] = None,
                  self_kv_int8: Optional[bool] = None, w_int8: Optional[bool] = None,
                  enc_int8: Optional[bool] = None):
-        if mesh is not None:
-            raise not_ported("mesh")
         self.kv_int8 = _lever(kv_int8, "WTT_KV_INT8")
         self.kv_int4 = _lever(kv_int4, "WTT_KV_INT4")
         self.self_kv_int8 = _lever(self_kv_int8, "WTT_SELF_KV_INT8")
         self.w_int8 = _lever(w_int8, "WTT_W_INT8")
         self.enc_int8 = _lever(enc_int8, "WTT_ENC_INT8")
+        self.mesh = None
+        self.tp = 1
+        if mesh is not None:
+            from .parallel.mesh import check_mesh
+
+            check_mesh(mesh)
+            self._levers_off_for_mesh()
         if self.w_int8 or self.enc_int8:
             model = WhisperModel(
                 module=QuantizedWhisper(model.module, w_int8=self.w_int8, enc_int8=self.enc_int8),
@@ -175,6 +190,37 @@ class DecodeEngine:
         # the captured token loops and their buffers on the card: every
         # window decode of this engine (serial, batch, device flow,
         # fallback re-decode) replays them
+        self.graphs = DecodeGraphs()
+        if mesh is not None:
+            self.attach_mesh(mesh)
+
+    def _levers_off_for_mesh(self) -> None:
+        if self.w_int8 or self.enc_int8:
+            logger.warning("w_int8/enc_int8 are not supported together with a mesh "
+                           "(no sharding rules for the quantized copies); disabling")
+            self.w_int8 = False
+            self.enc_int8 = False
+
+    def attach_mesh(self, mesh) -> None:
+        """Shard the model over ``mesh`` (``parallel.mesh.shard_params``:
+        this rank's heads over ``tp``, replicated over ``dp``) and decode
+        with it from now on; ``self.mesh`` and ``self.tp`` as in JAX. An
+        engine built with the weight levers gives them up, with JAX's
+        warning. The captured loops of the old module are dropped."""
+        from .parallel.mesh import check_mesh, mesh_size, shard_params
+
+        check_mesh(mesh)
+        model = self.model
+        if isinstance(model.module, QuantizedWhisper):
+            self._levers_off_for_mesh()
+            model = WhisperModel(
+                module=model.module.source, alignment_heads=model.alignment_heads,
+                model_name=model.model_name, tokenizer_ranks=model.tokenizer_ranks,
+                tokenizer_multilingual=model.tokenizer_multilingual,
+            )
+        self.model = shard_params(model, mesh)
+        self.mesh = mesh
+        self.tp = mesh_size(mesh, "tp")
         self.graphs = DecodeGraphs()
 
     @property

@@ -18,6 +18,16 @@ The KV cache may hold the cross-attention K/V as int8 or int4 and the
 self-attention cache as int8 (``init_cache``), each read by its own
 decode kernel; the quantizers are ``ops.quant``'s.
 
+Tensor parallelism (``parallel.mesh.shard_params``): a sharded module holds
+a rank's whole heads, ``n_head // tp`` of each stack, and its
+``tensor_parallel``; the forward functions run on the local heads, sum the
+o and fc2 products over ``tp`` and add their replicated biases after the
+sum (``_out_linear``). The alignment rows of a head are filled by the rank
+that holds it and summed over ``tp`` (the others hold zeros: exact in
+f32), so every rank returns the same rows, and, with the same residual on
+every rank, the same logits. An unsharded module's ``tensor_parallel`` is
+None.
+
 The weight levers (``QuantizedWhisper``, built by the engine beside the
 module, which stays as it is): ``w_int8`` gives the decode step an int8
 copy of the decoder's linears (``decoder["blocks_w8"]``, weight-only:
@@ -48,7 +58,7 @@ from ..ops.kernels import (
     xattn_decode_int4,
     xattn_decode_int8,
 )
-from ..ops.quant import quantize_rows, quantize_rows_int4
+from ..ops.quant import quantize_rows, quantize_rows_int4, row_scales
 
 ENCODER_FLASH_MIN_LEN = 128  # shorter encoder inputs keep the plain math (whisper_jax.py:261)
 
@@ -152,6 +162,7 @@ class WhisperTorch(nn.Module):
         self.encoder = make(enc)
         self.decoder = make(dec)
         self.fixed_pos_emb = False
+        self.tensor_parallel = None  # parallel.mesh.TensorParallel of a sharded module
 
     @property
     def device(self) -> torch.device:
@@ -171,6 +182,7 @@ class QuantizedWhisper:
     functions take it in place of the module."""
 
     def __init__(self, module: WhisperTorch, w_int8: bool = False, enc_int8: bool = False):
+        self.source = module  # the module the copies were made from
         self.dims = module.dims
         self.fixed_pos_emb = module.fixed_pos_emb
         self.encoder = dict(module.encoder.items())
@@ -385,6 +397,35 @@ def _layers(pd: nn.ParameterDict, n_layer: int):
     return [{n: v[l] for n, v in views.items()} for l in range(n_layer)]
 
 
+def _tp(model):
+    """The module's ``TensorParallel``, None when it is not sharded."""
+    return getattr(model, "tensor_parallel", None)
+
+
+def _local_heads(model, n_head: int) -> int:
+    """The heads of a stack of ``n_head`` that this rank holds."""
+    tp = _tp(model)
+    return n_head if tp is None else n_head // tp.size
+
+
+def _out_linear(x, w, b, tp):
+    """The o and fc2 projections: under tensor parallelism ``x`` holds this
+    rank's columns, so the partial product is summed over ``tp`` and the
+    replicated bias added once, after the sum."""
+    if tp is None:
+        return _linear(x, w, b)
+    return tp.sum_(_linear(x, w)) + b
+
+
+def _align_hits(model, align_heads, layer: int, n_local: int):
+    """(k, local head) of the alignment heads (layer, h) of ``layer`` that
+    this rank holds among its ``n_local`` heads."""
+    tp = _tp(model)
+    first = 0 if tp is None else tp.rank * n_local
+    return [(k, h - first) for k, (hl, h) in enumerate(align_heads or ())
+            if hl == layer and first <= h < first + n_local]
+
+
 def _conv1d(x, w, b, stride):
     """(B, C_in, T) conv, kernel 3, padding 1."""
     return F.conv1d(x, w, b, stride=stride, padding=1)
@@ -404,7 +445,8 @@ def encode(model: WhisperTorch, mel: torch.Tensor) -> torch.Tensor:
     x = F.gelu(_conv1d(x, enc["conv2_w"], enc["conv2_b"], 2))
     x = x.transpose(1, 2)  # (B, T//2, D)
     x = x + enc["pos_emb"][: x.shape[1]].to(x.dtype)
-    H = dims.n_audio_head
+    H = _local_heads(model, dims.n_audio_head)
+    tp = _tp(model)
     for p in _layers(enc, dims.n_audio_layer):
         xn = _ln(x, p["attn_ln_g"], p["attn_ln_b"])
         a = _encoder_attention(
@@ -413,8 +455,8 @@ def encode(model: WhisperTorch, mel: torch.Tensor) -> torch.Tensor:
             _linear(xn, p["attn_v_w"], p["attn_v_b"]),
             H,
         )
-        x = x + _linear(a, p["attn_o_w"], p["attn_o_b"])
-        x = _mlp(x, p)
+        x = x + _out_linear(a, p["attn_o_w"], p["attn_o_b"], tp)
+        x = _mlp(x, p, tp)
     return _ln(x, enc["ln_post_g"], enc["ln_post_b"])
 
 
@@ -434,11 +476,12 @@ def _logits(x, dec):
     return F.linear(x, w)
 
 
-def _mlp(x, p):
+def _mlp(x, p, tp=None):
     """The residual MLP of one layer; ``p`` maps the parameter names to that
-    layer's tensors (``_layers``, or ``_mlp_params``)."""
+    layer's tensors (``_layers``, or ``_mlp_params``); ``tp`` the sharded
+    module's ``TensorParallel``."""
     h = F.gelu(_linear(_ln(x, p["mlp_ln_g"], p["mlp_ln_b"]), p["fc1_w"], p["fc1_b"]))
-    return x + _linear(h, p["fc2_w"], p["fc2_b"])
+    return x + _out_linear(h, p["fc2_w"], p["fc2_b"], tp)
 
 
 def _mlp_params(pd, l: int, w8: Optional[dict] = None) -> dict:
@@ -465,14 +508,15 @@ def decode_full(
     (B, K, S, T) f32 (the same rows, without the whole stack)."""
     dec = model.decoder
     dims = model.dims
-    H = dims.n_text_head
+    H = _local_heads(model, dims.n_text_head)
+    tp = _tp(model)
     B, S = tokens.shape
     x = dec["tok_emb"][tokens] + dec["pos_emb"][pos_offset : pos_offset + S]
     causal = torch.triu(torch.full((S, S), float("-inf"), device=x.device, dtype=x.dtype), 1)
     ws = []
     rows = None
     if align_heads:
-        rows = torch.empty((B, len(align_heads), S, xa.shape[1]), dtype=torch.float32,
+        rows = torch.zeros((B, len(align_heads), S, xa.shape[1]), dtype=torch.float32,
                            device=x.device)
     for l, p in enumerate(_layers(dec, dims.n_text_layer)):
         xn = _ln(x, p["attn_ln_g"], p["attn_ln_b"])
@@ -482,25 +526,32 @@ def decode_full(
             _linear(xn, p["attn_v_w"], p["attn_v_b"]),
             H, mask=causal,
         )
-        x = x + _linear(a, p["attn_o_w"], p["attn_o_b"])
+        x = x + _out_linear(a, p["attn_o_w"], p["attn_o_b"], tp)
         xc = _ln(x, p["cross_ln_g"], p["cross_ln_b"])
-        hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
+        hits = _align_hits(model, align_heads, l, H)
         c, w = _attention(
             _linear(xc, p["cross_q_w"], p["cross_q_b"]),
             _linear(xa, p["cross_k_w"]),
             _linear(xa, p["cross_v_w"], p["cross_v_b"]),
             H, return_scores=return_cross_attn or bool(hits),
         )
-        x = x + _linear(c, p["cross_o_w"], p["cross_o_b"])
-        x = _mlp(x, p)
+        x = x + _out_linear(c, p["cross_o_w"], p["cross_o_b"], tp)
+        x = _mlp(x, p, tp)
         if return_cross_attn:
             ws.append(w)
-        for k in hits:
-            rows[:, k] = w[:, align_heads[k][1]]
+        for k, j in hits:
+            rows[:, k] = w[:, j]
     logits = _logits(_ln(x, dec["ln_g"], dec["ln_b"]), dec)
     if rows is not None:
-        return logits, rows
-    return logits, (torch.stack(ws) if return_cross_attn else None)
+        return logits, (rows if tp is None else tp.sum_(rows))
+    if not return_cross_attn:
+        return logits, None
+    scores = torch.stack(ws)
+    if tp is not None:  # every head's scores: each rank's heads, the others zero
+        full = scores.new_zeros((*scores.shape[:2], H * tp.size, *scores.shape[3:]))
+        full[:, :, tp.rank * H:(tp.rank + 1) * H] = scores
+        scores = tp.sum_(full)
+    return logits, scores
 
 
 # ---------------------------------------------------------------------------
@@ -549,7 +600,8 @@ def alloc_cache(model: WhisperTorch, B: int, T: int, ctx_len: int, dtype, device
     cache (and its scales) zeroed. ``self_rows``: the self cache's rows
     when they are not B (beam search: B·K beam rows over B cross-KV rows)."""
     dims = model.dims
-    L, D = dims.n_text_layer, dims.n_text_state
+    L = dims.n_text_layer
+    D = dims.n_text_state // (1 if _tp(model) is None else _tp(model).size)
     scales = {}
     if quantize_cross:
         rows = T // 2 if quantize_cross == "int4" else T
@@ -578,7 +630,9 @@ def init_cache(model: WhisperTorch, xa: torch.Tensor, ctx_len: Optional[int] = N
     quantized, one layer at a time, so the full-precision transient is one
     layer's (a whole bf16 cross-KV is 9.8 GB at large-v3 B=40);
     ``quantize_self`` makes the self cache int8 (its rows are quantized as
-    they are written).
+    they are written). On a tensor-parallel module the cache holds the
+    rank's heads' columns, and the scales are those of the whole rows
+    (``ops.quant``'s ``tp``).
 
     ``out``: a cache of the same layout to fill in place instead (the
     captured token loop's persistent buffers, whose addresses its CUDA
@@ -590,10 +644,12 @@ def init_cache(model: WhisperTorch, xa: torch.Tensor, ctx_len: Optional[int] = N
         out = alloc_cache(model, B, T, ctx_len or model.dims.n_text_ctx, dtype or xa.dtype,
                           xa.device, quantize_cross, quantize_self)
     qfn = quantize_rows_int4 if quantize_cross == "int4" else quantize_rows
+    tp = _tp(model)
     for l in range(model.dims.n_text_layer):
         if quantize_cross:
-            out.xk[l], out.xk_scale[l] = qfn(_linear(xa, dec["cross_k_w"][l]))
-            out.xv[l], out.xv_scale[l] = qfn(_linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]))
+            out.xk[l], out.xk_scale[l] = qfn(_linear(xa, dec["cross_k_w"][l]), tp)
+            out.xv[l], out.xv_scale[l] = qfn(_linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l]),
+                                             tp)
         else:
             out.xk[l] = _linear(xa, dec["cross_k_w"][l])
             out.xv[l] = _linear(xa, dec["cross_v_w"][l], dec["cross_v_b"][l])
@@ -651,6 +707,12 @@ def decode_step(
     The cross K/V take the kernel of ``cross_attention_rows``. The step's
     linears read the int8 copies of ``decoder["blocks_w8"]`` when the
     engine built them (``w_int8``; ``whisper_jax.py:1114-1117``).
+
+    On a tensor-parallel module the attentions run on the rank's heads; an
+    int8 self cache takes the new rows' scales of the whole rows (local
+    max|x|, MAX over ``tp``, / 127), which the kernel's scales-given
+    instance writes with; the alignment rows are summed over ``tp`` once a
+    step.
     """
     dec = model.decoder
     w8 = dec.get("blocks_w8") or {}
@@ -662,7 +724,8 @@ def decode_step(
     B, S = tokens.shape
     if S != 1:
         raise ValueError(f"decode_step takes one token per row, got {S}")
-    H = dims.n_text_head
+    H = _local_heads(model, dims.n_text_head)
+    tp = _tp(model)
     if not isinstance(pos, torch.Tensor):
         extent = int(pos) + 1 if extent is None else extent
     slot = step_slot(pos, tokens.device)
@@ -689,19 +752,24 @@ def decode_step(
         v_new = _linear(xn, w("attn_v_w", l), dec["attn_v_b"][l])
         q = _linear(xn, w("attn_q_w", l), dec["attn_q_b"][l])
         if self_int8:
+            given = None
+            if tp is not None:  # the whole rows' scales, (2, B) for K and V
+                given = row_scales(torch.stack([k_new[:, 0], v_new[:, 0]]), 127.0, tp)
             a = self_attn_decode_int8(q, k_new, v_new, cache.k, cache.k_scale, cache.v,
-                                      cache.v_scale, l, slot, pad, H, extent)
+                                      cache.v_scale, l, slot, pad, H, extent, row_scales=given)
         else:
             a = self_attn_decode(q, cache.k, cache.v, l, slot, pad, H, k_new=k_new, v_new=v_new,
                                  extent=extent, src_row=src_row)
-        x = x + _linear(a, w("attn_o_w", l), dec["attn_o_b"][l])
+        x = x + _out_linear(a, w("attn_o_w", l), dec["attn_o_b"][l], tp)
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, w("cross_q_w", l), dec["cross_q_b"][l])
-        hits = [k for k, (hl, _) in enumerate(align_heads or ()) if hl == l]
+        hits = _align_hits(model, align_heads, l, H)
         c, scores = cross_attention_rows(qc, cache, l, H, bool(hits), beam_group)
-        x = x + _linear(c, w("cross_o_w", l), dec["cross_o_b"][l])
-        x = _mlp(x, _mlp_params(dec, l, w8))
-        for k in hits:
-            rows[:, k] = scores[:, align_heads[k][1]]
+        x = x + _out_linear(c, w("cross_o_w", l), dec["cross_o_b"][l], tp)
+        x = _mlp(x, _mlp_params(dec, l, w8), tp)
+        for k, j in hits:
+            rows[:, k] = scores[:, j]
     logits = _logits(_ln(x, dec["ln_g"], dec["ln_b"]), dec)
+    if rows is not None and tp is not None:
+        tp.sum_(rows)
     return logits, rows

@@ -64,6 +64,8 @@ SIGNATURES = {
     # q, k_new, v_new, k, k_scale, v, v_scale, out, pad_len, pos (int32 on the device),
     # layer, B, ctx, D, H, n_split, slots_per_split, warps, scale, stream
     "wtt_self_attn_decode_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
+    # the same with row_scales (2, B) f32 after pos
+    "wtt_self_attn_decode_int8_scaled": [_P] * 11 + [_I] * 8 + [_F, _P],
     # x, twiddles, window, cos_b, sin_b, bases_t, mel_w, out, radices (host int array),
     # n_stages, B, L, n_fft, n_bins, n_mels, hop, refine_below, stream
     "wtt_log10_mel": [_P] * 9 + [_I] * 7 + [_F, _P],

@@ -32,7 +32,10 @@ wrapper                 replaces (``whisper_timestamped_tpu/ops/pallas_kernels.p
                         function unstacked
 ``xattn_decode_int4``   ``cross_attention_stacked_int4_pallas`` (:1876)
 ``self_attn_decode_int8``  ``self_attention_stacked_int8_pallas`` (:2205) and
-                        its ``_mxu`` variant (:2333)
+                        its ``_mxu`` variant (:2333); with ``row_scales``
+                        (a tensor-parallel rank's rows) the instance that
+                        writes with given scales, counted as
+                        ``self_attn_decode_int8_scaled``
 ``log10_mel``           ``log10_mel_pallas`` (:528), framing the audio itself
 ``stacked_matmul``      ``stacked_matmul_pallas`` (:2427), on no path
 ======================  ==========================================================
@@ -58,7 +61,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .quant import int4_scales_frame_order, quantize_rows, unpack_int4_rows
+from .quant import int4_scales_frame_order, int8_codes, quantize_rows, unpack_int4_rows
 
 # launches of each kernel since the last reset_launches(); the wrappers add
 # one per kernel call (align_cost's and align_cost_gather's one call is two
@@ -70,7 +73,7 @@ LAUNCHES = {"xattn_decode": 0, "self_attn_decode": 0, "align_cost": 0, "dtw_code
             "flash_attention": 0, "xattn_decode_int8": 0, "xattn_decode_int4": 0,
             "self_attn_decode_int8": 0, "attention_to_cost": 0, "median9": 0, "log10_mel": 0,
             "stacked_matmul": 0, "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
-            "flash_attention_bwd_dq": 0}
+            "flash_attention_bwd_dq": 0, "self_attn_decode_int8_scaled": 0}
 
 DIAG, LEFT, UP = 0, 1, 2  # DTW step codes
 DTW_INF = 3e38  # the DP's "unreachable" cost, as in the TPU kernel
@@ -256,12 +259,19 @@ def write_row(new, cache, layer: int, pos) -> None:
     cache[layer].index_copy_(1, idx, new.to(cache.dtype))
 
 
-def write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int, pos) -> None:
+def write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int, pos,
+                        row_scales=None) -> None:
     """Quantize a step's new self-attention rows k_new/v_new (B, 1, D) with
     ``quantize_rows`` into slot ``pos`` (an int or an int32 device scalar)
-    of layer ``layer`` of the int8 cache and its scales, in place."""
-    kq, ks = quantize_rows(k_new[:, 0])
-    vq, vs = quantize_rows(v_new[:, 0])
+    of layer ``layer`` of the int8 cache and its scales, in place; with
+    ``row_scales`` (2, B) f32, K's then V's, the codes take those scales
+    (``quant.int8_codes``) and they are written as the slot's."""
+    if row_scales is None:
+        kq, ks = quantize_rows(k_new[:, 0])
+        vq, vs = quantize_rows(v_new[:, 0])
+    else:
+        ks, vs = row_scales[0], row_scales[1]
+        kq, vq = int8_codes(k_new[:, 0], ks), int8_codes(v_new[:, 0], vs)
     write_row(kq[:, None], k_all, layer, pos)
     write_row(ks[:, None], k_scale, layer, pos)
     write_row(vq[:, None], v_all, layer, pos)
@@ -1206,7 +1216,8 @@ def xattn_decode_int4(q, xk_all, xk_scale, xv_all, xv_scale, layer: int, n_head:
 
 
 def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer: int,
-                          pos, pad_len, n_head: int, extent: Optional[int] = None):
+                          pos, pad_len, n_head: int, extent: Optional[int] = None,
+                          row_scales: Optional[torch.Tensor] = None):
     """Write this step's new self-attention rows k_new/v_new (B, 1, D) into
     slot ``pos`` of layer ``layer`` of the int8 cache, quantized as
     ``quantize_rows`` does (codes and scales, in place), then attend over
@@ -1216,13 +1227,20 @@ def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer
     q/k_new/v_new, int8 cache (L, B, ctx, D), f32 scales (L, B, ctx), int32
     ``pad_len``, head width 64, contiguous; the kernel splits the extent's
     slots across blocks as ``self_attn_decode`` does. For CPU tensors the
-    plain quantizer writes the rows and the plain version attends."""
-    name = "self_attn_decode_int8"
+    plain quantizer writes the rows and the plain version attends.
+
+    ``row_scales`` (2, B) f32, K's then V's: the rows' scales, given (a
+    tensor-parallel rank holds D/tp columns of a row whose scale is the
+    whole row's, ``quant.row_scales``); the codes are written with them.
+    On CUDA that is the kernel's scales-given instance, counted as
+    ``self_attn_decode_int8_scaled``."""
+    name = "self_attn_decode_int8" if row_scales is None else "self_attn_decode_int8_scaled"
     slot = step_slot(pos, q.device)
     T = _extent(pos, extent, k_all.shape[2])
     tensors = (q, k_new, v_new, k_all, k_scale, v_all, v_scale, pad_len)
-    if not _on_cuda(name, *tensors, slot):
-        write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, slot)
+    given = () if row_scales is None else (row_scales,)
+    if not _on_cuda(name, *tensors, *given, slot):
+        write_quantized_row(k_new, v_new, k_all, k_scale, v_all, v_scale, layer, slot, row_scales)
         return self_attn_decode_int8_plain(q, k_all, k_scale, v_all, v_scale, layer, slot,
                                            pad_len, n_head, T)
     B, S, D = q.shape
@@ -1245,10 +1263,16 @@ def self_attn_decode_int8(q, k_new, v_new, k_all, k_scale, v_all, v_scale, layer
     _expect(name, 0 <= layer < L and 0 < T <= min(ctx, MAX_T), f"layer {layer} / extent {T} out of range")
     _expect(name, B <= 65535 and n_head <= 65535, f"unsupported B={B} H={n_head}")
     out = torch.empty_like(q)
-    _launch(name, "wtt_self_attn_decode_int8", q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_all.data_ptr(), k_scale.data_ptr(), v_all.data_ptr(), v_scale.data_ptr(),
-            out.data_ptr(), pad_len.data_ptr(), slot.data_ptr(), layer, B, ctx, D, n_head,
-            *_grid(q, B, n_head, T), HEAD_DIM**-0.5, _stream(q))
+    ptrs = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_all.data_ptr(), k_scale.data_ptr(),
+            v_all.data_ptr(), v_scale.data_ptr(), out.data_ptr(), pad_len.data_ptr(),
+            slot.data_ptr())
+    tail = (layer, B, ctx, D, n_head, *_grid(q, B, n_head, T), HEAD_DIM**-0.5, _stream(q))
+    if row_scales is None:
+        _launch(name, "wtt_self_attn_decode_int8", *ptrs, *tail)
+    else:
+        _expect(name, row_scales.shape == (2, B) and row_scales.dtype == torch.float32
+                and row_scales.is_contiguous(), "row_scales must be contiguous f32 (2, B)")
+        _launch(name, "wtt_self_attn_decode_int8_scaled", *ptrs, row_scales.data_ptr(), *tail)
     return out
 
 

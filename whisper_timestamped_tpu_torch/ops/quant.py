@@ -6,6 +6,13 @@ the same f32 input: the divide is ``x / max(s, 1e-8)`` in f32 and
 int4 packs two frames per int8 byte along T: frame 2i in the low nibble,
 2i+1 in the high nibble, values in [-7, 7]. Its per-frame scales are
 PARITY-MAJOR: the even frames' scales, then the odd frames'.
+
+``tp``: under tensor parallelism a rank holds only its heads' columns of a
+row, so each quantizer takes the max|x| of the whole row: the local max,
+then MAX over the tp ranks (``parallel.mesh.TensorParallel.max_``), which
+is exact, so the codes and scales equal the unsharded quantizer's bit for
+bit (the JAX package quantizes in XLA, where GSPMD takes the max over the
+whole row).
 """
 
 from __future__ import annotations
@@ -13,31 +20,40 @@ from __future__ import annotations
 import torch
 
 
-def _abs_max_over(xf: torch.Tensor, levels: float) -> torch.Tensor:
-    """max|x| over the last axis divided by ``levels``, as an IEEE quotient:
-    the divisor is a tensor because PyTorch's CUDA divide by a Python scalar
-    multiplies by the scalar's reciprocal, which differs in the last bit
-    from the quotient that the JAX package and the CUDA kernels compute."""
-    return xf.abs().amax(dim=-1) / torch.full((), levels, device=xf.device)
+def row_scales(x: torch.Tensor, levels: float, tp=None) -> torch.Tensor:
+    """max|x| over the last axis (over every tp rank's columns with ``tp``)
+    divided by ``levels``, as an IEEE quotient: the divisor is a tensor
+    because PyTorch's CUDA divide by a Python scalar multiplies by the
+    scalar's reciprocal, which differs in the last bit from the quotient
+    that the JAX package and the CUDA kernels compute."""
+    amax = x.float().abs().amax(dim=-1)
+    if tp is not None:
+        tp.max_(amax)
+    return amax / torch.full((), levels, device=x.device)
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, tp=None):
     """Per-row (last-axis) int8 codes and f32 scales: x (..., D) ->
     ((..., D) int8, (...) f32) with scale max|x| / 127."""
     xf = x.float()
-    s = _abs_max_over(xf, 127.0)
-    q = torch.round(xf / s.clamp_min(1e-8)[..., None]).to(torch.int8)
-    return q, s
+    s = row_scales(xf, 127.0, tp)
+    return int8_codes(xf, s), s
 
 
-def quantize_rows_int4(x: torch.Tensor):
+def int8_codes(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Rows x (..., D) as int8 codes with the scales s (...):
+    round(x / max(s, 1e-8)) in f32, half to even."""
+    return torch.round(x.float() / s.clamp_min(1e-8)[..., None]).to(torch.int8)
+
+
+def quantize_rows_int4(x: torch.Tensor, tp=None):
     """x (..., T, D), T even -> (packed (..., T//2, D) int8, parity-major
     scales (..., T) f32) with scale max|x| / 7 and codes clipped to [-7, 7]."""
     T = x.shape[-2]
     if T % 2:
         raise ValueError(f"int4 K/V needs an even frame count, got {T}")
     xf = x.float()
-    s = _abs_max_over(xf, 7.0)
+    s = row_scales(xf, 7.0, tp)
     q = torch.clamp(torch.round(xf / s.clamp_min(1e-8)[..., None]), -7, 7).to(torch.int32)
     lo, hi = q[..., 0::2, :], q[..., 1::2, :]
     packed = ((lo & 0xF) | (hi << 4)).to(torch.int8)

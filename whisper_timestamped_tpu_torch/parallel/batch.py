@@ -36,7 +36,16 @@ batch (silero on the model's device) and maps the word times back.
 iterations with at most that many active streams at that smaller batch,
 its own captured token loop, on the host loop.
 
-Not yet ported, and refused with ``NotImplementedError``: a mesh.
+On a mesh (``mesh.get_mesh``; ``mesh=`` of the entry points, or an engine
+built with one) the engine holds this rank's heads over ``tp``, and the
+streams of each input are split over ``dp``: dp rank r takes the streams
+``r::dp`` and runs the one-card pipeline above on them at ``batch_size //
+dp`` rows (at least 1), aligning its own windows on its own device; then
+the per-stream results, what the host reads, are gathered over ``dp``
+(``mesh.gather_streams``), so that every rank returns the same dict in the
+caller's order. The serving loop on a mesh with dp > 1 runs each batch
+through ``transcribe_batch`` in turn (one gather a batch on every rank, in
+the same order), without the prefetch.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import os
 import queue as queue_mod
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,8 +83,9 @@ from ..engine import (
     sequence_score,
 )
 from ..tokenizer import Tokenizer
-from ..utils import add_count, host_copy, not_ported, stage_timer
+from ..utils import add_count, host_copy, stage_timer
 from ..vad import check_vad_method, remove_non_speech
+from .mesh import dp_streams, gather_streams, mesh_size
 from .deviceflow import (
     advance_window_state,
     build_prompt_batch,
@@ -165,9 +175,16 @@ def slice_windows(mel_stack: torch.Tensor, rows: torch.Tensor, seeks: torch.Tens
                      cols[:, None, :]]
 
 
-def _refuse_unported(mesh=None) -> None:
-    if mesh is not None:
-        raise not_ported("mesh")
+def _engine_on_mesh(model, tokenizer: Tokenizer, engine: Optional[DecodeEngine],
+                    mesh) -> DecodeEngine:
+    """The entry points' engine (``batch.py:953-955`` of the JAX package):
+    a new one on ``mesh``, or the caller's, given ``mesh`` when it has
+    none."""
+    if engine is None:
+        return DecodeEngine(model, tokenizer, mesh=mesh)
+    if mesh is not None and engine.mesh is None:
+        engine.attach_mesh(mesh)
+    return engine
 
 
 class BatchTranscriber:
@@ -179,12 +196,15 @@ class BatchTranscriber:
     ``tail_batch`` (``batch.py:180-186``): once at most that many streams
     are active, the windows decode at B = ``tail_batch`` (a second, smaller
     captured loop: a step's cost grows with the batch); None keeps
-    ``batch_size`` throughout."""
+    ``batch_size`` throughout. ``mesh`` is attached to the engine when it
+    has none (``batch.py:172-175``); with dp > 1 ``transcribe_streams``
+    splits the streams over ``dp``."""
 
     def __init__(self, engine: DecodeEngine, batch_size: int = 8, mesh=None,
                  fetch_alignment: bool = True, tail_batch: Optional[int] = None):
-        if mesh is not None:
-            raise not_ported("mesh")
+        if mesh is not None and engine.mesh is None:
+            engine.attach_mesh(mesh)
+        self.mesh = mesh if mesh is not None else engine.mesh
         self.engine = engine
         self.batch_size = batch_size
         self.tail_batch = tail_batch
@@ -492,7 +512,29 @@ class BatchTranscriber:
         return {s.name: s.segments for s in streams}
 
     # --------------------------------------------------------------
-    def transcribe_streams(
+    def transcribe_streams(self, audios: Dict[str, Any], **kw) -> Dict[str, List[Segment]]:
+        """Decode all streams; returns name -> alignment-ready segments
+        (``batch.py:670``; keywords as ``decode_streams``). On a mesh with
+        dp > 1 this rank decodes its streams ``r::dp`` at ``batch_size //
+        dp`` rows and the segments are gathered over ``dp`` without their
+        windows (the alignment payload stays on the rank that decoded
+        it), as is ``stream_meta``: every rank returns the same dict, in
+        the caller's order."""
+        dp = mesh_size(self.mesh, "dp")
+        if dp == 1:
+            return self.decode_streams(audios, **kw)
+        names = list(audios)
+        local = BatchTranscriber(self.engine, batch_size=max(1, self.batch_size // dp),
+                                 fetch_alignment=self.fetch_alignment, tail_batch=self.tail_batch)
+        mine = {n: audios[n] for n in dp_streams(names, self.mesh)}
+        segments = local.decode_streams(mine, **kw)
+        part = {n: ([replace(s, window=None) for s in segs], local.stream_meta[n])
+                for n, segs in segments.items()}
+        merged = gather_streams(part, names, self.mesh)
+        self.stream_meta = {n: meta for n, (_, meta) in merged.items()}
+        return {n: segs for n, (segs, _) in merged.items()}
+
+    def decode_streams(
         self,
         audios: Dict[str, Any],  # name -> path/array
         *,
@@ -509,8 +551,9 @@ class BatchTranscriber:
         window_hook=None,
         prepared: Optional[PreparedAudio] = None,
     ) -> Dict[str, List[Segment]]:
-        """Decode all streams; returns name -> alignment-ready segments
-        (``batch.py:670``). ``window_hook(segments)`` runs after every window
+        """Decode all the streams on this rank's model, one card's pipeline
+        whatever the mesh; returns name -> alignment-ready segments.
+        ``window_hook(segments)`` runs after every window
         iteration with that iteration's new segments (device alignment uses
         it to consume and release each window's attention buffer).
         ``rng_seed`` seeds the sampler: iteration ``n`` (from 1) samples
@@ -524,6 +567,9 @@ class BatchTranscriber:
             language = "en"
         opts = DecodingOptions(**{**(decode_options or DecodingOptions()).__dict__,
                                   "task": task, "language": language})
+        if not audios:  # a dp rank with no streams of this input
+            self.stream_meta = {}
+            return {}
 
         # the mel front end, or a PreparedAudio that a serving loop uploaded
         # while the previous batch decoded
@@ -691,7 +737,10 @@ def transcribe_batch(
     alignment does not apply (asked for explicitly, it warns).
     ``_deferred_assembly`` (used by ``transcribe_batch_stream``) returns a
     zero-argument ``finish()`` that reads the alignment and assembles the
-    results, instead of the results, once the decode is done."""
+    results, instead of the results, once the decode is done. ``mesh``:
+    the engine's (attached when it has none); with dp > 1 this rank
+    transcribes its streams ``r::dp`` at ``batch_size // dp`` rows (VAD and
+    alignment included) and the result dicts are gathered over ``dp``."""
     from ..api import (
         align_and_score_segment,
         device_align_segments,
@@ -700,9 +749,16 @@ def transcribe_batch(
         prepare_segment_tokens,
         should_use_space,
     )
-    _refuse_unported(mesh)
-    if engine is None:
-        engine = DecodeEngine(model, tokenizer)
+    engine = _engine_on_mesh(model, tokenizer, engine, mesh)
+    names = list(audios)
+    dp = mesh_size(engine.mesh, "dp")
+    if dp > 1:
+        audios = {n: audios[n] for n in dp_streams(names, engine.mesh)}
+        batch_size = max(1, batch_size // dp)
+
+    def gathered(results: Dict[str, dict]) -> Dict[str, dict]:
+        return results if dp == 1 else gather_streams(results, names, engine.mesh)
+
     vad = check_vad_method(vad)
     converts: Dict[str, Any] = {}
     speech_activity: Dict[str, Any] = {}
@@ -777,7 +833,7 @@ def transcribe_batch(
 
     _align_step.prepare = _prepare_step
 
-    all_segments = bt.transcribe_streams(
+    all_segments = bt.decode_streams(
         audios, language=language, prepared=_prepared,
         window_hook=_align_step if full_device else None, **window_options,
     )
@@ -797,6 +853,7 @@ def transcribe_batch(
             converts=converts,
             speech_activity=speech_activity,
         )
+        results = gathered(results)
         return (lambda: results) if _deferred_assembly else results
 
     # everything past here reads the queued alignment and assembles on the
@@ -809,8 +866,9 @@ def transcribe_batch(
             for (seg, _p), j in zip(entries, resolver()):
                 jumps_map[id(seg)] = j
         with stage_timer("batch_assemble"):
-            return {name: _assemble_stream(name, segments)
-                    for name, segments in all_segments.items()}
+            results = {name: _assemble_stream(name, segments)
+                       for name, segments in all_segments.items()}
+        return gathered(results)
 
     def _assemble_stream(name: str, segments: List[Segment]) -> dict:
         meta = stream_meta.get(name, {})
@@ -980,13 +1038,14 @@ def transcribe_batch_stream(
     batches before it are yielded; closing the generator early stops both
     workers. ``vad`` and beam search run each batch through
     ``transcribe_batch`` in turn, without the prefetch
-    (``batch.py:1270-1279``): both read each stream's host audio."""
-    _refuse_unported(mesh)
-    if engine is None:
-        engine = DecodeEngine(model, tokenizer)
+    (``batch.py:1270-1279``): both read each stream's host audio. So does
+    a mesh with dp > 1: every rank gathers each batch's results once, in
+    the batches' order."""
+    engine = _engine_on_mesh(model, tokenizer, engine, mesh)
     decode_opts = options.get("decode_options")
     if (check_vad_method(options.get("vad", False)) is not None
-            or (decode_opts is not None and decode_opts.beam_size)):
+            or (decode_opts is not None and decode_opts.beam_size)
+            or mesh_size(engine.mesh, "dp") > 1):
         for audios in batches:
             yield transcribe_batch(model, audios, tokenizer, engine=engine, **options)
         return
