@@ -89,7 +89,10 @@ phases have run, so their lines are printed too):
   (m) fine-tuning at large-v3 width: ``training.make_train_step`` (AdamW,
       optax's ``adamw(1e-5)``) on seeded f32 weights and one fixed batch
       (two 30 s windows, 224 tokens a row): one step's loss and gradients
-      through the training flash kernels against the plain versions, then
+      through the training flash kernels against the plain versions (and
+      written for (r)), four backward passes of that step compared bit for
+      bit with cuDNN's default and its deterministic algorithms (the
+      latter must agree on every leaf), then
       a warm step and five timed steps: the losses finite and falling, each
       training kernel launched once a layer a step and the inference flash
       kernel never; ms/step and peak memory; one step traced by
@@ -150,7 +153,23 @@ phases have run, so their lines are printed too):
       then the same streams at dp=2 (4 a rank, captured loops), each rank's
       streams' results bit-equal to a one-card ``transcribe_batch`` of them
       at ``batch_size=4`` and both ranks' merged dicts equal. Two ranks on
-      one card share its SMs: (q)'s times describe that layout only.
+      one card share its SMs: (q)'s times describe that layout only;
+  (r) training on the mesh: first the three training flash kernels at a
+      tp=2 rank's shape (B=2, T=1500, H=10, f32) against their plain
+      versions, timed beside them and SDPA's forward and backward, with
+      their bounds; then two ranks spawned as in (q), each building (m)'s
+      seeded f32 large-v3 weights, keeping only its tp=2 shard
+      (``parallel.shard_params``) and training it through
+      ``training.make_train_step(mesh=)`` on (m)'s batch: the first step's
+      loss and its gradients' slices against (m)'s first step (which (m)
+      writes under ``build/``), a timed run of steps and one more with each
+      all-reduce timed (their count, bytes and time), the losses bit-equal
+      on both ranks, finite and falling, the replicated parameters
+      bit-equal on both ranks, each training kernel launched 32 times a
+      step at 10 heads and ``flash_attention`` never; ms/step and peak
+      memory a rank; then dp=2 at full width and 8 + 8 layers, a row a
+      rank, three steps whose losses (equal on both ranks) are the one-card
+      step's on both rows.
 
 Every decode path above ([d], [f], [g], [h], [k], [l], [n], [o]) runs its
 token loops through the engine's captured graphs; the launch counts add each
@@ -193,10 +212,11 @@ with the int8 and int4 cross K/V and the int8 self cache. The kernels' JSON
 record takes each kernel's launches from the phase that runs it: the bf16
 path's from (f), ``xattn_decode_int8`` from (g), the int4 and int8-self
 kernels from (h), ``attention_to_cost`` from (i), ``log10_mel`` from (j),
-the training kernels from (m)'s timed steps, the scales-given int8 self
-instance from (q)'s rank 0 (its ``kv_int8`` + ``self_kv_int8`` batch at
-tp=2); ``median9`` and ``stacked_matmul``, which no path runs, from their
-checks in (c).
+the training kernels from (m)'s timed steps (their records also carry
+(r)'s times at a rank's shape and rank 0's launches a tp=2 step), the
+scales-given int8 self instance from (q)'s rank 0 (its ``kv_int8`` +
+``self_kv_int8`` batch at tp=2); ``median9`` and ``stacked_matmul``, which
+no path runs, from their checks in (c).
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
 at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
@@ -206,7 +226,8 @@ prefill (the path before the flash kernel) in turns with the kernel path:
 plain, kernel, kernel, plain.
 ``--turns`` runs (g)'s engines in turns (kv_int8, bf16, bf16, kv_int8);
 ``--kernels-only`` stops after (c) (a first check of changed kernels; it
-prints no result line).
+prints no result line); ``--train-only`` runs (m) and (r) alone after the
+build (no result line either).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and makes any
@@ -2806,7 +2827,11 @@ def phase_train(torch, K, device):
     worth, on the initial weights), then a warm step and five timed steps:
     fails unless the losses are finite, the last is below the first, and
     every step launched the three training kernels once a layer and the
-    inference kernel never. Prints ms/step, peak memory and the launches,
+    inference kernel never (the first step's batch, loss and named
+    gradients also go to ``TRAIN_REF`` for (r), and ``TRAIN_REPEATS``
+    backward passes of it with cuDNN's default and then its deterministic
+    algorithms are compared bit for bit). Prints ms/step, peak memory and
+    the launches,
     and two steps with each layer read as ``w[l]`` (not ``unbind``) for
     the step time of that form. Returns the launches of the timed steps."""
     import whisper_timestamped_tpu_torch.models.whisper_torch as wt
@@ -2824,6 +2849,8 @@ def phase_train(torch, K, device):
     tokens = torch.randint(0, dims.n_vocab, (2, 224), generator=g, device=device)
     mask = torch.ones((2, 224), device=device)
     mask[1, 200:] = 0.0
+    names = [n for n, p in model.named_parameters()
+             if not (model.fixed_pos_emb and n == "encoder.pos_emb")]
     init_state, train_step = make_train_step(dims)
     state = init_state(model)
     params = trainable_parameters(model)
@@ -2853,7 +2880,32 @@ def phase_train(torch, K, device):
              f"versions: loss {loss_k} vs {loss_p}, gradients {rel:.3g} of a leaf's max (limit 1e-3)")
     print(f"[m] one step's loss through the kernels {loss_k:.6f} vs the plain versions "
           f"{loss_p:.6f} (rtol 1e-5); gradients at most {rel:.3g} of a leaf's max abs (limit 1e-3)")
+    write_train_reference(torch, loss_k, dict(zip(names, grads_k)), mel, tokens, mask)
     del grads_k, grads_p
+
+    # run to run, with cuDNN's default and deterministic algorithms: (r)'s
+    # tp ranks compute the replicated gradients each, so they stay equal
+    # only if those are the same run to run (the mesh's step takes the
+    # deterministic ones)
+    differ = {}
+    saved_flag = torch.backends.cudnn.deterministic
+    for label, flag in (("default", False), ("deterministic", True)):
+        torch.backends.cudnn.deterministic = flag
+        try:
+            first, seen = loss_and_grads()[1], set()
+            for _ in range(TRAIN_REPEATS - 1):
+                seen.update(n for n, a, b in zip(names, first, loss_and_grads()[1])
+                            if not torch.equal(a, b))
+        finally:
+            torch.backends.cudnn.deterministic = saved_flag
+        differ[label] = sorted(seen)
+        del first
+    if differ["deterministic"]:
+        fail(f"[m] with cuDNN's deterministic algorithms these gradients differ run to run: "
+             f"{differ['deterministic']}")
+    print(f"[m] {TRAIN_REPEATS} backward passes of the same step: gradients that differ bit for "
+          f"bit with cuDNN's default algorithms {differ['default']}, with its deterministic ones "
+          f"none")
     for p in params:
         p.grad = None
     torch.cuda.empty_cache()
@@ -2912,6 +2964,31 @@ def phase_train(torch, K, device):
     torch.cuda.empty_cache()
     print(f"[m] phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+TRAIN_REPEATS = 4  # (m)'s backward passes of one step, compared bit for bit
+
+# what (m) leaves for (r): its batch, its first step's loss through the
+# kernels and these gradients of it, layers 0 and 31 of each stacked leaf
+# (a layer norm whole, tok_emb whole)
+TRAIN_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "train_reference.pt")
+TRAIN_REF_LAYERS = ("encoder.attn_q_w", "encoder.attn_o_w", "encoder.fc1_w", "encoder.fc2_w",
+                    "decoder.attn_q_w", "decoder.attn_o_w", "decoder.fc1_w", "decoder.fc2_w")
+TRAIN_REF_WHOLE = ("encoder.attn_ln_g", "decoder.tok_emb")
+
+
+def write_train_reference(torch, loss: float, grads: dict, mel, tokens, mask) -> None:
+    """(m)'s first step for (r): the batch, the loss and the named gradients
+    (``TRAIN_REF_LAYERS``' first and last layer, ``TRAIN_REF_WHOLE``), on
+    the host, in ``TRAIN_REF``."""
+    leaves = {n: grads[n].cpu() for n in TRAIN_REF_WHOLE}
+    for n in TRAIN_REF_LAYERS:
+        for layer in (0, grads[n].shape[0] - 1):
+            leaves[f"{n}[{layer}]"] = grads[n][layer].cpu()
+    os.makedirs(os.path.dirname(TRAIN_REF), exist_ok=True)
+    torch.save(dict(loss=loss, grads=leaves, mel=mel.cpu(), tokens=tokens.cpu(), mask=mask.cpu()),
+               TRAIN_REF)
 
 
 def device_rows(torch, fn):
@@ -4100,6 +4177,339 @@ def phase_mesh(torch, here: str) -> int:
     return r0["int8"]["launches"]["self_attn_decode_int8_scaled"]
 
 
+# (r)'s limits, set before its first run: the tp=2 step against (m)'s
+# one-card step (both through the kernels; f32 sums in another order) at
+# (m)'s gate for the kernels against the plain versions; dp=2 against one
+# card at the same depth, the loss at the same rtol
+MESH_TRAIN_LOSS_RTOL = 1e-5
+MESH_TRAIN_GRAD_LIMIT = 1e-3  # of a leaf's max abs
+MESH_TRAIN_STEPS = 3  # timed tp=2 steps, after the compared one
+MESH_TRAIN_DP_LAYERS = 8  # (r)'s dp=2 depth, each stack
+MESH_TRAIN_DIR = os.path.join("build", "mesh_train_smoke")
+
+
+def phase_mesh_train_kernels(torch, K, device):
+    """(r): the three training flash kernels at a tp=2 rank's shape (B=2,
+    T=1500, H=10, D=640, f32), against their plain versions (the f32 gate
+    of (c)), timed beside the plain versions and SDPA's forward and
+    backward, with their bounds (3xTF32 on the tensor cores). Returns the
+    fields the kernels' records take."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=device).manual_seed(23)
+    B, T, H = 2, LARGE_V3["n_audio_ctx"], LARGE_V3["n_audio_head"] // 2
+    D = 64 * H
+    q, k, v, dout = (torch.randn((B, T, D), generator=g, device=device) for _ in range(4))
+    out, lse = K.flash_attention_fwd(q, k, v, H)
+    out_p, lse_p = K.flash_attention_fwd_plain(q, k, v, H)
+    grads = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
+    want = K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H)
+    torch.cuda.synchronize()
+    tol = TRAIN_TOL["f32"]
+    e_fwd = ((out - out_p).abs().max() / out_p.abs().max()).item()
+    e_bwd = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(grads, want))
+    if not (e_fwd <= tol and e_bwd <= tol):
+        fail(f"[r] the training kernels at a tp=2 rank's shape disagree with the plain versions: "
+             f"forward {e_fwd:.3g}, backward {e_bwd:.3g} of a max (limit {tol})")
+    io, rows, pairs = B * T * D * 4, B * H * T * 4, B * H * T * T * 64
+    bounds = {"flash_attention_fwd": bound(4 * io + rows, 3 * 4 * pairs, TF32_FLOPS),
+              "flash_attention_bwd_dq": bound(6 * io + 2 * rows, 3 * 6 * pairs, TF32_FLOPS),
+              "flash_attention_bwd_dkv": bound(6 * io + 2 * rows, 3 * 8 * pairs, TF32_FLOPS)}
+    _, delta = K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H)
+    ms = {"flash_attention_fwd": cuda_time_ms(lambda it=0: K.flash_attention_fwd(q, k, v, H),
+                                              iters=10),
+          "flash_attention_bwd_dq": cuda_time_ms(
+              lambda it=0: K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H), iters=10),
+          "flash_attention_bwd_dkv": cuda_time_ms(
+              lambda it=0: K._flash_bwd_dkv(q, k, v, dout, lse_p, delta, H), iters=10)}
+    plain_f = cuda_time_ms(lambda it=0: K.flash_attention_fwd_plain(q, k, v, H), iters=5)
+    plain_b = cuda_time_ms(lambda it=0: K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H),
+                           iters=5)
+    qh, kh, vh = (heads_view(x, H).detach().requires_grad_() for x in (q, k, v))
+    lib_f = cuda_time_ms(lambda it=0: sdpa(qh.detach(), kh.detach(), vh.detach()), iters=10)
+    o_lib = sdpa(qh, kh, vh)
+    lib_b = cuda_time_ms(lambda it=0: torch.autograd.grad(
+        o_lib, (qh, kh, vh), heads_view(dout, H), retain_graph=True), iters=10)
+    print(f"[r] training kernels at a tp=2 rank's shape, f32 B={B} T={T} D={D} H={H}: forward "
+          f"{ms['flash_attention_fwd']:.4f} ms (bound {bounds['flash_attention_fwd'][0]:.4f}, "
+          f"plain {plain_f:.4f}, sdpa forward {lib_f:.4f}), dq "
+          f"{ms['flash_attention_bwd_dq']:.4f} ms (bound {bounds['flash_attention_bwd_dq'][0]:.4f}),"
+          f" dkv {ms['flash_attention_bwd_dkv']:.4f} ms (bound "
+          f"{bounds['flash_attention_bwd_dkv'][0]:.4f}); plain backward {plain_b:.4f} ms, sdpa "
+          f"backward alone {lib_b:.4f} ms; against the plain versions forward {e_fwd:.3g}, "
+          f"backward {e_bwd:.3g} of a max (limit {tol})")
+    rec = {}
+    for name in TRAIN_PATH:
+        fwd = name == "flash_attention_fwd"
+        rec[name] = dict(rank_tp2_ms=ms[name], rank_tp2_bound_ms=bounds[name][0],
+                         rank_tp2_bound_by=bounds[name][1],
+                         rank_tp2_plain_ms=plain_f if fwd else plain_b,
+                         rank_tp2_library_ms=lib_f if fwd else lib_b,
+                         rank_tp2_max_err=e_fwd if fwd else e_bwd)
+    del q, k, v, dout, out, lse, out_p, lse_p, grads, want, qh, kh, vh, o_lib, delta
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_train_rank(rank: int, world: int, backend: str, out_dir: str) -> None:
+    """One rank of (r): as ``mesh_rank``, with ``mesh_train_checks``."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="file://" + os.path.abspath(
+        os.path.join(out_dir, "store")), world_size=world, rank=rank)
+    try:
+        out = mesh_train_checks(torch, rank, device)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def collectives_timed(torch, calls: list):
+    """Each all-reduce of ``parallel.mesh`` (the tp sums, the dp gradient
+    buckets) appended to ``calls`` as (ms, bytes), timed on the host clock
+    between two synchronizes (the queued work finished first)."""
+    from whisper_timestamped_tpu_torch.parallel import mesh
+
+    reduce = mesh._all_reduce_
+
+    def timed(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(t, *a, **kw)
+        torch.cuda.synchronize()
+        calls.append((1e3 * (time.perf_counter() - t0), t.nbytes))
+        return out
+
+    mesh._all_reduce_ = timed
+    try:
+        yield calls
+    finally:
+        mesh._all_reduce_ = reduce
+
+
+@contextlib.contextmanager
+def train_heads_seen(K, seen: set):
+    """Record the head count each training flash kernel is called with."""
+    saved = K.flash_attention_fwd, K.flash_attention_bwd
+
+    def fwd(q, k, v, n_head):
+        seen.add(("fwd", n_head))
+        return saved[0](q, k, v, n_head)
+
+    def bwd(*a):
+        seen.add(("bwd", a[-1]))
+        return saved[1](*a)
+
+    K.flash_attention_fwd, K.flash_attention_bwd = fwd, bwd
+    try:
+        yield seen
+    finally:
+        K.flash_attention_fwd, K.flash_attention_bwd = saved
+
+
+def mesh_train_checks(torch, rank: int, device):
+    """A rank's work in (r); returns what the parent prints and compares."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import training as T
+    from whisper_timestamped_tpu_torch.models import WhisperDims, init_params
+    from whisper_timestamped_tpu_torch.ops import _build
+    from whisper_timestamped_tpu_torch.ops import kernels as K
+    from whisper_timestamped_tpu_torch.parallel import mesh as mesh_module
+    from whisper_timestamped_tpu_torch.parallel.mesh import (get_mesh, param_shard_dims,
+                                                              shard_batch, shard_params)
+
+    t0 = time.perf_counter()
+    _build.library()
+    ref = torch.load(TRAIN_REF, map_location=device, weights_only=True)
+    batch = (ref["mel"], ref["tokens"], ref["mask"])
+    dims = WhisperDims(**LARGE_V3)
+    mesh = get_mesh(dp=1, tp=2)
+    full = init_params(dims, seed=0, dtype=torch.float32, device=device)  # (m)'s weights
+    init_state, train_step = T.make_train_step(dims, mesh=mesh)
+    state = init_state(shard_params(full, mesh))
+    del full  # the rank keeps its shard only
+    torch.cuda.empty_cache()
+    tp = state.params.tensor_parallel
+    dims_of = param_shard_dims(state.params)
+    sections = {"build": time.perf_counter() - t0}
+    out = dict(backend=dist.get_backend(), via_host=tp.via_host, device=str(device),
+               params=sum(p.numel() for p in state.params.parameters()))
+
+    # 1. the first step against (m)'s, its gradients' slices against (m)'s leaves
+    t0 = time.perf_counter()
+    K.reset_launches()
+    seen: set = set()
+    with train_heads_seen(K, seen):
+        state, loss = train_step(state, *batch)
+    torch.cuda.synchronize()
+    named = dict(state.params.named_parameters())
+    grad_rel = {}
+    for key, want in ref["grads"].items():
+        name, layer = (key.split("[")[0], int(key.split("[")[1][:-1])) if "[" in key else (key, None)
+        got, d = named[name].grad, dims_of[name]
+        if layer is not None:
+            got, d = got[layer], (None if d is None else d - 1)
+        if d is not None:
+            m = want.shape[d] // tp.size
+            want = want.narrow(d, tp.rank * m, m)
+        grad_rel[key] = ((got - want).abs().max() / want.abs().max()).item()
+    out.update(first_loss=loss.item(), ref_loss=ref["loss"], grad_rel=grad_rel,
+               first_launches=dict(K.LAUNCHES), heads=sorted(seen))
+    del ref
+    sections["first_step"] = time.perf_counter() - t0
+
+    # 2. timed steps, then one with its collectives timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = [loss]
+    for _ in range(MESH_TRAIN_STEPS):
+        state, loss = train_step(state, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out.update(ms_step=1e3 * (time.perf_counter() - t0) / MESH_TRAIN_STEPS,
+               launches=dict(K.LAUNCHES), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    calls: list = []
+    t0 = time.perf_counter()
+    with collectives_timed(torch, calls):
+        state, loss = train_step(state, *batch)
+        losses.append(loss)
+        torch.cuda.synchronize()
+    out.update(timed_step_ms=1e3 * (time.perf_counter() - t0), collectives=len(calls),
+               collective_ms=sum(c[0] for c in calls), collective_gb=sum(c[1] for c in calls) / 1e9,
+               losses=[x.item() for x in losses])
+
+    # 3. the replicated parameters bit-equal on both ranks: the max and the min
+    # over tp of their bits are this rank's bits
+    replicated = [n for n in named if dims_of[n] is None]
+    bits = torch.cat([named[n].detach().reshape(-1).view(torch.int32) for n in replicated])
+    hi, lo = bits.clone(), bits.clone()
+    for t, op in ((hi, dist.ReduceOp.MAX), (lo, dist.ReduceOp.MIN)):
+        mesh_module._all_reduce_(t, tp.group, tp.via_host, op)
+    sizes = [named[n].numel() for n in replicated]
+    out["replicated_differ"] = [n for n, a, b, c in zip(replicated, bits.split(sizes),
+                                                         hi.split(sizes), lo.split(sizes))
+                                if not (torch.equal(a, b) and torch.equal(a, c))]
+    out["replicated_params"] = bits.numel()
+    sections["tp_steps"] = time.perf_counter() - t0
+    del state, bits, hi, lo, named, losses, loss
+    torch.cuda.empty_cache()
+
+    # 4. dp=2 at full width, 8 + 8 layers: a row a rank, against one card on both rows
+    t0 = time.perf_counter()
+    dims8 = WhisperDims(**{**LARGE_V3, "n_audio_layer": MESH_TRAIN_DP_LAYERS,
+                           "n_text_layer": MESH_TRAIN_DP_LAYERS})
+    mesh_dp = get_mesh(dp=2, tp=1)
+    init_dp, step_dp = T.make_train_step(dims8, mesh=mesh_dp)
+    state = init_dp(shard_params(init_params(dims8, seed=0, dtype=torch.float32, device=device),
+                                 mesh_dp))
+    mine = shard_batch(batch, mesh_dp)
+    dp_losses, dp_ms = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        state, loss = step_dp(state, *mine)
+        dp_losses.append(loss.item())
+        dp_ms.append(1e3 * (time.perf_counter() - t1))
+    out["dp"] = dict(losses=dp_losses, ms=dp_ms, rows=int(mine[1].shape[0]))
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        init_one, step_one = T.make_train_step(dims8)
+        state = init_one(init_params(dims8, seed=0, dtype=torch.float32, device=device))
+        one = []
+        for _ in range(3):
+            state, loss = step_one(state, *batch)
+            one.append(loss.item())
+        out["dp"]["one_card"] = one
+        del state
+    sections["dp"] = time.perf_counter() - t0
+    out["sections_s"] = sections
+    return out
+
+
+def phase_mesh_train(torch, here: str):
+    """(r): two ranks training through ``make_train_step(mesh=)`` (see the
+    module docstring); returns rank 0's launches a step of the training
+    kernels at tp=2."""
+    import torch.multiprocessing as mp
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    out_dir = os.path.join(here, MESH_TRAIN_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.spawn(mesh_train_rank, args=(2, backend, out_dir), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0, L, H = ranks[0], LARGE_V3["n_audio_layer"], LARGE_V3["n_audio_head"] // 2
+    print(f"[r] 2 ranks on {[r['device'] for r in ranks]}, backend {r0['backend']}; {wall:.1f} s "
+          f"for the phase (rank 0's sections: "
+          f"{ {k: round(v, 1) for k, v in r0['sections_s'].items()} } s); {r0['params'] / 1e9:.3f} "
+          f"B parameters a rank at tp=2")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail(f"[r] tp=2: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    for r, res in enumerate(ranks):
+        loss, want = res["first_loss"], res["ref_loss"]
+        worst = max(res["grad_rel"].values())
+        if not (math.isfinite(loss) and abs(loss - want) <= MESH_TRAIN_LOSS_RTOL * abs(want)
+                and worst <= MESH_TRAIN_GRAD_LIMIT):
+            fail(f"[r] rank {r} tp=2: the first step disagrees with (m)'s one-card step: loss "
+                 f"{loss} vs {want} (rtol {MESH_TRAIN_LOSS_RTOL}), gradients {res['grad_rel']} "
+                 f"(limit {MESH_TRAIN_GRAD_LIMIT} of a leaf's max)")
+        losses = res["losses"]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"[r] rank {r} tp=2: the losses are not finite and falling: {losses}")
+        if res["replicated_differ"]:
+            fail(f"[r] rank {r} tp=2: replicated parameters differ between the ranks: "
+                 f"{res['replicated_differ']}")
+        for label, n, steps in (("first", res["first_launches"], 1),
+                                ("timed", res["launches"], MESH_TRAIN_STEPS)):
+            if any(n[k] != steps * L for k in TRAIN_PATH) or n["flash_attention"]:
+                fail(f"[r] rank {r} tp=2 {label} steps: expected {L} launches a step of each "
+                     f"training kernel and none of flash_attention: {n}")
+        if {tuple(h) for h in res["heads"]} != {("fwd", H), ("bwd", H)}:
+            fail(f"[r] rank {r} tp=2: the training kernels ran at heads {res['heads']}, not {H}")
+        print(f"[r] rank {r}, tp=2, large-v3 f32, B=2, 224 tokens: first loss {loss:.6f} against "
+              f"(m)'s {want:.6f} (rtol {MESH_TRAIN_LOSS_RTOL}); gradients at most {worst:.3g} of a "
+              f"leaf's max abs against (m)'s (limit {MESH_TRAIN_GRAD_LIMIT}; "
+              f"{ {k: float(f'{v:.3g}') for k, v in res['grad_rel'].items()} }); losses "
+              f"{[round(x, 5) for x in losses]}; {res['ms_step']:.1f} ms/step over "
+              f"{MESH_TRAIN_STEPS} steps; peak memory {res['peak_gb']:.2f} GB; launches a step: "
+              + ", ".join(f"{k} {res['launches'][k] // MESH_TRAIN_STEPS}"
+                          for k in (*TRAIN_PATH, "flash_attention"))
+              + f" at {H} heads; replicated parameters ({res['replicated_params'] / 1e6:.1f} M) "
+              f"bit-equal on both ranks")
+        print(f"[r] rank {r}, tp=2, one step with its collectives timed (a synchronize before and "
+              f"after each): {res['timed_step_ms']:.1f} ms, {res['collectives']} all-reduces of "
+              f"{res['collective_gb']:.3f} GB in all, {res['collective_ms']:.1f} ms inside them")
+    a, b = ranks[0]["dp"], ranks[1]["dp"]
+    one = a["one_card"]
+    if a["losses"] != b["losses"] or a["rows"] != 1:
+        fail(f"[r] dp=2: the ranks' losses differ or a rank has {a['rows']} rows: {a} {b}")
+    if not all(abs(x - y) <= MESH_TRAIN_LOSS_RTOL * abs(y) for x, y in zip(a["losses"], one)):
+        fail(f"[r] dp=2: the losses {a['losses']} are not the one-card step's {one} on both rows "
+             f"(rtol {MESH_TRAIN_LOSS_RTOL})")
+    print(f"[r] dp=2, {MESH_TRAIN_DP_LAYERS} + {MESH_TRAIN_DP_LAYERS} layers at full width, a row "
+          f"a rank: losses {a['losses']} equal on both ranks; one card on both rows {one} (rtol "
+          f"{MESH_TRAIN_LOSS_RTOL}: the whole batch's masked mean); ms a step (the first warm) "
+          f"{[round(x, 1) for x in a['ms']]} / {[round(x, 1) for x in b['ms']]}")
+    return {k: r0["launches"][k] // MESH_TRAIN_STEPS for k in TRAIN_PATH}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4135,6 +4545,13 @@ def main() -> int:
         print(f"[b]   {entry}: {usage}")
 
     device = torch.device("cuda", 0)
+    if "--train-only" in sys.argv[1:]:
+        phase_train(torch, K, device)
+        torch.cuda.empty_cache()
+        phase_mesh_train_kernels(torch, K, device)
+        phase_mesh_train(torch, here)
+        print("[r] --train-only: stopping after (m) and (r)")
+        return 0
     rec, bf16_ms = phase_kernels(torch, K, device)
     torch.cuda.empty_cache()
     rec.update(phase_quant_kernels(torch, K, device, bf16_ms))
@@ -4195,6 +4612,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec["self_attn_decode_int8_scaled"] = phase_mesh_kernel(torch, K, device)
     launches["self_attn_decode_int8_scaled"] = phase_mesh(torch, here)
+    torch.cuda.empty_cache()
+    for name, fields in phase_mesh_train_kernels(torch, K, device).items():
+        rec[name].update(fields)
+    for name, n in phase_mesh_train(torch, here).items():
+        rec[name]["launches_tp2_rank_step"] = n
     torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):

@@ -221,10 +221,25 @@ def test_checkpoint_round_trip(jax_params, tmp_path):
         assert torch.equal(a, b)
 
 
-def test_refusals(jax_params):
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_refusals(jax_params, tmp_path):
+    """A mesh that is not a ("dp", "tp") DeviceMesh raises ``TypeError``;
+    a one-rank mesh (dp=1, tp=1) trains as one card does, bit for bit."""
+    from torch_mesh_ranks import one_rank_mesh
+    from whisper_timestamped_tpu_torch.parallel.mesh import shard_params
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.make_train_step(DIMS, mesh=object())
     other = W.WhisperDims(**{**FIELDS, "n_vocab": 513})
     init_state, _ = T.make_train_step(other)
     with pytest.raises(ValueError, match="dims"):
         init_state(_port_model(jax_params))
+
+    batch = _torch_batch()
+    init_state, train_step = T.make_train_step(DIMS)
+    one, loss = train_step(init_state(_port_model(jax_params)), *batch)
+    with one_rank_mesh(str(tmp_path)) as mesh:
+        init_mesh, step_mesh = T.make_train_step(DIMS, mesh=mesh)
+        got, got_loss = step_mesh(init_mesh(shard_params(_port_model(jax_params), mesh)), *batch)
+    assert torch.equal(got_loss, loss)
+    for (n, a), b in zip(got.params.named_parameters(), one.params.parameters()):
+        assert torch.equal(a, b), n

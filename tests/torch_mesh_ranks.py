@@ -12,6 +12,7 @@ the ranks start fast; the tests compute JAX's side in their own process.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import pickle
 
@@ -204,6 +205,195 @@ def world_batch(rank: int, inp: dict) -> dict:
             flow="devflow_dispatch" in get_stage_timings(),
             eager=get_counts().get("tp_eager_chunks", 0) - before,
             names=list(segs), streams={n: [s.tokens for s in v] for n, v in segs.items()})
+    return out
+
+
+TRAIN_MESHES = ((1, 4), (2, 2), (4, 1))  # (dp, tp) of test_torch_mesh_train.py
+
+
+def _digest(t) -> str:
+    return hashlib.sha1(t.detach().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _train_setup(inp: dict):
+    """(dims, the batch as tensors, a fresh one-card model of the test's weights)."""
+    import torch
+
+    from whisper_timestamped_tpu_torch.models import WhisperDims, params_from_jax_tree
+
+    dims = WhisperDims(**inp["dims"])
+    batch = (torch.from_numpy(inp["mel"]), torch.from_numpy(inp["tokens"]).long(),
+             torch.from_numpy(inp["mask"]))
+    return dims, batch, lambda: params_from_jax_tree(inp["tree"], dims, device="cpu")
+
+
+def _slice(full, d, tp):
+    """The rank's slice of a whole tensor: along ``d`` for a sharded leaf."""
+    if d is None or tp is None:
+        return full
+    m = full.shape[d] // tp.size
+    return full.narrow(d, tp.rank * m, m)
+
+
+def _step_gap(mine, other, tp, dims_of) -> dict:
+    """One step taken on both sides of a checkpoint round trip: the losses
+    and the largest parameter differences, where the gradient is clear of 0
+    (limit 1e-6) and where it lies within 1e-4 of its leaf's max of 0
+    (limit 1e-6 + one step of lr: Adam's step may take the other sign)."""
+    (m_state, m_loss), (o_state, o_loss) = mine, other
+    o_params = dict(o_state.params.named_parameters())
+    clear = unsure = 0.0
+    for n, p in m_state.params.named_parameters():
+        if p.grad is None:
+            continue
+        diff = (p.detach() - _slice(o_params[n].detach(), dims_of[n], tp)).abs()
+        near0 = p.grad.abs() <= 1e-4 * float(p.grad.abs().max())
+        clear = max(clear, float(diff[~near0].max()) if (~near0).any() else 0.0)
+        unsure = max(unsure, float(diff[near0].max()) if near0.any() else 0.0)
+    return dict(loss=m_loss.item(), other_loss=o_loss.item(), clear=clear, unsure=unsure)
+
+
+def _state_equal(state, whole, tp, dims_of) -> bool:
+    """Each parameter and AdamW moment of the sharded ``state`` equals the
+    rank's slice of the one-card ``whole``'s, bit for bit."""
+    import torch
+
+    w_params = dict(whole.params.named_parameters())
+    for n, p in state.params.named_parameters():
+        q = w_params[n]
+        if not torch.equal(p, _slice(q, dims_of[n], tp)):
+            return False
+        if p.requires_grad:
+            a, b = state.opt_state.state[p], whole.opt_state.state[q]
+            if not all(torch.equal(a[k], _slice(b[k], dims_of[n], tp))
+                       for k in ("exp_avg", "exp_avg_sq")) or not torch.equal(a["step"], b["step"]):
+                return False
+    return True
+
+
+def world_train(rank: int, inp: dict) -> dict:
+    """test_torch_mesh_train.py's checks on a 4-rank world: ``steps`` AdamW
+    steps on each mesh of ``TRAIN_MESHES``, the checkpoints across the
+    dp=2 x tp=2 mesh and one card, the refusals."""
+    import torch
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import training as T
+    from whisper_timestamped_tpu_torch.ops import kernels as K
+    from whisper_timestamped_tpu_torch.parallel import mesh as mesh_module
+    from whisper_timestamped_tpu_torch.parallel.mesh import (get_mesh, mesh_rank, param_shard_dims,
+                                                              shard_batch, shard_params, sum_over_dp)
+
+    dims, batch, fresh = _train_setup(inp)
+    heads = []
+    fwd = K.flash_attention_fwd
+
+    def counted_fwd(q, k, v, n_head):
+        heads.append(n_head)
+        return fwd(q, k, v, n_head)
+
+    K.flash_attention_fwd = counted_fwd
+    out: dict = {}
+    for dp, tp_size in TRAIN_MESHES:
+        mesh = get_mesh(dp=dp, tp=tp_size, device_type="cpu")
+        base = fresh()
+        before = {n: p.detach().clone() for n, p in base.named_parameters()}
+        model = shard_params(base, mesh)
+        init_state, train_step = T.make_train_step(dims, mesh=mesh)
+        state = init_state(model)
+        tp = state.params.tensor_parallel
+        dims_of = param_shard_dims(state.params)
+        mine = shard_batch(batch, mesh)
+        with torch.no_grad():  # this rank's rows' own masked mean, at the first weights
+            own_mean = T.teacher_forced_loss(state.params, *mine).item()
+        del heads[:]
+        deterministic = []  # cuDNN's flag while conv1's weight gradient is computed
+        state.params.encoder["conv1_w"].register_hook(
+            lambda g: deterministic.append(torch.backends.cudnn.deterministic))
+        losses, grads = [], {}
+        for i in range(inp["steps"]):
+            state, loss = train_step(state, *mine)
+            losses.append(loss.item())
+            if i == 0:
+                grads = {n: p.grad.clone() for n, p in state.params.named_parameters()
+                         if p.grad is not None}
+        named = dict(state.params.named_parameters())
+        # the first dp row returns its slices of the sharded leaves, its tp rank 0 the rest
+        first_row, tp_rank = mesh_rank(mesh, "dp") == 0, mesh_rank(mesh, "tp")
+        keep = [n for n in grads
+                if first_row and (tp_rank == 0 or (tp is not None and dims_of[n] is not None))]
+        res = dict(
+            losses=losses, own_mean=own_mean, tp_rank=tp_rank, dp_rank=mesh_rank(mesh, "dp"),
+            flash_heads=sorted(set(heads)),
+            flash_calls=len(heads) // inp["steps"],
+            cudnn_deterministic=(list(deterministic), torch.backends.cudnn.deterministic),
+            caller_unchanged=all(torch.equal(before[n], p) for n, p in base.named_parameters()),
+            digests={n: _digest(p) for n, p in named.items()},
+            # copies: the checkpoints' steps below go on updating these tensors in place
+            leaves={n: dict(grad=grads[n].numpy(), param=named[n].detach().numpy().copy(),
+                            mu=state.opt_state.state[named[n]]["exp_avg"].numpy().copy(),
+                            nu=state.opt_state.state[named[n]]["exp_avg_sq"].numpy().copy())
+                    for n in keep})
+        if (dp, tp_size) == (2, 2):
+            res["checkpoint"] = _checkpoints(rank, inp, state, train_step, mine, batch, dims,
+                                              fresh, tp, dims_of, mesh)
+            try:
+                init_state(fresh())
+                res["unsharded_refusal"] = None
+            except ValueError as e:
+                res["unsharded_refusal"] = str(e)
+        if (dp, tp_size) == (4, 1):  # sum_over_dp's buckets: split by size and dtype, one strided
+            parts = [torch.full((5,), rank + 1.0), torch.full((3, 4), rank + 1.0).t(),
+                     torch.full((7,), rank + 1.0, dtype=torch.float64), torch.full((2,), rank + 1.0)]
+            bucket, mesh_module.GRAD_BUCKET_BYTES = mesh_module.GRAD_BUCKET_BYTES, 32
+            try:
+                sum_over_dp(parts, mesh)
+            finally:
+                mesh_module.GRAD_BUCKET_BYTES = bucket
+            res["sum_over_dp"] = [(t.numpy().copy(), t.dtype == torch.float64) for t in parts]
+        if (dp, tp_size) == (1, 4):
+            try:
+                init_state(shard_params(fresh(), get_mesh(dp=2, tp=2, device_type="cpu")))
+                res["other_tp_refusal"] = None
+            except ValueError as e:
+                res["other_tp_refusal"] = str(e)
+        out[f"{dp}x{tp_size}"] = res
+        dist.barrier()
+    return out
+
+
+def _checkpoints(rank, inp, state, train_step, mine, batch, dims, fresh, tp, dims_of, mesh):
+    """Save on the mesh and load on one card, then the reverse; each side
+    then takes one more step."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import training as T
+    from whisper_timestamped_tpu_torch.parallel.mesh import shard_params
+
+    init_one, step_one = T.make_train_step(dims)
+    init_mesh, _ = T.make_train_step(dims, mesh=mesh)
+    mesh_dir, one_dir = (os.path.join(inp["ckpt_dir"], d) for d in ("mesh", "one"))
+
+    # the mesh's state -> file -> one card
+    T.save_checkpoint(mesh_dir, state)
+    loaded_one = T.load_checkpoint(mesh_dir, init_one(fresh()))
+    out = dict(mesh_to_one_equal=_state_equal(state, loaded_one, tp, dims_of),
+               mesh_to_one_step=loaded_one.step)
+    out["mesh_to_one"] = _step_gap(train_step(state, *mine), step_one(loaded_one, *batch),
+                                   tp, dims_of)
+
+    # one card's state -> file -> the mesh (every rank runs the same one-card steps)
+    one = init_one(fresh())
+    for _ in range(inp["steps"]):
+        one, _ = step_one(one, *batch)
+    if rank == 0:
+        T.save_checkpoint(one_dir, one)
+    dist.barrier()
+    loaded_mesh = T.load_checkpoint(one_dir, init_mesh(shard_params(fresh(), mesh)))
+    out.update(one_to_mesh_equal=_state_equal(loaded_mesh, one, tp, dims_of),
+               one_to_mesh_step=loaded_mesh.step)
+    out["one_to_mesh"] = _step_gap(train_step(loaded_mesh, *mine), step_one(one, *batch),
+                                   tp, dims_of)
     return out
 
 

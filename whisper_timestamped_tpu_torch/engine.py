@@ -203,10 +203,11 @@ class DecodeEngine:
 
     def attach_mesh(self, mesh) -> None:
         """Shard the model over ``mesh`` (``parallel.mesh.shard_params``:
-        this rank's heads over ``tp``, replicated over ``dp``) and decode
-        with it from now on; ``self.mesh`` and ``self.tp`` as in JAX. An
-        engine built with the weight levers gives them up, with JAX's
-        warning. The captured loops of the old module are dropped."""
+        this rank's heads over ``tp``, replicated over ``dp``; at tp=1,
+        where nothing is cut, the model itself) and decode with it from now
+        on; ``self.mesh`` and ``self.tp`` as in JAX. An engine built with the
+        weight levers gives them up, with JAX's warning. The captured loops
+        of the old module are dropped."""
         from .parallel.mesh import check_mesh, mesh_size, shard_params
 
         check_mesh(mesh)
@@ -218,9 +219,9 @@ class DecodeEngine:
                 model_name=model.model_name, tokenizer_ranks=model.tokenizer_ranks,
                 tokenizer_multilingual=model.tokenizer_multilingual,
             )
-        self.model = shard_params(model, mesh)
-        self.mesh = mesh
         self.tp = mesh_size(mesh, "tp")
+        self.model = shard_params(model, mesh) if self.tp > 1 else model
+        self.mesh = mesh
         self.graphs = DecodeGraphs()
 
     @property

@@ -26,7 +26,10 @@ sum (``_out_linear``). The alignment rows of a head are filled by the rank
 that holds it and summed over ``tp`` (the others hold zeros: exact in
 f32), so every rank returns the same rows, and, with the same residual on
 every rank, the same logits. An unsharded module's ``tensor_parallel`` is
-None.
+None. Under autograd (training on a mesh) the sum has the identity
+backward, and the input of every column-parallel linear (q/k/v, the cross
+q, fc1, and once ``xa`` for every layer's cross K/V) sums its gradient
+over ``tp`` (``_copy_to``): Megatron's conjugate pair.
 
 The weight levers (``QuantizedWhisper``, built by the engine beside the
 module, which stays as it is): ``w_int8`` gives the decode step an int8
@@ -410,11 +413,18 @@ def _local_heads(model, n_head: int) -> int:
 
 def _out_linear(x, w, b, tp):
     """The o and fc2 projections: under tensor parallelism ``x`` holds this
-    rank's columns, so the partial product is summed over ``tp`` and the
-    replicated bias added once, after the sum."""
+    rank's columns, so the partial product is summed over ``tp``
+    (``reduce_from``) and the replicated bias added once, after the sum."""
     if tp is None:
         return _linear(x, w, b)
-    return tp.sum_(_linear(x, w)) + b
+    return tp.reduce_from(_linear(x, w)) + b
+
+
+def _copy_to(x, tp):
+    """``x`` as the input of a rank's column-parallel linears (q/k/v, fc1):
+    itself; under autograd on a sharded module its gradient is summed over
+    ``tp`` in the backward (``TensorParallel.copy_to``)."""
+    return x if tp is None else tp.copy_to(x)
 
 
 def _align_hits(model, align_heads, layer: int, n_local: int):
@@ -448,7 +458,7 @@ def encode(model: WhisperTorch, mel: torch.Tensor) -> torch.Tensor:
     H = _local_heads(model, dims.n_audio_head)
     tp = _tp(model)
     for p in _layers(enc, dims.n_audio_layer):
-        xn = _ln(x, p["attn_ln_g"], p["attn_ln_b"])
+        xn = _copy_to(_ln(x, p["attn_ln_g"], p["attn_ln_b"]), tp)
         a = _encoder_attention(
             _linear(xn, p["attn_q_w"], p["attn_q_b"]),
             _linear(xn, p["attn_k_w"]),
@@ -480,7 +490,8 @@ def _mlp(x, p, tp=None):
     """The residual MLP of one layer; ``p`` maps the parameter names to that
     layer's tensors (``_layers``, or ``_mlp_params``); ``tp`` the sharded
     module's ``TensorParallel``."""
-    h = F.gelu(_linear(_ln(x, p["mlp_ln_g"], p["mlp_ln_b"]), p["fc1_w"], p["fc1_b"]))
+    xn = _copy_to(_ln(x, p["mlp_ln_g"], p["mlp_ln_b"]), tp)
+    h = F.gelu(_linear(xn, p["fc1_w"], p["fc1_b"]))
     return x + _out_linear(h, p["fc2_w"], p["fc2_b"], tp)
 
 
@@ -518,8 +529,9 @@ def decode_full(
     if align_heads:
         rows = torch.zeros((B, len(align_heads), S, xa.shape[1]), dtype=torch.float32,
                            device=x.device)
+    xa = _copy_to(xa, tp)  # once: every layer's cross K/V gradient summed by one backward sum
     for l, p in enumerate(_layers(dec, dims.n_text_layer)):
-        xn = _ln(x, p["attn_ln_g"], p["attn_ln_b"])
+        xn = _copy_to(_ln(x, p["attn_ln_g"], p["attn_ln_b"]), tp)
         a, _ = _attention(
             _linear(xn, p["attn_q_w"], p["attn_q_b"]),
             _linear(xn, p["attn_k_w"]),
@@ -527,7 +539,7 @@ def decode_full(
             H, mask=causal,
         )
         x = x + _out_linear(a, p["attn_o_w"], p["attn_o_b"], tp)
-        xc = _ln(x, p["cross_ln_g"], p["cross_ln_b"])
+        xc = _copy_to(_ln(x, p["cross_ln_g"], p["cross_ln_b"]), tp)
         hits = _align_hits(model, align_heads, l, H)
         c, w = _attention(
             _linear(xc, p["cross_q_w"], p["cross_q_b"]),

@@ -25,6 +25,14 @@ and adds the replicated bias once, after the sum. Data parallelism splits
 the streams of a batch over ``dp`` (``parallel.batch``); each dp rank runs
 the one-card pipeline on its own streams and the results are gathered
 (``gather_streams``).
+
+Training (``training.make_train_step(mesh=)``) is Megatron's form of the
+same cut: under autograd the sum after o / fc2 is ``reduce_from`` (a sum
+forward, the identity backward) and the input of every column-parallel
+linear passes ``copy_to`` (the identity forward, the gradient summed over
+``tp`` backward), so the replicated activations and parameters get their
+whole gradient on every tp rank; ``sum_over_dp`` sums the gradients
+over ``dp``.
 """
 
 from __future__ import annotations
@@ -94,12 +102,23 @@ def mesh_rank(mesh, axis: str) -> int:
     return 0 if mesh is None else mesh.get_local_rank(axis)
 
 
+def _all_reduce_(t: torch.Tensor, group, via_host: bool, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``group`` in place; returns ``t``. ``via_host``
+    (the group is gloo's): a CUDA tensor is reduced through a host copy
+    (gloo's collectives run on the host; NCCL refuses two ranks on one
+    card, which gloo serves)."""
+    if via_host and t.is_cuda:
+        host = t.cpu()
+        dist.all_reduce(host, op=op, group=group)
+        return t.copy_(host)
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
 class TensorParallel:
     """This rank's share of a tensor-parallel model: its place in the
     ``tp`` group and the collectives the sharded forward calls
-    (``models.whisper_torch``). On a gloo group a CUDA tensor is reduced
-    through a host copy (gloo's collectives on the host; NCCL refuses two
-    ranks on one card, which gloo serves)."""
+    (``models.whisper_torch``), through a host copy on gloo."""
 
     def __init__(self, mesh):
         self.size = mesh_size(mesh, "tp")
@@ -107,21 +126,33 @@ class TensorParallel:
         self.group = mesh.get_group("tp")
         self.via_host = dist.get_backend(self.group) == "gloo"
 
-    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        if self.via_host and t.is_cuda:
-            host = t.cpu()
-            dist.all_reduce(host, op=op, group=self.group)
-            return t.copy_(host)
-        dist.all_reduce(t, op=op, group=self.group)
-        return t
-
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the tp ranks, in place; returns ``t``."""
-        return self._reduce(t, dist.ReduceOp.SUM)
+        return _all_reduce_(t, self.group, self.via_host)
 
     def max_(self, t: torch.Tensor) -> torch.Tensor:
         """``t``'s elementwise max over the tp ranks, in place; returns ``t``."""
-        return self._reduce(t, dist.ReduceOp.MAX)
+        return _all_reduce_(t, self.group, self.via_host, dist.ReduceOp.MAX)
+
+    def summed(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the tp ranks into a new tensor; ``t`` is left as it is."""
+        return self.sum_(t.clone(memory_format=torch.contiguous_format))
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` entering the rank's columns (the input of q/k/v or fc1):
+        itself forward; where autograd tracks it, its gradient, a partial
+        sum over this rank's columns, is summed over tp backward."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _CopyToTensorParallel.apply(x, self)
+        return x
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        """The o / fc2 partial product ``x`` summed over tp. Where autograd
+        tracks it, out of place with the identity backward (every rank
+        holds the whole gradient of the sum); otherwise ``sum_`` in place."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _ReduceFromTensorParallel.apply(x, self)
+        return self.sum_(x)
 
     def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The tp ranks' ``t`` concatenated along ``dim`` in rank order."""
@@ -129,6 +160,67 @@ class TensorParallel:
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts, dim=dim).to(t.device)
+
+
+class _CopyToTensorParallel(torch.autograd.Function):
+    """The identity forward, the gradient summed over tp backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.summed(grad), None
+
+
+class _ReduceFromTensorParallel(torch.autograd.Function):
+    """The sum over tp forward (out of place), the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.summed(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+GRAD_BUCKET_BYTES = 256 << 20  # the most one flat buffer of sum_over_dp packs
+
+
+def sum_over_dp(tensors: List[torch.Tensor], mesh) -> None:
+    """Sum each of ``tensors`` over the mesh's dp axis, in place. Runs of
+    tensors of one dtype and device are packed into flat buffers of at most
+    ``GRAD_BUCKET_BYTES`` (a larger tensor goes alone), one collective a
+    buffer, through a host copy on gloo. Every rank of the axis passes
+    tensors of the same shapes in the same order."""
+    if mesh_size(mesh, "dp") == 1:
+        return
+    group = mesh.get_group("dp")
+    via_host = dist.get_backend(group) == "gloo"
+
+    def reduce(bucket):
+        if len(bucket) == 1 and bucket[0].is_contiguous():
+            _all_reduce_(bucket[0], group, via_host)  # alone: reduced where it lies
+            return
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        _all_reduce_(flat, group, via_host)
+        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+            t.copy_(part.view_as(t))
+
+    bucket: List[torch.Tensor] = []
+    size = 0
+    for t in tensors:
+        if bucket and (t.dtype != bucket[0].dtype or t.device != bucket[0].device
+                       or size + t.nbytes > GRAD_BUCKET_BYTES):
+            reduce(bucket)
+            bucket, size = [], 0
+        bucket.append(t)
+        size += t.nbytes
+    if bucket:
+        reduce(bucket)
 
 
 def _shard_dim(name: str) -> Optional[int]:
@@ -147,12 +239,13 @@ def param_shard_dims(model) -> Dict[str, Optional[int]]:
 
 def shard_params(model, mesh):
     """A new ``WhisperModel`` whose module holds this rank's slices of the
-    tp-sharded parameters (copies, so that the full tensors are not kept
-    alive by it) and the caller's replicated tensors themselves, with its
-    ``TensorParallel`` (None at tp=1, where nothing is cut). ``model`` is a
-    ``WhisperModel`` or a ``WhisperTorch``. Raises ``ValueError`` when tp
-    does not divide both head counts: a rank holds whole heads (the JAX
-    package's GSPMD would split one)."""
+    tp-sharded parameters and copies of the replicated ones (so that the
+    full tensors are not kept alive by it, and training the shard never
+    writes into ``model``), with its ``TensorParallel`` (None at tp=1,
+    where nothing is cut). ``model`` is a ``WhisperModel`` or a
+    ``WhisperTorch``. Raises ``ValueError`` when tp does not divide both
+    head counts: a rank holds whole heads (the JAX package's GSPMD would
+    split one)."""
     from ..models.load import WhisperModel
     from ..models.whisper_torch import WhisperTorch
 
@@ -171,10 +264,11 @@ def shard_params(model, mesh):
         target = getattr(new, part)
         for name, t in getattr(module, part).items():
             d = _shard_dim(name)
+            t = t.detach()
             if d is not None and tp > 1:
                 m = t.shape[d] // tp
-                t = t.detach().narrow(d, rank * m, m).clone()
-            target[name] = nn.Parameter(t, requires_grad=False)
+                t = t.narrow(d, rank * m, m)
+            target[name] = nn.Parameter(t.clone(), requires_grad=False)
     new.fixed_pos_emb = module.fixed_pos_emb
     new.tensor_parallel = TensorParallel(mesh) if tp > 1 else None
     if not isinstance(model, WhisperModel):
