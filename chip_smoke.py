@@ -148,12 +148,32 @@ phases have run, so their lines are printed too):
       ``kv_int8`` + ``self_kv_int8`` engine (the schema; both ranks' results
       equal bit for bit; every decode kernel launched at least 32 times a
       decode step and ``flash_attention`` 32 times a window iteration, all
-      at 10 heads; the token loop run eagerly, ``tp_eager_chunks``;
-      s/batch, ms/step, each rank's peak memory and resident weight bytes),
-      then the same streams at dp=2 (4 a rank, captured loops), each rank's
-      streams' results bit-equal to a one-card ``transcribe_batch`` of them
-      at ``batch_size=4`` and both ranks' merged dicts equal. Two ranks on
-      one card share its SMs: (q)'s times describe that layout only;
+      at 10 heads; the token loop captured over NCCL, run eagerly over gloo
+      and counted in ``tp_eager_chunks``; s/batch, ms/step, each rank's
+      peak memory and resident weight bytes), then the same streams at dp=2
+      (4 a rank, captured loops), each rank's streams' results bit-equal to
+      a one-card ``transcribe_batch`` of them at ``batch_size=4`` and both
+      ranks' merged dicts equal. Two ranks on one card share its SMs: (q)'s
+      times describe that layout only. Then the captured tensor-parallel
+      token loops (``MESH_GRAPH_CASES``: greedy bf16, greedy ``kv_int8`` +
+      ``self_kv_int8`` and sampled at T=0.7 at B=8, beam B=8 x K=5, greedy
+      ``kv_int8`` with and without ``self_kv_int8`` at B=40), each window
+      batch decoded captured, replayed and ``uncaptured=True`` on the same
+      inputs: with two cards or more by the two NCCL ranks at tp=2, on one
+      card by a world of one NCCL rank whose model carries a
+      ``TensorParallel`` of size 1 (its steps issue every all-reduce, each a
+      copy on the device; the B=8 cases). Each rank's captured buffers
+      equal its uncaptured ones and the other tp rank's bit for bit, one
+      capture and no eager chunk a case, the chunk's graph holding 16 x 32
+      launches of the case's cross and self kernel at ``n_text_head // tp``
+      heads and every all-reduce of its 16 steps and its stop flag's MAX;
+      ms/step captured and uncaptured, peak memory a rank. With four cards
+      also dp=2 x tp=2 (four NCCL ranks): greedy bf16 at B=8 on each dp
+      row's own windows under the same checks, and ``transcribe_batch`` of
+      the 8 streams over that mesh (the four merged dicts equal, captured).
+      Every spawned world of (q) and (r) has a deadline
+      (``WORLD_DEADLINE_S``, also its process group's timeout): a rank
+      still running then is killed and the phase fails;
   (r) training on the mesh: first the three training flash kernels at a
       tp=2 rank's shape (B=2, T=1500, H=10, f32) against their plain
       versions, timed beside them and SDPA's forward and backward, with
@@ -227,7 +247,7 @@ plain, kernel, kernel, plain.
 ``--turns`` runs (g)'s engines in turns (kv_int8, bf16, bf16, kv_int8);
 ``--kernels-only`` stops after (c) (a first check of changed kernels; it
 prints no result line); ``--train-only`` runs (m) and (r) alone after the
-build (no result line either).
+build, ``--mesh-only`` (q) alone (no result line either).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and makes any
@@ -2616,6 +2636,43 @@ def phase_sampling(torch, K, model, tok):
 BEAM_MAX_NEW = 100  # tokens a window in (l)'s captured-against-uncaptured run
 
 
+def beam_both_ways(torch, engine, mels, prompts, lens, opts, sot_from_end, tag):
+    """B windows' beam search through ``decode_window_beam_batch``
+    uncaptured (first, while the engine holds no persistent buffers), with
+    the engine's graphs (the capture), and again (the timed replay), on the
+    same inputs: every returned buffer must be equal bit for bit, and the
+    steps equal (else fail, headed by ``tag``). Returns, for the timed
+    replay and for the uncaptured run, (out, steps, chunks, ms/step, peak
+    GB, the run's counts)."""
+    import whisper_timestamped_tpu_torch.decoding_beam as beam
+    from whisper_timestamped_tpu_torch.utils import get_counts, get_stage_timings, reset_stage_timings
+
+    sm, bm = engine._masks(opts)
+    kw = engine._beam_kwargs(opts, sot_from_end)
+
+    def run(**extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_timings()
+        out = beam.decode_window_beam_batch(engine.model.module, mels, prompts, lens, sm, bm,
+                                            **{**kw, **extra})
+        torch.cuda.synchronize()
+        counts, timings = dict(get_counts()), get_stage_timings()
+        steps = counts["decode_steps"]
+        return (out, steps, counts["beam_chunks"], 1e3 * timings["decode_loop"]["total_s"] / steps,
+                torch.cuda.max_memory_allocated() / 1e9, counts)
+
+    eager = run(graphs=None, uncaptured=True)
+    first = run()
+    cap = run()
+    for name, t in cap[0].items():
+        if not (torch.equal(t, eager[0][name]) and torch.equal(t, first[0][name])):
+            fail(f"{tag} the captured beam loop's {name} differs from the uncaptured loop's")
+    if not cap[1] == first[1] == eager[1]:
+        fail(f"{tag} captured {cap[1]} steps, uncaptured {eager[1]}")
+    return cap, eager
+
+
 def phase_beam(torch, K, model, tok):
     """(l): beam search at large-v3 width, EOT suppressed (no beam finishes;
     every window runs its 224 steps, or to the text context's end), the
@@ -2770,37 +2827,17 @@ def phase_beam(torch, K, model, tok):
         lens.append(plen)
     prompts = torch.stack([torch.as_tensor(b) for b in bufs]).to(model.device)
     lens = torch.tensor(lens, dtype=torch.int32, device=model.device)
-    sm, bm = engine._masks(opts)
-    kw = engine._beam_kwargs(opts, sot_from_end)
-
-    def run(**extra):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_stage_timings()
-        out = beam.decode_window_beam_batch(model.module, mels, prompts, lens, sm, bm,
-                                            **{**kw, **extra})
-        torch.cuda.synchronize()
-        counts, timings = get_counts(), get_stage_timings()
-        steps = counts["decode_steps"]
-        return (out, steps, counts["beam_chunks"], 1e3 * timings["decode_loop"]["total_s"] / steps,
-                torch.cuda.max_memory_allocated() / 1e9)
-
-    # uncaptured first, while the engine holds no persistent buffers
-    eager, e_steps, _, eager_ms, eager_peak = run(graphs=None, uncaptured=True)
-    first = run()
-    cap, steps, chunks, cap_ms, cap_peak = run()
-    for name, t in cap.items():
-        if not (torch.equal(t, eager[name]) and torch.equal(t, first[0][name])):
-            fail(f"[l] the captured beam loop's {name} differs from the uncaptured loop's")
-    if steps != e_steps or chunks != -(-steps // k) or engine.graphs.captures != 1:
-        fail(f"[l] captured {steps} steps in {chunks} replays, uncaptured {e_steps}; "
-             f"{engine.graphs.captures} captures (expected 1)")
+    (cap, steps, chunks, cap_ms, cap_peak, _), (eager, _, _, eager_ms, eager_peak, _) = \
+        beam_both_ways(torch, engine, mels, prompts, lens, opts, sot_from_end, "[l]")
+    if chunks != -(-steps // k) or engine.graphs.captures != 1:
+        fail(f"[l] captured {steps} steps in {chunks} replays; {engine.graphs.captures} captures "
+             f"(expected 1)")
     print(f"[l] decode_window_beam_batch, B=8 x K=5, {BEAM_MAX_NEW} tokens (prompts of 0-42 "
           f"tokens): captured {cap_ms:.2f} ms/step (peak {cap_peak:.2f} GB) vs uncaptured "
           f"{eager_ms:.2f} ({eager_ms / cap_ms:.1f}x; peak {eager_peak:.2f} GB); {steps} steps, "
           f"{chunks} replays = host syncs a window ({k} steps each), {chunks * k - steps} steps "
           f"past the stop; every returned buffer equal bit for bit; 1 capture")
-    del engine, first, cap, eager, mels
+    del engine, cap, eager, mels
     torch.cuda.empty_cache()
 
     # 4. beam_size=1 against greedy on one window
@@ -3100,25 +3137,27 @@ GRAPH_MAX_NEW = 96  # tokens a window in (p); EOT allowed
 TAIL_STREAMS, TAIL_BATCH = 40, 8  # (p)'s tail_batch stream
 
 
-def decode_both_ways(torch, engine, mel, prompt_tokens, temperature):
+def decode_both_ways(torch, engine, mel, prompt_tokens, temperature, max_new=GRAPH_MAX_NEW,
+                     tag="[p]", **options):
     """One window through ``decoding.decode_window`` with the engine's
     graphs (capturing, unless a graph of its key exists), again (the timed
     replay), and uncaptured on the same inputs: the three runs' buffers
     must be equal bit for bit. Returns (the timed captured run's out, its
     ms/step, the uncaptured run's ms/step), ms/step being the stage
-    ``decode_loop`` over the steps."""
+    ``decode_loop`` over the steps. ``options`` go to ``DecodingOptions``
+    (``suppress_tokens``); ``tag`` heads the failure message."""
     from whisper_timestamped_tpu_torch import decoding as dec
     from whisper_timestamped_tpu_torch.decoding import DecodingOptions
     from whisper_timestamped_tpu_torch.engine import TIME_PER_POSITION
 
     tok = engine.tokenizer
-    opts = DecodingOptions(language="en", sample_len=GRAPH_MAX_NEW)
+    opts = DecodingOptions(language="en", sample_len=max_new, **options)
     buf, plen, sot_from_end = engine.build_prompt(prompt_tokens, opts)
     B = mel.shape[0]
     sm, bm = engine._masks(opts)
     kw = dict(align_heads=engine.align_heads, eot=tok.eot, ts_begin=tok.timestamp_begin,
               no_timestamps=tok.no_timestamps, sot_index_from_end=sot_from_end,
-              max_initial_timestamp_index=round(1.0 / TIME_PER_POSITION), max_new=GRAPH_MAX_NEW,
+              max_initial_timestamp_index=round(1.0 / TIME_PER_POSITION), max_new=max_new,
               temperature=temperature, rng_seed=7, **engine.kv_options)
     prompt = torch.as_tensor(buf, device=mel.device)[None].expand(B, -1).contiguous()
     plen = torch.full((B,), plen, dtype=torch.int32, device=mel.device)
@@ -3135,10 +3174,10 @@ def decode_both_ways(torch, engine, mel, prompt_tokens, temperature):
     for name in ("tokens", "n_sampled", "sum_logprobs", "token_logprobs", "ts_logprobs", "attn",
                  "no_speech_prob"):
         if not (torch.equal(cap[name], eager[name]) and torch.equal(cap[name], first[name])):
-            fail(f"[p] the captured loop's {name} differs from the uncaptured loop's "
+            fail(f"{tag} the captured loop's {name} differs from the uncaptured loop's "
                  f"(B={B}, {len(prompt_tokens)} prompt tokens, T={temperature})")
     if not cap["n_steps"] == first["n_steps"] == eager["n_steps"]:
-        fail(f"[p] captured {cap['n_steps']} steps, uncaptured {eager['n_steps']}")
+        fail(f"{tag} captured {cap['n_steps']} steps, uncaptured {eager['n_steps']}")
     return cap, cap_ms, eager_ms
 
 
@@ -3789,6 +3828,22 @@ MESH_LENGTHS = (35, 5, 12, 20, 8, 27, 15, 30)  # (f)'s first batch
 # windows of 32 tokens
 MESH_MAX_NEW = 32
 MESH_DIR = os.path.join("build", "mesh_smoke")
+# (q)'s captured tensor-parallel token loops: (label, B, engine levers,
+# temperature, None for beam search with K=5). Each decodes B windows of
+# 30 s ([q]'s 8 streams' first windows, then seeded clips) to
+# MESH_GRAPH_MAX_NEW tokens, EOT suppressed, captured and uncaptured
+MESH_GRAPH_CASES = (
+    ("greedy bf16, B=8", 8, {}, 0.0),
+    ("greedy kv_int8 + self_kv_int8, B=8", 8, dict(kv_int8=True, self_kv_int8=True), 0.0),
+    ("sampled T=0.7, B=8", 8, {}, 0.7),
+    ("beam B=8 x K=5", 8, {}, None),
+    ("greedy kv_int8, B=40", 40, dict(kv_int8=True), 0.0),
+    ("greedy kv_int8 + self_kv_int8, B=40", 40, dict(kv_int8=True, self_kv_int8=True), 0.0),
+)
+MESH_GRAPH_MAX_NEW = 64
+# a spawned world of (q) or (r) ends within this, or the phase fails (and
+# its processes are killed); also its process group's collective timeout
+WORLD_DEADLINE_S = 420
 
 
 def phase_mesh_kernel(torch, K, device):
@@ -3915,9 +3970,14 @@ def weight_bytes(module) -> int:
     return total
 
 
-def mesh_rank(rank: int, world: int, backend: str, out_dir: str) -> None:
-    """One rank of (q): its device, the process group, the checks; the
-    results go to ``out_dir/rank<r>.json``. An exception fails the spawn."""
+def world_rank(rank: int, world: int, backend: str, out_dir: str, checks: str) -> None:
+    """One rank of a spawned world of (q) or (r): its device (``cuda:rank``
+    modulo the cards), the process group (its collectives' timeout
+    ``WORLD_DEADLINE_S``), then ``checks`` (a function of this module,
+    called with (torch, rank, device)); the results go to
+    ``out_dir/rank<r>.json``. An exception fails the spawn."""
+    import datetime
+
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     os.environ["LOCAL_RANK"] = str(rank)
     import torch
@@ -3928,13 +3988,44 @@ def mesh_rank(rank: int, world: int, backend: str, out_dir: str) -> None:
     device = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method="file://" + os.path.abspath(
-        os.path.join(out_dir, "store")), world_size=world, rank=rank)
+        os.path.join(out_dir, "store")), world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=WORLD_DEADLINE_S))
     try:
-        out = mesh_checks(torch, rank, device)
+        out = globals()[checks](torch, rank, device)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+def spawn_world(world: int, backend: str, out_dir: str, checks: str, tag: str) -> list:
+    """``world`` ranks of ``world_rank`` running ``checks``, spawned under
+    ``out_dir`` (emptied first) and joined with a deadline of
+    ``WORLD_DEADLINE_S``: a rank still running then (a replay out of
+    lock-step waits forever on its peers' collectives) is killed with the
+    others, and the phase fails. Returns (the ranks' results in rank order,
+    the seconds the world took)."""
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(world_rank, args=(world, backend, out_dir, checks), nprocs=world, join=False)
+    end = time.monotonic() + WORLD_DEADLINE_S
+    while not ctx.join(timeout=5):  # raises when a rank failed, after stopping the others
+        if time.monotonic() > end:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in ctx.processes:
+                p.join(30)
+            fail(f"{tag} {world} ranks ({backend}, {checks}) did not finish within "
+                 f"{WORLD_DEADLINE_S} s: killed")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
 
 
 def mesh_checks(torch, rank: int, device):
@@ -4023,10 +4114,7 @@ def mesh_checks(torch, rank: int, device):
 
     # 4. transcribe_batch at tp=2, bf16 then kv_int8 + self_kv_int8
     sections["checks"] = time.perf_counter() - t0
-    kw = dict(batch_size=8, temperature=[0.0], **SMOKE_OPTIONS,
-              decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}",
-                                             sample_len=MESH_MAX_NEW))
-    streams = {f"s{j}": make_audio(j, sec) for j, sec in enumerate(MESH_LENGTHS)}
+    streams, kw = mesh_batch_inputs(tok)
     warm = {f"w{j}": make_audio(90 + j, 3) for j in range(8)}
     warm_kw = {**kw, "decode_options": DecodingOptions(suppress_tokens=f"-1,{tok.eot}",
                                                        sample_len=4)}
@@ -4077,35 +4165,256 @@ def mesh_checks(torch, rank: int, device):
                      graphs=len(engine.graphs.graphs), steps=counts.get("decode_steps", 0),
                      loop_s=get_stage_timings().get("decode_loop", {}).get("total_s", 0.0))
     sections["dp"] = time.perf_counter() - t1
+    del engine
+    torch.cuda.empty_cache()
+
+    # 6. over NCCL: the captured tp=2 loops against the uncaptured ones
+    if not tp.via_host:
+        t1 = time.perf_counter()
+        out["graphs"] = mesh_graph_cases(torch, model, tok, tp_mesh, MESH_GRAPH_CASES)
+        sections["graphs"] = time.perf_counter() - t1
     out["sections_s"] = sections
     return out
+
+
+def digest(tensors) -> str:
+    """sha1 of the tensors' bytes, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_case_kernels(levers: dict, beam: bool):
+    """(the cross, the self) decode kernels a step of a (q) graph case
+    launches once a layer under tensor parallelism (beam search keeps a
+    bf16 self cache)."""
+    cross = "xattn_decode_int8" if levers.get("kv_int8") else "xattn_decode"
+    self_int8 = levers.get("self_kv_int8") and not beam
+    return cross, "self_attn_decode_int8_scaled" if self_int8 else "self_attn_decode"
+
+
+def mesh_graph_cases(torch, model, tok, mesh, cases, offset: int = 0) -> dict:
+    """This rank's part of (q)'s captured tensor-parallel loops: each case of
+    ``cases`` (``MESH_GRAPH_CASES``' form) with a new ``DecodeEngine`` on
+    ``mesh``, on windows ``offset`` to ``offset + B`` of [q]'s 8 streams'
+    first windows and then seeded 30 s clips: ``decode_both_ways`` (greedy
+    and sampled, seed 7) or ``beam_both_ways`` (beam) capture the loop,
+    replay it and run it uncaptured, and fail unless the buffers are equal
+    bit for bit. Records by label: the steps, replays, ms/step both ways,
+    the peak memory over the three runs, the captures, the graph's record
+    of launches, the all-reduces issued while capturing (``parallel.mesh``'s
+    ``_all_reduce_``), the run's ``tp_eager_chunks``, the heads each
+    attention kernel ran at, and a digest of the captured run's buffers
+    (the tp ranks' must be equal)."""
+    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.parallel import mesh as mesh_module
+    from whisper_timestamped_tpu_torch.utils import get_counts, reset_stage_timings
+
+    device = model.device
+    n = offset + max(c[1] for c in cases)
+    clips = [make_audio(j, sec) for j, sec in enumerate(MESH_LENGTHS)]
+    clips += [make_audio(500 + j, 30) for j in range(n - len(clips))]
+    mels = torch.stack([log_mel_spectrogram(pad_or_trim(a), n_mels=model.dims.n_mels,
+                                            device=device)[:, :3000] for a in clips[offset:n]])
+    eot_off = f"-1,{tok.eot}"
+    reduce_, captured = mesh_module._all_reduce_, []
+
+    def counting(t, *a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            captured.append(t.numel() * t.element_size())
+        return reduce_(t, *a, **kw)
+
+    out = {}
+    mesh_module._all_reduce_ = counting
+    try:
+        for label, B, levers, temperature in cases:
+            engine = DecodeEngine(model, tok, mesh=mesh, **levers)
+            del captured[:]
+            seen: set = set()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_stage_timings()
+            tag = f"[q] {label}:"
+            with heads_seen(seen):
+                if temperature is None:
+                    opts = DecodingOptions(language="en", beam_size=5,
+                                           sample_len=MESH_GRAPH_MAX_NEW, suppress_tokens=eot_off)
+                    buf, plen, sot_from_end = engine.build_prompt([], opts)
+                    prompts = torch.as_tensor(buf, device=device)[None].expand(B, -1).contiguous()
+                    lens = torch.full((B,), plen, dtype=torch.int32, device=device)
+                    cap, eager = beam_both_ways(torch, engine, mels[:B], prompts, lens, opts,
+                                                sot_from_end, tag)
+                    res, steps, chunks, cap_ms = cap[:4]
+                    eager_ms = eager[3]
+                    eager_chunks = sum(c[5].get("tp_eager_chunks", 0) for c in (cap, eager))
+                    bufs = [res[name] for name in sorted(res)]
+                else:
+                    res, cap_ms, eager_ms = decode_both_ways(
+                        torch, engine, mels[:B], [], temperature, max_new=MESH_GRAPH_MAX_NEW,
+                        tag=tag, suppress_tokens=eot_off)
+                    steps, chunks = res["n_steps"], res["chunks"]
+                    eager_chunks = get_counts().get("tp_eager_chunks", 0)
+                    bufs = [res[name] for name in ("tokens", "n_sampled", "sum_logprobs",
+                                                   "token_logprobs", "ts_logprobs", "attn",
+                                                   "no_speech_prob")]
+            records = [record for _, record in engine.graphs.graphs.values()]
+            out[label] = dict(
+                B=B, steps=steps, chunks=chunks, cap_ms=cap_ms, eager_ms=eager_ms,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, tp=engine.tp,
+                captures=engine.graphs.captures, record=records[0] if len(records) == 1 else {},
+                collectives=len(captured), collective_bytes=sum(captured),
+                eager_chunks=eager_chunks, heads=sorted(seen), digest=digest(bufs))
+            del engine, res, bufs
+            torch.cuda.empty_cache()
+    finally:
+        mesh_module._all_reduce_ = reduce_
+    return out
+
+
+def mesh_batch_inputs(tok):
+    """(q)'s 8 streams and ``transcribe_batch``'s arguments for them."""
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+
+    kw = dict(batch_size=8, temperature=[0.0], **SMOKE_OPTIONS,
+              decode_options=DecodingOptions(suppress_tokens=f"-1,{tok.eot}",
+                                             sample_len=MESH_MAX_NEW))
+    return {f"s{j}": make_audio(j, sec) for j, sec in enumerate(MESH_LENGTHS)}, kw
+
+
+def mesh_one_rank_checks(torch, rank: int, device):
+    """(q) on one card: a world of one NCCL rank whose model carries a
+    ``TensorParallel`` of size 1, so that every step still issues its
+    all-reduces (each a copy on the device) and the loops capture them:
+    ``mesh_graph_cases`` at B=8."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch.ops import _build
+    from whisper_timestamped_tpu_torch.parallel.mesh import TensorParallel, get_mesh
+
+    _build.library()
+    model, tok = large_v3_model(torch, device)
+    mesh = get_mesh(dp=1, tp=1)
+    model.module.tensor_parallel = TensorParallel(mesh)
+    t0 = time.perf_counter()
+    graphs = mesh_graph_cases(torch, model, tok, mesh, [c for c in MESH_GRAPH_CASES if c[1] == 8])
+    return dict(backend=dist.get_backend(), device=str(device),
+                via_host=model.module.tensor_parallel.via_host, graphs=graphs,
+                sections_s={"graphs": time.perf_counter() - t0})
+
+
+def mesh_dp_tp_checks(torch, rank: int, device):
+    """(q) on four cards: dp=2 x tp=2. Each dp row's tp pair runs the
+    greedy bf16 case of ``mesh_graph_cases`` on windows of its own (row d
+    from window 8d), then ``transcribe_batch`` of (q)'s 8 streams over the
+    mesh (4 a dp row, captured loops)."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import transcribe_batch
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.ops import _build
+    from whisper_timestamped_tpu_torch.parallel.mesh import get_mesh, mesh_rank as coord
+    from whisper_timestamped_tpu_torch.utils import get_counts, reset_stage_timings
+
+    _build.library()
+    model, tok = large_v3_model(torch, device)
+    mesh = get_mesh(dp=2, tp=2)
+    d = coord(mesh, "dp")
+    t0 = time.perf_counter()
+    out = dict(backend=dist.get_backend(), device=str(device), dp_rank=d,
+               tp_rank=coord(mesh, "tp"),
+               graphs=mesh_graph_cases(torch, model, tok, mesh, MESH_GRAPH_CASES[:1], 8 * d))
+    sections = {"graphs": time.perf_counter() - t0}
+    streams, kw = mesh_batch_inputs(tok)
+    engine = DecodeEngine(model, tok, mesh=mesh)
+    transcribe_batch(model, streams, tok, engine=engine, **kw)  # the captures
+    reset_stage_timings()
+    t0 = time.perf_counter()
+    res = transcribe_batch(model, streams, tok, engine=engine, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(get_counts())
+    out["batch"] = dict(results=res, wall_s=wall, eager_chunks=counts.get("tp_eager_chunks", 0),
+                        graphs=len(engine.graphs.graphs), steps=counts.get("decode_steps", 0),
+                        loop_s=get_loop_s())
+    sections["batch"] = time.perf_counter() - t0
+    out["sections_s"] = sections
+    return out
+
+
+def check_graph_cases(ranks: list, groups, tp: int, what: str) -> None:
+    """(q)'s checks of ``mesh_graph_cases`` results: in each tp group of
+    ``groups`` (rank indices), every case's captured buffers equal on
+    every rank (each rank already held them to its uncaptured run), one
+    capture and no eager chunk, the chunk's graph holding 16 steps x 32
+    layers of launches of the case's cross and self kernel, every
+    attention kernel at ``n_text_head // tp`` heads, and the all-reduces
+    of a chunk captured: 16 steps of 3 a layer (4 with the int8 self
+    cache's MAX), plus the alignment rows' sum a step outside beam search,
+    plus the chunk's stop flag. Prints a line a case."""
+    from whisper_timestamped_tpu_torch.decoding import STOP_CHECK_STEPS as k
+
+    L, H = LARGE_V3["n_text_layer"], LARGE_V3["n_text_head"] // tp
+    for label, B, levers, temperature in MESH_GRAPH_CASES:
+        if label not in ranks[groups[0][0]]["graphs"]:
+            continue
+        beam = temperature is None
+        cross, self_ = mesh_case_kernels(levers, beam)
+        self_int8 = self_.endswith("scaled")
+        want = k * (L * (3 + self_int8) + (not beam)) + 1
+        for group in groups:
+            first = ranks[group[0]]["graphs"][label]
+            for r in group:
+                res = ranks[r]["graphs"][label]
+                if res["digest"] != first["digest"]:
+                    fail(f"[q] {what} {label}: ranks {group[0]} and {r} decoded other buffers")
+                if res["tp"] != tp or res["captures"] != 1 or res["eager_chunks"]:
+                    fail(f"[q] {what} {label}, rank {r}: tp {res['tp']}, {res['captures']} "
+                         f"captures, {res['eager_chunks']} eager chunks (expected {tp}, 1, 0)")
+                rec = res["record"]
+                if rec.get(cross) != k * L or rec.get(self_) != k * L:
+                    fail(f"[q] {what} {label}, rank {r}: the chunk's graph holds launches {rec}, "
+                         f"not {k * L} of {cross} and of {self_}")
+                if {h for _, h in res["heads"]} != {H}:
+                    fail(f"[q] {what} {label}, rank {r}: the kernels ran at heads "
+                         f"{res['heads']}, not {H}")
+                if res["collectives"] != want:
+                    fail(f"[q] {what} {label}, rank {r}: {res['collectives']} all-reduces "
+                         f"captured in the chunk, expected {want}")
+        res = ranks[groups[0][0]]["graphs"][label]
+        ms = [round(ranks[r]["graphs"][label]["cap_ms"], 2) for g in groups for r in g]
+        eager_ms = [round(ranks[r]["graphs"][label]["eager_ms"], 2) for g in groups for r in g]
+        print(f"[q] {what} {label}: captured {ms} ms/step vs uncaptured {eager_ms} (ranks in order; "
+              f"{eager_ms[0] / ms[0]:.1f}x) over {res['steps']} steps, {res['chunks']} replays; "
+              f"buffers equal bit for bit to each rank's uncaptured loop and across the tp ranks; "
+              f"1 capture, 0 eager chunks; a chunk's graph: {res['record'][cross]} {cross} + "
+              f"{res['record'][self_]} {self_} launches at {H} heads, {res['collectives']} "
+              f"all-reduces of {res['collective_bytes'] / 1e6:.2f} MB in all; "
+              f"peak {[round(ranks[r]['graphs'][label]['peak_gb'], 2) for g in groups for r in g]} "
+              f"GB a rank")
 
 
 def phase_mesh(torch, here: str) -> int:
     """(q): two ranks through ``parallel.mesh`` (see the module docstring);
     returns rank 0's launches of the scales-given int8 self instance in
     its tp=2 ``kv_int8`` + ``self_kv_int8`` batch."""
-    import torch.multiprocessing as mp
-
     n_cards = torch.cuda.device_count()
     backend = "nccl" if n_cards >= 2 else "gloo"
     why = ("one rank a card" if n_cards >= 2 else
            "one card: NCCL refuses two ranks on one device, gloo reduces through the host")
-    out_dir = os.path.join(here, MESH_DIR)
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    t0 = time.perf_counter()
-    mp.spawn(mesh_rank, args=(2, backend, out_dir), nprocs=2, join=True)
-    wall = time.perf_counter() - t0
-    ranks = []
-    for r in range(2):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
+    ranks, wall = spawn_world(2, backend, os.path.join(here, MESH_DIR), "mesh_checks", "[q]")
     r0 = ranks[0]
     print(f"[q] 2 ranks on {[r['device'] for r in ranks]}, backend {r0['backend']} ({why}); "
           f"{wall:.1f} s for the phase, the ranks' start and model builds included (rank 0's "
-          f"sections: { {k: round(v, 1) for k, v in r0['sections_s'].items()} } s); two ranks on "
-          f"one card share its SMs, so (q)'s times describe that layout only")
+          f"sections: { {k: round(v, 1) for k, v in r0['sections_s'].items()} } s)"
+          + ("" if n_cards >= 2 else "; two ranks on one card share its SMs, so (q)'s times "
+             "describe that layout only"))
     for r, res in enumerate(ranks):
         rels = (res["encode_norm_rel"], res["logits_rel"])
         if not all(x <= MESH_REL_LIMIT for x in rels):
@@ -4130,10 +4439,13 @@ def phase_mesh(torch, here: str) -> int:
             fail(f"[q] tp=2 {label}: the results lack streams or words")
         kernels = (("xattn_decode", "self_attn_decode") if label == "bf16" else
                    ("xattn_decode_int8", "self_attn_decode_int8_scaled"))
+        eager = r0["via_host"]  # gloo's loops run eagerly, NCCL's are captured
         for r, res in enumerate((a, b)):
             n = res["launches"]
-            if res["tp"] != 2 or res["eager_chunks"] == 0 or res["graphs"]:
-                fail(f"[q] rank {r} {label}: the tp=2 loop was captured or not run eagerly: {res}")
+            if res["tp"] != 2 or bool(res["eager_chunks"]) != eager or bool(res["graphs"]) == eager:
+                fail(f"[q] rank {r} {label}: the tp=2 loop over {r0['backend']} was "
+                     f"{'captured' if res['graphs'] else 'not captured'} with "
+                     f"{res['eager_chunks']} eager chunks")
             L = LARGE_V3["n_text_layer"]
             short = [k for k in kernels if n[k] < L * res["steps"]]
             if short or n["flash_attention"] < L * res["iterations"]:
@@ -4150,7 +4462,8 @@ def phase_mesh(torch, here: str) -> int:
               f", 8 streams ({sum(MESH_LENGTHS)} s of audio) at B=8: both ranks' results equal bit "
               f"for bit, {sum(words)} words; s/batch {[round(r['wall_s'], 2) for r in (a, b)]}, "
               f"ms/step {[round(x, 2) for x in ms_step]} over {a['steps']} steps, token loop "
-              f"uncaptured ({a['eager_chunks']} eager chunks, 0 graphs), peak memory "
+              + (f"uncaptured ({a['eager_chunks']} eager chunks, 0 graphs)" if eager else
+                 f"captured ({a['graphs']} graphs, 0 eager chunks)") + ", peak memory "
               f"{[round(r['peak_gb'], 2) for r in (a, b)]} GB; launches (rank 0) "
               f"{ {k: v for k, v in a['launches'].items() if v} }, every kernel at "
               f"{sorted({h for _, h in a['heads']})} heads")
@@ -4174,6 +4487,43 @@ def phase_mesh(torch, here: str) -> int:
           f"equal; loops captured ({a['graphs']} graphs a rank); s/batch "
           f"{[round(r['wall_s'], 2) for r in (a, b)]}, ms/step "
           f"{[round(1e3 * r['loop_s'] / max(r['steps'], 1), 2) for r in (a, b)]}")
+
+    # the captured tensor-parallel loops: over NCCL between the two ranks;
+    # on one card in a world of one NCCL rank
+    if backend == "nccl":
+        check_graph_cases(ranks, [(0, 1)], 2, "tp=2 (2 cards, NCCL)")
+    else:
+        one, wall = spawn_world(1, "nccl", os.path.join(here, MESH_DIR + "_one"),
+                                "mesh_one_rank_checks", "[q]")
+        if one[0]["via_host"]:
+            fail(f"[q] the one-rank {one[0]['backend']} group reduces through the host")
+        print(f"[q] a world of one NCCL rank on {one[0]['device']}, its model carrying a "
+              f"TensorParallel of size 1 (each all-reduce a copy on the device): {wall:.1f} s for "
+              f"the world, {one[0]['sections_s']['graphs']:.1f} s of it the cases")
+        check_graph_cases(one, [(0,)], 1, "one NCCL rank")
+    if n_cards >= 4:
+        four, wall = spawn_world(4, "nccl", os.path.join(here, MESH_DIR + "_dp_tp"),
+                                 "mesh_dp_tp_checks", "[q]")
+        if [(r["dp_rank"], r["tp_rank"]) for r in four] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+            fail(f"[q] dp=2 x tp=2: ranks at {[(r['dp_rank'], r['tp_rank']) for r in four]}")
+        print(f"[q] dp=2 x tp=2 on {[r['device'] for r in four]} (NCCL): {wall:.1f} s for the "
+              f"world (rank 0's sections: "
+              f"{ {k: round(v, 1) for k, v in four[0]['sections_s'].items()} } s)")
+        check_graph_cases(four, [(0, 1), (2, 3)], 2, "dp=2 x tp=2, each dp row's tp pair")
+        batches = [r["batch"] for r in four]
+        names = [f"s{j}" for j in range(len(MESH_LENGTHS))]
+        if any(b["results"] != batches[0]["results"] for b in batches) \
+                or list(batches[0]["results"]) != names:
+            fail("[q] dp=2 x tp=2: the ranks' merged dicts differ or are not in the streams' order")
+        for r, b in enumerate(batches):
+            if b["eager_chunks"] or not b["graphs"]:
+                fail(f"[q] dp=2 x tp=2 rank {r}: {b['eager_chunks']} eager chunks, "
+                     f"{b['graphs']} graphs")
+        words = [check_result(v) for v in batches[0]["results"].values()]
+        print(f"[q] dp=2 x tp=2 transcribe_batch, 4 streams a dp row at B=4: the 4 ranks' merged "
+              f"dicts equal, {sum(words)} words; captured ({batches[0]['graphs']} graphs a rank, 0 "
+              f"eager chunks); s/batch {[round(b['wall_s'], 2) for b in batches]}, ms/step "
+              f"{[round(1e3 * b['loop_s'] / max(b['steps'], 1), 2) for b in batches]}")
     return r0["int8"]["launches"]["self_attn_decode_int8_scaled"]
 
 
@@ -4248,27 +4598,6 @@ def phase_mesh_train_kernels(torch, K, device):
     del q, k, v, dout, out, lse, out_p, lse_p, grads, want, qh, kh, vh, o_lib, delta
     torch.cuda.empty_cache()
     return rec
-
-
-def mesh_train_rank(rank: int, world: int, backend: str, out_dir: str) -> None:
-    """One rank of (r): as ``mesh_rank``, with ``mesh_train_checks``."""
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    os.environ["LOCAL_RANK"] = str(rank)
-    import torch
-    import torch.distributed as dist
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", rank % torch.cuda.device_count())
-    torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method="file://" + os.path.abspath(
-        os.path.join(out_dir, "store")), world_size=world, rank=rank)
-    try:
-        out = mesh_train_checks(torch, rank, device)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
 
 
 @contextlib.contextmanager
@@ -4441,20 +4770,10 @@ def phase_mesh_train(torch, here: str):
     """(r): two ranks training through ``make_train_step(mesh=)`` (see the
     module docstring); returns rank 0's launches a step of the training
     kernels at tp=2."""
-    import torch.multiprocessing as mp
-
     n_cards = torch.cuda.device_count()
     backend = "nccl" if n_cards >= 2 else "gloo"
-    out_dir = os.path.join(here, MESH_TRAIN_DIR)
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    t0 = time.perf_counter()
-    mp.spawn(mesh_train_rank, args=(2, backend, out_dir), nprocs=2, join=True)
-    wall = time.perf_counter() - t0
-    ranks = []
-    for r in range(2):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
+    ranks, wall = spawn_world(2, backend, os.path.join(here, MESH_TRAIN_DIR), "mesh_train_checks",
+                              "[r]")
     r0, L, H = ranks[0], LARGE_V3["n_audio_layer"], LARGE_V3["n_audio_head"] // 2
     print(f"[r] 2 ranks on {[r['device'] for r in ranks]}, backend {r0['backend']}; {wall:.1f} s "
           f"for the phase (rank 0's sections: "
@@ -4551,6 +4870,11 @@ def main() -> int:
         phase_mesh_train_kernels(torch, K, device)
         phase_mesh_train(torch, here)
         print("[r] --train-only: stopping after (m) and (r)")
+        return 0
+    if "--mesh-only" in sys.argv[1:]:
+        phase_mesh_kernel(torch, K, device)
+        phase_mesh(torch, here)
+        print("[q] --mesh-only: stopping after (q)")
         return 0
     rec, bf16_ms = phase_kernels(torch, K, device)
     torch.cuda.empty_cache()

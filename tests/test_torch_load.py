@@ -77,3 +77,48 @@ def test_empty_directory_raises(tmp_path):
         load_model(str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError, match="No model weights found"):
         jax_load_model(str(tmp_path))
+
+
+def _assert_same_model(got, ref):
+    dims = WhisperDims(**ref.dims.__dict__)
+    assert got.dims == dims
+    assert got.alignment_heads == ref.alignment_heads
+    assert got.model_name == ref.model_name
+    want = params_from_jax_tree(jax.tree.map(np.asarray, ref.params), dims, device="cpu")
+    for part in ("encoder", "decoder"):
+        g, w = getattr(got.module, part), getattr(want, part)
+        assert list(g.keys()) == list(w.keys())
+        for k in g:
+            np.testing.assert_array_equal(g[k].numpy(), w[k].numpy(), err_msg=f"{part}.{k}")
+
+
+def test_positional_download_root_as_in_jax(tmp_path):
+    """The third positional argument is ``download_root`` in both packages:
+    an official name resolves against it."""
+    from model_utils import save_openai_pt
+
+    save_openai_pt(make_hf_model(seed=0), str(tmp_path / "tiny.pt"))
+    ref = jax_load_model("tiny", None, str(tmp_path))
+    got = load_model("tiny", "cpu", str(tmp_path))
+    _assert_same_model(got, ref)
+    assert got.module.encoder["conv1_w"].dtype == torch.float32
+    # the fourth is backend, the fifth dtype
+    half = load_model("tiny", "cpu", str(tmp_path), "torch", torch.bfloat16)
+    assert half.module.encoder["conv1_w"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("backend", ["torch", "openai-whisper", "transformers"])
+def test_backend_accepted(tmp_path, backend):
+    from whisper_timestamped_tpu_torch.models.load import BACKENDS
+
+    assert backend in BACKENDS
+    hf = make_hf_model(seed=0)
+    _save_sharded(hf, str(tmp_path), "safetensors")
+    _assert_same_model(load_model(str(tmp_path), device="cpu", backend=backend),
+                       jax_load_model(str(tmp_path)))
+
+
+@pytest.mark.parametrize("backend", ["jax", "tpu", "ctranslate2", ""])
+def test_unknown_backend_refused(tmp_path, backend):
+    with pytest.raises(ValueError, match="Unsupported backend"):
+        load_model(str(tmp_path), device="cpu", backend=backend)

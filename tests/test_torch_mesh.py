@@ -8,8 +8,11 @@ the virtual 8-device mesh of ``conftest.py``: the forward of
 dp=2 x tp=4 forwards (atol 2e-4, as ``test_parallel.py:60``), the greedy
 window of ``test_batch.py:84`` on ``DecodeEngine(mesh=)`` at tp=2 and 4
 (tokens equal, log-probs at 2e-4, attention at 2e-3), the ``kv_int8`` and
-``self_kv_int8`` engines and beam 5 at tp=2 (tokens equal to JAX's mesh
-engines), the quantizers' scales of the whole rows, and the refusals.
+``self_kv_int8`` engines and beam 5 at tp=2, ``self_kv_int8`` and beam 5 at
+tp=4 (tokens equal to JAX's mesh engines), a window sampled at T=0.7 at
+tp=2 with JAX's noise for the seed (as the greedy window), the collectives
+of a window (the chunks' stop flag a MAX over tp), gloo's eager chunks, the
+quantizers' scales of the whole rows, and the refusals.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ from whisper_timestamped_tpu.engine import DecodeEngine as JaxEngine  # noqa: E4
 from whisper_timestamped_tpu.models import whisper_jax as JW  # noqa: E402
 from whisper_timestamped_tpu.models.load import WhisperModel as JaxModel  # noqa: E402
 from whisper_timestamped_tpu.parallel import mesh as JM  # noqa: E402
+from whisper_timestamped_tpu_torch.decoding import STOP_CHECK_STEPS  # noqa: E402
 from whisper_timestamped_tpu_torch.models import WhisperDims, params_from_jax_tree  # noqa: E402
 from whisper_timestamped_tpu_torch.parallel import mesh as M  # noqa: E402
 
@@ -35,6 +39,9 @@ HEADS = [(0, 1), (1, 0), (1, 2)]
 # tokens a window: every step of a tp mesh holds collectives, whose latency
 # on a busy host is 0.3-4 ms each through gloo
 SAMPLE_LEN = 24
+# the sampled window's temperature and seed (JAX's engine draws its noise
+# from PRNGKey(seed), one split a step)
+SAMPLE_T, SAMPLE_SEED = 0.7, 3
 # test_parallel.py's geometry
 FWD_DIMS = dict(n_mels=80, n_audio_ctx=60, n_audio_state=64, n_audio_head=4, n_audio_layer=2,
                 n_vocab=1928, n_text_ctx=48, n_text_state=64, n_text_head=4, n_text_layer=2)
@@ -72,9 +79,26 @@ def _jax_side(fwd_params, params, dims, inp):
     for lever in ("kv_int8", "self_kv_int8"):
         out[lever] = JaxEngine(model, tok, mesh=JM.get_mesh(tp=2),
                                **{lever: True}).decode_window(inp["mel"], opts)[0]
+    beam_opts = JaxOptions(language="en", sample_len=SAMPLE_LEN, beam_size=5)
     out["beam"] = JaxEngine(model, tok, mesh=JM.get_mesh(tp=2)).decode_window_beam(
-        inp["mel"], JaxOptions(language="en", sample_len=SAMPLE_LEN, beam_size=5))
+        inp["mel"], beam_opts)
+    out["sampled"] = JaxEngine(model, tok, mesh=JM.get_mesh(tp=2)).decode_window(
+        inp["mel"], opts, temperature=SAMPLE_T, rng_seed=SAMPLE_SEED)[0]
+    out["self_kv_int8_tp4"] = JaxEngine(model, tok, mesh=JM.get_mesh(tp=4),
+                                        self_kv_int8=True).decode_window(inp["mel"], opts)[0]
+    out["beam_tp4"] = JaxEngine(model, tok, mesh=JM.get_mesh(tp=4)).decode_window_beam(
+        inp["mel"], beam_opts)
     return out
+
+
+def _jax_noise(seed: int, steps: int, V: int):
+    """The (1, V) Gumbel draws of JAX's sampled loop for ``PRNGKey(seed)``,
+    one split a step (``test_torch_sampling.jax_gumbel_source``)."""
+    key, draws = jax.random.PRNGKey(seed), []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        draws.append(np.array(jax.random.gumbel(sub, (1, V), jnp.float32)))
+    return draws
 
 
 @pytest.fixture(scope="module")
@@ -92,6 +116,10 @@ def world(tmp_path_factory):
                         axis=-1),
         xa=rng.standard_normal((2, 40, 64)).astype(np.float32),
         rows=rng.standard_normal((3, 5, 64)).astype(np.float32),
+        sample_t=SAMPLE_T, sample_seed=SAMPLE_SEED,
+        # a draw for every step the port's loop runs: whole chunks
+        sample_noise=_jax_noise(SAMPLE_SEED, -(-SAMPLE_LEN // STOP_CHECK_STEPS) * STOP_CHECK_STEPS,
+                                dims.n_vocab),
     )
     ranks, jax_out = run_world(4, "world_mesh", inp, str(tmp_path_factory.mktemp("mesh")),
                                overlap=lambda: _jax_side(fwd_params, params, dims, inp))
@@ -188,6 +216,70 @@ def test_tp_beam_matches_jax_mesh(world):
     for r in ranks:
         assert r["beam"]["tokens"] == list(jax_out["beam"].tokens)
         assert abs(r["beam"]["avg_logprob"] - jax_out["beam"].avg_logprob) < 1e-3
+
+
+def test_tp_sampled_window_matches_jax_mesh(world):
+    """A window sampled at T=0.7 at tp=2, with JAX's noise for the seed:
+    tokens equal to JAX's ``DecodeEngine(mesh=get_mesh(tp=2))`` decode of
+    the same seed, log-probs at 2e-4 and attention at 2e-3, as the greedy
+    window's."""
+    ranks, jax_out, _, _ = world
+    want = jax_out["sampled"]
+    for r in ranks:
+        got = r["sampled"]
+        assert got["tokens"] == list(want.tokens)
+        np.testing.assert_allclose(got["token_logprobs"], want.token_logprobs, atol=2e-4)
+        np.testing.assert_allclose(got["attn"], want.attn, atol=2e-3)
+    assert ranks[0]["sampled"]["tokens"] != jax_out["greedy_tp2"].tokens
+
+
+@pytest.mark.parametrize("case", ["self_kv_int8", "beam"])
+def test_tp4_matches_jax_mesh(world, case):
+    """The int8 self cache (tokens equal, log-probs at 2e-3, as at tp=2) and
+    beam 5 (tokens equal) at tp=4, against JAX's mesh engines at tp=4."""
+    ranks, jax_out, _, _ = world
+    want = jax_out[f"{case}_tp4"]
+    for r in ranks:
+        got = r[f"{case}_tp4"]
+        assert got["tokens"] == list(want.tokens)
+        if case == "beam":
+            assert abs(got["avg_logprob"] - want.avg_logprob) < 1e-3
+        else:
+            np.testing.assert_allclose(got["token_logprobs"], want.token_logprobs, atol=2e-3)
+
+
+def test_tp_window_collectives_and_stop_flag(world):
+    """A greedy window at tp=2 issues, on every rank alike, the encoder's two
+    sums a layer, the prefill's three a layer and its alignment rows' sum,
+    then a chunk at a time: three sums a layer and the rows' sum a step
+    for ``STOP_CHECK_STEPS`` steps, then the MAX over tp of the chunk's
+    (1,) int64 running flag, the chunk's last collective."""
+    ranks, _, _, dims = world
+    La, L, k = dims.n_audio_layer, dims.n_text_layer, STOP_CHECK_STEPS
+    chunk = k * (3 * L + 1) + 1
+    first = 2 * La + 3 * L + 1
+    for r in ranks:
+        s = r["stop"]
+        calls, chunks = [tuple(c) for c in s["calls"]], s["chunks"]
+        assert chunks == -(-s["steps"] // k) >= 1
+        assert len(calls) == first + chunks * chunk
+        maxes = [i for i, c in enumerate(calls) if c[0]]
+        assert maxes == [first + (j + 1) * chunk - 1 for j in range(chunks)]
+        assert all(calls[i][1:] == (1, "torch.int64") for i in maxes)
+        assert calls == [tuple(c) for c in ranks[0]["stop"]["calls"]]
+
+
+def test_gloo_tp_counts_eager_chunks(world):
+    """A gloo tp group's loops run eagerly (gloo reduces through the host,
+    which a CUDA graph cannot hold) and count every chunk in
+    ``tp_eager_chunks``: the greedy window's chunks, the beam window's
+    ``beam_chunks``."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        s = r["stop"]
+        assert s["via_host"]
+        assert s["greedy_eager"] == s["chunks"] >= 1
+        assert s["beam_eager"] == s["beam_chunks"] >= 1
 
 
 def test_shard_and_place_batch(world):

@@ -303,6 +303,58 @@ def test_unported_engine_levers_raise(models, lever, tmp_path):
         assert "blocks_w8" not in model.module.decoder
 
 
+def _finalize_inputs():
+    """A transcription of two windows (seeks 0 and 3000) and its words: an
+    overlap to repair, a trailing zero-duration word to prune."""
+    segments = [
+        dict(id=0, seek=0, start=0.0, end=2.0, text=" one two", tokens=[1, 2]),
+        dict(id=1, seek=0, start=2.0, end=4.5, text=" three four", tokens=[3, 4]),
+        dict(id=2, seek=3000, start=30.0, end=33.0, text=" five six", tokens=[5, 6]),
+    ]
+    words = [
+        dict(text="one", start=0.1, end=0.9, confidence=0.9, tokens=[" one"],
+             tokens_indices=[1], avg_logprob_reliable=-0.1, idx_segment=0),
+        dict(text="two", start=0.8, end=1.9, confidence=0.8, tokens=[" two"],
+             tokens_indices=[2], avg_logprob_reliable=-0.2, idx_segment=0),
+        dict(text="three", start=2.1, end=3.0, confidence=0.7, tokens=[" three"],
+             tokens_indices=[3], avg_logprob_reliable=-0.3, idx_segment=1),
+        dict(text="four", start=3.0, end=4.4, confidence=0.6, tokens=[" four"],
+             tokens_indices=[4], avg_logprob_reliable=-0.4, idx_segment=1),
+        dict(text="five", start=30.2, end=31.0, confidence=0.5, tokens=[" five"],
+             tokens_indices=[5], avg_logprob_reliable=-0.5, idx_segment=2),
+        dict(text="six", start=33.0, end=33.0, confidence=0.4, tokens=[" six"],
+             tokens_indices=[6], avg_logprob_reliable=-0.6, idx_segment=2),
+    ]
+    return dict(text="".join(s["text"] for s in segments), segments=segments,
+                language="en"), words
+
+
+@pytest.mark.parametrize("premerge", [False, True])
+@pytest.mark.parametrize("vad", [False, True])
+def test_finalize_transcription_takes_jax_keywords(premerge, vad, capsys):
+    """``finalize_transcription`` in the JAX package's form (the keyword
+    ``print_words_premerge``): the same transcription and the same printed
+    lines as JAX's on the same words."""
+    import copy
+
+    from whisper_timestamped_tpu.api import finalize_transcription as jax_finalize
+    from whisper_timestamped_tpu_torch.api import finalize_transcription
+
+    kw = dict(remove_empty_words=True, min_word_duration=0.02, trust_whisper_timestamps=True,
+              refine_whisper_precision=0.5, print_words_premerge=premerge,
+              print_words_postvad=vad,
+              vad_convert=(lambda s, e: (s + 1.0, e + 1.0)) if vad else None)
+    transcription, words = _finalize_inputs()
+    want = jax_finalize(copy.deepcopy(transcription), copy.deepcopy(words), **kw)
+    printed = capsys.readouterr().out
+    got = finalize_transcription(transcription, words, **kw)
+    assert got == want
+    assert capsys.readouterr().out == printed
+    assert bool(printed) == (premerge or vad)
+    assert [w["text"] for s in got["segments"] for w in s["words"]] == \
+        ["one", "two", "three", "four", "five"]
+
+
 def test_port_imports_without_jax():
     """A GPU host may have no JAX: the port must not import it, nor
     the JAX package (whose __init__ imports JAX), nor optax or orbax."""

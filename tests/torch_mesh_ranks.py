@@ -145,6 +145,34 @@ def world_mesh(rank: int, inp: dict) -> dict:
                                                           sample_len=inp["sample_len"]))
     out["beam"] = dict(tokens=list(beam.tokens), avg_logprob=beam.avg_logprob)
 
+    # (g) sampled at tp=2, with the noise JAX draws for the seed (the test's draws)
+    from whisper_timestamped_tpu_torch import decoding
+
+    def jax_draws(seed, device, generator=None):
+        steps = iter(inp["sample_noise"])
+        return lambda B, V: torch.from_numpy(next(steps)).to(device)
+
+    make_source, decoding.make_gumbel_source = decoding.make_gumbel_source, jax_draws
+    try:
+        engine = DecodeEngine(model, tok, mesh=meshes[2])
+        out["sampled"] = _window(engine.decode_window(
+            mel, opts, temperature=inp["sample_t"], rng_seed=inp["sample_seed"])[0])
+    finally:
+        decoding.make_gumbel_source = make_source
+
+    # (h) self_kv_int8 and beam 5 at tp=4
+    engine = DecodeEngine(model, tok, mesh=meshes[4], self_kv_int8=True)
+    out["self_kv_int8_tp4"] = _window(engine.decode_window(mel, opts)[0])
+    engine = DecodeEngine(model, tok, mesh=meshes[4])
+    beam = engine.decode_window_beam(mel, DecodingOptions(language="en", beam_size=5,
+                                                          sample_len=inp["sample_len"]))
+    out["beam_tp4"] = dict(tokens=list(beam.tokens), avg_logprob=beam.avg_logprob)
+
+    # (i) the collectives of a greedy window at tp=2, the stop flag's MAX among
+    # them, and gloo's eager chunks (greedy and beam)
+    out["stop"] = _stop_flag_and_eager_chunks(model, tok, mel, opts, meshes[2],
+                                              inp["sample_len"])
+
     # shard_batch / place_batch over dp=2 (the tp=2 mesh)
     from whisper_timestamped_tpu_torch.parallel.mesh import place_batch, shard_batch
 
@@ -165,6 +193,53 @@ def world_mesh(rank: int, inp: dict) -> dict:
     except ValueError as e:
         out["tp3"] = str(e)
     return out
+
+
+def _stop_flag_and_eager_chunks(model, tok, mel, opts, mesh, sample_len: int) -> dict:
+    """A greedy window and a beam-5 window on ``DecodeEngine(mesh=)``: every
+    all-reduce of the greedy one (a MAX or not, its elements and dtype),
+    its chunks, the ``tp_eager_chunks`` each window added and the beam
+    window's ``beam_chunks``."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import engine as engine_module
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.parallel import mesh as mesh_module
+    from whisper_timestamped_tpu_torch.utils import get_counts
+
+    calls, chunks = [], []
+    reduce_, window = mesh_module._all_reduce_, engine_module.decode_window
+
+    def spy_reduce(t, group, via_host, op=dist.ReduceOp.SUM):
+        calls.append((op == dist.ReduceOp.MAX, t.numel(), str(t.dtype)))
+        return reduce_(t, group, via_host, op)
+
+    def spy_window(*a, **kw):
+        res = window(*a, **kw)
+        chunks.append(res["chunks"])
+        return res
+
+    mesh_module._all_reduce_, engine_module.decode_window = spy_reduce, spy_window
+    try:
+        engine = DecodeEngine(model, tok, mesh=mesh)
+        tp = engine.model.module.tensor_parallel
+        counts = [dict(get_counts())]
+        engine.decode_window(mel, opts)
+        counts.append(dict(get_counts()))
+        greedy_calls = list(calls)
+        engine.decode_window_beam(mel, DecodingOptions(language="en", beam_size=5,
+                                                       sample_len=sample_len))
+        counts.append(dict(get_counts()))
+    finally:
+        mesh_module._all_reduce_, engine_module.decode_window = reduce_, window
+
+    def added(i, name):
+        return counts[i + 1].get(name, 0) - counts[i].get(name, 0)
+
+    return dict(calls=greedy_calls, chunks=chunks[0], steps=added(0, "decode_steps"),
+                greedy_eager=added(0, "tp_eager_chunks"), beam_eager=added(1, "tp_eager_chunks"),
+                beam_chunks=added(1, "beam_chunks"), via_host=tp.via_host)
 
 
 def world_batch(rank: int, inp: dict) -> dict:

@@ -263,7 +263,7 @@ def transcribe_timestamped(
         refine_whisper_precision=refine_whisper_precision,
         vad_convert=speech_convert,
         # the two-pass engine prints each word as it is aligned
-        print_words=bool(verbose and not naive_approach and vad is None),
+        print_words_premerge=bool(verbose and not naive_approach and vad is None),
         print_words_postvad=bool(verbose and vad is not None),
     )
     if vad_segments is not None:
@@ -280,15 +280,15 @@ def finalize_transcription(
     trust_whisper_timestamps: bool,
     refine_whisper_precision: float,
     vad_convert=None,
-    print_words: bool = False,
+    print_words_premerge: bool = False,
     print_words_postvad: bool = False,
 ) -> dict:
     """Hallucination pruning, monotonicity repair, the word->segment merge
     (reference ``transcribe.py:313-339``) and the VAD back-conversion of
     word and segment times (``vad_convert``, ``api.py:354-366``). Without
     trusted whisper timestamps the repair keeps no minimal word duration
-    (``api.py:331-333``). ``print_words`` prints each word before the
-    merge, ``print_words_postvad`` after its back-conversion."""
+    (``api.py:331-333``). ``print_words_premerge`` prints each word before
+    the merge, ``print_words_postvad`` after its back-conversion."""
     if remove_empty_words:
         transcription, words = remove_last_null_duration_words(
             transcription, words, recompute_text=True
@@ -299,7 +299,7 @@ def finalize_transcription(
 
     whisper_segments = transcription["segments"]
     for word in words:
-        if print_words:
+        if print_words_premerge:
             print_timestamped(word)
         word.pop("tokens", None)
         word.pop("tokens_indices", None)

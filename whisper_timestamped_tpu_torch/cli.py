@@ -7,7 +7,8 @@ formats with ``.words.*`` variants, filtered JSON on stdout, and the
 ``--batch_size`` route through ``transcribe_batch_stream``. It differs where
 the hardware does: ``--device`` is ``cuda`` (the default; no fallback to the
 CPU when there is no card) or ``cpu``, ``--dtype`` names a torch dtype,
-``--threads`` sets torch's CPU threads and ``--backend`` only logs.
+``--threads`` sets torch's CPU threads and ``--backend`` goes to
+``load_model``, which loads each format natively.
 Sampling (``--temperature`` above 0), ``--best_of``, a fallback step
 (``--temperature_increment_on_fallback``), the two-pass ``--naive``, beam
 search (``--beam_size``, ``--patience``, ``--length_penalty``) and the
@@ -33,7 +34,7 @@ import torch
 from . import __version__
 from .api import transcribe_timestamped
 from .languages import LANGUAGES, TO_LANGUAGE_CODE
-from .models.load import available_models, load_model
+from .models.load import BACKENDS, available_models, load_model
 from .writers import VALID_FORMATS, write_all_formats
 
 logger = logging.getLogger("whisper_timestamped_tpu_torch")
@@ -132,8 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(defaults to files found next to the model)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="device to run on; cuda raises when no card is visible")
-    parser.add_argument("--backend", default="torch",
-                        choices=["torch", "openai-whisper", "transformers"],
+    parser.add_argument("--backend", default="torch", choices=list(BACKENDS),
                         help="model backend (accepted for reference CLI "
                         "compatibility; openai-whisper and transformers "
                         "checkpoints are loaded natively into the PyTorch runtime)")
@@ -312,7 +312,8 @@ def main(argv=None):
     args["compute_word_confidence"] = args.pop("compute_confidence")
     args["trust_whisper_timestamps"] = not args.pop("recompute_all_timestamps")
 
-    model = load_model(model_name, device=device, dtype=DTYPES.get(dtype), download_root=model_dir)
+    model = load_model(model_name, device=device, download_root=model_dir, backend=backend,
+                       dtype=DTYPES.get(dtype))
 
     subtitle_options = {
         k: args.pop(k)

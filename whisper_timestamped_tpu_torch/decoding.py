@@ -17,7 +17,12 @@ steps. On the card, ``STOP_CHECK_STEPS`` steps are one captured CUDA graph
 (``DecodeGraphs``, owned by the engine), replayed until the stop: at most
 ceil(max_new / STOP_CHECK_STEPS) host syncs a window. On the CPU the same
 function runs eagerly, in the same chunks. The encoder and the prefill stay
-eager, once a window.
+eager, once a window. On a tensor-parallel module over NCCL the steps' sums
+over ``tp`` are captured inside the chunk's graph, and the chunk ends with
+a MAX over ``tp`` of its running flag, so that every rank of the group
+replays the same chunks and stops after the same one (a graph whose
+collectives one rank never joins would hang the others); over gloo, which
+reduces on the host, the loop runs eagerly.
 
 At temperature 0 the token is the argmax of the filtered logits. Above it
 the token is sampled as ``jax.random.categorical`` samples it, by the
@@ -487,11 +492,24 @@ def _loop_step(model: WhisperTorch, cache: KVCache, st: _LoopState, cfg: _LoopCo
 
 def _loop_chunk(model, cache, st: _LoopState, cfg: _LoopConfig, draw, n: int) -> None:
     """``n`` steps (at most ``cfg.steps``), then the status the host reads:
-    (running, steps run)."""
+    (running, steps run), the running flag the MAX over ``tp`` on a
+    tensor-parallel module."""
     for j in range(n):
         _loop_step(model, cache, st, cfg, draw, j)
     running = (st.i < cfg.max_new) & ~st.finished.all()
     st.status.copy_(torch.stack([running.long(), st.i]))
+    stop_together(model, st.status)
+
+
+def stop_together(model, status: torch.Tensor) -> None:
+    """The running flag ``status[0]`` as the MAX over the module's ``tp``
+    group (nothing without one): the ranks' flags agree already, being
+    computed from the same logits, and this makes the agreement structural,
+    so that no rank stops while another replays a chunk whose collectives
+    it waits on."""
+    tp = _tp(model)
+    if tp is not None:
+        tp.max_(status[:1])
 
 
 def _drain_rows(st: _LoopState, out: dict, first: int, last: int, max_new: int) -> None:
@@ -539,7 +557,13 @@ class DecodeGraphs:
     thread uploads and computes mel on its own stream meanwhile). The
     kernels' launches during the capture count into the graph's record,
     added to ``ops.kernels.LAUNCHES`` at each replay. A failed capture
-    raises: nothing falls back to the uncaptured loop."""
+    raises: nothing falls back to the uncaptured loop.
+
+    On a tensor-parallel module over NCCL the graph holds the steps'
+    collectives: the warm-up step issues every one of them first (the
+    communicator is made at its group's first collective, which a capture
+    cannot hold), and the keys hold the rank's module, whose buffers are
+    sized from the rank's heads."""
 
     def __init__(self):
         self.graphs: Dict[Any, Tuple[Any, dict]] = {}
@@ -601,6 +625,13 @@ class DecodeGraphs:
         return graph, record
 
 
+def tp_runs_eagerly(model) -> bool:
+    """A tensor-parallel module whose collectives a CUDA graph cannot hold
+    (gloo's, through the host): its token loops run eagerly."""
+    tp = _tp(model)
+    return tp is not None and tp.via_host
+
+
 def _cache_slots(model: WhisperTorch, P: int, max_new: int = MAX_NEW_TOKENS) -> int:
     """Self-cache slots of a window: the decode extent P + max_new,
     8-aligned, at most n_text_ctx (8-aligned) + 8."""
@@ -660,10 +691,10 @@ def decode_window(
     window's own buffers, which it returns. ``uncaptured=True`` runs the
     same step function eagerly on buffers of its own instead, the run a
     captured one is compared with; no path of the package passes it. On
-    the CPU the loop always runs eagerly, and so does a tensor-parallel
-    module's (its steps sum over ``tp``: a gloo collective cannot be
-    captured, and NCCL's capture is unverified), counted in
-    ``tp_eager_chunks``."""
+    the CPU the loop always runs eagerly. A tensor-parallel module's loop
+    is captured with its steps' collectives over NCCL; over gloo (sums
+    through the host, which a graph cannot hold) it runs eagerly, counted
+    in ``tp_eager_chunks``."""
     dims = model.dims
     dev = model.device
     B = mel.shape[0]
@@ -671,8 +702,8 @@ def decode_window(
     V = dims.n_vocab
     no_speech = no_timestamps - 1  # layout fact: <|nospeech|> precedes <|notimestamps|>
     mel, prompt, prompt_len = mel.to(dev), prompt.to(dev).long(), prompt_len.to(dev)
-    # a tensor-parallel module's steps hold collectives: its loop runs eagerly
-    captured = dev.type == "cuda" and not uncaptured and _tp(model) is None
+    eager_tp = tp_runs_eagerly(model)
+    captured = dev.type == "cuda" and not uncaptured and not eager_tp
     if captured and graphs is None:
         graphs = DecodeGraphs()
     quantize_cross = "int4" if kv_int4 else kv_int8
@@ -762,7 +793,7 @@ def decode_window(
             if not running:
                 break
     add_count("decode_steps", n_steps)
-    if _tp(model) is not None:
+    if eager_tp:
         add_count("tp_eager_chunks", chunks)
 
     tokens = out["tokens"]

@@ -53,12 +53,12 @@ import numpy as np
 import torch
 
 from . import decoding
-from .decoding import DecodeGraphs, _cache_slots, _prefill, apply_timestamp_rules
+from .decoding import (DecodeGraphs, _cache_slots, _prefill, apply_timestamp_rules,
+                       stop_together, tp_runs_eagerly)
 from .models.whisper_torch import (
     WhisperTorch,
     _ln,
     _logits,
-    _tp,
     alloc_cache,
     decode_step,
     encode,
@@ -282,11 +282,13 @@ def _beam_step(model: WhisperTorch, cache, st: _BeamLoopState, cfg: _BeamConfig)
 
 def _beam_chunk(model, cache, st: _BeamLoopState, cfg: _BeamConfig, n: int) -> None:
     """``n`` steps (at most ``cfg.steps``), then the status the host reads:
-    (running, steps run); running is JAX's ``cond``."""
+    (running, steps run); running is JAX's ``cond``, the MAX over ``tp`` on a
+    tensor-parallel module (``decoding.stop_together``)."""
     for _ in range(n):
         _beam_step(model, cache, st, cfg)
     running = (st.i < cfg.max_new) & (~_window_done(st, cfg)).any()
     st.status.copy_(torch.stack([running.long(), st.i]))
+    stop_together(model, st.status)
 
 
 @torch.no_grad()
@@ -355,9 +357,9 @@ def beam_core(
     self rows, and the loop state; the results are copied out of them.
     ``uncaptured=True`` runs the same step function eagerly on buffers of
     its own instead, the run a captured one is compared with; no path of
-    the package passes it. On the CPU the loop always runs eagerly, and so
-    does a tensor-parallel module's (``decoding.decode_window``), counted
-    in ``tp_eager_chunks``."""
+    the package passes it. On the CPU the loop always runs eagerly; a
+    tensor-parallel module's loop is captured over NCCL and runs eagerly
+    over gloo, counted in ``tp_eager_chunks`` (``decoding.decode_window``)."""
     dims = model.dims
     dev = xa.device
     B, T = xa.shape[:2]
@@ -368,8 +370,8 @@ def beam_core(
     no_speech = no_timestamps - 1
     prompts = prompts.to(dev).long()
     prompt_lens = prompt_lens.to(dev)
-    # a tensor-parallel module's steps hold collectives: its loop runs eagerly
-    captured = dev.type == "cuda" and not uncaptured and _tp(model) is None
+    eager_tp = tp_runs_eagerly(model)
+    captured = dev.type == "cuda" and not uncaptured and not eager_tp
     if captured and graphs is None:
         graphs = DecodeGraphs()
 
@@ -448,7 +450,7 @@ def beam_core(
                 break
     add_count("decode_steps", n_steps)
     add_count("beam_chunks", chunks)
-    if _tp(model) is not None:
+    if eager_tp:
         add_count("tp_eager_chunks", chunks)
     # copies: the state is the next window batch's
     return dict(

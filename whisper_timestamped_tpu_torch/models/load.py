@@ -444,14 +444,23 @@ def default_device(device=None) -> torch.device:
     return device
 
 
-def load_model(name_or_path: str, device=None, dtype=None,
-               download_root: Optional[str] = None) -> WhisperModel:
+# the checkpoint formats ``load_model``'s ``backend`` names (the CLI's
+# ``--backend``): every one is loaded natively into the PyTorch module
+BACKENDS = ("torch", "openai-whisper", "transformers")
+
+
+def load_model(name_or_path: str, device=None, download_root: Optional[str] = None,
+               backend: str = "torch", dtype=None) -> WhisperModel:
     """Load a local OpenAI ``.pt`` file, a local HF model directory or
     safetensors file, or an official model name found under
-    ``download_root`` / ``~/.cache/whisper``, onto ``device`` in ``dtype``.
+    ``download_root`` / ``~/.cache/whisper``, onto ``device`` in ``dtype``;
+    the parameters in the JAX package's order (``models/load.py:430``).
     ``device`` defaults to the CUDA card (see ``default_device``; without a
-    card it raises). ``dtype`` defaults to bfloat16 on CUDA, which the
-    kernels take, and float32 elsewhere. Nothing is downloaded."""
+    card it raises). ``backend`` is one of ``BACKENDS`` (another value
+    raises ``ValueError``). ``dtype`` defaults to bfloat16 on CUDA, which
+    the kernels take, and float32 elsewhere. Nothing is downloaded."""
+    if backend not in BACKENDS:
+        raise ValueError(f"Unsupported backend {backend!r}: expected one of {BACKENDS}")
     device = default_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -489,7 +498,7 @@ def load_model(name_or_path: str, device=None, dtype=None,
                 f"Checkpoint for {name_or_path!r} not found at {pt}. Weights are "
                 "never downloaded; place the official .pt there or pass a path."
             )
-        return load_model(pt, device=device, dtype=dtype)
+        return load_model(pt, device=device, backend=backend, dtype=dtype)
     else:
         raise FileNotFoundError(f"Cannot resolve model {name_or_path!r} (not a file, "
                                 f"directory, or official name {OFFICIAL_MODELS})")

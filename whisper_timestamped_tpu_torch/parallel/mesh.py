@@ -118,7 +118,9 @@ def _all_reduce_(t: torch.Tensor, group, via_host: bool, op=dist.ReduceOp.SUM) -
 class TensorParallel:
     """This rank's share of a tensor-parallel model: its place in the
     ``tp`` group and the collectives the sharded forward calls
-    (``models.whisper_torch``), through a host copy on gloo."""
+    (``models.whisper_torch``), through a host copy on gloo (``via_host``),
+    which a CUDA graph cannot hold: the token loops run eagerly there, and
+    capture NCCL's collectives with their steps (``decoding.DecodeGraphs``)."""
 
     def __init__(self, mesh):
         self.size = mesh_size(mesh, "tp")
