@@ -189,7 +189,31 @@ phases have run, so their lines are printed too):
       step at 10 heads and ``flash_attention`` never; ms/step and peak
       memory a rank; then dp=2 at full width and 8 + 8 layers, a row a
       rank, three steps whose losses (equal on both ranks) are the one-card
-      step's on both rows.
+      step's on both rows;
+  (s) tensor parallelism where tp does not divide the head counts: first
+      the four decode attentions of a tp step (``xattn_decode``,
+      ``self_attn_decode`` with its write, ``xattn_decode_int8``, the
+      scales-given ``self_attn_decode_int8``) at tiny's width, B=8, at 6
+      heads and at a tp=4 rank's 2 and 1, against their plain versions,
+      timed beside them (and SDPA for the bf16 ones) with their bounds;
+      then four ranks spawned as in (q) (NCCL with four cards or more,
+      else gloo on ``cuda:0``), each building tiny's geometry (6 heads, 4
+      + 4 layers, width 384, seeded bf16 weights) and sharding it at tp=4:
+      the heads dealt 2, 2, 1, 1 in contiguous runs, one ``encode`` and
+      one ``decode_step`` (logits and alignment rows) against the one-card
+      model (``MESH_REL_LIMIT``),
+      ``transcribe_batch`` of (q)'s 8 streams at B=8 greedy bf16, greedy
+      ``kv_int8`` + ``self_kv_int8`` and beam 5: every rank's results
+      equal, each decode kernel launched 4 times a step at the rank's
+      heads, the loops captured over NCCL (eager over gloo), against this
+      process's one-card run of the same model: the tokens up to the
+      first that differs and the words of the segments before it (the
+      same texts; their times printed beside a one-card control at B=4);
+      over NCCL also
+      ``UNEVEN_GRAPH_CASES`` captured against uncaptured, bit for bit on
+      each rank and across the ranks, ms/step a rank. With eight cards
+      also large-v3's geometry at tp=8 (3, 3, 3, 3, 2, 2, 2, 2); with
+      fewer a line says it did not run.
 
 Every decode path above ([d], [f], [g], [h], [k], [l], [n], [o]) runs its
 token loops through the engine's captured graphs; the launch counts add each
@@ -236,7 +260,10 @@ the training kernels from (m)'s timed steps (their records also carry
 (r)'s times at a rank's shape and rank 0's launches a tp=2 step), the
 scales-given int8 self instance from (q)'s rank 0 (its ``kv_int8`` +
 ``self_kv_int8`` batch at tp=2); ``median9`` and ``stacked_matmul``, which
-no path runs, from their checks in (c).
+no path runs, from their checks in (c). The four decode attentions' records
+also carry (s)'s times at tiny's width by head count (``tiny_b8_by_heads``)
+and each tp=4 rank's launches in (s)'s bf16 and int8 batches
+(``launches_tp4_uneven_ranks``).
 
 ``--profile`` adds a torch.profiler trace of one window decoded to 64 tokens,
 at B=1, at B=8 and at B=40 (bf16 and ``kv_int8``), and prints the device's
@@ -247,7 +274,7 @@ plain, kernel, kernel, plain.
 ``--turns`` runs (g)'s engines in turns (kv_int8, bf16, bf16, kv_int8);
 ``--kernels-only`` stops after (c) (a first check of changed kernels; it
 prints no result line); ``--train-only`` runs (m) and (r) alone after the
-build, ``--mesh-only`` (q) alone (no result line either).
+build, ``--mesh-only`` (q) and (s) alone (no result line either).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and makes any
@@ -1649,22 +1676,30 @@ def make_audio(seed: int, seconds: int, rate: int = 16000):
     return (tone + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
 
 
-def large_v3_model(torch, device):
-    """large-v3-geometry model (seeded random bf16 weights) and the
-    synthetic full-vocabulary tokenizer, built as bench.py builds them."""
+def seeded_model(torch, device, geometry: dict, num_languages: int, heads: str):
+    """A model of ``geometry`` (seeded random bf16 weights) with the
+    alignment heads ``ALIGNMENT_HEADS[heads]``, and the synthetic
+    full-vocabulary tokenizer of ``num_languages`` languages, built as
+    bench.py builds them."""
     from whisper_timestamped_tpu_torch.models import ALIGNMENT_HEADS, WhisperDims, WhisperModel, init_params
     from whisper_timestamped_tpu_torch.tokenizer import BytePairEncoder, Tokenizer, synthetic_ranks
 
-    dims = WhisperDims(**LARGE_V3)
+    dims = WhisperDims(**geometry)
     module = init_params(dims, seed=0, dtype=torch.bfloat16, device=device)
     ranks = synthetic_ranks()
-    pad_base = dims.n_vocab - 1509 - 100 - len(ranks)
+    pad_base = dims.n_vocab - 1509 - num_languages - len(ranks)
     for i in range(pad_base):
         ranks[b"\x00" + str(i).encode()] = len(ranks)
-    tok = Tokenizer(bpe=BytePairEncoder(ranks), multilingual=True, num_languages=100,
+    tok = Tokenizer(bpe=BytePairEncoder(ranks), multilingual=True, num_languages=num_languages,
                     language="en", task="transcribe")
     assert tok.n_vocab == dims.n_vocab, (tok.n_vocab, dims.n_vocab)
-    return WhisperModel(module=module, alignment_heads=ALIGNMENT_HEADS["large-v3"]), tok
+    return WhisperModel(module=module, alignment_heads=ALIGNMENT_HEADS[heads]), tok
+
+
+def large_v3_model(torch, device):
+    """large-v3-geometry model (seeded random bf16 weights) and the
+    synthetic full-vocabulary tokenizer, built as bench.py builds them."""
+    return seeded_model(torch, device, LARGE_V3, 100, "large-v3")
 
 
 def check_result(res: dict) -> int:
@@ -4348,20 +4383,25 @@ def mesh_dp_tp_checks(torch, rank: int, device):
     return out
 
 
-def check_graph_cases(ranks: list, groups, tp: int, what: str) -> None:
-    """(q)'s checks of ``mesh_graph_cases`` results: in each tp group of
-    ``groups`` (rank indices), every case's captured buffers equal on
-    every rank (each rank already held them to its uncaptured run), one
-    capture and no eager chunk, the chunk's graph holding 16 steps x 32
-    layers of launches of the case's cross and self kernel, every
-    attention kernel at ``n_text_head // tp`` heads, and the all-reduces
-    of a chunk captured: 16 steps of 3 a layer (4 with the int8 self
-    cache's MAX), plus the alignment rows' sum a step outside beam search,
-    plus the chunk's stop flag. Prints a line a case."""
+def check_graph_cases(ranks: list, groups, tp: int, what: str, cases=MESH_GRAPH_CASES,
+                      layers: int = LARGE_V3["n_text_layer"], deal=None,
+                      tag: str = "[q]") -> None:
+    """(q)'s and (s)'s checks of ``mesh_graph_cases`` results for ``cases``:
+    in each tp group of ``groups`` (rank indices), every case's captured
+    buffers equal on every rank (each rank already held them to its
+    uncaptured run), one capture and no eager chunk, the chunk's graph
+    holding 16 steps x ``layers`` layers of launches of the case's cross
+    and self kernel, every attention kernel at the heads of the rank's
+    place in its group in ``deal`` (default ``n_text_head // tp`` each),
+    and the all-reduces of a chunk captured: 16 steps of 3 a layer (4 with
+    the int8 self cache's MAX), plus the alignment rows' sum a step outside
+    beam search, plus the chunk's stop flag. Prints a line a case, headed by
+    ``tag``."""
     from whisper_timestamped_tpu_torch.decoding import STOP_CHECK_STEPS as k
 
-    L, H = LARGE_V3["n_text_layer"], LARGE_V3["n_text_head"] // tp
-    for label, B, levers, temperature in MESH_GRAPH_CASES:
+    L = layers
+    deal = deal or [LARGE_V3["n_text_head"] // tp] * tp
+    for label, B, levers, temperature in cases:
         if label not in ranks[groups[0][0]]["graphs"]:
             continue
         beam = temperature is None
@@ -4370,31 +4410,33 @@ def check_graph_cases(ranks: list, groups, tp: int, what: str) -> None:
         want = k * (L * (3 + self_int8) + (not beam)) + 1
         for group in groups:
             first = ranks[group[0]]["graphs"][label]
-            for r in group:
+            for place, r in enumerate(group):
+                H = deal[place]
                 res = ranks[r]["graphs"][label]
                 if res["digest"] != first["digest"]:
-                    fail(f"[q] {what} {label}: ranks {group[0]} and {r} decoded other buffers")
+                    fail(f"{tag} {what} {label}: ranks {group[0]} and {r} decoded other buffers")
                 if res["tp"] != tp or res["captures"] != 1 or res["eager_chunks"]:
-                    fail(f"[q] {what} {label}, rank {r}: tp {res['tp']}, {res['captures']} "
+                    fail(f"{tag} {what} {label}, rank {r}: tp {res['tp']}, {res['captures']} "
                          f"captures, {res['eager_chunks']} eager chunks (expected {tp}, 1, 0)")
                 rec = res["record"]
                 if rec.get(cross) != k * L or rec.get(self_) != k * L:
-                    fail(f"[q] {what} {label}, rank {r}: the chunk's graph holds launches {rec}, "
+                    fail(f"{tag} {what} {label}, rank {r}: the chunk's graph holds launches {rec}, "
                          f"not {k * L} of {cross} and of {self_}")
                 if {h for _, h in res["heads"]} != {H}:
-                    fail(f"[q] {what} {label}, rank {r}: the kernels ran at heads "
+                    fail(f"{tag} {what} {label}, rank {r}: the kernels ran at heads "
                          f"{res['heads']}, not {H}")
                 if res["collectives"] != want:
-                    fail(f"[q] {what} {label}, rank {r}: {res['collectives']} all-reduces "
+                    fail(f"{tag} {what} {label}, rank {r}: {res['collectives']} all-reduces "
                          f"captured in the chunk, expected {want}")
         res = ranks[groups[0][0]]["graphs"][label]
         ms = [round(ranks[r]["graphs"][label]["cap_ms"], 2) for g in groups for r in g]
         eager_ms = [round(ranks[r]["graphs"][label]["eager_ms"], 2) for g in groups for r in g]
-        print(f"[q] {what} {label}: captured {ms} ms/step vs uncaptured {eager_ms} (ranks in order; "
+        print(f"{tag} {what} {label}: captured {ms} ms/step vs uncaptured {eager_ms} (ranks in order; "
               f"{eager_ms[0] / ms[0]:.1f}x) over {res['steps']} steps, {res['chunks']} replays; "
               f"buffers equal bit for bit to each rank's uncaptured loop and across the tp ranks; "
               f"1 capture, 0 eager chunks; a chunk's graph: {res['record'][cross]} {cross} + "
-              f"{res['record'][self_]} {self_} launches at {H} heads, {res['collectives']} "
+              f"{res['record'][self_]} {self_} launches at {deal} heads (a rank of a group), "
+              f"{res['collectives']} "
               f"all-reduces of {res['collective_bytes'] / 1e6:.2f} MB in all; "
               f"peak {[round(ranks[r]['graphs'][label]['peak_gb'], 2) for g in groups for r in g]} "
               f"GB a rank")
@@ -4525,6 +4567,408 @@ def phase_mesh(torch, here: str) -> int:
               f"eager chunks); s/batch {[round(b['wall_s'], 2) for b in batches]}, ms/step "
               f"{[round(1e3 * b['loop_s'] / max(b['steps'], 1), 2) for b in batches]}")
     return r0["int8"]["launches"]["self_attn_decode_int8_scaled"]
+
+
+# ---------------------------------------------------------------------------
+# (s) tensor parallelism over an uneven deal of whole heads
+# ---------------------------------------------------------------------------
+
+# tiny's geometry (whisper's published ModelDimensions): 6 heads a stack,
+# which tp=4 deals 2, 2, 1, 1 (large-v3's 20 at tp=8: 3, 3, 3, 3, 2, 2, 2, 2)
+TINY = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=384, n_audio_head=6, n_audio_layer=4,
+            n_vocab=51865, n_text_ctx=448, n_text_state=384, n_text_head=6, n_text_layer=4)
+# (s)'s worlds: geometry -> (its dims, tp, the heads a rank must hold, in rank order)
+UNEVEN_WORLDS = {"tiny": (TINY, 4, [2, 2, 1, 1]),
+                 "large-v3": (LARGE_V3, 8, [3, 3, 3, 3, 2, 2, 2, 2])}
+# (s)'s transcribe_batch runs: (label, engine levers, DecodingOptions' beam_size)
+UNEVEN_BATCHES = (("greedy bf16", {}, None),
+                  ("greedy kv_int8 + self_kv_int8", dict(kv_int8=True, self_kv_int8=True), None),
+                  ("beam 5", {}, 5))
+# (s)'s captured loops, in MESH_GRAPH_CASES' form
+UNEVEN_GRAPH_CASES = MESH_GRAPH_CASES[:2] + MESH_GRAPH_CASES[3:4]
+UNEVEN_DIR = os.path.join("build", "mesh_uneven_smoke")
+
+
+def world_model(torch, device, geometry: str):
+    """(s)'s model of ``geometry`` ("tiny" or "large-v3") and its tokenizer."""
+    if geometry == "tiny":
+        return seeded_model(torch, device, TINY, 99, "tiny")
+    return large_v3_model(torch, device)
+
+
+def phase_uneven_kernels(torch, K, device):
+    """(s): the four decode attentions of a tp rank's step at tiny's width
+    (B=8, L=4, T=1500, ctx 456, pos 232) at 6 heads (one card), 2 and 1
+    (tp=4's ranks): each against its plain version at (c)'s limits, timed
+    beside the plain version and, for the bf16 ones, SDPA over the same
+    rows, with its bound. Returns kernel -> heads -> record."""
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows, row_scales
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=device).manual_seed(29)
+    L, B, T, ctx, pos = TINY["n_text_layer"], 8, TINY["n_audio_ctx"], 456, 232
+    slot = torch.full((), pos, dtype=torch.int32, device=device)
+    pads = torch.tensor([SELF_PADS[b % 4] for b in range(B)], dtype=torch.int32, device=device)
+    pad0 = torch.zeros((B,), dtype=torch.int32, device=device)
+    out = {n: {} for n in ("xattn_decode", "self_attn_decode", "xattn_decode_int8",
+                           "self_attn_decode_int8_scaled")}
+    for H in (TINY["n_text_head"], 2, 1):
+        D = 64 * H
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=device).bfloat16()
+
+        q, k_new, v_new = randn(B, 1, D), randn(B, 1, D), randn(B, 1, D)
+        xk, xv = randn(L, B, T, D), randn(L, B, T, D)
+        k_all, v_all = randn(L, B, ctx, D), randn(L, B, ctx, D)
+        xk8, xks = quantize_rows(xk)
+        xv8, xvs = quantize_rows(xv)
+        self8 = (*quantize_rows(k_all.float()), *quantize_rows(v_all.float()))
+        given = row_scales(torch.cat([k_new, v_new], dim=1).transpose(0, 1), 127.0).contiguous()
+        live = pos + 1
+        errs = {}
+        o_k, s_k = K.xattn_decode(q, xk, xv, 0, H, emit_scores=True)
+        o_p, s_p = K.xattn_decode_plain(q, xk, xv, 0, H, emit_scores=True)
+        errs["xattn_decode"] = ((o_k.float() - o_p.float()).abs().max().item(),
+                                (s_k - s_p).abs().max().item())
+        ok = errs["xattn_decode"][0] <= 2e-2 and errs["xattn_decode"][1] <= 1e-3
+        kc, vc = k_all.clone(), v_all.clone()
+        o_k = K.self_attn_decode(q, kc, vc, L - 1, slot, pads, H, k_new=k_new, v_new=v_new,
+                                 extent=ctx)
+        kp, vp = k_all.clone(), v_all.clone()
+        kp[L - 1, :, pos], vp[L - 1, :, pos] = k_new[:, 0], v_new[:, 0]
+        o_p = K.self_attn_decode_plain(q, kp, vp, L - 1, pos, pads, H)
+        errs["self_attn_decode"] = (o_k.float() - o_p.float()).abs().max().item()
+        ok &= errs["self_attn_decode"] <= 2e-2 and torch.equal(kc, kp) and torch.equal(vc, vp)
+        o_k, s_k = K.xattn_decode_int8(q, xk8, xks, xv8, xvs, L // 2, H, emit_scores=True)
+        o_p, s_p = K.xattn_decode_int8_plain(q, xk8, xks, xv8, xvs, L // 2, H, emit_scores=True)
+        errs["xattn_decode_int8"] = ((o_k.float() - o_p.float()).abs().max().item(),
+                                     (s_k - s_p).abs().max().item())
+        ok &= errs["xattn_decode_int8"][0] <= XATTN_Q_ATOL and errs["xattn_decode_int8"][1] <= 1e-3
+        ck = [t.clone() for t in self8]
+        o_k = K.self_attn_decode_int8(q, k_new, v_new, *ck, L - 1, slot, pads, H, extent=ctx,
+                                      row_scales=given)
+        cp = [t.clone() for t in self8]
+        K.write_quantized_row(k_new, v_new, *cp, L - 1, pos, given)
+        ref = K.self_attn_decode_int8_plain(q.float(), *cp, L - 1, pos, pads, H)
+        diff = (o_k.float() - ref).abs()
+        errs["self_attn_decode_int8_scaled"] = diff.max().item()
+        ok &= (all(torch.equal(a, b) for a, b in zip(ck, cp))
+               and bool((diff <= SELF_Q_ATOL + SELF_Q_RTOL * ref.abs()).all()))
+        torch.cuda.synchronize()
+        if not ok:
+            fail(f"[s] a decode attention at H={H} (D={D}) disagrees with its plain version: {errs} "
+                 f"(limits: out 2e-2, int8 {XATTN_Q_ATOL}, scores 1e-3, int8 self 2^-8 + "
+                 f"{SELF_Q_ATOL}, the written rows bit for bit)")
+        qh = heads_view(q, H)
+        runs = {
+            "xattn_decode": (
+                lambda it=0: K.xattn_decode(q, xk, xv, it % L, H),
+                lambda it=0: K.xattn_decode_plain(q, xk, xv, it % L, H),
+                lambda it=0: sdpa(qh, heads_view(xk[it % L], H), heads_view(xv[it % L], H)),
+                bound(2 * B * T * D * 2 + 2 * B * D * 2, 4 * B * T * D, F32_FLOPS)),
+            "self_attn_decode": (
+                lambda it=0: K.self_attn_decode(q, k_all, v_all, it % L, slot, pad0, H,
+                                                k_new=k_new, v_new=v_new, extent=ctx),
+                lambda it=0: K.self_attn_decode_plain(q, k_all, v_all, it % L, pos, pad0, H),
+                lambda it=0: sdpa(qh, heads_view(k_all[it % L, :, :live], H),
+                                  heads_view(v_all[it % L, :, :live], H)),
+                bound(B * (4 * D * 2 + 2 * live * D * 2), 4 * B * live * D, F32_FLOPS)),
+            "xattn_decode_int8": (
+                lambda it=0: K.xattn_decode_int8(q, xk8, xks, xv8, xvs, it % L, H),
+                lambda it=0: K.xattn_decode_int8_plain(q, xk8, xks, xv8, xvs, it % L, H),
+                None,
+                bound(2 * B * T * (D + 4) + 2 * B * D * 2, 4 * B * T * D, F32_FLOPS)),
+            "self_attn_decode_int8_scaled": (
+                lambda it=0: K.self_attn_decode_int8(q, k_new, v_new, *self8, it % L, slot, pad0,
+                                                     H, extent=ctx, row_scales=given),
+                lambda it=0: K.self_attn_decode_int8_plain(q, *self8, it % L, pos, pad0, H),
+                None,
+                bound(B * (4 * D * 2 + 2 * live * (D + 4) + 2 * (D + 4) + 2 * 4),
+                      4 * B * live * D, F32_FLOPS)),
+        }
+        for name, (kern, plain, lib, (b_ms, b_by)) in runs.items():
+            out[name][H] = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, iters=5),
+                                library_ms=None if lib is None else cuda_time_ms(lib),
+                                bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[name])
+        del q, k_new, v_new, xk, xv, k_all, v_all, xk8, xv8, self8
+        torch.cuda.empty_cache()
+    for name, by_heads in out.items():
+        print(f"[s] {name} at tiny's width, B=8 (a tp=4 rank's step at 2 and 1 heads, one card's "
+              f"at 6): " + "; ".join(
+                  f"H={H} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                  + (f"sdpa {r['library_ms']:.4f}, " if r["library_ms"] is not None else "")
+                  + f"bound {r['bound_ms']:.4f} {r['bound_by']}, err {r['max_abs_err']})"
+                  for H, r in by_heads.items()))
+    return out
+
+
+def uneven_checks(torch, rank: int, device, geometry: str):
+    """A rank's work in (s) for ``geometry``: the model sharded over every
+    rank of the world as tp (dp=1); one ``encode`` and one ``decode_step``
+    at B=8 against the one-card model; ``transcribe_batch`` of (q)'s 8
+    streams at B=8 for each run of ``UNEVEN_BATCHES`` (a warm-up first);
+    over NCCL, ``mesh_graph_cases`` of ``UNEVEN_GRAPH_CASES``. Returns what
+    the parent prints and compares."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import transcribe_batch
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.models import whisper_torch as wt
+    from whisper_timestamped_tpu_torch.ops import _build
+    from whisper_timestamped_tpu_torch.ops import kernels as K
+    from whisper_timestamped_tpu_torch.parallel.mesh import get_mesh, rank_heads, shard_params
+    from whisper_timestamped_tpu_torch.utils import get_counts, reset_stage_timings
+
+    t0 = time.perf_counter()
+    _build.library()
+    model, tok = world_model(torch, device, geometry)
+    n_tp = dist.get_world_size()
+    mesh = get_mesh(dp=1, tp=n_tp)
+    one, mine = model.module, shard_params(model, mesh).module
+    tp = mine.tensor_parallel
+    dims = one.dims
+    first, count = rank_heads(dims.n_text_head, tp.size, tp.rank)
+    sections = {"build": time.perf_counter() - t0}
+    out = dict(backend=dist.get_backend(), via_host=tp.via_host, device=str(device),
+               heads=[first, count], local_q_width=mine.decoder["attn_q_w"].shape[1],
+               weight_bytes=weight_bytes(mine))
+
+    # 1. one encode and one decode step at B=8 against the one-card model
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(7)
+    with torch.no_grad():
+        mel = torch.randn((8, dims.n_mels, 3000), generator=g, device=device)
+        xa1, xa2 = wt.encode(one, mel), wt.encode(mine, mel)
+        c1, c2 = wt.init_cache(one, xa1, ctx_len=240), wt.init_cache(mine, xa2, ctx_len=240)
+        dh = dims.n_text_state // dims.n_text_head
+        cols = slice(first * dh, (first + count) * dh)
+        for full, part in ((c1.k, c2.k), (c1.v, c2.v)):  # 16 slots written, as by a prefill
+            full[:, :, :16].copy_(torch.randn(full[:, :, :16].shape, generator=g, device=device))
+            part[:, :, :16].copy_(full[:, :, :16, cols])
+        tokens = torch.randint(0, 50000, (8, 1), generator=g, device=device)
+        pad = torch.full((8,), 3, dtype=torch.int32, device=device)
+        heads = [tuple(h) for h in model.alignment_heads]
+        l1, r1 = wt.decode_step(one, tokens, c1, 16, pos_offset=pad, kv_valid_from=pad,
+                                align_heads=heads)
+        l2, r2 = wt.decode_step(mine, tokens, c2, 16, pos_offset=pad, kv_valid_from=pad,
+                                align_heads=heads)
+        out.update(encode_norm_rel=rel_err(xa2, xa1, norm=True), encode_rel=rel_err(xa2, xa1),
+                   logits_rel=rel_err(l2, l1), rows_rel=rel_err(r2, r1))
+        del c1, c2, xa1, xa2, mel
+    torch.cuda.empty_cache()
+    sections["checks"] = time.perf_counter() - t0
+
+    # 2. transcribe_batch at tp, each run of UNEVEN_BATCHES
+    streams, kw = mesh_batch_inputs(tok)
+    warm = {f"w{j}": make_audio(90 + j, 3) for j in range(8)}
+    for label, levers, beam_size in UNEVEN_BATCHES:
+        t0 = time.perf_counter()
+        opts = DecodingOptions(suppress_tokens=f"-1,{tok.eot}", sample_len=MESH_MAX_NEW,
+                               beam_size=beam_size)
+        run_kw = {**kw, "decode_options": opts}
+        engine = DecodeEngine(model, tok, mesh=mesh, **levers)
+        transcribe_batch(model, warm, tok, engine=engine, **run_kw)  # the captures
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_stage_timings()
+        K.reset_launches()
+        counts0 = dict(get_counts())
+        seen: set = set()
+        ts = time.perf_counter()
+        with heads_seen(seen):
+            res = transcribe_batch(model, streams, tok, engine=engine, **run_kw)
+        torch.cuda.synchronize()
+        counts = {k: v - counts0.get(k, 0) for k, v in get_counts().items()}
+        out[label] = dict(
+            wall_s=time.perf_counter() - ts, results=res, launches=dict(K.LAUNCHES),
+            steps=counts.get("decode_steps", 0), iterations=counts.get("decode_dispatch", 0),
+            eager_chunks=counts.get("tp_eager_chunks", 0), graphs=len(engine.graphs.graphs),
+            loop_s=get_loop_s(), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            heads=sorted(seen), tp=engine.tp)
+        del engine
+        torch.cuda.empty_cache()
+        sections[label] = time.perf_counter() - t0
+
+    # 3. over NCCL: the captured loops against the uncaptured ones
+    if not tp.via_host:
+        t0 = time.perf_counter()
+        out["graphs"] = mesh_graph_cases(torch, model, tok, mesh, UNEVEN_GRAPH_CASES)
+        sections["graphs"] = time.perf_counter() - t0
+    out["sections_s"] = sections
+    return out
+
+
+def uneven_checks_tiny(torch, rank: int, device):
+    """(s)'s tiny world (``uneven_checks``)."""
+    return uneven_checks(torch, rank, device, "tiny")
+
+
+def uneven_checks_large_v3(torch, rank: int, device):
+    """(s)'s large-v3 world (``uneven_checks``)."""
+    return uneven_checks(torch, rank, device, "large-v3")
+
+
+def segment_agreement(got: dict, want: dict):
+    """One stream's results against another run's: (the tokens equal
+    before the first that differs, the tokens of each, the words of the
+    segments wholly before that token, how many of them moved by at most
+    0.02 s (a frame), the largest move of a start or end in s, where it
+    was). Fails if such a segment's words differ in text."""
+    tg = [t for s in got["segments"] for t in s["tokens"]]
+    tw = [t for s in want["segments"] for t in s["tokens"]]
+    same = next((i for i, (a, b) in enumerate(zip(tg, tw)) if a != b), min(len(tg), len(tw)))
+    n_words, frame, worst, where, seen = 0, 0, 0.0, None, 0
+    for i, (sg, sw) in enumerate(zip(got["segments"], want["segments"])):
+        seen += len(sw["tokens"])
+        if seen > same or sg["tokens"] != sw["tokens"]:
+            break
+        wg, ww = sg.get("words", []), sw.get("words", [])
+        if [w["text"] for w in wg] != [w["text"] for w in ww]:
+            fail(f"[s] a segment of the same tokens has other words in the two runs: "
+                 f"{[w['text'] for w in wg]} against {[w['text'] for w in ww]}")
+        for a, b in zip(wg, ww):
+            move = max(abs(a["start"] - b["start"]), abs(a["end"] - b["end"]))
+            frame += move <= 0.02 + 1e-6
+            if move > worst:
+                worst, where = move, (i, a["text"], a["start"], a["end"], b["start"], b["end"])
+        n_words += len(ww)
+    return same, len(tg), len(tw), n_words, frame, worst, where
+
+
+def phase_mesh_uneven(torch, here: str, device) -> dict:
+    """(s): tensor parallelism where tp does not divide the head counts.
+    Four ranks serve tiny's geometry at tp=4 (heads dealt 2, 2, 1, 1): over
+    NCCL with four cards or more (the loops captured; ``UNEVEN_GRAPH_CASES``
+    captured against uncaptured, bit for bit on each rank and across the
+    ranks), else over gloo on ``cuda:0`` (the loops eager). Each rank's
+    encode, decode step and alignment rows against the one-card model
+    (``MESH_REL_LIMIT``), its ``transcribe_batch`` runs (``UNEVEN_BATCHES``)
+    equal on every rank and compared with this process's one-card runs of
+    the same model at B=8: the tokens up to the first that differs, the
+    words of the segments before it (the same texts; the times printed,
+    each beside the control, one card at B=4 against B=8: random weights'
+    flat attention lets the DTW carry a bf16 difference in its input to
+    moves of seconds, on one card too, so the times are not held). With
+    eight cards also
+    large-v3's geometry at tp=8 (3, 3, 3, 3, 2, 2, 2, 2). Returns, by
+    kernel, the launches of tiny's bf16 and int8 runs on each rank."""
+    from whisper_timestamped_tpu_torch import transcribe_batch
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.utils import get_counts, reset_stage_timings
+
+    n_cards = torch.cuda.device_count()
+    launches = {}
+    for geometry, (dims, n_tp, deal) in UNEVEN_WORLDS.items():
+        if geometry != "tiny" and n_cards < n_tp:
+            print(f"[s] {geometry} at tp={n_tp} needs {n_tp} cards, this machine has {n_cards}: "
+                  f"not run")
+            continue
+        backend = "nccl" if n_cards >= n_tp else "gloo"
+        ranks, wall = spawn_world(n_tp, backend, os.path.join(here, UNEVEN_DIR + "_" + geometry),
+                                  "uneven_checks_" + geometry.replace("-", "_"), "[s]")
+        cards = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[:n_tp if backend == "nccl" else 1]
+        what = f"{geometry} tp={n_tp}"
+        got_deal = [r["heads"][1] for r in ranks]
+        runs = [sum(deal[:r]) for r in range(n_tp)]
+        if got_deal != deal or [r["heads"][0] for r in ranks] != runs:
+            fail(f"[s] {what}: the ranks hold heads {[r['heads'] for r in ranks]}, not the deal "
+                 f"{deal} in contiguous runs")
+        print(f"[s] {what}: {n_tp} ranks on {sorted({r['device'] for r in ranks})} ({cards}), "
+              f"backend {ranks[0]['backend']}"
+              + ("" if backend == "nccl" else " (one card: NCCL refuses two ranks on one device; "
+                 "the loops run eagerly, the captured ones need four cards)")
+              + f"; heads (first, count) a rank {[tuple(r['heads']) for r in ranks]}, q/k/v "
+              f"columns {[r['local_q_width'] for r in ranks]}, weight bytes "
+              f"{[round(r['weight_bytes'] / 1e6, 1) for r in ranks]} MB; {wall:.1f} s for the "
+              f"world (rank 0's sections: "
+              f"{ {k: round(v, 1) for k, v in ranks[0]['sections_s'].items()} } s)")
+        for r, res in enumerate(ranks):
+            rels = (res["encode_norm_rel"], res["logits_rel"], res["rows_rel"])
+            if not all(x <= MESH_REL_LIMIT for x in rels):
+                fail(f"[s] {what} rank {r}: disagrees with the one-card model: encoder norm-wise "
+                     f"{rels[0]:.3g}, logits {rels[1]:.3g}, alignment rows {rels[2]:.3g} (limit "
+                     f"{MESH_REL_LIMIT})")
+        print(f"[s] {what}, B=8, against the one-card model (limits {MESH_REL_LIMIT}): encoder "
+              f"norm-wise {[round(r['encode_norm_rel'], 5) for r in ranks]}, decode-step logits "
+              f"{[round(r['logits_rel'], 5) for r in ranks]}, alignment rows "
+              f"{[round(r['rows_rel'], 5) for r in ranks]}")
+
+        model, tok = world_model(torch, device, geometry)
+        streams, kw = mesh_batch_inputs(tok)
+        L = dims["n_text_layer"]
+        eager = backend == "gloo"
+        for label, levers, beam_size in UNEVEN_BATCHES:
+            results = [r[label]["results"] for r in ranks]
+            if any(x != results[0] for x in results):
+                fail(f"[s] {what} {label}: the ranks' results differ")
+            words = [check_result(v) for v in results[0].values()]
+            if list(results[0]) != list(streams) or not any(words):
+                fail(f"[s] {what} {label}: the results lack streams or words")
+            cross, self_ = mesh_case_kernels(levers, bool(beam_size))
+            for r, res in enumerate(ranks):
+                n, mine = res[label]["launches"], res[label]
+                if mine["tp"] != n_tp or bool(mine["eager_chunks"]) != eager \
+                        or bool(mine["graphs"]) == eager:
+                    fail(f"[s] {what} rank {r} {label}: {mine['graphs']} graphs, "
+                         f"{mine['eager_chunks']} eager chunks over {backend}")
+                if n[cross] < L * mine["steps"] or n[self_] < L * mine["steps"] \
+                        or n["flash_attention"] < L * mine["iterations"]:
+                    fail(f"[s] {what} rank {r} {label}: launches {n} for {mine['steps']} steps, "
+                         f"{mine['iterations']} window iterations")
+                if {h for _, h in mine["heads"]} != {deal[r]}:
+                    fail(f"[s] {what} rank {r} {label}: the kernels ran at heads "
+                         f"{mine['heads']}, not {deal[r]}")
+                if geometry == "tiny" and not beam_size:
+                    for name in (cross, self_):
+                        launches.setdefault(name, [0] * n_tp)[r] += n[name]
+            opts = DecodingOptions(suppress_tokens=f"-1,{tok.eot}", sample_len=MESH_MAX_NEW,
+                                   beam_size=beam_size)
+            reset_stage_timings()
+            steps0 = get_counts().get("decode_steps", 0)
+            alone = transcribe_batch(model, streams, tok, engine=DecodeEngine(model, tok, **levers),
+                                     **{**kw, "decode_options": opts})
+            torch.cuda.synchronize()
+            one_ms = 1e3 * get_loop_s() / max(get_counts().get("decode_steps", 0) - steps0, 1)
+            # the control: one card at batch_size 4 against one card at 8
+            control = transcribe_batch(model, streams, tok, engine=DecodeEngine(model, tok, **levers),
+                                       **{**kw, "decode_options": opts, "batch_size": 4})
+            lines = {}
+            for who, res in (("tp", results[0]), ("control", control)):
+                agree = {n: segment_agreement(res[n], alone[n]) for n in streams}
+                worst = max(agree.values(), key=lambda a: a[5])
+                lines[who] = (
+                    f"tokens equal in {sum(a[0] == a[1] == a[2] for a in agree.values())} of "
+                    f"{len(agree)} streams, the others up to token "
+                    f"{[(n, a[0], a[1], a[2]) for n, a in agree.items() if not a[0] == a[1] == a[2]]}"
+                    f" (stream, first differing, tokens in each); of the "
+                    f"{sum(a[3] for a in agree.values())} words of the segments before it "
+                    f"{sum(a[4] for a in agree.values())} within a frame (0.02 s), the largest "
+                    f"move {worst[5]:.3f} s (segment, word, start and end in each: {worst[6]})")
+            a0 = ranks[0][label]
+            print(f"[s] {what} transcribe_batch {label}, 8 streams at B=8: every rank's results "
+                  f"equal, {sum(words)} words; against one card at B=8 (the same model and "
+                  f"engine): {lines['tp']}; the control, one card at B=4 against B=8: "
+                  f"{lines['control']}; ms/step a rank "
+                  f"{[round(1e3 * r[label]['loop_s'] / max(r[label]['steps'], 1), 2) for r in ranks]}"
+                  f" over {a0['steps']} steps ({'eager' if eager else 'captured'}; one card "
+                  f"{one_ms:.2f}), s/batch "
+                  f"{[round(r[label]['wall_s'], 2) for r in ranks]}, peak "
+                  f"{[round(r[label]['peak_gb'], 2) for r in ranks]} GB; launches (rank 0) "
+                  f"{ {k: v for k, v in a0['launches'].items() if v} }")
+        if not eager:
+            print(f"[s] {what}: the captured loops below, each rank's ms a step in rank order, "
+                  f"the heads {deal}, on {cards}")
+            check_graph_cases(ranks, [tuple(range(n_tp))], n_tp, f"{what} (NCCL)",
+                              cases=UNEVEN_GRAPH_CASES, layers=L, deal=deal, tag="[s]")
+        del model
+        torch.cuda.empty_cache()
+    return launches
 
 
 # (r)'s limits, set before its first run: the tp=2 step against (m)'s
@@ -4874,7 +5318,9 @@ def main() -> int:
     if "--mesh-only" in sys.argv[1:]:
         phase_mesh_kernel(torch, K, device)
         phase_mesh(torch, here)
-        print("[q] --mesh-only: stopping after (q)")
+        phase_uneven_kernels(torch, K, device)
+        phase_mesh_uneven(torch, here, device)
+        print("[s] --mesh-only: stopping after (q) and (s)")
         return 0
     rec, bf16_ms = phase_kernels(torch, K, device)
     torch.cuda.empty_cache()
@@ -4941,6 +5387,11 @@ def main() -> int:
         rec[name].update(fields)
     for name, n in phase_mesh_train(torch, here).items():
         rec[name]["launches_tp2_rank_step"] = n
+    torch.cuda.empty_cache()
+    for name, by_heads in phase_uneven_kernels(torch, K, device).items():
+        rec[name]["tiny_b8_by_heads"] = by_heads
+    for name, per_rank in phase_mesh_uneven(torch, here, device).items():
+        rec[name]["launches_tp4_uneven_ranks"] = per_rank
     torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):

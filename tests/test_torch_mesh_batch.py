@@ -8,8 +8,9 @@ JAX side runs here on ``get_mesh(dp=2, tp=4)``) and
 ``transcribe_batch_stream`` against per-batch ``transcribe_batch``
 (``test_batch.py:463``); on a dp=2 x tp=1 mesh over ranks 0 and 1,
 ``BatchTranscriber(mesh=)`` with the device flow engaged
-(``test_batch.py:68``). Every rank must return the same dict, in the
-caller's order.
+(``test_batch.py:68``); on a tp=4 mesh, ``transcribe_batch`` of a 6-head
+model (tiny's head count, dealt 2, 2, 1, 1) against JAX's on its tp=4 mesh.
+Every rank must return the same dict, in the caller's order.
 """
 
 import logging
@@ -23,9 +24,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from model_utils import hf_model_to_jax, make_hf_model, make_tokenizer  # noqa: E402
-from torch_mesh_ranks import _tok, one_rank_mesh, run_world  # noqa: E402
+from test_golden import loose  # noqa: E402
+from torch_mesh_ranks import SIX_DIMS, SIX_HEADS, _tok, one_rank_mesh, run_world  # noqa: E402
 from whisper_timestamped_tpu.decoding import DecodingOptions as JaxOptions  # noqa: E402
 from whisper_timestamped_tpu.engine import DecodeEngine as JaxEngine  # noqa: E402
+from whisper_timestamped_tpu.models import whisper_jax as JW  # noqa: E402
 from whisper_timestamped_tpu.models.load import WhisperModel as JaxModel  # noqa: E402
 from whisper_timestamped_tpu.parallel import batch as JB  # noqa: E402
 from whisper_timestamped_tpu.parallel import mesh as JM  # noqa: E402
@@ -42,6 +45,7 @@ SAMPLE_LEN = 24
 KW = dict(language="en", temperature=[0.0], no_speech_threshold=None, logprob_threshold=None,
           decode_options=DecodingOptions(sample_len=SAMPLE_LEN))
 JAX_KW = {**KW, "decode_options": JaxOptions(sample_len=SAMPLE_LEN)}
+SIX_KW = dict(KW, batch_size=2, device_alignment=True)
 
 
 def _audio(seed, seconds):
@@ -67,20 +71,27 @@ def models():
 def world(models, tmp_path_factory):
     """(the ranks' results, the references computed meanwhile here)."""
     jax_model, model, params, dims = models
+    six_params = JW.init_params(JW.WhisperDims(**SIX_DIMS), jax.random.PRNGKey(2))
 
     def references():
-        jax_bt = JB.BatchTranscriber(
-            JaxEngine(jax_model, make_tokenizer(language="en", task="transcribe"),
-                      mesh=JM.get_mesh(dp=2, tp=4)), batch_size=2)
+        tok = make_tokenizer(language="en", task="transcribe")
+        jax_bt = JB.BatchTranscriber(JaxEngine(jax_model, tok, mesh=JM.get_mesh(dp=2, tp=4)),
+                                     batch_size=2)
         one = DecodeEngine(model, _tok())
+        six = JaxModel(params=six_params, dims=JW.WhisperDims(**SIX_DIMS),
+                       alignment_heads=SIX_HEADS)
         return dict(
             jax_streams=jax_bt.transcribe_streams(AUDIOS, **JAX_KW),
+            jax_six=JB.transcribe_batch(six, AUDIOS, tok, mesh=JM.get_mesh(dp=2, tp=4),
+                                        **{**SIX_KW, **JAX_KW}),
             one_batches=[B.transcribe_batch(model, b, _tok(), engine=one, batch_size=2, **KW)
                          for b in BATCHES],
             one_dp=B.BatchTranscriber(one, batch_size=4).transcribe_streams(DP_AUDIOS, **KW))
 
     inp = dict(tree=jax.tree.map(np.asarray, params), dims=dims.__dict__, heads=HEADS, kw=KW,
-               audios=AUDIOS, batches=BATCHES, dp_audios=DP_AUDIOS)
+               audios=AUDIOS, batches=BATCHES, dp_audios=DP_AUDIOS,
+               six_tree=jax.tree.map(np.asarray, six_params), six_dims=SIX_DIMS,
+               six_heads=SIX_HEADS, six_kw=SIX_KW)
     return run_world(4, "world_batch", inp, str(tmp_path_factory.mktemp("mesh_batch")),
                      overlap=references)
 
@@ -99,6 +110,25 @@ def test_tp_batched_pipeline_matches_jax_mesh(world):
             for (_, start, end, no_window), s in zip(r["streams"][name], want[name]):
                 assert start == s.start and end == s.end and no_window
         assert r["streams"] == ranks[0]["streams"]
+
+
+def test_tp4_uneven_transcribe_batch_matches_jax_mesh(world):
+    """The 6-head model at tp=4 (heads dealt 2, 2, 1, 1), ``transcribe_batch``
+    with the device aligner at batch_size 2: segment tokens equal to JAX's
+    ``transcribe_batch`` on its dp=2 x tp=4 mesh (which splits heads), the
+    results equal under ``loose`` (word times to 0.1 s), every rank's the
+    same."""
+    ranks, ref = world
+    want = ref["jax_six"]
+    for r in ranks:
+        got = r["six"]
+        assert list(got) == list(AUDIOS)
+        for name in AUDIOS:
+            assert [s["tokens"] for s in got[name]["segments"]] == [
+                s["tokens"] for s in want[name]["segments"]], name
+            assert loose(got[name]) == loose(want[name]), name
+        assert got == ranks[0]["six"]
+    assert sum(len(s.get("words", [])) for res in want.values() for s in res["segments"]) > 0
 
 
 def test_stream_on_mesh_matches_per_batch_calls(world):

@@ -19,6 +19,11 @@ import pickle
 import numpy as np
 
 WORLD_TIMEOUT_S = 240
+# tiny's 6 heads, at head width 16 (MLP 384): tp=4 deals them 2, 2, 1, 1;
+# the alignment heads lie on every rank
+SIX_DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=96, n_audio_head=6, n_audio_layer=2,
+                n_vocab=1928, n_text_ctx=448, n_text_state=96, n_text_head=6, n_text_layer=2)
+SIX_HEADS = [(0, 1), (1, 2), (1, 4), (1, 5)]
 
 
 def run_world(n: int, fn_name: str, inputs: dict, tmp_dir: str, overlap=None):
@@ -66,9 +71,14 @@ def _tok():
 
 
 def _model(tree, dims: dict, heads=None):
-    from whisper_timestamped_tpu_torch.models import WhisperDims, WhisperModel, params_from_jax_tree
+    """A CPU model of the JAX ``tree``'s weights; seeded random ones for None."""
+    from whisper_timestamped_tpu_torch.models import (WhisperDims, WhisperModel, init_params,
+                                                      params_from_jax_tree)
 
-    module = params_from_jax_tree(tree, WhisperDims(**dims), device="cpu")
+    if tree is None:
+        module = init_params(WhisperDims(**dims), seed=0, device="cpu")
+    else:
+        module = params_from_jax_tree(tree, WhisperDims(**dims), device="cpu")
     return WhisperModel(module=module, alignment_heads=heads)
 
 
@@ -185,13 +195,107 @@ def world_mesh(rank: int, inp: dict) -> dict:
     except ValueError as e:
         out["shard_odd"] = str(e)
 
-    # (f) tp=3 does not divide 4 heads
+    # (f) the refusals: tp=3 does not divide the MLP width 128; tp=4 exceeds 2 heads;
+    # training at tp=4 over 6 heads (an uneven deal)
     mesh3 = get_mesh(dp=1, tp=3, device_type="cpu")
+    out["tp3"] = _value_error(lambda: shard_params(model, mesh3))
+    two = dict(inp["six_dims"], n_audio_head=2, n_text_head=2)
+    out["tp4_two_heads"] = _value_error(
+        lambda: shard_params(_model(None, two), meshes[4]))
+    from whisper_timestamped_tpu_torch.models import WhisperDims
+    from whisper_timestamped_tpu_torch.training import make_train_step
+
+    out["train_uneven"] = _value_error(
+        lambda: make_train_step(WhisperDims(**inp["six_dims"]), mesh=meshes[4]))
+
+    # (j) 6 heads at tp=4: the deal 2, 2, 1, 1
+    out["six"] = _uneven_checks(inp, tok, mel, opts, meshes[4])
+    return out
+
+
+def _value_error(fn):
+    """The message of the ``ValueError`` ``fn()`` raises; None if it returns."""
     try:
-        shard_params(model, mesh3)
-        out["tp3"] = None
+        fn()
     except ValueError as e:
-        out["tp3"] = str(e)
+        return str(e)
+    return None
+
+
+def _uneven_checks(inp: dict, tok, mel, opts, mesh) -> dict:
+    """test_torch_mesh.py's checks of the 6-head model at tp=4: the rank's
+    q/k/v/o slices, the forward with the alignment rows and every head's
+    scores, the greedy, ``kv_int8``, ``self_kv_int8`` and beam-5 windows,
+    and the quantizers' whole-row scales (cross K/V, self cache, rows)."""
+    import torch
+
+    from whisper_timestamped_tpu_torch.decoding import DecodingOptions
+    from whisper_timestamped_tpu_torch.engine import DecodeEngine
+    from whisper_timestamped_tpu_torch.models import whisper_torch as wt
+    from whisper_timestamped_tpu_torch.ops.quant import quantize_rows
+    from whisper_timestamped_tpu_torch.parallel.mesh import rank_heads, shard_params
+
+    six = _model(inp["six_tree"], inp["six_dims"], inp["six_heads"])
+    sharded = shard_params(six, mesh).module
+    one, tp = six.module, sharded.tensor_parallel
+    H = inp["six_dims"]["n_text_head"]
+    first, count = rank_heads(H, tp.size, tp.rank)
+    out = dict(heads=(first, count), slices={
+        f"{part}.{name}": t.detach().numpy().copy()
+        for part in ("encoder", "decoder") for name, t in getattr(sharded, part).items()
+        if name.split("_", 1)[-1] in ("q_w", "q_b", "k_w", "v_w", "v_b", "o_w")})
+
+    fmel, tokens = torch.from_numpy(inp["fwd_mel"]), torch.from_numpy(inp["fwd_tokens"]).long()
+    heads = inp["six_heads"]
+    with torch.no_grad():
+        xa_one = wt.encode(one, fmel)
+        _, rows_one = wt.decode_full(one, tokens, xa_one, align_heads=heads)
+        _, scores_one = wt.decode_full(one, tokens, xa_one, return_cross_attn=True)
+        xa = wt.encode(sharded, fmel)
+        logits, rows = wt.decode_full(sharded, tokens, xa, align_heads=heads)
+        _, scores = wt.decode_full(sharded, tokens, xa, return_cross_attn=True)
+    out["fwd"] = dict(logits=logits.numpy(), rows=rows.numpy(), scores=scores.numpy(),
+                      heads_local=sharded.decoder["attn_q_w"].shape[1] // 16,
+                      rows_err=(rows - rows_one).abs().max().item(),
+                      scores_err=(scores - scores_one).abs().max().item())
+
+    for label, levers in (("greedy", {}), ("kv_int8", dict(kv_int8=True)),
+                          ("self_kv_int8", dict(self_kv_int8=True))):
+        engine = DecodeEngine(six, tok, mesh=mesh, **levers)
+        out[label] = _window(engine.decode_window(mel, opts)[0])
+    out["kv_int8_one"] = _window(DecodeEngine(six, tok, kv_int8=True).decode_window(mel, opts)[0])
+    beam = DecodeEngine(six, tok, mesh=mesh).decode_window_beam(
+        mel, DecodingOptions(language="en", beam_size=5, sample_len=inp["sample_len"]))
+    out["beam"] = dict(tokens=list(beam.tokens), avg_logprob=beam.avg_logprob)
+
+    # the whole rows' scales: the int8 cross K/V, the int8 self cache's step row
+    # (layer 0, where both models' rows are the same numbers), a rank's columns of x
+    dh = inp["six_dims"]["n_text_state"] // H
+    cols = slice(first * dh, (first + count) * dh)
+    xa = torch.from_numpy(inp["six_xa"])
+    with torch.no_grad():
+        mine = wt.init_cache(sharded, xa, ctx_len=16, quantize_cross=True, quantize_self=True)
+        full = wt.init_cache(one, xa, ctx_len=16, quantize_cross=True, quantize_self=True)
+        step = torch.from_numpy(inp["fwd_tokens"][:, :1]).long()
+        wt.decode_step(sharded, step, mine, 0)
+        wt.decode_step(one, step, full, 0)
+        x = torch.from_numpy(inp["six_rows"])
+        q_local, s_local = quantize_rows(x[..., cols], tp)
+        q_full, s_full = quantize_rows(x)
+        # the ranks' codes put back together (2, 2, 1, 1 heads: gather pads)
+        cross_codes = [tp.gather(t.float()) for t in (mine.xk, mine.xv)]
+        self_codes = [tp.gather(t[0, :, 0].float()) for t in (mine.k, mine.v)]
+    out["scales"] = dict(
+        cross_equal=torch.equal(mine.xk_scale, full.xk_scale)
+        and torch.equal(mine.xv_scale, full.xv_scale),
+        cross_codes_flips=sum(int((c != f.float()).sum())
+                              for c, f in zip(cross_codes, (full.xk, full.xv))),
+        self_equal=torch.equal(mine.k_scale[0, :, 0], full.k_scale[0, :, 0])
+        and torch.equal(mine.v_scale[0, :, 0], full.v_scale[0, :, 0]),
+        self_codes_equal=all(torch.equal(c, f[0, :, 0].float())
+                             for c, f in zip(self_codes, (full.k, full.v))),
+        rows_scales_equal=torch.equal(s_local, s_full),
+        rows_codes_equal=torch.equal(q_local, q_full[..., cols]))
     return out
 
 
@@ -243,8 +347,8 @@ def _stop_flag_and_eager_chunks(model, tok, mel, opts, mesh, sample_len: int) ->
 
 
 def world_batch(rank: int, inp: dict) -> dict:
-    """test_torch_mesh_batch.py's checks on a 4-rank world (dp=2 x tp=2, then
-    dp=2 x tp=1 on ranks 0 and 1)."""
+    """test_torch_mesh_batch.py's checks on a 4-rank world (dp=2 x tp=2, the
+    6-head model at tp=4, then dp=2 x tp=1 on ranks 0 and 1)."""
     from whisper_timestamped_tpu_torch.engine import DecodeEngine
     from whisper_timestamped_tpu_torch.parallel import batch as B
     from whisper_timestamped_tpu_torch.parallel.mesh import get_mesh
@@ -267,6 +371,12 @@ def world_batch(rank: int, inp: dict) -> dict:
                                                    engine=engine, **bkw))
     out["per_batch"] = [B.transcribe_batch(model, b, tok, engine=engine, **bkw)
                         for b in inp["batches"]]
+
+    # 6 heads at tp=4 (dealt 2, 2, 1, 1) through transcribe_batch
+    six = _model(inp["six_tree"], inp["six_dims"], inp["six_heads"])
+    out["six"] = B.transcribe_batch(six, inp["audios"], tok,
+                                    mesh=get_mesh(dp=1, tp=4, device_type="cpu"),
+                                    **inp["six_kw"])
 
     mesh_dp = get_mesh(dp=2, tp=1, device_type="cpu")  # ranks 0 and 1
     if rank < 2:

@@ -321,7 +321,7 @@ def _prefill(model: WhisperTorch, cache, prompt, pad_len, align_heads):
         x = x + _out_linear(a, dec["attn_o_w"][l], dec["attn_o_b"][l], tp)
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, dec["cross_q_w"][l], dec["cross_q_b"][l])
-        hits = _align_hits(model, align_heads, l, H)
+        hits = _align_hits(model, align_heads, l)
         w = None
         if use_flash:
             if cross_q:  # this layer dequantized to the model's type

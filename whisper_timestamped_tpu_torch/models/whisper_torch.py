@@ -19,8 +19,10 @@ self-attention cache as int8 (``init_cache``), each read by its own
 decode kernel; the quantizers are ``ops.quant``'s.
 
 Tensor parallelism (``parallel.mesh.shard_params``): a sharded module holds
-a rank's whole heads, ``n_head // tp`` of each stack, and its
-``tensor_parallel``; the forward functions run on the local heads, sum the
+a rank's whole heads, its contiguous run of each stack in
+``parallel.mesh.head_deal`` (``n_head // tp``, one more on the first
+``n_head % tp`` ranks), and its ``tensor_parallel``; the forward functions
+run on the local heads (``_rank_heads``), sum the
 o and fc2 products over ``tp`` and add their replicated biases after the
 sum (``_out_linear``). The alignment rows of a head are filled by the rank
 that holds it and summed over ``tp`` (the others hold zeros: exact in
@@ -62,6 +64,7 @@ from ..ops.kernels import (
     xattn_decode_int8,
 )
 from ..ops.quant import quantize_rows, quantize_rows_int4, row_scales
+from ..parallel.mesh import rank_heads
 
 ENCODER_FLASH_MIN_LEN = 128  # shorter encoder inputs keep the plain math (whisper_jax.py:261)
 
@@ -405,10 +408,15 @@ def _tp(model):
     return getattr(model, "tensor_parallel", None)
 
 
+def _rank_heads(model, n_head: int) -> Tuple[int, int]:
+    """(first head, heads) of a stack of ``n_head`` that this rank holds."""
+    tp = _tp(model)
+    return (0, n_head) if tp is None else rank_heads(n_head, tp.size, tp.rank)
+
+
 def _local_heads(model, n_head: int) -> int:
     """The heads of a stack of ``n_head`` that this rank holds."""
-    tp = _tp(model)
-    return n_head if tp is None else n_head // tp.size
+    return _rank_heads(model, n_head)[1]
 
 
 def _out_linear(x, w, b, tp):
@@ -427,11 +435,10 @@ def _copy_to(x, tp):
     return x if tp is None else tp.copy_to(x)
 
 
-def _align_hits(model, align_heads, layer: int, n_local: int):
+def _align_hits(model, align_heads, layer: int):
     """(k, local head) of the alignment heads (layer, h) of ``layer`` that
-    this rank holds among its ``n_local`` heads."""
-    tp = _tp(model)
-    first = 0 if tp is None else tp.rank * n_local
+    this rank holds among its decoder heads."""
+    first, n_local = _rank_heads(model, model.dims.n_text_head)
     return [(k, h - first) for k, (hl, h) in enumerate(align_heads or ())
             if hl == layer and first <= h < first + n_local]
 
@@ -540,7 +547,7 @@ def decode_full(
         )
         x = x + _out_linear(a, p["attn_o_w"], p["attn_o_b"], tp)
         xc = _copy_to(_ln(x, p["cross_ln_g"], p["cross_ln_b"]), tp)
-        hits = _align_hits(model, align_heads, l, H)
+        hits = _align_hits(model, align_heads, l)
         c, w = _attention(
             _linear(xc, p["cross_q_w"], p["cross_q_b"]),
             _linear(xa, p["cross_k_w"]),
@@ -560,8 +567,9 @@ def decode_full(
         return logits, None
     scores = torch.stack(ws)
     if tp is not None:  # every head's scores: each rank's heads, the others zero
-        full = scores.new_zeros((*scores.shape[:2], H * tp.size, *scores.shape[3:]))
-        full[:, :, tp.rank * H:(tp.rank + 1) * H] = scores
+        first = _rank_heads(model, dims.n_text_head)[0]
+        full = scores.new_zeros((*scores.shape[:2], dims.n_text_head, *scores.shape[3:]))
+        full[:, :, first:first + H] = scores
         scores = tp.sum_(full)
     return logits, scores
 
@@ -613,7 +621,7 @@ def alloc_cache(model: WhisperTorch, B: int, T: int, ctx_len: int, dtype, device
     when they are not B (beam search: B·K beam rows over B cross-KV rows)."""
     dims = model.dims
     L = dims.n_text_layer
-    D = dims.n_text_state // (1 if _tp(model) is None else _tp(model).size)
+    D = _local_heads(model, dims.n_text_head) * (dims.n_text_state // dims.n_text_head)
     scales = {}
     if quantize_cross:
         rows = T // 2 if quantize_cross == "int4" else T
@@ -775,7 +783,7 @@ def decode_step(
         x = x + _out_linear(a, w("attn_o_w", l), dec["attn_o_b"][l], tp)
         xc = _ln(x, dec["cross_ln_g"][l], dec["cross_ln_b"][l])
         qc = _linear(xc, w("cross_q_w", l), dec["cross_q_b"][l])
-        hits = _align_hits(model, align_heads, l, H)
+        hits = _align_hits(model, align_heads, l)
         c, scores = cross_attention_rows(qc, cache, l, H, bool(hits), beam_group)
         x = x + _out_linear(c, w("cross_o_w", l), dec["cross_o_b"][l], tp)
         x = _mlp(x, _mlp_params(dec, l, w8), tp)

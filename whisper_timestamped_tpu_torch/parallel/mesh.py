@@ -18,10 +18,16 @@ here, and its axis 1 is axis 2):
   * the o and fc2 biases, embeddings, layer norms and convolutions:
     replicated.
 
-A rank's model holds whole heads (``n_head // tp`` of them), so its
-attentions, and the decode kernels that run them, are complete locally; the
-forward sums the o and fc2 products over ``tp`` (``TensorParallel.sum_``)
-and adds the replicated bias once, after the sum. Data parallelism splits
+A rank's model holds whole heads, so its attentions, and the decode kernels
+that run them, are complete locally. ``head_deal`` deals a stack's ``H``
+heads over ``tp`` ranks in contiguous runs, ``H // tp`` a rank and one more
+to each of the first ``H % tp`` (tiny's 6 heads at tp=4: 2, 2, 1, 1;
+large-v3's 20 at tp=8: 3, 3, 3, 3, 2, 2, 2, 2): the q/k/v columns and the o
+rows of a rank are its heads' (``shard_slice``), where JAX's GSPMD cuts the
+same axes evenly and may split a head; both compute the same sum over heads
+in the o product, in another order. The MLP keeps the even cut. The forward
+sums the o and fc2 products over ``tp`` (``TensorParallel.sum_``) and adds
+the replicated bias once, after the sum. Data parallelism splits
 the streams of a batch over ``dp`` (``parallel.batch``); each dp rank runs
 the one-card pipeline on its own streams and the results are gathered
 (``gather_streams``).
@@ -38,7 +44,7 @@ over ``dp``.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,6 +56,20 @@ AXES = ("dp", "tp")
 # "cross_" prefix, and the axis: 1 the output axis, 2 the input axis
 _SHARD_DIM = {"q_w": 1, "q_b": 1, "k_w": 1, "v_w": 1, "v_b": 1, "fc1_w": 1, "fc1_b": 1,
               "o_w": 2, "fc2_w": 2}
+_MLP = ("fc1_w", "fc1_b", "fc2_w")  # cut evenly; the attention's by the head deal
+
+
+def rank_heads(n_head: int, tp: int, rank: int) -> Tuple[int, int]:
+    """(first head, heads) of ``rank``'s contiguous run of a stack of
+    ``n_head`` heads dealt over ``tp`` ranks: ``n_head // tp`` heads, one
+    more on each of the first ``n_head % tp`` ranks."""
+    base, extra = divmod(n_head, tp)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+def head_deal(n_head: int, tp: int) -> List[int]:
+    """The heads each of ``tp`` ranks holds, in rank order (``rank_heads``)."""
+    return [rank_heads(n_head, tp, r)[1] for r in range(tp)]
 
 
 def get_mesh(dp: Optional[int] = None, tp: int = 1, device_type: str = "cuda",
@@ -157,11 +177,22 @@ class TensorParallel:
         return self.sum_(x)
 
     def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The tp ranks' ``t`` concatenated along ``dim`` in rank order."""
+        """The tp ranks' ``t`` concatenated along ``dim`` in rank order. The
+        ranks' extents along ``dim`` may differ (an uneven head deal): each
+        part is padded to the largest for ``all_gather``, which takes equal
+        sizes, and the padding dropped."""
         src = t.cpu() if self.via_host and t.is_cuda else t.contiguous()
+        dim = dim % src.dim()
+        sizes = [torch.zeros((1,), dtype=torch.int64, device=src.device) for _ in range(self.size)]
+        dist.all_gather(sizes, torch.tensor([src.shape[dim]], device=src.device), group=self.group)
+        sizes = [int(n) for n in sizes]
+        pad = max(sizes) - src.shape[dim]
+        if pad:
+            src = torch.cat([src, src.new_zeros((*src.shape[:dim], pad, *src.shape[dim + 1:]))],
+                            dim=dim)
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, dim=dim).to(t.device)
+        return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)], dim=dim).to(t.device)
 
 
 class _CopyToTensorParallel(torch.autograd.Function):
@@ -230,6 +261,36 @@ def _shard_dim(name: str) -> Optional[int]:
     return _SHARD_DIM.get(base)
 
 
+def check_tp(dims, n_mlp: Tuple[int, int], tp: int) -> None:
+    """Raise ``ValueError`` unless ``tp`` ranks can each hold whole heads of
+    both stacks (tp at most either head count) and an even cut of both MLP
+    widths ``n_mlp`` (encoder, decoder)."""
+    if tp > min(dims.n_audio_head, dims.n_text_head):
+        raise ValueError(f"tp={tp} exceeds a head count (n_audio_head={dims.n_audio_head}, "
+                         f"n_text_head={dims.n_text_head}): a rank would hold no head")
+    if any(n % tp for n in n_mlp):
+        raise ValueError(f"tp={tp} must divide the MLP widths {n_mlp} (encoder, decoder): "
+                         f"fc1 and fc2 are cut evenly")
+
+
+def shard_slice(part: str, name: str, t: torch.Tensor, dims, tp: int, rank: int) -> torch.Tensor:
+    """``rank``'s slice (a view) of the parameter ``part``.``name`` ("encoder"
+    or "decoder"; a layer-stacked tensor or any tensor of its shape, such
+    as an optimizer moment) among ``tp`` ranks: the columns of the rank's
+    heads (``rank_heads``) for q/k/v and the o rows, an even cut of fc1 /
+    fc2, the whole tensor for a replicated one."""
+    d = _shard_dim(name)
+    if d is None or tp == 1:
+        return t
+    if name in _MLP:
+        m = t.shape[d] // tp
+        return t.narrow(d, rank * m, m)
+    n_head = dims.n_audio_head if part == "encoder" else dims.n_text_head
+    dh = t.shape[d] // n_head
+    first, count = rank_heads(n_head, tp, rank)
+    return t.narrow(d, first * dh, count * dh)
+
+
 def param_shard_dims(model) -> Dict[str, Optional[int]]:
     """``param_pspec_tree``'s counterpart: "encoder.<name>" / "decoder.<name>"
     -> the axis sharded over ``tp``, or None for a replicated parameter."""
@@ -245,9 +306,11 @@ def shard_params(model, mesh):
     full tensors are not kept alive by it, and training the shard never
     writes into ``model``), with its ``TensorParallel`` (None at tp=1,
     where nothing is cut). ``model`` is a ``WhisperModel`` or a
-    ``WhisperTorch``. Raises ``ValueError`` when tp does not divide both
-    head counts: a rank holds whole heads (the JAX package's GSPMD would
-    split one)."""
+    ``WhisperTorch``. A rank holds whole heads, dealt by ``head_deal``
+    (unevenly where tp does not divide a head count; the JAX package's
+    GSPMD splits a head there), and its slices are ``shard_slice``'s.
+    Raises ``ValueError`` (``check_tp``) when tp exceeds a head count or
+    does not divide an MLP width."""
     from ..models.load import WhisperModel
     from ..models.whisper_torch import WhisperTorch
 
@@ -255,21 +318,15 @@ def shard_params(model, mesh):
     module = getattr(model, "module", model)
     dims = module.dims
     tp = mesh_size(mesh, "tp")
-    if dims.n_audio_head % tp or dims.n_text_head % tp:
-        raise ValueError(f"tp={tp} must divide n_audio_head={dims.n_audio_head} and "
-                         f"n_text_head={dims.n_text_head}: a rank holds whole heads")
-    rank = mesh_rank(mesh, "tp")
     dec = module.decoder
-    new = WhisperTorch(dims, device="meta", untied_proj="proj_w" in dec,
-                       n_mlp=(module.encoder["fc1_b"].shape[-1], dec["fc1_b"].shape[-1]))
+    n_mlp = (module.encoder["fc1_b"].shape[-1], dec["fc1_b"].shape[-1])
+    check_tp(dims, n_mlp, tp)
+    rank = mesh_rank(mesh, "tp")
+    new = WhisperTorch(dims, device="meta", untied_proj="proj_w" in dec, n_mlp=n_mlp)
     for part in ("encoder", "decoder"):
         target = getattr(new, part)
         for name, t in getattr(module, part).items():
-            d = _shard_dim(name)
-            t = t.detach()
-            if d is not None and tp > 1:
-                m = t.shape[d] // tp
-                t = t.narrow(d, rank * m, m)
+            t = shard_slice(part, name, t.detach(), dims, tp, rank)
             target[name] = nn.Parameter(t.clone(), requires_grad=False)
     new.fixed_pos_emb = module.fixed_pos_emb
     new.tensor_parallel = TensorParallel(mesh) if tp > 1 else None

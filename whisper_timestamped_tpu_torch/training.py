@@ -137,9 +137,17 @@ def make_train_step(
     (``parallel.shard_params(model, mesh)``; a model sharded for another tp
     raises ``ValueError``, it is not re-sharded) and ``train_step`` the
     rank's block of the batch (``parallel.shard_batch``); see the module
-    docstring. The returned loss is the whole batch's on every rank."""
+    docstring. The returned loss is the whole batch's on every rank.
+    Training takes only an even head deal: ``ValueError`` when tp does not
+    divide both head counts (serving deals them unevenly,
+    ``parallel.mesh.head_deal``)."""
     if mesh is not None:
         check_mesh(mesh)
+        tp = mesh_size(mesh, "tp")
+        if dims.n_audio_head % tp or dims.n_text_head % tp:
+            raise ValueError(f"make_train_step: tp={tp} does not divide n_audio_head="
+                             f"{dims.n_audio_head} and n_text_head={dims.n_text_head}; training "
+                             f"on an uneven head deal is not supported")
     make_optimizer = optimizer or adamw
 
     def init_state(model) -> TrainState:
