@@ -213,7 +213,28 @@ phases have run, so their lines are printed too):
       ``UNEVEN_GRAPH_CASES`` captured against uncaptured, bit for bit on
       each rank and across the ranks, ms/step a rank. With eight cards
       also large-v3's geometry at tp=8 (3, 3, 3, 3, 2, 2, 2, 2); with
-      fewer a line says it did not run.
+      fewer a line says it did not run;
+  (t) training where tp does not divide the head counts: first the three
+      training flash kernels (the forward with lse, run twice for equal
+      bits, dQ and dK/dV) at B=2, T=1500 and a rank's 1, 2 and 3 heads
+      (tiny's tp=4 ranks, large-v3's tp=8 ranks), f32 and bf16, against
+      their plain versions at (c)'s training gates, timed beside them and
+      SDPA's forward and backward, with their bounds; then four ranks
+      spawned as in (s), each building tiny's geometry in f32 (seeded
+      weights, full width and depth), keeping its tp=4 shard (heads 2, 2,
+      1, 1) and taking three AdamW steps through
+      ``training.make_train_step(mesh=)`` on (m)'s kind of batch (B=2, 224
+      tokens): the first loss and every gradient gathered over tp against
+      rank 0's one-card step of the same weights (``MESH_TRAIN_LOSS_RTOL``,
+      ``MESH_TRAIN_GRAD_LIMIT``), the losses bit-equal on every rank,
+      finite and falling, the replicated parameters bit-equal on every
+      rank, each training kernel launched 4 times a step at the rank's own
+      heads and ``flash_attention`` never, ms/step a rank; a checkpoint
+      written at tp=4 loaded on one card (each rank's ``shard_slice`` of it
+      its own parameters and moments, bit for bit), and one written on one
+      card loaded at tp=4 (each rank's tensors its ``shard_slice`` of the
+      file's). With eight cards also large-v3 at tp=8; with fewer a line
+      says it did not run.
 
 Every decode path above ([d], [f], [g], [h], [k], [l], [n], [o]) runs its
 token loops through the engine's captured graphs; the launch counts add each
@@ -257,7 +278,9 @@ record takes each kernel's launches from the phase that runs it: the bf16
 path's from (f), ``xattn_decode_int8`` from (g), the int4 and int8-self
 kernels from (h), ``attention_to_cost`` from (i), ``log10_mel`` from (j),
 the training kernels from (m)'s timed steps (their records also carry
-(r)'s times at a rank's shape and rank 0's launches a tp=2 step), the
+(r)'s times at a rank's shape and rank 0's launches a tp=2 step, and
+(t)'s times at 1, 2 and 3 heads, ``by_heads_t``, with each tp=4 rank's
+launches over (t)'s three steps, ``launches_tp4_uneven_train_ranks``), the
 scales-given int8 self instance from (q)'s rank 0 (its ``kv_int8`` +
 ``self_kv_int8`` batch at tp=2); ``median9`` and ``stacked_matmul``, which
 no path runs, from their checks in (c). The four decode attentions' records
@@ -273,8 +296,8 @@ prefill (the path before the flash kernel) in turns with the kernel path:
 plain, kernel, kernel, plain.
 ``--turns`` runs (g)'s engines in turns (kv_int8, bf16, bf16, kv_int8);
 ``--kernels-only`` stops after (c) (a first check of changed kernels; it
-prints no result line); ``--train-only`` runs (m) and (r) alone after the
-build, ``--mesh-only`` (q) and (s) alone (no result line either).
+prints no result line); ``--train-only`` runs (m), (r) and (t) alone after
+the build, ``--mesh-only`` (q) and (s) alone (no result line either).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, and makes any
@@ -1299,10 +1322,10 @@ def phase_train_kernels(torch, K, device):
             # the products run on the tensor cores, f32 as 3xTF32: three tf32
             # products a product (the CUDA cores' f32 rate beside it)
             n_tc, tc_peak = (3, TF32_FLOPS) if label == "f32" else (1, BF16_FLOPS)
-            f_ms, f_by = bound(4 * io + rows, n_tc * 4 * pairs, tc_peak)  # 2 products
+            three = train_kernel_bounds(B, T, H, elt, label == "f32")
+            (f_ms, f_by), (dq_b, dq_by), (dkv_b, dkv_by) = (three[n] for n in (
+                "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
             cc_f = bound(4 * io + rows, 4 * pairs, F32_FLOPS)[0]
-            dq_b, dq_by = bound(6 * io + 2 * rows, n_tc * 6 * pairs, tc_peak)  # 3 products
-            dkv_b, dkv_by = bound(6 * io + 2 * rows, n_tc * 8 * pairs, tc_peak)  # 4 products
             all_b, _ = bound(8 * io + rows, n_tc * 10 * pairs, tc_peak)  # the 5 products at least
             # the same f32 work on the CUDA cores (PR 13's design)
             cc_dq, cc_dkv, cc_all = (bound(by, n * pairs, F32_FLOPS)[0] for by, n in (
@@ -2890,6 +2913,21 @@ def phase_beam(torch, K, model, tok):
     return self_launches
 
 
+def train_batch(torch, dims, device):
+    """(m)'s batch for ``dims``: two 30 s windows of seeded audio (mel
+    through ``log10_mel``), 224 seeded tokens a row, the second row's last
+    24 masked out."""
+    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
+
+    audio = torch.stack([torch.from_numpy(make_audio(70 + i, 30)) for i in range(2)])
+    mel = log_mel_spectrogram(audio, n_mels=dims.n_mels, device=device)[:, :, :3000].contiguous()
+    g = torch.Generator(device=device).manual_seed(11)
+    tokens = torch.randint(0, dims.n_vocab, (2, 224), generator=g, device=device)
+    mask = torch.ones((2, 224), device=device)
+    mask[1, 200:] = 0.0
+    return mel, tokens, mask
+
+
 def phase_train(torch, K, device):
     """(m): fine-tuning at large-v3 width: ``make_train_step``'s AdamW steps
     (optax's ``adamw(1e-5)``) on f32 seeded weights, one fixed batch of two
@@ -2907,7 +2945,6 @@ def phase_train(torch, K, device):
     and two steps with each layer read as ``w[l]`` (not ``unbind``) for
     the step time of that form. Returns the launches of the timed steps."""
     import whisper_timestamped_tpu_torch.models.whisper_torch as wt
-    from whisper_timestamped_tpu_torch.audio import log_mel_spectrogram
     from whisper_timestamped_tpu_torch.models import WhisperDims, init_params
     from whisper_timestamped_tpu_torch.training import (make_train_step, teacher_forced_loss,
                                                         trainable_parameters)
@@ -2915,12 +2952,7 @@ def phase_train(torch, K, device):
     dims = WhisperDims(**LARGE_V3)
     t0 = t_phase = time.perf_counter()
     model = init_params(dims, seed=0, dtype=torch.float32, device=device)
-    audio = torch.stack([torch.from_numpy(make_audio(70 + i, 30)) for i in range(2)])
-    mel = log_mel_spectrogram(audio, n_mels=dims.n_mels, device=device)[:, :, :3000].contiguous()
-    g = torch.Generator(device=device).manual_seed(11)
-    tokens = torch.randint(0, dims.n_vocab, (2, 224), generator=g, device=device)
-    mask = torch.ones((2, 224), device=device)
-    mask[1, 200:] = 0.0
+    mel, tokens, mask = train_batch(torch, dims, device)
     names = [n for n, p in model.named_parameters()
              if not (model.fixed_pos_emb and n == "encoder.pos_emb")]
     init_state, train_step = make_train_step(dims)
@@ -4982,65 +5014,109 @@ MESH_TRAIN_DP_LAYERS = 8  # (r)'s dp=2 depth, each stack
 MESH_TRAIN_DIR = os.path.join("build", "mesh_train_smoke")
 
 
+def train_kernel_bounds(B: int, T: int, H: int, elt: int, f32: bool) -> dict:
+    """The bounds of the three training kernels at (B, T, H), by name: the
+    bytes over the memory rate or the products (the forward's 2, dQ's 3,
+    dK/dV's 4) over the tensor cores' rate (3xTF32 for f32: three tf32
+    products a product)."""
+    D = 64 * H
+    pairs, io, rows = B * H * T * T * 64, B * T * D * elt, B * H * T * 4
+    n_tc, peak = (3, TF32_FLOPS) if f32 else (1, BF16_FLOPS)
+    return {"flash_attention_fwd": bound(4 * io + rows, n_tc * 4 * pairs, peak),
+            "flash_attention_bwd_dq": bound(6 * io + 2 * rows, n_tc * 6 * pairs, peak),
+            "flash_attention_bwd_dkv": bound(6 * io + 2 * rows, n_tc * 8 * pairs, peak)}
+
+
+def train_kernels_by_heads(torch, K, device, heads, labels, seed: int, tag: str):
+    """The three training flash kernels at B=2, T=1500 and each head count
+    of ``heads`` (a rank's shape, D = 64 H), in each dtype of ``labels``
+    ("f32", "bf16"; inputs drawn from ``seed``): the forward twice (the
+    same bits), its out and lse and the backward's three gradients against
+    the plain versions at (c)'s gates (``TRAIN_TOL``), each kernel timed
+    beside its plain version and SDPA's forward or backward, with its
+    bound; a line a kernel, tagged ``tag``. Returns kernel -> heads ->
+    dtype -> record."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, T = 2, LARGE_V3["n_audio_ctx"]
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    out = {name: {} for name in TRAIN_PATH}
+    for H in heads:
+        D = 64 * H
+        for label in labels:
+            dtype = dtypes[label]
+            tol = TRAIN_TOL[label]
+            q, k, v, dout = (torch.randn((B, T, D), generator=g, device=device).to(dtype)
+                             for _ in range(4))
+            o, lse = K.flash_attention_fwd(q, k, v, H)
+            again = K.flash_attention_fwd(q, k, v, H)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+                fail(f"{tag} flash_attention_fwd {label} H={H} differs from run to run")
+            out_p, lse_p = K.flash_attention_fwd_plain(q, k, v, H)
+            top = out_p.float().abs().max().item()
+            e_out = (o.float() - out_p.float()).abs().max().item()
+            e_lse = ((lse - lse_p).abs().max() / lse_p.abs().max()).item()
+            limit = tol * top if label == "f32" else min(2e-2, tol * top)
+            grads = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
+            want = K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H)
+            torch.cuda.synchronize()
+            e_bwd = {n: ((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                     for n, a, w in zip(("dq", "dk", "dv"), grads, want)}
+            finite = all(torch.isfinite(a.float()).all().item() for a in (o, *grads))
+            if not (finite and e_out <= limit and e_lse <= 1e-4 and max(e_bwd.values()) <= tol):
+                fail(f"{tag} the training kernels {label} at H={H} (D={D}) disagree with the plain "
+                     f"versions: out {e_out:.3g} (limit {limit:.3g}), lse {e_lse:.3g} of its max "
+                     f"(limit 1e-4), gradients {e_bwd} of their max (limit {tol}), finite {finite}")
+            bounds = train_kernel_bounds(B, T, H, q.element_size(), label == "f32")
+            _, delta = K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H)
+            ms = {"flash_attention_fwd": cuda_time_ms(lambda it=0: K.flash_attention_fwd(q, k, v, H),
+                                                      iters=10),
+                  "flash_attention_bwd_dq": cuda_time_ms(
+                      lambda it=0: K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H), iters=10),
+                  "flash_attention_bwd_dkv": cuda_time_ms(
+                      lambda it=0: K._flash_bwd_dkv(q, k, v, dout, lse_p, delta, H), iters=10)}
+            plain_f = cuda_time_ms(lambda it=0: K.flash_attention_fwd_plain(q, k, v, H), iters=5)
+            plain_b = cuda_time_ms(lambda it=0: K.flash_attention_bwd_plain(
+                q, k, v, out_p, lse_p, dout, H), iters=5)
+            qh, kh, vh = (heads_view(x, H).detach().requires_grad_() for x in (q, k, v))
+            lib_f = cuda_time_ms(lambda it=0: sdpa(qh.detach(), kh.detach(), vh.detach()), iters=10)
+            o_lib = sdpa(qh, kh, vh)
+            lib_b = cuda_time_ms(lambda it=0: torch.autograd.grad(
+                o_lib, (qh, kh, vh), heads_view(dout, H), retain_graph=True), iters=10)
+            for name in TRAIN_PATH:
+                fwd = name == "flash_attention_fwd"
+                out[name].setdefault(H, {})[label] = dict(
+                    ms=ms[name], plain_ms=plain_f if fwd else plain_b,
+                    library_ms=lib_f if fwd else lib_b, bound_ms=bounds[name][0],
+                    bound_by=bounds[name][1],
+                    max_abs_err=e_out if fwd else max((a.float() - w.float()).abs().max().item()
+                                                      for a, w in zip(grads, want)),
+                    max_err_of_max=e_out / top if fwd else max(e_bwd.values()))
+            del q, k, v, dout, o, lse, again, out_p, lse_p, grads, want, delta, qh, kh, vh, o_lib
+            torch.cuda.empty_cache()
+    for name, by_heads in out.items():
+        lib = "sdpa forward" if name == "flash_attention_fwd" else "sdpa backward (dq, dk, dv)"
+        print(f"{tag} {name} at B={B} T={T}, a rank's heads (ms; plain, {lib}, bound, err of the "
+              f"max): " + "; ".join(
+                  f"H={H} {lab} {r['ms']:.4f} ({r['plain_ms']:.4f}, {r['library_ms']:.4f}, "
+                  f"{r['bound_ms']:.4f} {r['bound_by']}, {r['max_err_of_max']:.3g})"
+                  for H, by_dtype in by_heads.items() for lab, r in by_dtype.items()))
+    return out
+
+
 def phase_mesh_train_kernels(torch, K, device):
     """(r): the three training flash kernels at a tp=2 rank's shape (B=2,
-    T=1500, H=10, D=640, f32), against their plain versions (the f32 gate
-    of (c)), timed beside the plain versions and SDPA's forward and
-    backward, with their bounds (3xTF32 on the tensor cores). Returns the
-    fields the kernels' records take."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    g = torch.Generator(device=device).manual_seed(23)
-    B, T, H = 2, LARGE_V3["n_audio_ctx"], LARGE_V3["n_audio_head"] // 2
-    D = 64 * H
-    q, k, v, dout = (torch.randn((B, T, D), generator=g, device=device) for _ in range(4))
-    out, lse = K.flash_attention_fwd(q, k, v, H)
-    out_p, lse_p = K.flash_attention_fwd_plain(q, k, v, H)
-    grads = K.flash_attention_bwd(q, k, v, out_p, lse_p, dout, H)
-    want = K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H)
-    torch.cuda.synchronize()
-    tol = TRAIN_TOL["f32"]
-    e_fwd = ((out - out_p).abs().max() / out_p.abs().max()).item()
-    e_bwd = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(grads, want))
-    if not (e_fwd <= tol and e_bwd <= tol):
-        fail(f"[r] the training kernels at a tp=2 rank's shape disagree with the plain versions: "
-             f"forward {e_fwd:.3g}, backward {e_bwd:.3g} of a max (limit {tol})")
-    io, rows, pairs = B * T * D * 4, B * H * T * 4, B * H * T * T * 64
-    bounds = {"flash_attention_fwd": bound(4 * io + rows, 3 * 4 * pairs, TF32_FLOPS),
-              "flash_attention_bwd_dq": bound(6 * io + 2 * rows, 3 * 6 * pairs, TF32_FLOPS),
-              "flash_attention_bwd_dkv": bound(6 * io + 2 * rows, 3 * 8 * pairs, TF32_FLOPS)}
-    _, delta = K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H)
-    ms = {"flash_attention_fwd": cuda_time_ms(lambda it=0: K.flash_attention_fwd(q, k, v, H),
-                                              iters=10),
-          "flash_attention_bwd_dq": cuda_time_ms(
-              lambda it=0: K._flash_bwd_dq(q, k, v, out_p, dout, lse_p, H), iters=10),
-          "flash_attention_bwd_dkv": cuda_time_ms(
-              lambda it=0: K._flash_bwd_dkv(q, k, v, dout, lse_p, delta, H), iters=10)}
-    plain_f = cuda_time_ms(lambda it=0: K.flash_attention_fwd_plain(q, k, v, H), iters=5)
-    plain_b = cuda_time_ms(lambda it=0: K.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, H),
-                           iters=5)
-    qh, kh, vh = (heads_view(x, H).detach().requires_grad_() for x in (q, k, v))
-    lib_f = cuda_time_ms(lambda it=0: sdpa(qh.detach(), kh.detach(), vh.detach()), iters=10)
-    o_lib = sdpa(qh, kh, vh)
-    lib_b = cuda_time_ms(lambda it=0: torch.autograd.grad(
-        o_lib, (qh, kh, vh), heads_view(dout, H), retain_graph=True), iters=10)
-    print(f"[r] training kernels at a tp=2 rank's shape, f32 B={B} T={T} D={D} H={H}: forward "
-          f"{ms['flash_attention_fwd']:.4f} ms (bound {bounds['flash_attention_fwd'][0]:.4f}, "
-          f"plain {plain_f:.4f}, sdpa forward {lib_f:.4f}), dq "
-          f"{ms['flash_attention_bwd_dq']:.4f} ms (bound {bounds['flash_attention_bwd_dq'][0]:.4f}),"
-          f" dkv {ms['flash_attention_bwd_dkv']:.4f} ms (bound "
-          f"{bounds['flash_attention_bwd_dkv'][0]:.4f}); plain backward {plain_b:.4f} ms, sdpa "
-          f"backward alone {lib_b:.4f} ms; against the plain versions forward {e_fwd:.3g}, "
-          f"backward {e_bwd:.3g} of a max (limit {tol})")
+    T=1500, H=10, D=640, f32) through ``train_kernels_by_heads`` (the f32
+    gate of (c)). Returns the fields the kernels' records take."""
+    H = LARGE_V3["n_audio_head"] // 2
+    by_heads = train_kernels_by_heads(torch, K, device, (H,), ("f32",), 23, "[r]")
     rec = {}
     for name in TRAIN_PATH:
-        fwd = name == "flash_attention_fwd"
-        rec[name] = dict(rank_tp2_ms=ms[name], rank_tp2_bound_ms=bounds[name][0],
-                         rank_tp2_bound_by=bounds[name][1],
-                         rank_tp2_plain_ms=plain_f if fwd else plain_b,
-                         rank_tp2_library_ms=lib_f if fwd else lib_b,
-                         rank_tp2_max_err=e_fwd if fwd else e_bwd)
-    del q, k, v, dout, out, lse, out_p, lse_p, grads, want, qh, kh, vh, o_lib, delta
-    torch.cuda.empty_cache()
+        r = by_heads[name][H]["f32"]
+        rec[name] = dict(rank_tp2_ms=r["ms"], rank_tp2_bound_ms=r["bound_ms"],
+                         rank_tp2_bound_by=r["bound_by"], rank_tp2_plain_ms=r["plain_ms"],
+                         rank_tp2_library_ms=r["library_ms"], rank_tp2_max_err=r["max_err_of_max"])
     return rec
 
 
@@ -5273,6 +5349,258 @@ def phase_mesh_train(torch, here: str):
     return {k: r0["launches"][k] // MESH_TRAIN_STEPS for k in TRAIN_PATH}
 
 
+# (t) training where tp does not divide the head counts
+UNEVEN_TRAIN_HEADS = (1, 2, 3)  # a rank's heads: tiny's tp=4 ranks (2, 1), large-v3's tp=8 (3, 2)
+UNEVEN_TRAIN_STEPS = 3  # AdamW steps a rank; the first compared, the others timed
+UNEVEN_TRAIN_DIR = os.path.join("build", "mesh_uneven_train_smoke")
+
+
+def phase_uneven_train_kernels(torch, K, device):
+    """(t): ``train_kernels_by_heads`` at a rank's 1, 2 and 3 heads (D = 64,
+    128, 192), f32 and bf16."""
+    return train_kernels_by_heads(torch, K, device, UNEVEN_TRAIN_HEADS, ("f32", "bf16"), 31, "[t]")
+
+
+def uneven_train_checks(torch, rank: int, device, geometry: str):
+    """A rank's work in (t) for ``geometry`` (``UNEVEN_WORLDS``): the model
+    in f32, sharded over every rank of the world as tp (dp=1);
+    ``UNEVEN_TRAIN_STEPS`` steps of ``make_train_step(mesh=)`` on
+    ``train_batch``, the first against rank 0's one-card step of the same
+    weights, the others timed (and as many one-card steps on rank 0); the
+    replicated parameters' bits; the checkpoints both ways. Returns what the parent prints and compares."""
+    import torch.distributed as dist
+
+    from whisper_timestamped_tpu_torch import training as T
+    from whisper_timestamped_tpu_torch.models import WhisperDims, init_params
+    from whisper_timestamped_tpu_torch.ops import _build
+    from whisper_timestamped_tpu_torch.ops import kernels as K
+    from whisper_timestamped_tpu_torch.parallel import mesh as mesh_module
+    from whisper_timestamped_tpu_torch.parallel.mesh import (get_mesh, param_shard_dims,
+                                                              rank_heads, shard_params, shard_slice)
+
+    t0 = time.perf_counter()
+    _build.library()
+    dims = WhisperDims(**UNEVEN_WORLDS[geometry][0])
+    mesh = get_mesh(dp=1, tp=dist.get_world_size())
+    full = init_params(dims, seed=0, dtype=torch.float32, device=device)
+    batch = train_batch(torch, dims, device)
+    init_state, train_step = T.make_train_step(dims, mesh=mesh)
+    state = init_state(shard_params(full, mesh))
+    tp = state.params.tensor_parallel
+    dims_of = param_shard_dims(state.params)
+    named = dict(state.params.named_parameters())
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        UNEVEN_TRAIN_DIR + "_" + geometry)
+    mesh_dir, one_dir = os.path.join(here, "ckpt_mesh"), os.path.join(here, "ckpt_one")
+    out = dict(backend=dist.get_backend(), device=str(device),
+               heads=rank_heads(dims.n_audio_head, tp.size, tp.rank),
+               params=sum(p.numel() for p in named.values()))
+    sections = {"build": time.perf_counter() - t0}
+
+    # 1. rank 0: the one-card step of the same weights, then the others timed
+    # (the state saved for 5.)
+    t0 = time.perf_counter()
+    one_grads = {}
+    if rank == 0:
+        init_one, step_one = T.make_train_step(dims)
+        one, one_loss = step_one(init_one(full), *batch)
+        one_grads = {n: p.grad for n, p in full.named_parameters() if p.grad is not None}
+        out["one_loss"] = one_loss.item()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(UNEVEN_TRAIN_STEPS - 1):
+            one, _ = step_one(one, *batch)
+        torch.cuda.synchronize()
+        out["one_ms_step"] = 1e3 * (time.perf_counter() - t1) / (UNEVEN_TRAIN_STEPS - 1)
+        T.save_checkpoint(one_dir, one)
+        del one
+    del full
+    torch.cuda.empty_cache()
+    sections["one_card"] = time.perf_counter() - t0
+
+    # 2. the first step, its gradients gathered over tp against the one-card step's
+    t0 = time.perf_counter()
+    K.reset_launches()
+    seen: set = set()
+    with train_heads_seen(K, seen):
+        state, loss = train_step(state, *batch)
+    torch.cuda.synchronize()
+    out.update(first_launches=dict(K.LAUNCHES), heads_seen=sorted(seen))
+    grad_rel = {}
+    for n, p in named.items():
+        if p.grad is None:
+            continue
+        g = p.grad if dims_of[n] is None else tp.gather(p.grad, dim=dims_of[n])
+        if rank == 0:
+            want = one_grads[n]
+            grad_rel[n] = ((g - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+    out["grad_rel"] = grad_rel
+    del one_grads
+    sections["first_step"] = time.perf_counter() - t0
+
+    # 3. the other steps, timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = [loss]
+    for _ in range(UNEVEN_TRAIN_STEPS - 1):
+        state, loss = train_step(state, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out.update(ms_step=1e3 * (time.perf_counter() - t0) / (UNEVEN_TRAIN_STEPS - 1),
+               launches=dict(K.LAUNCHES), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=[x.item() for x in losses])
+    sections["timed_steps"] = time.perf_counter() - t0
+
+    # 4. the replicated parameters bit-equal on every rank: the max and the min
+    # over tp of their bits are this rank's bits
+    replicated = [n for n in named if dims_of[n] is None]
+    bits = torch.cat([named[n].detach().reshape(-1).view(torch.int32) for n in replicated])
+    hi, lo = bits.clone(), bits.clone()
+    for t, op in ((hi, dist.ReduceOp.MAX), (lo, dist.ReduceOp.MIN)):
+        mesh_module._all_reduce_(t, tp.group, tp.via_host, op)
+    sizes = [named[n].numel() for n in replicated]
+    out["replicated_differ"] = [n for n, a, b, c in zip(replicated, bits.split(sizes),
+                                                         hi.split(sizes), lo.split(sizes))
+                                if not (torch.equal(a, b) and torch.equal(a, c))]
+    del bits, hi, lo
+
+    # 5. checkpoints: tp -> one card (each rank loads the file on a one-card
+    # template of its own and finds its slices in it), then one card -> tp
+    t0 = time.perf_counter()
+    owners = T._moment_owners(state)
+
+    def mine_in(whole_params, whole_moments) -> list:
+        """The parameters and moments of this rank that are not its
+        ``shard_slice`` of the whole ones, bit for bit."""
+        opt = state.opt_state.state_dict()["state"]
+        differ = []
+        for i, n in owners.items():
+            part, base = n.split(".", 1)
+            cut = lambda t: shard_slice(part, base, t, dims, tp.size, tp.rank)  # noqa: E731
+            if not torch.equal(named[n].detach(), cut(whole_params[n])):
+                differ.append(n)
+            if not all(torch.equal(opt[i][k], cut(whole_moments[n][k]))
+                       for k in ("exp_avg", "exp_avg_sq")):
+                differ.append(n + " (moments)")
+        return differ
+
+    T.save_checkpoint(mesh_dir, state)
+    init_one, _ = T.make_train_step(dims)
+    template = init_one(init_params(dims, seed=1, dtype=torch.float32, device=device))
+    loaded = T.load_checkpoint(mesh_dir, template)
+    whole = dict(loaded.params.named_parameters())
+    out["mesh_to_one"] = dict(step=loaded.step, differ=mine_in(
+        whole, {n: loaded.opt_state.state[whole[n]] for n in owners.values()}))
+    del loaded, template, whole
+    torch.cuda.empty_cache()
+    dist.barrier()  # rank 0 wrote the one-card file in 1.
+    state = T.load_checkpoint(one_dir, state)
+    blob = torch.load(os.path.join(one_dir, T.CHECKPOINT_FILE), map_location=device,
+                      weights_only=True)
+    one_owners = dict(enumerate(n for n in blob["params"]
+                                if n != "encoder.pos_emb" or not state.params.fixed_pos_emb))
+    out["one_to_mesh"] = dict(step=state.step, differ=mine_in(
+        blob["params"], {n: blob["opt_state"]["state"][i] for i, n in one_owners.items()}))
+    del blob, state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(here, ignore_errors=True)
+    sections["checkpoints"] = time.perf_counter() - t0
+    out["sections_s"] = sections
+    return out
+
+
+def uneven_train_checks_tiny(torch, rank: int, device):
+    """(t)'s tiny world (``uneven_train_checks``)."""
+    return uneven_train_checks(torch, rank, device, "tiny")
+
+
+def uneven_train_checks_large_v3(torch, rank: int, device):
+    """(t)'s large-v3 world (``uneven_train_checks``)."""
+    return uneven_train_checks(torch, rank, device, "large-v3")
+
+
+def phase_mesh_uneven_train(torch, here: str) -> dict:
+    """(t): tiny's geometry trained at tp=4 (heads 2, 2, 1, 1) by four ranks,
+    over NCCL with four cards or more, else over gloo on ``cuda:0``
+    (``uneven_train_checks``); with eight cards also large-v3 at tp=8.
+    Returns, by training kernel, each tiny rank's launches over its
+    ``UNEVEN_TRAIN_STEPS`` steps."""
+    n_cards = torch.cuda.device_count()
+    launches = {}
+    for geometry, (dims, n_tp, deal) in UNEVEN_WORLDS.items():
+        if geometry != "tiny" and n_cards < n_tp:
+            print(f"[t] {geometry} at tp={n_tp} needs {n_tp} cards, this machine has {n_cards}: "
+                  f"not run (its kernels are held above at the ranks' 3 and 2 heads)")
+            continue
+        backend = "nccl" if n_cards >= n_tp else "gloo"
+        ranks, wall = spawn_world(n_tp, backend,
+                                  os.path.join(here, UNEVEN_TRAIN_DIR + "_world_" + geometry),
+                                  "uneven_train_checks_" + geometry.replace("-", "_"), "[t]")
+        cards = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[:n_tp if backend == "nccl" else 1]
+        what, L = f"{geometry} tp={n_tp}", dims["n_audio_layer"]
+        r0 = ranks[0]
+        print(f"[t] {what}, f32, B=2, 224 tokens: {n_tp} ranks on "
+              f"{sorted({r['device'] for r in ranks})} ({cards}), backend {r0['backend']}; heads "
+              f"(first, count) a rank {[tuple(r['heads']) for r in ranks]}; parameters a rank "
+              f"{[round(r['params'] / 1e6, 2) for r in ranks]} M; {wall:.1f} s for the world "
+              f"(rank 0's sections: {({k: round(v, 1) for k, v in r0['sections_s'].items()})} s)")
+        if [r["heads"][1] for r in ranks] != deal:
+            fail(f"[t] {what}: the ranks hold heads {[r['heads'] for r in ranks]}, not {deal}")
+        if any(r["losses"] != r0["losses"] for r in ranks):
+            fail(f"[t] {what}: the ranks' losses differ: {[r['losses'] for r in ranks]}")
+        losses, want = r0["losses"], r0["one_loss"]
+        worst = max(r0["grad_rel"].values())
+        if not (abs(losses[0] - want) <= MESH_TRAIN_LOSS_RTOL * abs(want)
+                and worst <= MESH_TRAIN_GRAD_LIMIT):
+            fail(f"[t] {what}: the first step disagrees with the one-card step: loss {losses[0]} "
+                 f"vs {want} (rtol {MESH_TRAIN_LOSS_RTOL}), gradients {r0['grad_rel']} (limit "
+                 f"{MESH_TRAIN_GRAD_LIMIT} of a leaf's max)")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"[t] {what}: the losses are not finite and falling: {losses}")
+        for r, res in enumerate(ranks):
+            if res["replicated_differ"]:
+                fail(f"[t] {what} rank {r}: replicated parameters differ between the ranks: "
+                     f"{res['replicated_differ']}")
+            for label, n, steps in (("first", res["first_launches"], 1),
+                                    ("timed", res["launches"], UNEVEN_TRAIN_STEPS - 1)):
+                if any(n[k] != steps * L for k in TRAIN_PATH) or n["flash_attention"]:
+                    fail(f"[t] {what} rank {r} {label} steps: expected {L} launches a step of "
+                         f"each training kernel and none of flash_attention: {n}")
+            if {tuple(h) for h in res["heads_seen"]} != {("fwd", deal[r]), ("bwd", deal[r])}:
+                fail(f"[t] {what} rank {r}: the training kernels ran at heads "
+                     f"{res['heads_seen']}, not {deal[r]}")
+            for way in ("mesh_to_one", "one_to_mesh"):
+                ck = res[way]
+                if ck["differ"] or ck["step"] != UNEVEN_TRAIN_STEPS:
+                    fail(f"[t] {what} rank {r}: the checkpoint {way} restored step {ck['step']} "
+                         f"(want {UNEVEN_TRAIN_STEPS}); not its slices: {ck['differ']}")
+            if geometry == "tiny":
+                for k in TRAIN_PATH:
+                    launches.setdefault(k, [0] * n_tp)[r] = (res["first_launches"][k]
+                                                            + res["launches"][k])
+        print(f"[t] {what}: first loss {losses[0]:.6f} against the one-card step's {want:.6f} "
+              f"(rtol {MESH_TRAIN_LOSS_RTOL}); every gradient gathered over tp at most {worst:.3g} "
+              f"of its leaf's max abs from it (limit {MESH_TRAIN_GRAD_LIMIT}); losses "
+              f"{[round(x, 5) for x in losses]} bit-equal on every rank; replicated parameters "
+              f"bit-equal on every rank; each training kernel {L} launches a step at the rank's "
+              f"heads {deal}, flash_attention none; checkpoints tp={n_tp} -> one card and one card "
+              f"-> tp={n_tp}: every rank's parameters and moments its shard_slice, bit for bit")
+        print(f"[t] {what}: ms a step a rank over {UNEVEN_TRAIN_STEPS - 1} steps after the first "
+              f"{[round(r['ms_step'], 1) for r in ranks]} ({backend}"
+              + (", four gloo ranks sharing one card" if backend == "gloo" else "")
+              + f"); one card's step (rank 0, the same weights) {r0['one_ms_step']:.1f} ms; peak "
+              f"{[round(r['peak_gb'], 2) for r in ranks]} GB, on {cards}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5313,7 +5641,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_mesh_train_kernels(torch, K, device)
         phase_mesh_train(torch, here)
-        print("[r] --train-only: stopping after (m) and (r)")
+        torch.cuda.empty_cache()
+        phase_uneven_train_kernels(torch, K, device)
+        phase_mesh_uneven_train(torch, here)
+        print("[t] --train-only: stopping after (m), (r) and (t)")
         return 0
     if "--mesh-only" in sys.argv[1:]:
         phase_mesh_kernel(torch, K, device)
@@ -5392,6 +5723,11 @@ def main() -> int:
         rec[name]["tiny_b8_by_heads"] = by_heads
     for name, per_rank in phase_mesh_uneven(torch, here, device).items():
         rec[name]["launches_tp4_uneven_ranks"] = per_rank
+    torch.cuda.empty_cache()
+    for name, by_heads in phase_uneven_train_kernels(torch, K, device).items():
+        rec[name]["by_heads_t"] = by_heads
+    for name, per_rank in phase_mesh_uneven_train(torch, here).items():
+        rec[name]["launches_tp4_uneven_train_ranks"] = per_rank
     torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         for B, levers in ((1, {}), (8, {}), (40, {}), (40, dict(kv_int8=True))):

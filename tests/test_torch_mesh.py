@@ -346,12 +346,17 @@ def test_tp_exceeding_heads_raises(world):
 
 
 def test_train_step_refuses_uneven_deal(world):
-    """``make_train_step(mesh=)`` at tp=4 over 6 heads: ``ValueError``
-    (training takes only an even deal)."""
+    """``make_train_step(mesh=)`` refuses what ``shard_params`` refuses, with
+    ``check_tp``'s ``ValueError``: tp=4 over 2 heads (a rank would hold
+    none), tp=3 not dividing the MLP widths of the dims (4x the width 64:
+    ``make_train_step`` sees no model); it takes tp=4 over 6 heads, the
+    uneven deal 2, 2, 1, 1."""
     ranks, _, _, _, _ = world
     for r in ranks:
-        msg = r["train_uneven"]
-        assert msg is not None and "n_text_head=6" in msg and "uneven" in msg, msg
+        msg = r["train_two_heads"]
+        assert msg is not None and "exceeds a head count" in msg and "n_text_head=2" in msg, msg
+        assert r["train_tp3"] is not None and "MLP widths (256, 256)" in r["train_tp3"], r["train_tp3"]
+        assert r["train_uneven"] is None, r["train_uneven"]
 
 
 @pytest.mark.parametrize("n_head,tp,want", [(6, 4, [2, 2, 1, 1]),

@@ -195,3 +195,93 @@ def test_decode_takes_a_batch_and_a_tensor(models):
     alone = wtt.decode(model, mel[0], opts, tokenizer=tok)
     assert first.tokens == alone.tokens
     assert importlib.import_module(PORT + ".decoding").decode is wtt.decode
+
+
+# ---------------------------------------------------------------------------
+# models and utils: the JAX package's public names
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+
+import whisper_timestamped_tpu.models as jax_models  # noqa: E402
+from whisper_timestamped_tpu.models import whisper_jax as J  # noqa: E402
+from whisper_timestamped_tpu_torch import models as port_models  # noqa: E402
+from whisper_timestamped_tpu_torch import utils as port_utils  # noqa: E402
+
+MODEL_NAMES = sorted(n for n, v in vars(jax_models).items()
+                     if not n.startswith("_") and not isinstance(v, type(jax_models)))
+
+
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_models_names_resolve_to_the_port(name):
+    """Every public name of the JAX package's ``models`` resolves from the
+    port's ``models``, to the port's own object (a function or class of its
+    modules, a constant of its own)."""
+    obj = getattr(port_models, name)
+    if callable(obj) and hasattr(obj, "__module__"):
+        assert obj.__module__.startswith(PORT + "."), obj.__module__
+        assert obj.__name__ == getattr(jax_models, name).__name__
+    else:
+        assert obj is not getattr(jax_models, name)
+
+
+def test_tiny_test_dims_has_jax_fields():
+    assert dataclasses.asdict(port_models.TINY_TEST_DIMS) == dataclasses.asdict(J.TINY_TEST_DIMS)
+
+
+@pytest.mark.parametrize("tree", ["init_params", "hf_checkpoint"])
+def test_count_parameters_matches_jax(tree):
+    """``count_parameters`` of the model ``params_from_jax_tree`` builds
+    equals JAX's on the same tree: without an encoder ``pos_emb`` leaf (JAX's
+    ``init_params``: the port's fixed sinusoids are left out) and with one
+    (a checkpoint's trained positions)."""
+    if tree == "init_params":
+        params, dims = J.init_params(J.TINY_TEST_DIMS, jax.random.PRNGKey(0)), J.TINY_TEST_DIMS
+    else:
+        params, dims = hf_model_to_jax(make_hf_model(seed=0))
+    np_tree = jax.tree.map(np.asarray, params)
+    module = params_from_jax_tree(np_tree, WhisperDims(**dataclasses.asdict(dims)), device="cpu")
+    assert module.fixed_pos_emb == (tree == "init_params")
+    want = J.count_parameters(params)
+    assert port_models.count_parameters(module) == want
+    assert port_models.count_parameters(WhisperModel(module=module)) == want
+
+
+def test_cast_params_keeps_the_integer_tensors():
+    """``cast_params`` to bf16 and back casts every floating-point parameter
+    in place (the bf16 values come back exactly) and leaves an integer
+    buffer as it is, in dtype and bits."""
+    module = port_models.init_params(port_models.TINY_TEST_DIMS, seed=1, device="cpu")
+    codes = torch.arange(-64, 64, dtype=torch.int8)
+    module.register_buffer("codes", codes.clone())
+    rounded = {n: p.detach().bfloat16() for n, p in module.named_parameters()}
+    model = WhisperModel(module=module)
+    assert port_models.cast_params(model, torch.bfloat16) is model
+    assert all(p.dtype == torch.bfloat16 for p in module.parameters())
+    assert module.codes.dtype == torch.int8 and torch.equal(module.codes, codes)
+    assert port_models.cast_params(module, torch.float32) is module
+    for n, p in module.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p, rounded[n].float()), n
+    assert module.codes.dtype == torch.int8 and torch.equal(module.codes, codes)
+
+
+def test_trace_writes_a_trace_file(tmp_path):
+    """``utils.trace(log_dir)`` records the block (here an encode on the CPU)
+    into one Chrome trace file under ``log_dir``."""
+    module = port_models.init_params(port_models.TINY_TEST_DIMS, seed=2, device="cpu")
+    mel = torch.zeros((1, 80, 200))
+    with port_utils.trace(str(tmp_path / "trace")):
+        with torch.no_grad():
+            port_models.encode(module, mel)
+    files = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+
+
+def test_not_ported_is_gone():
+    """Every option of the JAX package is ported: the helper that raised for
+    those that were not has no caller left and is gone."""
+    with pytest.raises(AttributeError):
+        port_utils.not_ported  # noqa: B018

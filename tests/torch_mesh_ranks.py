@@ -196,7 +196,7 @@ def world_mesh(rank: int, inp: dict) -> dict:
         out["shard_odd"] = str(e)
 
     # (f) the refusals: tp=3 does not divide the MLP width 128; tp=4 exceeds 2 heads;
-    # training at tp=4 over 6 heads (an uneven deal)
+    # make_train_step refuses those two (and takes tp=4 over 6 heads, an uneven deal)
     mesh3 = get_mesh(dp=1, tp=3, device_type="cpu")
     out["tp3"] = _value_error(lambda: shard_params(model, mesh3))
     two = dict(inp["six_dims"], n_audio_head=2, n_text_head=2)
@@ -205,6 +205,9 @@ def world_mesh(rank: int, inp: dict) -> dict:
     from whisper_timestamped_tpu_torch.models import WhisperDims
     from whisper_timestamped_tpu_torch.training import make_train_step
 
+    out["train_tp3"] = _value_error(lambda: make_train_step(model.dims, mesh=mesh3))
+    out["train_two_heads"] = _value_error(
+        lambda: make_train_step(WhisperDims(**two), mesh=meshes[4]))
     out["train_uneven"] = _value_error(
         lambda: make_train_step(WhisperDims(**inp["six_dims"]), mesh=meshes[4]))
 
@@ -394,33 +397,43 @@ def world_batch(rank: int, inp: dict) -> dict:
 
 
 TRAIN_MESHES = ((1, 4), (2, 2), (4, 1))  # (dp, tp) of test_torch_mesh_train.py
+# world_train's runs: (key, the weights: None for the inputs' own, else the
+# inputs' entry holding another tree and dims, dp, tp); "six" is a 6-head
+# model at tp=4, its heads dealt 2, 2, 1, 1
+TRAIN_RUNS = tuple((f"{dp}x{tp}", None, dp, tp) for dp, tp in TRAIN_MESHES) + (("six", "six", 1, 4),)
+CHECKPOINT_RUNS = ("2x2", "six")  # the runs whose checkpoints cross to one card and back
 
 
 def _digest(t) -> str:
     return hashlib.sha1(t.detach().contiguous().numpy().tobytes()).hexdigest()
 
 
-def _train_setup(inp: dict):
-    """(dims, the batch as tensors, a fresh one-card model of the test's weights)."""
+def _train_setup(inp: dict, weights) -> tuple:
+    """(dims, the batch as tensors, a fresh one-card model) of the inputs'
+    own weights (``weights`` None) or of those of ``inp[weights]``."""
     import torch
 
     from whisper_timestamped_tpu_torch.models import WhisperDims, params_from_jax_tree
 
-    dims = WhisperDims(**inp["dims"])
+    src = inp if weights is None else inp[weights]
+    dims = WhisperDims(**src["dims"])
     batch = (torch.from_numpy(inp["mel"]), torch.from_numpy(inp["tokens"]).long(),
              torch.from_numpy(inp["mask"]))
-    return dims, batch, lambda: params_from_jax_tree(inp["tree"], dims, device="cpu")
+    return dims, batch, lambda: params_from_jax_tree(src["tree"], dims, device="cpu")
 
 
-def _slice(full, d, tp):
-    """The rank's slice of a whole tensor: along ``d`` for a sharded leaf."""
-    if d is None or tp is None:
+def _slice(full, name: str, dims, tp):
+    """The rank's slice of the whole tensor of the parameter ``name`` (or of
+    its moment): ``shard_slice``'s (its heads' columns, an even MLP cut)."""
+    from whisper_timestamped_tpu_torch.parallel.mesh import shard_slice
+
+    if tp is None:
         return full
-    m = full.shape[d] // tp.size
-    return full.narrow(d, tp.rank * m, m)
+    part, base = name.split(".", 1)
+    return shard_slice(part, base, full, dims, tp.size, tp.rank)
 
 
-def _step_gap(mine, other, tp, dims_of) -> dict:
+def _step_gap(mine, other, tp, dims) -> dict:
     """One step taken on both sides of a checkpoint round trip: the losses
     and the largest parameter differences, where the gradient is clear of 0
     (limit 1e-6) and where it lies within 1e-4 of its leaf's max of 0
@@ -431,14 +444,14 @@ def _step_gap(mine, other, tp, dims_of) -> dict:
     for n, p in m_state.params.named_parameters():
         if p.grad is None:
             continue
-        diff = (p.detach() - _slice(o_params[n].detach(), dims_of[n], tp)).abs()
+        diff = (p.detach() - _slice(o_params[n].detach(), n, dims, tp)).abs()
         near0 = p.grad.abs() <= 1e-4 * float(p.grad.abs().max())
         clear = max(clear, float(diff[~near0].max()) if (~near0).any() else 0.0)
         unsure = max(unsure, float(diff[near0].max()) if near0.any() else 0.0)
     return dict(loss=m_loss.item(), other_loss=o_loss.item(), clear=clear, unsure=unsure)
 
 
-def _state_equal(state, whole, tp, dims_of) -> bool:
+def _state_equal(state, whole, tp, dims) -> bool:
     """Each parameter and AdamW moment of the sharded ``state`` equals the
     rank's slice of the one-card ``whole``'s, bit for bit."""
     import torch
@@ -446,11 +459,11 @@ def _state_equal(state, whole, tp, dims_of) -> bool:
     w_params = dict(whole.params.named_parameters())
     for n, p in state.params.named_parameters():
         q = w_params[n]
-        if not torch.equal(p, _slice(q, dims_of[n], tp)):
+        if not torch.equal(p, _slice(q, n, dims, tp)):
             return False
         if p.requires_grad:
             a, b = state.opt_state.state[p], whole.opt_state.state[q]
-            if not all(torch.equal(a[k], _slice(b[k], dims_of[n], tp))
+            if not all(torch.equal(a[k], _slice(b[k], n, dims, tp))
                        for k in ("exp_avg", "exp_avg_sq")) or not torch.equal(a["step"], b["step"]):
                 return False
     return True
@@ -458,8 +471,8 @@ def _state_equal(state, whole, tp, dims_of) -> bool:
 
 def world_train(rank: int, inp: dict) -> dict:
     """test_torch_mesh_train.py's checks on a 4-rank world: ``steps`` AdamW
-    steps on each mesh of ``TRAIN_MESHES``, the checkpoints across the
-    dp=2 x tp=2 mesh and one card, the refusals."""
+    steps on each run of ``TRAIN_RUNS``, the checkpoints across the meshes
+    of ``CHECKPOINT_RUNS`` and one card, the refusals."""
     import torch
     import torch.distributed as dist
 
@@ -469,7 +482,6 @@ def world_train(rank: int, inp: dict) -> dict:
     from whisper_timestamped_tpu_torch.parallel.mesh import (get_mesh, mesh_rank, param_shard_dims,
                                                               shard_batch, shard_params, sum_over_dp)
 
-    dims, batch, fresh = _train_setup(inp)
     heads = []
     fwd = K.flash_attention_fwd
 
@@ -479,7 +491,8 @@ def world_train(rank: int, inp: dict) -> dict:
 
     K.flash_attention_fwd = counted_fwd
     out: dict = {}
-    for dp, tp_size in TRAIN_MESHES:
+    for key, weights, dp, tp_size in TRAIN_RUNS:
+        dims, batch, fresh = _train_setup(inp, weights)
         mesh = get_mesh(dp=dp, tp=tp_size, device_type="cpu")
         base = fresh()
         before = {n: p.detach().clone() for n, p in base.named_parameters()}
@@ -519,15 +532,16 @@ def world_train(rank: int, inp: dict) -> dict:
                             mu=state.opt_state.state[named[n]]["exp_avg"].numpy().copy(),
                             nu=state.opt_state.state[named[n]]["exp_avg_sq"].numpy().copy())
                     for n in keep})
-        if (dp, tp_size) == (2, 2):
-            res["checkpoint"] = _checkpoints(rank, inp, state, train_step, mine, batch, dims,
-                                              fresh, tp, dims_of, mesh)
+        if key in CHECKPOINT_RUNS:
+            res["checkpoint"] = _checkpoints(rank, inp, os.path.join(inp["ckpt_dir"], key), state,
+                                              train_step, mine, batch, dims, fresh, tp, mesh)
+        if key == "2x2":
             try:
                 init_state(fresh())
                 res["unsharded_refusal"] = None
             except ValueError as e:
                 res["unsharded_refusal"] = str(e)
-        if (dp, tp_size) == (4, 1):  # sum_over_dp's buckets: split by size and dtype, one strided
+        if key == "4x1":  # sum_over_dp's buckets: split by size and dtype, one strided
             parts = [torch.full((5,), rank + 1.0), torch.full((3, 4), rank + 1.0).t(),
                      torch.full((7,), rank + 1.0, dtype=torch.float64), torch.full((2,), rank + 1.0)]
             bucket, mesh_module.GRAD_BUCKET_BYTES = mesh_module.GRAD_BUCKET_BYTES, 32
@@ -536,20 +550,20 @@ def world_train(rank: int, inp: dict) -> dict:
             finally:
                 mesh_module.GRAD_BUCKET_BYTES = bucket
             res["sum_over_dp"] = [(t.numpy().copy(), t.dtype == torch.float64) for t in parts]
-        if (dp, tp_size) == (1, 4):
+        if key == "1x4":
             try:
                 init_state(shard_params(fresh(), get_mesh(dp=2, tp=2, device_type="cpu")))
                 res["other_tp_refusal"] = None
             except ValueError as e:
                 res["other_tp_refusal"] = str(e)
-        out[f"{dp}x{tp_size}"] = res
+        out[key] = res
         dist.barrier()
     return out
 
 
-def _checkpoints(rank, inp, state, train_step, mine, batch, dims, fresh, tp, dims_of, mesh):
-    """Save on the mesh and load on one card, then the reverse; each side
-    then takes one more step."""
+def _checkpoints(rank, inp, ckpt_dir, state, train_step, mine, batch, dims, fresh, tp, mesh):
+    """Save on the mesh and load on one card, then the reverse, under
+    ``ckpt_dir``; each side then takes one more step."""
     import torch.distributed as dist
 
     from whisper_timestamped_tpu_torch import training as T
@@ -557,15 +571,15 @@ def _checkpoints(rank, inp, state, train_step, mine, batch, dims, fresh, tp, dim
 
     init_one, step_one = T.make_train_step(dims)
     init_mesh, _ = T.make_train_step(dims, mesh=mesh)
-    mesh_dir, one_dir = (os.path.join(inp["ckpt_dir"], d) for d in ("mesh", "one"))
+    mesh_dir, one_dir = (os.path.join(ckpt_dir, d) for d in ("mesh", "one"))
 
     # the mesh's state -> file -> one card
     T.save_checkpoint(mesh_dir, state)
     loaded_one = T.load_checkpoint(mesh_dir, init_one(fresh()))
-    out = dict(mesh_to_one_equal=_state_equal(state, loaded_one, tp, dims_of),
+    out = dict(mesh_to_one_equal=_state_equal(state, loaded_one, tp, dims),
                mesh_to_one_step=loaded_one.step)
     out["mesh_to_one"] = _step_gap(train_step(state, *mine), step_one(loaded_one, *batch),
-                                   tp, dims_of)
+                                   tp, dims)
 
     # one card's state -> file -> the mesh (every rank runs the same one-card steps)
     one = init_one(fresh())
@@ -575,10 +589,10 @@ def _checkpoints(rank, inp, state, train_step, mine, batch, dims, fresh, tp, dim
         T.save_checkpoint(one_dir, one)
     dist.barrier()
     loaded_mesh = T.load_checkpoint(one_dir, init_mesh(shard_params(fresh(), mesh)))
-    out.update(one_to_mesh_equal=_state_equal(loaded_mesh, one, tp, dims_of),
+    out.update(one_to_mesh_equal=_state_equal(loaded_mesh, one, tp, dims),
                one_to_mesh_step=loaded_mesh.step)
     out["one_to_mesh"] = _step_gap(train_step(loaded_mesh, *mine), step_one(one, *batch),
-                                   tp, dims_of)
+                                   tp, dims)
     return out
 
 

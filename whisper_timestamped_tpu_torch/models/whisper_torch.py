@@ -93,6 +93,12 @@ class WhisperDims:
         return self.n_vocab - 51765 - int(self.is_multilingual)
 
 
+TINY_TEST_DIMS = WhisperDims(
+    n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=4, n_audio_layer=2,
+    n_vocab=2322, n_text_ctx=448, n_text_state=64, n_text_head=4, n_text_layer=2,
+)
+
+
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
     """Sinusoidal position embeddings (whisper's encoder positions)."""
     assert channels % 2 == 0
@@ -208,6 +214,25 @@ class QuantizedWhisper:
     @property
     def device(self) -> torch.device:
         return self.decoder["tok_emb"].device
+
+
+def cast_params(model, dtype):
+    """Cast the floating-point parameters and buffers of ``model`` (a
+    ``WhisperTorch``, or a ``WhisperModel`` holding one) to ``dtype`` in
+    place, leaving integer tensors as they are (``whisper_jax.py:1142``,
+    which maps over its tree's leaves); returns ``model``."""
+    getattr(model, "module", model).to(dtype)
+    return model
+
+
+def count_parameters(model) -> int:
+    """The number of parameter elements, as JAX's ``count_parameters``
+    counts its tree's leaves: a fixed-sinusoid encoder ``pos_emb``
+    (``WhisperTorch.fixed_pos_emb``), which is not a leaf of JAX's tree,
+    is left out."""
+    module = getattr(model, "module", model)
+    return sum(p.numel() for name, p in module.named_parameters()
+               if not (module.fixed_pos_emb and name == "encoder.pos_emb"))
 
 
 def init_params(dims: WhisperDims, seed: int = 0, dtype=torch.float32, device=None,

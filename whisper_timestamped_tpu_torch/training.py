@@ -21,12 +21,17 @@ the loss is the whole batch's masked mean (its mask count summed over
 AdamW, elementwise, updates each shard where it lies. Every rank returns
 the same loss, and the replicated parameters stay equal on every rank
 (with tp > 1 the backward takes cuDNN's deterministic algorithms for it).
+A rank holds whole heads, dealt as for serving (``parallel.mesh.head_deal``:
+unevenly where tp does not divide a head count, tiny's 6 at tp=4 as 2, 2,
+1, 1), so the encoder's flash kernels run on the rank's own 1, 2 or more
+heads, forward and backward.
 
 Checkpoints are ``torch.save`` files (the parameters, the optimizer's
 ``state_dict`` and the step in one file under a directory), not orbax's:
 orbax is a JAX library, so the port neither writes nor reads orbax
 checkpoints. On a mesh the file holds the whole (gathered) tensors, as
-orbax writes global arrays: a one-card run and a mesh read each other's.
+orbax writes global arrays: a one-card run and a mesh read each other's,
+whatever the tp and however it deals the heads.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import torch
 import torch.distributed as dist
 
 from .models.whisper_torch import WhisperDims, WhisperTorch, decode_full, encode
-from .parallel.mesh import check_mesh, mesh_rank, mesh_size, param_shard_dims, sum_over_dp
+from .parallel.mesh import (check_mesh, check_tp, mesh_rank, mesh_size, param_shard_dims,
+                            shard_slice, sum_over_dp)
 
 CHECKPOINT_FILE = "train_state.pt"  # the file save_checkpoint writes under its directory
 
@@ -137,17 +143,15 @@ def make_train_step(
     (``parallel.shard_params(model, mesh)``; a model sharded for another tp
     raises ``ValueError``, it is not re-sharded) and ``train_step`` the
     rank's block of the batch (``parallel.shard_batch``); see the module
-    docstring. The returned loss is the whole batch's on every rank.
-    Training takes only an even head deal: ``ValueError`` when tp does not
-    divide both head counts (serving deals them unevenly,
-    ``parallel.mesh.head_deal``)."""
+    docstring. The returned loss is the whole batch's on every rank. Any tp
+    that ``shard_params`` serves trains, the heads dealt unevenly where tp
+    does not divide a head count; a tp above either head count, or one not
+    dividing the MLP widths of whisper's geometry (4x ``dims``' widths; the
+    model's own are checked by ``shard_params``), raises ``ValueError``
+    (``parallel.mesh.check_tp``)."""
     if mesh is not None:
         check_mesh(mesh)
-        tp = mesh_size(mesh, "tp")
-        if dims.n_audio_head % tp or dims.n_text_head % tp:
-            raise ValueError(f"make_train_step: tp={tp} does not divide n_audio_head="
-                             f"{dims.n_audio_head} and n_text_head={dims.n_text_head}; training "
-                             f"on an uneven head deal is not supported")
+        check_tp(dims, (4 * dims.n_audio_state, 4 * dims.n_text_state), mesh_size(mesh, "tp"))
     make_optimizer = optimizer or adamw
 
     def init_state(model) -> TrainState:
@@ -198,16 +202,16 @@ def _moment_owners(state: TrainState) -> Dict[int, str]:
 
 def _map_sharded(state: TrainState, params: dict, opt: dict, fn) -> None:
     """Replace each sharded parameter of the ``state_dict``s ``params`` /
-    ``opt`` and its AdamW moments by ``fn(tensor, axis)``. A parameter's
-    entry in ``opt["state"]`` is replaced by a new dict: the optimizer's
-    ``state_dict`` hands out its live ones."""
+    ``opt`` and its AdamW moments by ``fn(tensor, name, axis)``. A
+    parameter's entry in ``opt["state"]`` is replaced by a new dict: the
+    optimizer's ``state_dict`` hands out its live ones."""
     cut = _sharded(state)
     for name, d in cut.items():
-        params[name] = fn(params[name], d)
+        params[name] = fn(params[name], name, d)
     for i, name in _moment_owners(state).items():
         if name in cut and i in opt["state"]:
             entry = opt["state"][i]
-            opt["state"][i] = {**entry, **{k: fn(entry[k], cut[name]) for k in _MOMENTS}}
+            opt["state"][i] = {**entry, **{k: fn(entry[k], name, cut[name]) for k in _MOMENTS}}
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:
@@ -221,7 +225,7 @@ def save_checkpoint(path: str, state: TrainState) -> None:
     rank waits for it at a barrier."""
     params, opt = state.params.state_dict(), state.opt_state.state_dict()
     tp = state.params.tensor_parallel
-    _map_sharded(state, params, opt, lambda t, d: tp.gather(t, dim=d).cpu())
+    _map_sharded(state, params, opt, lambda t, name, d: tp.gather(t, dim=d).cpu())
     if state.mesh is None or dist.get_rank() == 0:
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
@@ -236,17 +240,19 @@ def load_checkpoint(path: str, template: TrainState) -> TrainState:
     state from ``init_state`` on a model of the same dims and the same
     optimizer), read with ``torch.load(weights_only=True)``. On a mesh each
     rank reads the whole file and keeps its slices of the sharded
-    parameters and their moments: a file written on one card or on any
+    parameters and their moments (``parallel.mesh.shard_slice``: its heads'
+    columns, an even cut of the MLP): a file written on one card or on any
     mesh loads on any other."""
-    blob = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=template.params.device,
+    model = template.params
+    blob = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=model.device,
                       weights_only=True)
-    tp = template.params.tensor_parallel
+    tp = model.tensor_parallel
 
-    def cut(t, d):  # a copy: the optimizer keeps the moments it is given
-        m = t.shape[d] // tp.size
-        return t.narrow(d, tp.rank * m, m).clone()
+    def cut(t, name, d):  # a copy: the optimizer keeps the moments it is given
+        part, base = name.split(".", 1)
+        return shard_slice(part, base, t, model.dims, tp.size, tp.rank).clone()
 
     _map_sharded(template, blob["params"], blob["opt_state"], cut)
-    template.params.load_state_dict(blob["params"])
+    model.load_state_dict(blob["params"])
     template.opt_state.load_state_dict(blob["opt_state"])
     return template._replace(step=blob["step"])

@@ -6,13 +6,8 @@ from .profiling import (  # noqa: F401
     get_stage_timings,
     reset_stage_timings,
     stage_timer,
+    trace,
 )
-
-
-def not_ported(option: str) -> NotImplementedError:
-    """The error for an option of the JAX package that this port does not
-    have yet: raised, never silently ignored."""
-    return NotImplementedError(f"{option} is not yet ported to whisper_timestamped_tpu_torch")
 
 
 def host_copy(tensor: torch.Tensor):

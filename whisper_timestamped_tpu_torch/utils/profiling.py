@@ -1,7 +1,8 @@
 """Per-stage wall-clock timers and counters.
 
 Framework-free counterpart of ``whisper_timestamped_tpu/utils/profiling.py``
-(``stage_timer`` and its accessors). Stages that end in a device
+(``stage_timer`` and its accessors, and ``trace``: a ``torch.profiler``
+trace where JAX's takes a ``jax.profiler`` one). Stages that end in a device
 synchronisation (the decode loop syncs once per chunk of
 ``decoding.STOP_CHECK_STEPS`` steps, and at its end) measure device time;
 others measure host enqueue time only. The timers take a lock: the batch
@@ -77,3 +78,19 @@ def reset_stage_timings() -> None:
     with _lock:
         _timings.clear()
         _counts.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record a ``torch.profiler`` trace of the block to ``log_dir`` (made
+    if missing): CPU activity, and CUDA activity where a card is present,
+    written on exit as a Chrome trace file (``<host>_<pid>.<time>.pt.trace.json``,
+    which TensorBoard's profiler plugin and Perfetto open)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
