@@ -1,0 +1,8 @@
+"""Median over every clip of the window of the time from its due arrival
+to the yield of its result, beside the tail."""
+
+from pbcore.readers import latency_quantile
+
+
+def read(run):
+    return latency_quantile(run, 0.50)
